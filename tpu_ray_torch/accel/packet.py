@@ -1,0 +1,124 @@
+"""Packet accel: Morton-sorted 128-triangle chunks under a two-level AABB
+hierarchy, the structure the packet intersection kernel walks.
+
+Counterpart of the numpy build in `tpu_ray/accel/packet.py`, with the same
+layout, Morton order and `perm`, so the CUDA kernel's triangle slots compare
+one for one with the reference's:
+
+  corners    (C*16, 128) f32  rows ci*16 .. ci*16+8 hold v0.xyz, e1.xyz,
+                              e2.xyz of chunk ci (lane = triangle in chunk);
+                              rows +9 .. +15 are zero
+  chunk_aabb (C, 128)    f32  row ci lanes 0..5 = lo.xyz, hi.xyz
+  super_aabb (S, 128)    f32  the union of SUPER consecutive chunk boxes
+  perm       (Tpad,)   int32  sorted slot -> original triangle id (-1 pad)
+
+C is padded to S * SUPER with never-hit boxes and degenerate triangles.
+The structure selects hits only; they are recomputed from the mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+CHUNK = 128  # triangles per chunk
+ROWS_PER_CHUNK = 16  # 9 data rows (v0/e1/e2 xyz) + 7 pad
+SUPER = 16  # chunks per super-chunk
+
+
+@dataclasses.dataclass
+class PacketAccel:
+    corners: torch.Tensor  # (C*16, 128) float32
+    chunk_aabb: torch.Tensor  # (C, 128) float32
+    super_aabb: torch.Tensor  # (S, 128) float32
+    perm: torch.Tensor  # (Tpad,) int32
+    num_tris: int = 0
+
+
+def _morton3(x: np.ndarray, bits: int = 10) -> np.ndarray:
+    """Interleave 3x bits-bit ints into Morton codes. x: (N, 3) ints."""
+    def spread(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 32)) & np.uint64(0x1F00000000FFFF)
+        v = (v | (v << 16)) & np.uint64(0x1F0000FF0000FF)
+        v = (v | (v << 8)) & np.uint64(0x100F00F00F00F00F)
+        v = (v | (v << 4)) & np.uint64(0x10C30C30C30C30C3)
+        v = (v | (v << 2)) & np.uint64(0x1249249249249249)
+        return v
+
+    return (spread(x[:, 0]) << np.uint64(2)) | (spread(x[:, 1]) << np.uint64(1)) | spread(x[:, 2])
+
+
+def _morton_order(verts64: np.ndarray, tris: np.ndarray) -> np.ndarray:
+    """Stable Morton ordering of triangle indices by quantized centroid."""
+    centroid = verts64[tris].mean(1)
+    lo = centroid.min(0)
+    extent = np.maximum(centroid.max(0) - lo, 1e-12)
+    q = np.clip(((centroid - lo) / extent * 1023).astype(np.int64), 0, 1023)
+    return np.argsort(_morton3(q), kind="stable")
+
+
+def _to_accel(corners, chunk_aabb, super_aabb, perm, num_tris, device):
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return PacketAccel(corners=t(corners.astype(np.float32)),
+                       chunk_aabb=t(chunk_aabb.astype(np.float32)),
+                       super_aabb=t(super_aabb.astype(np.float32)),
+                       perm=t(perm.astype(np.int32)), num_tris=num_tris)
+
+
+def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
+                       device="cpu") -> PacketAccel:
+    """Build the whole-mesh accel on the host and move it to `device`."""
+    verts = np.asarray(verts, np.float64)
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    T = tris.shape[0]
+    big = 1e10
+    if T == 0:
+        aabb = np.zeros((1, 128), np.float32)
+        aabb[0, :3] = big
+        aabb[0, 3:6] = -big
+        return _to_accel(np.zeros((ROWS_PER_CHUNK, CHUNK)), aabb, aabb,
+                         np.full((CHUNK,), -1), 0, device)
+
+    tv = verts[tris]  # (T, 3, 3)
+    order = _morton_order(verts, tris)
+    tv = tv[order]
+    Tpad = -(-T // CHUNK) * CHUNK
+    pad = Tpad - T
+    if pad:
+        tv = np.concatenate([tv, np.zeros((pad, 3, 3))], 0)  # degenerate pad
+    v0 = tv[:, 0]
+    e1 = tv[:, 1] - tv[:, 0]
+    e2 = tv[:, 2] - tv[:, 0]
+    data9 = np.concatenate([v0.T, e1.T, e2.T], 0)  # (9, Tpad)
+
+    C = Tpad // CHUNK
+    S = -(-C // SUPER)
+    C_pad = S * SUPER
+    corners = np.zeros((C_pad, ROWS_PER_CHUNK, CHUNK), np.float32)
+    corners[:C, :9] = data9.reshape(9, C, CHUNK).transpose(1, 0, 2)
+
+    tmin = tv.min(1).reshape(C, CHUNK, 3)
+    tmax = tv.max(1).reshape(C, CHUNK, 3)
+    # padded (degenerate-at-origin) triangles must not inflate the boxes
+    valid = np.concatenate([np.ones(T, bool), np.zeros(pad, bool)]).reshape(C, CHUNK)
+    lo_c = np.where(valid[..., None], tmin, big).min(1)  # (C, 3)
+    hi_c = np.where(valid[..., None], tmax, -big).max(1)
+    aabb = np.zeros((C_pad, 128), np.float32)
+    aabb[:C, 0:3] = lo_c
+    aabb[:C, 3:6] = hi_c
+    aabb[C:, 0:3] = big
+    aabb[C:, 3:6] = -big
+
+    lo_p = np.full((C_pad, 3), big, np.float32)
+    hi_p = np.full((C_pad, 3), -big, np.float32)
+    lo_p[:C], hi_p[:C] = lo_c, hi_c
+    sup = np.zeros((S, 128), np.float32)
+    sup[:, 0:3] = lo_p.reshape(S, SUPER, 3).min(1)
+    sup[:, 3:6] = hi_p.reshape(S, SUPER, 3).max(1)
+
+    perm = np.concatenate([order, np.full(pad, -1, np.int64)])
+    return _to_accel(corners.reshape(C_pad * ROWS_PER_CHUNK, CHUNK), aabb, sup,
+                     perm, T, device)

@@ -1,0 +1,187 @@
+"""SDF march and hard-shadow march: CUDA kernels and their plain versions.
+
+Counterpart of `tpu_ray/kernels/pallas_sdf.py` (`march_pallas`,
+`shadow_pallas` in hard mode). Kernels: `csrc/sdf_march.cu` over the device
+distance field `csrc/sdf.cuh`.
+
+Dispatch follows the device: `march` / `shadow_hard` run `march_torch` /
+`shadow_hard_torch` on CPU tensors and launch the kernel on CUDA tensors,
+raising on what the kernel does not take (non-float32 or non-contiguous
+input, a generic-power Mandelbulb, an input that requires grad). Each
+kernel launch adds one to `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
+from tpu_ray_torch.sdf.primitives import SdfScene, sdf_bounding_spheres, sdf_distance
+
+LAUNCHES = {"march": 0, "shadow": 0}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path; the card's parity reference)
+# ---------------------------------------------------------------------------
+
+def _bound_terms(bounds, o, d, inflate: float):
+    """Per-ray, per-bound (b, disc) of the ray/sphere quadratic: (R, K) each."""
+    ox, oy, oz = o[:, None, 0], o[:, None, 1], o[:, None, 2]
+    dx, dy, dz = d[:, None, 0], d[:, None, 1], d[:, None, 2]
+    r = bounds[:, 3] + inflate
+    ocx, ocy, ocz = ox - bounds[:, 0], oy - bounds[:, 1], oz - bounds[:, 2]
+    b = ocx * dx + ocy * dy + ocz * dz
+    c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    return b, b * b - c2
+
+
+def march_torch(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
+                t_far: float):
+    """Sphere trace (R,3),(R,3) -> (t, hit, steps, tmin), the kernel's rule:
+    `t += DE` until DE < eps, t >= t_far or max_steps; rays that miss every
+    bounding sphere start at t_far (tmin stays t0)."""
+    R = o.shape[0]
+    t = torch.full((R,), float(t0), dtype=o.dtype, device=o.device)
+    tmin = t.clone()
+    bounds = sdf_bounding_spheres(sdf)
+    if bounds is not None:
+        b, disc = _bound_terms(bounds, o, d, 0.0)
+        reach = ((disc >= 0.0) & (torch.sqrt(torch.clamp_min(disc, 0.0)) - b > 0.0)).any(1)
+        t = torch.where(reach, t, torch.full_like(t, t_far))
+    hit = torch.zeros((R,), dtype=torch.bool, device=o.device)
+    steps = torch.zeros((R,), dtype=torch.int32, device=o.device)
+    dmin = torch.full((R,), 1e10, dtype=o.dtype, device=o.device)
+    for _ in range(max_steps):
+        active = (~hit) & (t < t_far)
+        if not bool(active.any()):
+            break  # nothing changes once every ray is done
+        dist = sdf_distance(sdf, o + t[:, None] * d)
+        closer = active & (dist < dmin)
+        dmin = torch.where(closer, dist, dmin)
+        tmin = torch.where(closer, t, tmin)
+        hit_now = active & (dist < eps)
+        hit = hit | hit_now
+        t = torch.where(active & (~hit_now), t + dist, t)
+        steps = steps + active.to(torch.int32)
+    return t, hit, steps, tmin
+
+
+def shadow_hard_torch(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
+                      steps: int, bias: float, t_far_rays=None):
+    """0/1 visibility marching from p toward l_dir -> (vis, ts), both (R,).
+
+    The step is max(DE, eps/2); a ray is blocked at DE < eps. Without planes
+    the march is clamped at the last exit from the bounding spheres inflated
+    by eps (0 for a ray that misses them all). t_far_rays: optional per-ray
+    cutoff. ts is the bias (hard visibility has no penumbra argmin)."""
+    R = p.shape[0]
+    tf = (torch.full((R,), float(t_far), dtype=p.dtype, device=p.device)
+          if t_far_rays is None else t_far_rays)
+    bounds = sdf_bounding_spheres(sdf)
+    if bounds is not None:
+        b, disc = _bound_terms(bounds, p, l_dir, eps)
+        texit = torch.sqrt(torch.clamp_min(disc, 0.0)) - b
+        t_cut = torch.where(disc >= 0.0, texit, torch.zeros_like(texit))
+        t_cut = torch.clamp_min(t_cut.amax(1), 0.0)
+        tf = torch.minimum(tf, t_cut)
+    t = torch.full((R,), float(bias), dtype=p.dtype, device=p.device)
+    blocked = torch.zeros((R,), dtype=torch.bool, device=p.device)
+    for _ in range(steps):
+        active = (~blocked) & (t < tf)
+        if not bool(active.any()):
+            break
+        dd = sdf_distance(sdf, p + t[:, None] * l_dir)
+        blocked = blocked | (active & (dd < eps))
+        t = torch.where(active, t + torch.clamp_min(dd, eps * 0.5), t)
+    vis = 1.0 - blocked.to(p.dtype)
+    return vis, torch.full_like(vis, float(bias))
+
+
+# ---------------------------------------------------------------------------
+# CUDA path
+# ---------------------------------------------------------------------------
+
+def pack_sdf(sdf: SdfScene) -> torch.Tensor:
+    """The kernels' packed float32 parameter block (layout in csrc/sdf.cuh)."""
+    parts = [
+        torch.cat([sdf.sph_center, sdf.sph_radius[:, None]], 1),
+        torch.cat([sdf.pln_normal, sdf.pln_offset[:, None]], 1),
+        torch.cat([sdf.box_center, sdf.box_half, sdf.box_round[:, None]], 1),
+        torch.cat([sdf.mb_center, sdf.mb_scale[:, None]], 1),
+    ]
+    return torch.cat([q.reshape(-1) for q in parts]).to(torch.float32).contiguous()
+
+
+def _sdf_args(sdf: SdfScene):
+    if sdf.mb_center.shape[0] and not sdf.mb_pow8:
+        raise NotImplementedError(
+            "the CUDA distance field implements the power-8 Mandelbulb only "
+            "(SdfScene.mb_pow8=True)")
+    params = pack_sdf(sdf)
+    bounds = sdf_bounding_spheres(sdf)
+    if bounds is not None:
+        bounds = bounds.to(torch.float32).contiguous()
+    counts = (sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
+              sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters))
+    return params, counts, bounds
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
+          t_far: float):
+    """Primary sphere trace -> (t, hit, steps, tmin); see march_torch."""
+    if o.device.type == "cpu":
+        return march_torch(sdf, o, d, t0=t0, max_steps=max_steps, eps=eps,
+                           t_far=t_far)
+    params, counts, bounds = _sdf_args(sdf)
+    check_cuda_inputs("march", o, d, params, bounds)
+    R = o.shape[0]
+    dev = o.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    hit = torch.empty(R, dtype=torch.bool, device=dev)
+    steps = torch.empty(R, dtype=torch.int32, device=dev)
+    tmin = torch.empty(R, dtype=torch.float32, device=dev)
+    lib = kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.tr_march(
+            o.data_ptr(), d.data_ptr(), R, params.data_ptr(), *counts,
+            _ptr(bounds), 0 if bounds is None else bounds.shape[0],
+            float(t0), int(max_steps), float(eps), float(t_far),
+            t.data_ptr(), hit.data_ptr(), steps.data_ptr(), tmin.data_ptr(),
+            _stream(dev))
+    check_launch("march", rc)
+    LAUNCHES["march"] += 1
+    return t, hit, steps, tmin
+
+
+def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
+                steps: int, bias: float, t_far_rays=None):
+    """Hard-shadow visibility -> (vis, ts); see shadow_hard_torch."""
+    if p.device.type == "cpu":
+        return shadow_hard_torch(sdf, p, l_dir, eps=eps, t_far=t_far,
+                                 steps=steps, bias=bias, t_far_rays=t_far_rays)
+    params, counts, bounds = _sdf_args(sdf)
+    check_cuda_inputs("shadow_hard", p, l_dir, t_far_rays, params, bounds)
+    R = p.shape[0]
+    dev = p.device
+    vis = torch.empty(R, dtype=torch.float32, device=dev)
+    ts = torch.empty(R, dtype=torch.float32, device=dev)
+    lib = kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.tr_shadow_hard(
+            p.data_ptr(), l_dir.data_ptr(), _ptr(t_far_rays), R,
+            params.data_ptr(), *counts,
+            _ptr(bounds), 0 if bounds is None else bounds.shape[0],
+            float(eps), float(t_far), int(steps), float(bias),
+            vis.data_ptr(), ts.data_ptr(), _stream(dev))
+    check_launch("shadow_hard", rc)
+    LAUNCHES["shadow"] += 1
+    return vis, ts

@@ -1,0 +1,378 @@
+"""The render core: ray generation -> geometry pass -> reconstruct -> shade ->
+spp mean, over blocks of samples in Morton 8x8 pixel order.
+
+Counterpart of `tpu_ray/render/render.py`, forward only. The geometry pass
+(`geometry_residuals`) runs under `torch.no_grad()` and goes through the
+kernel wrappers: the primary SDF march (`cuda_sdf.march`), the mesh closest
+hit seeded with the SDF hit t and the mesh any-hit for shadow rays
+(`cuda_mt.intersect_packet`), and the hard SDF shadow march
+(`cuda_sdf.shadow_hard`). It emits compact per-ray residuals; the shade
+rebuilds hit state from them (SDF normal by autograd of the distance field,
+mesh hit by re-solving the selected triangle) and shades with the static
+shadow visibility.
+
+Not ported yet: soft shadows, ambient occlusion, jittered sampling and the
+backward pass (the IFT attach and the fused shade backward).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_ray_torch.core.math3d import clamp01, dot, normalize
+from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+from tpu_ray_torch.kernels import moller_trumbore as mt
+from tpu_ray_torch.kernels.sphere_trace import surface_normal
+from tpu_ray_torch.render import shading
+from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.scene.types import Scene
+from tpu_ray_torch.sdf.primitives import sdf_distance, sdf_distance_and_mat
+from tpu_ray_torch.utils.config import RenderConfig
+
+BIG = 1e10
+
+
+def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
+    if cfg.method != "auto":
+        return cfg.method
+    if scene.has_mesh and scene.has_sdf:
+        return "mixed"
+    if scene.has_mesh:
+        return "mesh_brute" if scene.mesh.num_tris <= 4096 else "mesh_grid"
+    return "sdf"
+
+
+def _check_supported(cfg: RenderConfig) -> None:
+    if cfg.shadow not in ("none", "hard"):
+        raise NotImplementedError(f"shadow={cfg.shadow!r} is not ported yet")
+    if cfg.ao != "none":
+        raise NotImplementedError(f"ao={cfg.ao!r} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Sampling: deterministic stratified grid, Morton 8x8 pixel order
+# ---------------------------------------------------------------------------
+
+def sample_offsets(cfg: RenderConfig, device="cpu", dtype=torch.float32):
+    """(spp, 2) stratified subpixel offsets: cell centers of a k x k grid."""
+    k = cfg.spp_side
+    centers = (torch.arange(k, dtype=dtype, device=device) + 0.5) / k
+    ox, oy = torch.meshgrid(centers, centers, indexing="xy")
+    return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+
+
+def pixel_sample_coords(cfg: RenderConfig, device="cpu", dtype=torch.float32):
+    """Sample positions for every (pixel, sample): two (H, W, spp) tensors."""
+    if cfg.jitter_seed is not None:
+        raise NotImplementedError("jittered sampling is not ported yet")
+    xs = torch.arange(cfg.width, dtype=dtype, device=device)
+    ys = torch.arange(cfg.height, dtype=dtype, device=device)
+    px, py = torch.meshgrid(xs, ys, indexing="xy")  # (H, W)
+    off = sample_offsets(cfg, device, dtype)
+    return px[..., None] + off[:, 0], py[..., None] + off[:, 1]
+
+
+def _block_order_perm(cfg: RenderConfig):
+    """Pixel permutation (int64 tensor on the CPU): row-major -> 8x8 blocks in
+    Morton order over the block grid; None unless both sides divide by 8.
+
+    Consecutive samples then cover compact square regions, so a warp's rays,
+    and a block's, walk the same part of the accel."""
+    if cfg.height % 8 or cfg.width % 8:
+        return None
+    hb, wb = cfg.height // 8, cfg.width // 8
+    by, bx = np.meshgrid(np.arange(hb), np.arange(wb), indexing="ij")
+
+    def spread(v):  # interleave bits: 16-bit coord -> even bit positions
+        v = v.astype(np.uint64)
+        v = (v | (v << 8)) & np.uint64(0x00FF00FF)
+        v = (v | (v << 4)) & np.uint64(0x0F0F0F0F)
+        v = (v | (v << 2)) & np.uint64(0x33333333)
+        v = (v | (v << 1)) & np.uint64(0x55555555)
+        return v
+
+    morton = (spread(by) << np.uint64(1)) | spread(bx)
+    border = np.argsort(morton.ravel(), kind="stable")  # block visit order
+    idx = np.arange(cfg.height * cfg.width).reshape(cfg.height, cfg.width)
+    blocks = idx.reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3).reshape(hb * wb, 64)
+    return torch.from_numpy(blocks[border].reshape(-1))
+
+
+def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+# ---------------------------------------------------------------------------
+# Geometry pass (no gradient, kernel-backed) and hit reconstruction
+# ---------------------------------------------------------------------------
+
+def _use_sdf(scene: Scene, method: str) -> bool:
+    return method in ("sdf", "mixed") and scene.has_sdf
+
+
+def _use_mesh(scene: Scene, method: str) -> bool:
+    return method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
+
+
+def _use_packet(scene: Scene, method: str) -> bool:
+    return method in ("mesh_grid", "mixed") and scene.packet is not None
+
+
+def _mesh_intersect(scene: Scene, cfg: RenderConfig, o, d, method: str,
+                    t_init=None):
+    """Mesh closest hit -> (tri, hit). t_init: per-ray best-t seed (the SDF hit
+    t in mixed scenes: a mesh hit behind it loses the closest-select)."""
+    if _use_packet(scene, method):
+        res = cuda_mt.intersect_packet(scene.packet, o, d, t_max=cfg.t_far,
+                                       t_init=t_init)
+    else:
+        res = mt.intersect_brute(scene.mesh, o, d, t_max=cfg.t_far)
+    return res.tri, res.hit
+
+
+def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str,
+                  t_init=None):
+    """Mesh occlusion of shadow rays. `d` may be unnormalized (point lights
+    pass the segment to the light with t_max = 1). t_init: 0 for rays whose
+    shadow is already decided, which skips their work."""
+    if _use_packet(scene, method):
+        return cuda_mt.intersect_packet(scene.packet, p, d, t_max=t_max,
+                                        any_hit=True, t_init=t_init).hit
+    return mt.any_hit_brute(scene.mesh, p, d, t_max=t_max)
+
+
+def _sdf_from_res(scene: Scene, cfg: RenderConfig, o, d, res, lite=False):
+    """SDF hit state from the march residuals. lite skips the soft-silhouette
+    coverage DE (unused by the geometry pass)."""
+    t, hit, tmin = res["sdf_t"], res["sdf_hit"], res["sdf_tmin"]
+    cov = hit.to(o.dtype)
+    t_eff = t
+    if cfg.soft_silhouette > 0.0:
+        if not lite:
+            # coverage from the DE at the closest-approach point
+            d_min = sdf_distance(scene.sdf, o + tmin[..., None] * d)
+            cov = torch.where(hit, torch.ones_like(d_min),
+                              torch.sigmoid(-d_min / cfg.soft_silhouette))
+        t_eff = torch.where(hit, t, tmin)
+    p = o + t_eff[..., None] * d
+    n = surface_normal(sdf_distance, scene.sdf, p)
+    _, mat = sdf_distance_and_mat(scene.sdf, p.detach())
+    return t, hit, p, n, mat, cov
+
+
+def _mesh_from_res(scene: Scene, cfg: RenderConfig, o, d, res,
+                   mesh_rows=None, lite=False):
+    """Mesh hit state re-solved from the selected triangle. mesh_rows: the
+    packed (T, 10) table of mesh_table, one row gather per ray."""
+    tri, hit = res["mesh_tri"], res["mesh_hit"]
+    if mesh_rows is None:
+        mesh_rows = mesh_table(scene.mesh)
+    rows = mesh_rows[torch.clamp(tri, 0, mesh_rows.shape[0] - 1).long()]
+    v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    t, u, v, n = mt.recompute_hit_corners(v0, v1, v2, o, d)
+    mat = torch.where(hit, rows[:, 9].to(torch.int32), torch.zeros_like(tri))
+    if cfg.mesh_silhouette > 0.0 and not lite:
+        margin = mt.edge_margin_corners(v0, v1, v2, u, v)
+        cov = torch.where(hit, clamp01(margin / cfg.mesh_silhouette),
+                          torch.zeros_like(margin))
+    else:
+        cov = hit.to(o.dtype)
+    t = torch.where(hit, t, torch.full_like(t, BIG))
+    p = o + t[..., None] * d
+    return t, hit, p, n, mat, cov
+
+
+def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                     lite: bool = False, mesh_rows=None):
+    """(t, hit, p, n, mat, cov) from the geometry residuals."""
+    if method == "sdf":
+        return _sdf_from_res(scene, cfg, o, d, res, lite=lite)
+    if method in ("mesh_brute", "mesh_grid"):
+        return _mesh_from_res(scene, cfg, o, d, res, mesh_rows=mesh_rows,
+                              lite=lite)
+    if method == "mixed":
+        ts, hs, ps, ns, ms, cs = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
+        tm, hm, pm, nm, mm, cm = _mesh_from_res(scene, cfg, o, d, res,
+                                                mesh_rows=mesh_rows, lite=lite)
+        ts_eff = torch.where(hs, ts, torch.full_like(ts, BIG))
+        tm_eff = torch.where(hm, tm, torch.full_like(tm, BIG))
+        sdf_closer = ts_eff <= tm_eff
+        t = torch.where(sdf_closer, ts, tm)
+        hit = hs | hm
+        p = torch.where(sdf_closer[..., None], ps, pm)
+        n = torch.where(sdf_closer[..., None], ns, nm)
+        mat = torch.where(sdf_closer, ms.to(mm.dtype), mm)
+        # soft SDF coverage applies only where the mesh does not hit in front
+        cov = torch.where(hm & (~sdf_closer), cm, torch.maximum(cs, cm))
+        return t, hit, p, n, mat, cov
+    raise ValueError(f"unknown method {method!r}")
+
+
+def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                       mesh_rows=None):
+    """Hit state and shadow-ray origins from the primary residuals ->
+    (hits, p_off, live): the reconstructed (t, hit, p, n, mat, cov), the hit
+    points offset along the ray-facing normal, and the lanes whose shadows
+    can reach the image (None with soft silhouettes, where every lane may).
+
+    Without soft silhouettes a miss lane's shadow never reaches the image
+    and o + BIG*d is a garbage origin: such lanes are parked at the camera,
+    and the shadow queries give them a zero budget."""
+    hits = reconstruct_hits(scene, cfg, o, d, res, method, lite=True,
+                            mesh_rows=mesh_rows)
+    _t, hit_any, p, n, _mat, _cov = hits
+    n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
+    p_off = p + cfg.shadow_bias * n
+    live = None
+    if cfg.soft_silhouette <= 0.0:
+        live = hit_any
+        p_off = torch.where(hit_any[..., None], p_off, o)
+    return hits, p_off, live
+
+
+@torch.no_grad()
+def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
+                       mesh_rows=None) -> dict:
+    """The geometry pass -> dict of per-ray residuals:
+
+      sdf_t, sdf_hit, sdf_tmin   primary march (when the SDF is traced)
+      mesh_tri, mesh_hit         mesh closest hit (when the mesh is traced)
+      sh_vis (L, R)              shadow visibility per light: hard SDF
+                                 march x mesh any-hit
+      hits                       the reconstructed hit state, kept for the
+                                 forward shade (without silhouettes the
+                                 geometry pass's reconstruct is the shade's)
+    """
+    _check_supported(cfg)
+    res = {}
+    t_seed = None
+    if _use_sdf(scene, method):
+        t, hit, _steps, tmin = cuda_sdf.march(
+            scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
+            t_far=cfg.t_far)
+        res["sdf_t"], res["sdf_hit"], res["sdf_tmin"] = t, hit, tmin
+        if method == "mixed":
+            # the SDF hit bounds the mesh search
+            t_seed = torch.where(hit, t, torch.full_like(t, cfg.t_far))
+    if _use_mesh(scene, method):
+        res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(
+            scene, cfg, o, d, method, t_init=t_seed)
+    if cfg.shadow == "none":
+        return res
+
+    hits, p_off, live = shadow_ray_origins(scene, cfg, o, d, res, method,
+                                           mesh_rows=mesh_rows)
+    if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
+        res["hits"] = hits
+    p = hits[2]
+
+    def one_light(l_dir, t_far_rays, mesh_dir, mesh_tmax):
+        vis = torch.ones_like(p_off[:, 0])
+        if live is not None:
+            base = cfg.t_far if t_far_rays is None else t_far_rays
+            t_far_rays = torch.where(live, base, 0.0).to(p.dtype)
+        if _use_sdf(scene, method):
+            v, _ts = cuda_sdf.shadow_hard(
+                scene.sdf, p_off, l_dir, eps=cfg.eps, t_far=cfg.t_far,
+                steps=cfg.shadow_steps, bias=cfg.shadow_bias,
+                t_far_rays=t_far_rays)
+            vis = vis * v
+        if _use_mesh(scene, method):
+            dead = None
+            if _use_sdf(scene, method):
+                dead = vis <= 0.0  # the SDF march already blocked these
+            if live is not None:
+                dead = ~live if dead is None else (dead | ~live)
+            seed = (None if dead is None else
+                    torch.where(dead, 0.0, mesh_tmax).to(p.dtype))
+            blocked = _mesh_any_hit(scene, cfg, p_off, mesh_dir, mesh_tmax,
+                                    method, t_init=seed)
+            vis = vis * (1.0 - blocked.to(p.dtype))
+        return vis
+
+    vis_rows = []
+    for li in range(scene.lights.direction.shape[0]):
+        l_dir = normalize(scene.lights.direction[li]).expand_as(p_off).contiguous()
+        vis_rows.append(one_light(l_dir, None, l_dir, cfg.t_far))
+    for pi in range(scene.lights.position.shape[0]):
+        # point light: march clamped at the light distance; the mesh any-hit
+        # takes the unnormalized segment with t_max = 1 (MT is scale-free)
+        lvec = scene.lights.position[pi] - p_off
+        dist = torch.sqrt(torch.clamp_min(dot(lvec, lvec), 1e-12))
+        vis_rows.append(one_light((lvec / dist[..., None]).contiguous(), dist,
+                                  lvec.contiguous(), 1.0))
+    res["sh_vis"] = torch.stack(vis_rows)
+    return res
+
+
+def make_residual_occluder(cfg: RenderConfig, res):
+    """Shadow callback for shade(): the geometry pass's static visibility."""
+    if cfg.shadow == "none":
+        return None
+    return lambda p, l_dir, li: res["sh_vis"][li]
+
+
+def mesh_table(mesh) -> torch.Tensor:
+    """(T, 10) packed per-triangle table [v0 | v1 | v2 | mat]."""
+    v, t = mesh.verts, mesh.tris.long()
+    return torch.cat([v[t[:, 0]], v[t[:, 1]], v[t[:, 2]],
+                      mesh.tri_mat[:, None].to(v.dtype)], dim=-1)
+
+
+def shade_forward(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                  mesh_rows=None) -> torch.Tensor:
+    """Shade a flat ray batch from its geometry residuals -> (R, 3)."""
+    hits = res.get("hits")
+    if hits is None:
+        hits = reconstruct_hits(scene, cfg, o, d, res, method,
+                                mesh_rows=mesh_rows)
+    _t, hit, p, n, mat, cov = hits
+    return shading.shade(scene, cfg, p, n, d, mat, hit,
+                         make_residual_occluder(cfg, res), None, coverage=cov)
+
+
+def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
+                       method: str | None = None) -> torch.Tensor:
+    """Render flat sample coords covering whole pixels (a pixel's spp samples
+    contiguous) -> per-pixel colors (3, n_px), spp-averaged, channel-major.
+    Samples run in blocks of cfg.block_size (rounded up to whole pixels)."""
+    method = method or resolve_method(scene, cfg)
+    mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
+
+    def block_fn(x, y):
+        o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
+        res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows)
+        colors = shade_forward(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+        return colors.reshape(-1, cfg.spp, 3).mean(1).T  # (3, n_px_block)
+
+    R = flat_x.shape[0]
+    n_px = R // cfg.spp
+    if not (cfg.block_size and cfg.block_size < R):
+        return block_fn(flat_x, flat_y)
+    bs = -(-cfg.block_size // cfg.spp) * cfg.spp  # whole pixels per block
+    pad = (-R) % bs
+    if pad:
+        flat_x = torch.cat([flat_x, flat_x[-1:].expand(pad)])
+        flat_y = torch.cat([flat_y, flat_y[-1:].expand(pad)])
+    cols = [block_fn(flat_x[s:s + bs], flat_y[s:s + bs])
+            for s in range(0, flat_x.shape[0], bs)]
+    return torch.cat(cols, dim=1)[:, :n_px]
+
+
+def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """Full frame: (H, W, 3) linear RGB, spp-averaged."""
+    dev, dtype = scene.device, scene.camera.origin.dtype
+    sx, sy = pixel_sample_coords(cfg, dev, dtype)
+    flat_x, flat_y = sx.reshape(-1), sy.reshape(-1)
+    perm = _block_order_perm(cfg)
+    if perm is not None:
+        perm = perm.to(dev)
+        flat_x = flat_x.reshape(-1, cfg.spp)[perm].reshape(-1)
+        flat_y = flat_y.reshape(-1, cfg.spp)[perm].reshape(-1)
+    flat = render_pixels_flat(scene, cfg, flat_x, flat_y)  # (3, H*W)
+    if perm is not None:
+        flat = flat[:, _inverse_perm(perm)]
+    return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)

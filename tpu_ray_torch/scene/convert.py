@@ -1,0 +1,50 @@
+"""Build the port's Scene from arrays addressed by dotted path.
+
+The paths are those of the reference's scene parameters ("sdf.mb_center",
+"mesh.verts", "camera.origin", "lights.direction", "bg_top", ...), so a
+scene defined anywhere as plain arrays renders the same in both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_ray_torch.render.camera import Camera
+from tpu_ray_torch.scene.mesh import MeshScene
+from tpu_ray_torch.scene.types import Lights, Materials, Scene
+from tpu_ray_torch.sdf.primitives import SdfScene
+
+_GROUPS = {"camera": Camera, "sdf": SdfScene, "mesh": MeshScene,
+           "materials": Materials, "lights": Lights}
+_INT_FIELDS = {"sdf.sph_mat", "sdf.pln_mat", "sdf.box_mat", "sdf.mb_mat",
+               "mesh.tris", "mesh.tri_mat"}
+_STATIC_FIELDS = {"mb_iters", "mb_pow8"}
+
+
+def scene_from_numpy(arrays: dict[str, np.ndarray], statics: dict,
+                     device="cpu", dtype=torch.float32) -> Scene:
+    """arrays: every array field of the scene by dotted path; statics:
+    `mb_iters`, `mb_pow8` and `num_tris`. Builds the packet accel when the
+    mesh has triangles."""
+    def tensor(path):
+        a = np.asarray(arrays[path])
+        if path in _INT_FIELDS:
+            return torch.as_tensor(a.astype(np.int32), device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    groups = {}
+    for name, cls in _GROUPS.items():
+        kw = {f.name: tensor(f"{name}.{f.name}") for f in dataclasses.fields(cls)
+              if f.name not in _STATIC_FIELDS}
+        if cls is SdfScene:
+            kw.update(mb_iters=int(statics["mb_iters"]),
+                      mb_pow8=bool(statics["mb_pow8"]))
+        groups[name] = cls(**kw)
+    if groups["mesh"].num_tris != int(statics["num_tris"]):
+        raise ValueError(f"mesh.tris has {groups['mesh'].num_tris} triangles, "
+                         f"statics say {statics['num_tris']}")
+    scene = Scene(**groups, bg_top=tensor("bg_top"), bg_bottom=tensor("bg_bottom"))
+    return scene.with_packet()
