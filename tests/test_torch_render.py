@@ -31,27 +31,12 @@ from tpu_ray_torch.kernels import build, cuda_mt, cuda_sdf
 from tpu_ray_torch.render import camera as tcam
 from tpu_ray_torch.render import render as trender
 from tpu_ray_torch.scene import scenes as tscenes
-from tpu_ray_torch.scene.convert import scene_from_numpy
 from tpu_ray_torch.utils.config import RenderConfig
+from torch_jax_bridge import port_cfg, port_scene
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-def _flatten(scene):
-    """A JAX scene's arrays by dotted path, plus its static fields."""
-    arrays = {}
-    for group in ("camera", "sdf", "mesh", "materials", "lights"):
-        obj = getattr(scene, group)
-        for f in dataclasses.fields(obj):
-            v = getattr(obj, f.name)
-            if hasattr(v, "shape"):
-                arrays[f"{group}.{f.name}"] = np.asarray(v)
-    arrays["bg_top"] = np.asarray(scene.bg_top)
-    arrays["bg_bottom"] = np.asarray(scene.bg_bottom)
-    statics = {"mb_iters": scene.sdf.mb_iters, "mb_pow8": scene.sdf.mb_pow8,
-               "num_tris": scene.mesh.num_tris}
-    return arrays, statics
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +45,8 @@ def mixed():
     jscene, jcfg = jscenes.build_scene("mixed", dtype=jnp.float32)
     small = dict(width=24, height=24, spp=1, block_size=0, max_steps=64)
     ref = np.asarray(jrender.render_image(jscene, jcfg.replace(pallas="off", **small)))
-    tscene = scene_from_numpy(*_flatten(jscene))
-    tcfg = RenderConfig(**{f.name: getattr(jcfg, f.name)
-                           for f in dataclasses.fields(RenderConfig)})
+    tscene = port_scene(jscene)
+    tcfg = port_cfg(jcfg)
     return jscene, tscene, tcfg.replace(**small), ref
 
 

@@ -1,0 +1,488 @@
+"""The port's shade backward against the JAX package: the IFT attach and the
+Hessian-preserving normal, the plain shade backward (`shade_bwd_torch`)
+against the Pallas kernel in interpret mode and against `jax.grad` of the
+XLA shade, `ShadeFn` against autograd of the plain shade, the chains the
+CUDA kernel refuses, and a host build of the CUDA kernel's per-ray
+arithmetic against the plain version.
+
+Tolerances and why:
+  * smooth parameter groups (albedo, light colour and direction, ambient,
+    sky colours, sphere, mesh corners): max|a - b| / max|b| < 1e-4, f32
+    summation order.
+  * the Mandelbulb leaves and the camera's o and d: cosine > 0.999 and
+    max|a - b| / max|b| < 5e-2, as the reference's own kernel-vs-XLA test
+    (tests/test_pallas_shade.py): the fractal's second-order chain
+    amplifies f32 reassociation on boundary rays.
+  * the host build of the CUDA arithmetic against the plain version: the
+    same bounds, plus the 99th percentile of the per-ray relative error of
+    d_o, d_d and d_corners < 1e-3 (the on-card check of chip_smoke.py).
+"""
+
+import ctypes
+import dataclasses
+import shutil
+import subprocess
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tpu_ray.kernels import pallas_shade
+from tpu_ray.kernels import sphere_trace as jst
+from tpu_ray.render import camera as jcam
+from tpu_ray.render import render as jrender
+from tpu_ray.scene import scenes as jscenes
+from tpu_ray.sdf import primitives as jprim
+from tpu_ray_torch.fit import apply_params, extract_params
+from tpu_ray_torch.kernels import cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import sphere_trace as tst
+from tpu_ray_torch.render import render as trender
+from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.scene import scenes as tscenes
+from tpu_ray_torch.scene.types import Lights, Scene
+from tpu_ray_torch.sdf import primitives as tprim
+from torch_jax_bridge import port_cfg, port_scene
+
+torch.set_num_threads(1)
+
+SMOOTH = ("materials.albedo", "lights.color", "lights.direction", "lights.ambient",
+          "bg_top", "bg_bottom", "sdf.sph_center", "sdf.sph_radius")
+CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "o", "d")
+_INT = {"sph_mat", "pln_mat", "box_mat", "mb_mat"}
+MIXED_SDF = dict(mb_center=[[1.4, 1.05, 0.0]], mb_scale=[0.9], mb_power=[8.0],
+                 mb_mat=[2], sph_center=[[0.0, 0.55, -1.6]], sph_radius=[0.55],
+                 sph_mat=[3])
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / (np.abs(b).max() + 1e-12) if b.size else 0.0
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def _assert_groups(got, want, smooth, chaotic=()):
+    for k in smooth:
+        assert _rel(got[k], want[k]) < 1e-4, (k, _rel(got[k], want[k]))
+    for k in chaotic:
+        assert _cos(got[k], want[k]) > 0.999 and _rel(got[k], want[k]) < 5e-2, (
+            k, _cos(got[k], want[k]), _rel(got[k], want[k]))
+
+
+def _to_torch(res):
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in res.items()}
+
+
+def _jax_block(jscene, jcfg, width, method):
+    """Rays of a width x width frame, their JAX geometry residuals and the
+    same in torch, with the port's copy of the scene and a seeded ct."""
+    sx, sy = jrender.pixel_sample_coords(jcfg, jnp.float32)
+    o, d = jcam.generate_rays(jscene.camera, sx.ravel(), sy.ravel(), width, width)
+    rows = jrender.mesh_table(jscene.mesh) if jscene.has_mesh else None
+    res = jrender.geometry_residuals(jscene, jcfg, o, d, method, mesh_rows=rows)
+    ct = np.random.default_rng(0).uniform(-1, 1, (width * width, 3)).astype(np.float32)
+    tscene = port_scene(jscene)
+    return (o, d, rows, res, jnp.asarray(ct)), (
+        tscene, torch.as_tensor(np.asarray(o)), torch.as_tensor(np.asarray(d)),
+        _to_torch(res), torch.as_tensor(ct))
+
+
+def _corners(tscene, tres):
+    rows = trender.mesh_table(tscene.mesh)
+    return rows[torch.clamp(tres["mesh_tri"], 0, rows.shape[0] - 1).long()][:, :9]
+
+
+def _sdf_pair(spec):
+    jkw = {k: jnp.asarray(np.asarray(v, np.int32 if k in _INT else np.float32))
+           for k, v in spec.items()}
+    tkw = {k: torch.as_tensor(np.asarray(v, np.int32 if k in _INT else np.float32))
+           for k, v in spec.items()}
+    return (jprim.SdfScene.empty(jnp.float32).replace(**jkw, mb_pow8=True),
+            tprim.SdfScene.empty().replace(**tkw, mb_pow8=True))
+
+
+def _hit_rays(n, seed):
+    """Rays from the `mixed` camera at the bulb and the sphere, marched."""
+    rng = np.random.default_rng(seed)
+    o = np.tile(np.float32([0.1, 1.9, 4.6]), (n, 1))
+    tgt = np.concatenate([rng.uniform([0.8, 0.5, -0.6], [2.0, 1.6, 0.6], (n // 2, 3)),
+                          rng.uniform([-0.4, 0.2, -2.0], [0.4, 0.9, -1.2], (n - n // 2, 3))])
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# (a) the IFT attach and the normal's Hessian term
+# ---------------------------------------------------------------------------
+
+def test_ift_attach_and_normal_match_jax():
+    js, ts = _sdf_pair(MIXED_SDF)
+    o, d = _hit_rays(256, 1)
+    t, hit, _, _ = cuda_sdf.march_torch(ts, torch.as_tensor(o), torch.as_tensor(d),
+                                        t0=0.0, max_steps=96, eps=1e-3, t_far=40.0)
+    assert 0.3 < hit.float().mean() < 1.0
+    t_bar, hit_f = t.numpy(), hit.float().numpy()
+    rng = np.random.default_rng(2)
+    w_t = rng.uniform(-1, 1, 256).astype(np.float32)
+    w_n = rng.uniform(-1, 1, (256, 3)).astype(np.float32)
+    keys = ("sph_center", "sph_radius", "mb_center", "mb_scale")
+
+    # JAX, op by op (no multiply-add contraction)
+    attach = jst.make_ift_attach(jprim.sdf_distance)
+
+    def jloss(leaves, oo, dd):
+        sdf = js.replace(**leaves)
+        tt = attach(sdf, oo, dd, jnp.asarray(t_bar), jnp.asarray(hit_f))
+        p = oo + tt[:, None] * dd
+        n = jst.surface_normal(jprim.sdf_distance, sdf, p)
+        return jnp.sum(jnp.asarray(w_t) * tt) + jnp.sum(jnp.asarray(w_n) * n)
+
+    with jax.enable_x64(False), jax.disable_jit():
+        jg = jax.grad(jloss, argnums=(0, 1, 2))(
+            {k: getattr(js, k) for k in keys}, jnp.asarray(o), jnp.asarray(d))
+
+    leaves = {k: getattr(ts, k).clone().requires_grad_(True) for k in keys}
+    ot = torch.as_tensor(o).requires_grad_(True)
+    dt = torch.as_tensor(d).requires_grad_(True)
+    sdf = ts.replace(**leaves)
+    tt = tst.IftAttach.apply(tprim.sdf_distance, sdf, ot, dt, t, hit.float(),
+                             *sdf.float_leaves())
+    n = tst.surface_normal(tprim.sdf_distance, sdf, ot + tt[:, None] * dt,
+                           create_graph=True)
+    (torch.sum(torch.as_tensor(w_t) * tt) + torch.sum(torch.as_tensor(w_n) * n)).backward()
+    got = {f"sdf.{k}": v.grad.numpy() for k, v in leaves.items()}
+    got.update(o=ot.grad.numpy(), d=dt.grad.numpy())
+    want = {f"sdf.{k}": np.asarray(v) for k, v in jg[0].items()}
+    want.update(o=np.asarray(jg[1]), d=np.asarray(jg[2]))
+    _assert_groups(got, want, ("sdf.sph_center", "sdf.sph_radius"), CHAOTIC)
+
+
+def test_ift_attach_is_the_value_and_zero_on_misses():
+    _, ts = _sdf_pair(MIXED_SDF)
+    o = torch.tensor([[0.1, 1.9, 4.6]] * 2)
+    d = torch.nn.functional.normalize(torch.tensor([[0.0, 5.0, 0.0], [1.3, -0.85, -4.6]]), dim=-1)
+    t_bar = torch.tensor([40.0, 4.5])
+    ot = o.clone().requires_grad_(True)
+    r = ts.sph_radius.clone().requires_grad_(True)
+    sdf = ts.replace(sph_radius=r)
+    t = tst.IftAttach.apply(tprim.sdf_distance, sdf, ot, d, t_bar, torch.tensor([0.0, 1.0]),
+                            *sdf.float_leaves())
+    assert torch.equal(t, t_bar)
+    t[0].backward()
+    assert torch.count_nonzero(ot.grad) == 0
+    assert r.grad is None or torch.count_nonzero(r.grad) == 0
+
+
+# ---------------------------------------------------------------------------
+# (b) the plain shade backward against the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _small_mixed():
+    """The JAX test's tiny mixed scene: 10 triangles + ground + one sphere."""
+    scene, cfg = jscenes.build_scene("triangles", dtype=jnp.float32)
+    scene = scene.replace(sdf=scene.sdf.replace(
+        sph_center=jnp.asarray([[0.4, 0.8, 0.3]], jnp.float32),
+        sph_radius=jnp.asarray([0.62], jnp.float32),
+        sph_mat=jnp.asarray([1], jnp.int32)))
+    return scene, cfg.replace(method="mixed")
+
+
+@pytest.mark.parametrize("name", ["small_mixed", "triangles"])
+def test_shade_bwd_torch_matches_pallas_kernel(name):
+    if name == "small_mixed":
+        jscene, jcfg = _small_mixed()
+    else:
+        jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
+    with jax.enable_x64(False):
+        jcfg = jcfg.replace(width=20, height=20, spp=1, block_size=0, diff_vis=False,
+                            max_steps=64, pallas="off")
+        method = jrender.resolve_method(jscene, jcfg)
+        (o, d, rows, res, ct), (tscene, ot, dt, tres, ctt) = _jax_block(jscene, jcfg, 20, method)
+        corners = rows[jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)][:, :9]
+        aux = pallas_shade._make_aux(jcfg, method, jscene, o, d, res, corners=corners)
+        d_ops, d_prm, d_o, d_d, d_c = pallas_shade.shade_bwd_pallas(
+            jscene, jcfg, o, d, res, aux, ct, method, interpret=True)
+    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
+                                     _corners(tscene, tres), ctt, method)
+    want = {"o": d_o, "d": d_d, "corners": d_c}
+    names = {"albedo": "materials.albedo", "ldir": "lights.direction",
+             "lcol": "lights.color", "ambient": "lights.ambient",
+             "bg_top": "bg_top", "bg_bottom": "bg_bottom"}
+    want.update({names[k]: v for k, v in d_prm.items()})
+    it = iter(d_ops)  # the kernel's SDF operands: the non-empty leaves in order
+    for f in dataclasses.fields(jscene.sdf):
+        v = getattr(jscene.sdf, f.name)
+        if hasattr(v, "size") and v.size > 0:
+            c = next(it)
+            if f.name not in _INT:
+                want[f"sdf.{f.name}"] = c
+    assert set(want) <= set(got)
+    hit = np.asarray(res["mesh_hit"]) | (np.asarray(res["sdf_hit"]) if "sdf_hit" in res else False)
+    assert 0.1 < hit.mean() < 0.95
+    _assert_groups(got, want, sorted(want))
+
+
+# ---------------------------------------------------------------------------
+# (c) the plain shade backward against jax.grad of the XLA shade, with the
+#     Mandelbulb
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mixed16():
+    jscene, jcfg = jscenes.build_scene("mixed", dtype=jnp.float32)
+    with jax.enable_x64(False):
+        jcfg = jcfg.replace(width=16, height=16, spp=1, block_size=0, max_steps=96,
+                            pallas="off")
+        return jscene, jcfg, _jax_block(jscene, jcfg, 16, "mixed")
+
+
+PARAM_PATHS = ("materials.albedo", "lights.color", "lights.direction", "lights.ambient",
+               "bg_top", "bg_bottom", "sdf.sph_center", "sdf.sph_radius",
+               "sdf.mb_center", "sdf.mb_scale")
+
+
+def test_shade_bwd_torch_matches_jax_grad_mixed(mixed16):
+    jscene, jcfg, ((o, d, rows, res, ct), (tscene, ot, dt, tres, ctt)) = mixed16
+    idx = jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)
+
+    def get(scene, path):
+        obj = scene
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def put(scene, path, value):
+        head, *rest = path.split(".")
+        if not rest:
+            return scene.replace(**{head: value})
+        return scene.replace(**{head: put(getattr(scene, head), ".".join(rest), value)})
+
+    def loss(params, oo, dd, rws):
+        s = jscene
+        for p, v in params.items():
+            s = put(s, p, v)
+        return jnp.sum(ct * jrender._shade_xla(s, jcfg, oo, dd, res, "mixed", mesh_rows=rws))
+
+    with jax.enable_x64(False):
+        jg = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+            {p: get(jscene, p) for p in PARAM_PATHS}, o, d, rows)
+    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
+                                     _corners(tscene, tres), ctt, "mixed")
+    want = {p: np.asarray(v) for p, v in jg[0].items()}
+    want.update(o=np.asarray(jg[1]), d=np.asarray(jg[2]),
+                corners=np.asarray(jg[3])[:, :9])
+    got["corners"] = torch.zeros(rows.shape[0], 9).index_add_(
+        0, torch.as_tensor(np.asarray(idx)).long(), got["corners"])
+    sel_sdf = np.asarray(res["sdf_hit"]) & np.asarray(res["hit_closer"])
+    assert sel_sdf.sum() >= 8  # Mandelbulb and sphere hits take the IFT path
+    _assert_groups(got, want, SMOOTH + ("corners",), CHAOTIC)
+
+
+# ---------------------------------------------------------------------------
+# (d) ShadeFn against autograd of the plain shade; (e) what the kernel takes
+# ---------------------------------------------------------------------------
+
+def _shade_grads(fn, tscene, tcfg, o, d, res, ct):
+    params = extract_params(tscene, ("sdf.sph_radius", "sdf.mb_scale", "sdf.mb_center",
+                                     "materials.albedo", "lights.color",
+                                     "lights.direction", "mesh.verts"))
+    s = apply_params(tscene, params)
+    oo, dd = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
+    rows = trender.mesh_table(s.mesh)
+    torch.sum(ct * fn(s, tcfg, oo, dd, res, "mixed", mesh_rows=rows)).backward()
+    return dict({p: v.grad for p, v in params.items()}, o=oo.grad, d=dd.grad)
+
+
+def test_shade_fn_gradient_equals_plain_autograd(mixed16):
+    jscene, jcfg, (_, (tscene, ot, dt, tres, ctt)) = mixed16
+    tcfg = port_cfg(jcfg)
+    before = dict(cuda_shade.LAUNCHES)
+    a = _shade_grads(trender.shade_with_residuals, tscene, tcfg, ot, dt, tres, ctt)
+    b = _shade_grads(trender._shade_plain, tscene, tcfg, ot, dt, tres, ctt)
+    for k in b:
+        np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(b[k].abs().max()), err_msg=k)
+    assert cuda_shade.LAUNCHES == before == {"shade_bwd": 0}
+
+
+def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
+    """The render's backward calls shade_bwd once per block with what the
+    CUDA wrapper accepts: contiguous float32 tensors that need no grad,
+    bool or int32 masks, per-ray shapes."""
+    scene, cfg = tscenes.build_scene("mixed")
+    cfg = cfg.replace(width=8, height=8, spp=4, block_size=128, max_steps=64)
+    calls = []
+    plain = cuda_shade.shade_bwd
+
+    def spy(s, c, o, d, res, aux, corners, ct, method):
+        n = o.shape[0]
+        floats = (o, d, corners, ct, res["sdf_t"], res["sh_vis"], cuda_shade.pack_small(s))
+        for t in floats:
+            assert t.dtype == torch.float32 and t.is_contiguous() and not t.requires_grad
+        for t in (res["sdf_hit"], res["mesh_hit"], aux["closer"], aux["mat"]):
+            assert t.dtype in (torch.bool, torch.int32) and t.is_contiguous()
+        assert corners.shape == (n, 9) and ct.shape == (n, 3) and res["sh_vis"].shape == (1, n)
+        calls.append(n)
+        return plain(s, c, o, d, res, aux, corners, ct, method)
+
+    monkeypatch.setattr(cuda_shade, "shade_bwd", spy)
+    params = extract_params(scene, ("sdf.mb_scale", "camera.origin", "mesh.verts"))
+    torch.mean(trender.render_image(apply_params(scene, params), cfg) ** 2).backward()
+    assert calls == [128, 128]
+    assert all(torch.isfinite(v.grad).all() for v in params.values())
+
+
+def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
+    scene, cfg = tscenes.build_scene("mixed")
+    cfg = cfg.replace(width=8, height=8, spp=1)
+    refused = [cfg.replace(soft_silhouette=0.02), cfg.replace(mesh_silhouette=0.01),
+               cfg.replace(ao="sdf5"), cfg.replace(shadow="soft", diff_vis=True)]
+    spec = cuda_shade.kernel_spec(scene, cfg, "mixed")
+    assert spec["mixed"] and spec["n_dir"] == 1 and spec["n_pos"] == 0
+    for c in refused:  # on the CPU: autograd of the plain shade
+        assert cuda_shade.kernel_spec(scene, c, "mixed") is None
+    monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
+    assert cuda_shade.kernel_spec(scene, cfg, "mixed") == spec
+    for c in refused:
+        with pytest.raises(NotImplementedError, match="shade backward kernel"):
+            cuda_shade.kernel_spec(scene, c, "mixed")
+    generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
+    with pytest.raises(NotImplementedError, match="power 8"):
+        cuda_shade.kernel_spec(generic, cfg, "mixed")
+
+
+def test_silhouette_gradient_on_cpu_runs_plain_autograd():
+    """A chain the kernel does not take still differentiates on the CPU."""
+    scene, cfg = tscenes.build_scene("sphere")
+    cfg = cfg.replace(width=12, height=12, soft_silhouette=0.05)
+    r = scene.sdf.sph_radius.clone().requires_grad_(True)
+    img = trender.render_image(scene.replace(sdf=scene.sdf.replace(sph_radius=r)), cfg)
+    torch.mean(img ** 2).backward()
+    assert torch.isfinite(r.grad).all() and float(r.grad.abs()) > 0
+    assert cuda_shade.LAUNCHES == {"shade_bwd": 0}
+
+
+def test_pack_small_round_trips():
+    scene, _ = tscenes.build_scene("mixed")
+    scene = scene.replace(lights=Lights.make([[0.6, 0.8, 0.3], [-0.2, 1.0, 0.1]],
+                                             [[1.0, 1.0, 1.0], [0.3, 0.2, 0.1]],
+                                             positions=[[0.5, 2.5, 1.0]],
+                                             pos_colors=[[2.0, 1.5, 1.0]]))
+    back = cuda_shade.unpack_small(cuda_shade.pack_small(scene), scene)
+    for p in cuda_shade.SHADE_PATHS:
+        want = (torch.zeros_like(scene.sdf.mb_power) if p == "sdf.mb_power"
+                else cuda_shade.get_param(scene, p))
+        assert torch.equal(back[p], want), p
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's per-ray arithmetic, built as host C++
+# ---------------------------------------------------------------------------
+
+_HOST_MAIN = r"""
+#include "shade_bwd.cu"
+extern "C" void host_shade_bwd(
+    const float* o, const float* d, const float* corners, const float* t_bar,
+    const uint8_t* hs, const uint8_t* hm, const uint8_t* closer, const int* mat,
+    const float* vis, const float* ct, int n, const float* small, int n_sph,
+    int n_pln, int n_box, int n_mb, int mb_iters, int n_mat, int n_dir, int n_pos,
+    int use_sdf, int use_mesh, float* d_o, float* d_d, float* d_corners,
+    double* d_small) {
+  const tr::ShadeParams s = tr::make_params(small, n_sph, n_pln, n_box, n_mb,
+      mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh);
+  float* one = new float[s.n_par];
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
+    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, hs, hm, closer,
+                                     mat, vis, ct);
+    tr::shade_bwd_ray(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+    for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
+  }
+  delete[] one;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel arithmetic as host code")
+    tmp = tmp_path_factory.mktemp("host_kernel")
+    (tmp / "main.cpp").write_text(_HOST_MAIN)
+    lib = tmp / "libshade_bwd_host.so"
+    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", str(lib), str(tmp / "main.cpp")], check=True,
+                   capture_output=True, timeout=120)
+    so = ctypes.CDLL(str(lib))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.host_shade_bwd.argtypes = [P] * 10 + [I, P] + [I] * 10 + [P] * 4
+    so.host_shade_bwd.restype = None
+    return so
+
+
+def _host_bwd(so, scene, cfg, o, d, res, corners, ct, method):
+    """shade_bwd's arguments, as the CUDA wrapper passes them, into the host
+    build; the parameter sums in float64."""
+    spec = cuda_shade.kernel_spec(scene, cfg, method)
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res)
+    small = cuda_shade.pack_small(scene)
+    n = o.shape[0]
+    out = [torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 9)]
+    d_small = torch.zeros(small.numel(), dtype=torch.float64)
+    keep = [t.contiguous() if t is not None else None for t in (
+        corners, res.get("sdf_t") if spec["use_sdf"] else None,
+        res.get("sdf_hit") if spec["use_sdf"] else None,
+        res.get("mesh_hit") if spec["use_mesh"] else None,
+        aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"))]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    sdf = scene.sdf
+    so.host_shade_bwd(o.data_ptr(), d.data_ptr(), *map(ptr, keep), ct.data_ptr(), n,
+                      small.data_ptr(), sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
+                      sdf.box_center.shape[0], sdf.mb_center.shape[0], sdf.mb_iters,
+                      scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
+                      int(spec["use_sdf"]), int(spec["use_mesh"]),
+                      *(x.data_ptr() for x in out), d_small.data_ptr())
+    got = cuda_shade.unpack_small(d_small.float(), scene)
+    got.update(o=out[0], d=out[1], corners=out[2])
+    return got
+
+
+@pytest.mark.parametrize("name,point_light", [("mixed", False), ("mixed", True),
+                                              ("sphere", True), ("triangles", True)])
+def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light):
+    scene, cfg = tscenes.build_scene(name)
+    if point_light:
+        lt = scene.lights
+        scene = scene.replace(lights=Lights(lt.direction, lt.color, lt.ambient,
+                                            torch.tensor([[0.5, 2.5, 1.0]]),
+                                            torch.tensor([[2.0, 1.5, 1.0]])))
+    w, h = (48, 27) if name == "mixed" else (24, 24)
+    cfg = cfg.replace(width=w, height=h, spp=1, block_size=0, shadow="hard")
+    method = trender.resolve_method(scene, cfg)
+    sx, sy = trender.pixel_sample_coords(cfg)
+    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), w, h)
+    res = trender.geometry_residuals(scene, cfg, o, d, method)
+    corners = _corners(scene, res).contiguous() if scene.has_mesh else None
+    gen = torch.Generator().manual_seed(0)
+    ct = torch.rand(o.shape, generator=gen) * 2 - 1
+    want = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
+    got = _host_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+    params = [p for p in cuda_shade.SHADE_PATHS if want[p].abs().sum() > 0]
+    assert {"materials.albedo", "lights.color", "bg_top"} <= set(params)
+    if point_light:
+        assert {"lights.position", "lights.pos_color"} <= set(params)
+    _assert_groups(got, want, [p for p in params if not p.startswith("sdf.mb_")],
+                   [p for p in params if p.startswith("sdf.mb_")] + ["o", "d"])
+    for k in ("o", "d", "corners"):
+        if want[k] is None:
+            continue
+        nz = want[k].norm(dim=1) > 0
+        per = (got[k] - want[k]).norm(dim=1)[nz] / want[k].norm(dim=1)[nz]
+        assert per.numel() == 0 or float(torch.quantile(per, 0.99)) < 1e-3, k

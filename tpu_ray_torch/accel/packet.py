@@ -122,3 +122,37 @@ def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
     perm = np.concatenate([order, np.full(pad, -1, np.int64)])
     return _to_accel(corners.reshape(C_pad * ROWS_PER_CHUNK, CHUNK), aabb, sup,
                      perm, T, device)
+
+
+def refit_packet_accel(accel: PacketAccel, verts: torch.Tensor,
+                       tris: torch.Tensor) -> PacketAccel:
+    """Recompute corners and the chunk/super AABBs from the current vertex
+    positions, keeping the build's Morton chunk order (counterpart of the
+    reference's `refit_packet_accel`). Plain tensor ops on the accel's
+    device, never differentiated: a vertex fit then walks an accel that is
+    exact for the moved vertices (only its culls loosen as they drift)."""
+    with torch.no_grad():
+        C = accel.chunk_aabb.shape[0]
+        perm = accel.perm.long()
+        if perm.shape[0] < C * CHUNK:  # perm is not padded to whole supers
+            perm = torch.cat([perm, perm.new_full((C * CHUNK - perm.shape[0],), -1)])
+        valid = perm >= 0
+        idx = torch.clamp(perm, 0, max(tris.shape[0] - 1, 0))
+        tv = verts.detach()[tris.long()[idx]]  # (C*CHUNK, 3, 3)
+        tv = torch.where(valid[:, None, None], tv, torch.zeros_like(tv))
+        v0, e1, e2 = tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]
+        rows = torch.cat([v0.T, e1.T, e2.T], 0).reshape(9, C, CHUNK).permute(1, 0, 2)
+        corners = torch.cat([rows, rows.new_zeros((C, ROWS_PER_CHUNK - 9, CHUNK))], 1)
+        big = 1e10
+        lo = torch.where(valid[:, None], tv.amin(1), big).reshape(C, CHUNK, 3).amin(1)
+        hi = torch.where(valid[:, None], tv.amax(1), -big).reshape(C, CHUNK, 3).amax(1)
+        chunk_aabb = lo.new_zeros((C, 128))
+        chunk_aabb[:, 0:3], chunk_aabb[:, 3:6] = lo, hi
+        S = accel.super_aabb.shape[0]  # C == S * SUPER
+        super_aabb = lo.new_zeros((S, 128))
+        super_aabb[:, 0:3] = lo.reshape(S, SUPER, 3).amin(1)
+        super_aabb[:, 3:6] = hi.reshape(S, SUPER, 3).amax(1)
+        f32 = lambda x: x.to(torch.float32).contiguous()
+        return dataclasses.replace(
+            accel, corners=f32(corners.reshape(C * ROWS_PER_CHUNK, CHUNK)),
+            chunk_aabb=f32(chunk_aabb), super_aabb=f32(super_aabb))

@@ -2,9 +2,12 @@
 
     python -m tpu_ray_torch.cli render --scene mixed --out mixed.png
     python -m tpu_ray_torch.cli render --scene sphere --width 64 --height 64 --device cpu --out s.png
+    python -m tpu_ray_torch.cli fit --scene sphere --steps 20 --width 32 --height 32 --device cpu
 
-On a CUDA device the geometry pass runs the hand-written kernels; on the CPU
-it runs their plain PyTorch versions (slow for large frames).
+On a CUDA device the geometry pass and the shade backward run the
+hand-written kernels; on the CPU they run their plain PyTorch versions
+(slow for large frames). `fit` recovers a demo target: the render of the
+scene with every trainable leaf v set to v * 1.15 + 0.02.
 """
 
 from __future__ import annotations
@@ -37,10 +40,7 @@ def cmd_render(args):
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    scene, cfg = build_scene(args.scene, device=device)
-    overrides = {k: getattr(args, k) for k in _CFG_FLAGS if getattr(args, k) is not None}
-    cfg = cfg.replace(**overrides)
+    device, scene, cfg = _device_and_scene(args)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     with torch.no_grad():
         sync()
@@ -56,6 +56,48 @@ def cmd_render(args):
     print(f"[render] wrote {args.out}")
 
 
+def _device_and_scene(args):
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    scene, cfg = build_scene(args.scene, device=device)
+    overrides = {k: getattr(args, k) for k in _CFG_FLAGS if getattr(args, k) is not None}
+    return device, scene, cfg.replace(**overrides)
+
+
+def demo_target(scene, cfg, trainable):
+    """The fit demo's target: the render with each trainable leaf v set to
+    v * 1.15 + 0.02 (the packet accel refit to perturbed vertices)."""
+    from tpu_ray_torch.fit import _maybe_refit, apply_params
+    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.scene.types import get_param
+
+    perturbed = {p: get_param(scene, p) * 1.15 + 0.02 for p in trainable}
+    moved = _maybe_refit(apply_params(scene, perturbed),
+                         any(p.split(".")[0] == "mesh" for p in trainable))
+    with torch.no_grad():
+        return render_image(moved, cfg)
+
+
+def cmd_fit(args):
+    from tpu_ray_torch.fit import fit
+    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.utils.config import FitConfig
+    from tpu_ray_torch.utils.image_io import write_png
+
+    device, scene, cfg = _device_and_scene(args)
+    target = demo_target(scene, cfg, args.trainable)
+    t0 = time.perf_counter()
+    fitted, history = fit(scene, cfg, target, args.trainable,
+                          FitConfig(steps=args.steps, learning_rate=args.lr))
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[fit] {args.steps} steps of {args.scene} {cfg.width}x{cfg.height} "
+          f"spp={cfg.spp} on {where}: {time.perf_counter() - t0:.2f} s")
+    print(f"[fit] final loss {history[-1]:.3e}" if history else "[fit] no steps")
+    if args.out:
+        with torch.no_grad():
+            write_png(args.out, render_image(fitted, cfg).cpu().numpy())
+        print(f"[fit] wrote {args.out}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="tpu_ray_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -65,6 +107,15 @@ def main(argv=None):
     r.add_argument("--device", help="cuda or cpu (default: cuda when available)")
     _add_cfg_flags(r)
     r.set_defaults(fn=cmd_render)
+    f = sub.add_parser("fit", help="inverse-render: recover perturbed scene leaves")
+    f.add_argument("--scene", default="sphere", choices=scene_names())
+    f.add_argument("--trainable", nargs="+", default=["sdf.sph_radius"])
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--lr", type=float, default=1e-2)
+    f.add_argument("--out", help="PNG of the fitted scene")
+    f.add_argument("--device", help="cuda or cpu (default: cuda when available)")
+    _add_cfg_flags(f)
+    f.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -18,7 +18,14 @@
 // Bounding spheres ride separately as (n_bounds, 4): cx cy cz r.
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else  // a host build of the device arithmetic, for the CPU tests
+#include <math.h>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
 
 namespace tr {
 

@@ -1,0 +1,307 @@
+// Reverse-mode adjoint of the scene distance field, for the fused shade
+// backward (shade_bwd.cu).
+//
+// Replaces what `jax.vjp` of `de_tile` computes inside the Pallas backward
+// `shade_bwd_pallas` (tpu_ray/kernels/pallas_shade.py:148-151 and 258-260):
+// the gradient of the DE with respect to the point p and to the packed
+// parameters of sdf.cuh, written by hand.
+//
+// Everything is a template on the scalar type T:
+//   * T = float gives the first-order adjoint (the IFT numerator, the
+//     denominator <grad_p DE, d> and the normal's grad_p DE);
+//   * T = Dual, a value plus one tangent, run on p + eps*u, gives in its
+//     tangent parts H*u and d2DE/dtheta dp * u: the pullback of the normal
+//     (forward-over-reverse). Nothing of the 12-iteration Mandelbulb's
+//     second-order chain is derived by hand.
+// Branches (escape, clamps, the min over primitives) read the value part
+// only, as autograd's masks do. The Mandelbulb keeps sdf.cuh's escape-freeze
+// and clamps; the reverse pass keeps each iteration's z and dr in a local
+// array of kMaxMbIters entries.
+//
+// The gradient of the min over primitives goes to the first primitive that
+// attains it (torch.amin splits a tie evenly; ties have measure zero). Only
+// that primitive's adjoint runs.
+#pragma once
+
+#include "sdf.cuh"
+
+namespace tr {
+
+constexpr int kMaxMbIters = 16;
+
+// v + e * eps with eps^2 = 0.
+struct Dual {
+  float v, e;
+  Dual() = default;
+  __device__ __forceinline__ Dual(float v_, float e_ = 0.0f) : v(v_), e(e_) {}
+};
+
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return Dual(a.v + b.v, a.e + b.e); }
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return Dual(a.v - b.v, a.e - b.e); }
+__device__ __forceinline__ Dual operator-(Dual a) { return Dual(-a.v, -a.e); }
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
+  return Dual(a.v * b.v, a.v * b.e + a.e * b.v);
+}
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+  const float q = a.v / b.v;
+  return Dual(q, (a.e - q * b.e) / b.v);
+}
+__device__ __forceinline__ Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
+__device__ __forceinline__ Dual& operator-=(Dual& a, Dual b) { a = a - b; return a; }
+
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(Dual x) { return x.v; }
+__device__ __forceinline__ float tan_(Dual x) { return x.e; }
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ Dual sqrt_(Dual x) {
+  const float s = sqrtf(x.v);
+  return Dual(s, x.e / (2.0f * s));
+}
+__device__ __forceinline__ float log_(float x) { return logf(x); }
+__device__ __forceinline__ Dual log_(Dual x) { return Dual(logf(x.v), x.e / x.v); }
+
+// max(x, c) and min(x, c) with torch's clamp gradients: x passes through
+// where x >= c (resp. x <= c), the constant elsewhere.
+template <typename T>
+__device__ __forceinline__ T max_c(T x, float c) { return val(x) >= c ? x : T(c); }
+template <typename T>
+__device__ __forceinline__ T min_c(T x, float c) { return val(x) <= c ? x : T(c); }
+
+// Primitive kinds, in the packed layout's order.
+enum PrimKind { kSphere = 0, kPlane = 1, kBox = 2, kBulb = 3 };
+__device__ __forceinline__ int prim_stride(int kind) { return kind == kBox ? 7 : 4; }
+
+// The primitive that attains the scene DE at p (first on a tie), by the
+// float forward of sdf.cuh in its op order. Returns its packed offset and
+// kind, or -1 when the scene has no primitive.
+__device__ __forceinline__ int scene_argmin(const SdfParams& s, float px,
+                                            float py, float pz, int* kind) {
+  float d = kBig;
+  int best = -1;
+  const float* q = s.p;
+  for (int i = 0; i < s.n_sph; ++i, q += 4) {
+    const float qx = px - q[0], qy = py - q[1], qz = pz - q[2];
+    const float di = sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-12f)) - q[3];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kSphere; }
+  }
+  for (int i = 0; i < s.n_pln; ++i, q += 4) {
+    const float di = px * q[0] + py * q[1] + pz * q[2] - q[3];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kPlane; }
+  }
+  for (int i = 0; i < s.n_box; ++i, q += 7) {
+    const float qx = fabsf(px - q[0]) - q[3];
+    const float qy = fabsf(py - q[1]) - q[4];
+    const float qz = fabsf(pz - q[2]) - q[5];
+    const float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
+    const float outside = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-12f));
+    const float inside = fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f);
+    const float di = outside + inside - q[6];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBox; }
+  }
+  for (int i = 0; i < s.n_mb; ++i, q += 4) {
+    const float sc = q[3];
+    const float di = mandelbulb_pow8((px - q[0]) / sc, (py - q[1]) / sc,
+                                     (pz - q[2]) / sc, s.mb_iters) * sc;
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBulb; }
+  }
+  return best;
+}
+
+// Power-8 Mandelbulb DE (sdf.cuh's mandelbulb_pow8) and its gradient g with
+// respect to the local point. Returns the DE.
+template <typename T>
+__device__ T mandelbulb_pow8_adj(T px, T py, T pz, int iters, T g[3]) {
+  T zs[kMaxMbIters][3];
+  T drs[kMaxMbIters];
+  T zx = px, zy = py, zz = pz, dr = T(1.0f);
+  T r = sqrt_(max_c(px * px + py * py + pz * pz, kRmin2));
+  int n_upd = 0;   // z updates made (the stored iterations)
+  int last = -1;   // iteration whose |z| is the final r (-1: the initial r)
+  for (int it = 0; it < iters; ++it) {
+    const T r_new = sqrt_(max_c(zx * zx + zy * zy + zz * zz, kRmin2));
+    r = r_new;
+    last = it;
+    if (!(val(r_new) <= kBailout)) break;
+    zs[it][0] = zx; zs[it][1] = zy; zs[it][2] = zz;
+    drs[it] = dr;
+    const T r_safe = min_c(max_c(r_new, kRmin), kBailout);
+    const T rho2 = max_c(zx * zx + zy * zy, kRmin2);
+    const T rho = sqrt_(rho2);
+    const T h = sqrt_(rho2 + zz * zz);
+    const T inv_h = T(1.0f) / h;
+    T st = rho * inv_h, ct = zz * inv_h;
+    const T inv_rho = T(1.0f) / rho;
+    T sp = zy * inv_rho, cp = zx * inv_rho;
+    for (int k = 0; k < 3; ++k) {
+      const T st2 = T(2.0f) * st * ct, ct2 = ct * ct - st * st;
+      const T sp2 = T(2.0f) * sp * cp, cp2 = cp * cp - sp * sp;
+      st = st2; ct = ct2; sp = sp2; cp = cp2;
+    }
+    const T r2s = r_safe * r_safe;
+    const T r4 = r2s * r2s;
+    const T r7 = r4 * r2s * r_safe;
+    const T r8 = r4 * r4;
+    dr = T(8.0f) * r7 * dr + T(1.0f);
+    zx = r8 * st * cp + px;
+    zy = r8 * st * sp + py;
+    zz = r8 * ct + pz;
+    n_upd = it + 1;
+  }
+  const T rr = max_c(r, kRmin);
+  const T a = T(0.5f) * log_(rr);
+  const T b = a * rr;
+  const T de = b / dr;
+
+  // reverse: de = (0.5 log(rr) * rr) / dr
+  T d_dr = -(b / dr) / dr;
+  const T d_b = T(1.0f) / dr;
+  const T d_rr = d_b * a + d_b * rr * T(0.5f) / rr;
+  const T d_r = val(r) >= kRmin ? d_rr : T(0.0f);
+  T gx = T(0.0f), gy = T(0.0f), gz = T(0.0f);  // d/d(local p)
+  T dzx = T(0.0f), dzy = T(0.0f), dzz = T(0.0f);  // d/d(z of the step)
+  if (last < 0) {  // no iteration: r is |p|
+    if (val(px * px + py * py + pz * pz) >= kRmin2) {
+      const T w = d_r / r;
+      gx += px * w; gy += py * w; gz += pz * w;
+    }
+  } else if (last == n_upd) {  // escaped: r is |z| after the last update
+    if (val(zx * zx + zy * zy + zz * zz) >= kRmin2) {
+      const T w = d_r / r;
+      dzx = zx * w; dzy = zy * w; dzz = zz * w;
+    }
+  }
+  for (int it = n_upd - 1; it >= 0; --it) {
+    // z_{it+1} = r8 * (st cp, st sp, ct) + p,  dr_{it+1} = 8 r7 dr_it + 1
+    gx += dzx; gy += dzy; gz += dzz;
+    const T zx0 = zs[it][0], zy0 = zs[it][1], zz0 = zs[it][2];
+    const T s2 = zx0 * zx0 + zy0 * zy0 + zz0 * zz0;
+    const T r_new = sqrt_(max_c(s2, kRmin2));
+    const T r_safe = min_c(max_c(r_new, kRmin), kBailout);
+    const T rho2_raw = zx0 * zx0 + zy0 * zy0;
+    const T rho2 = max_c(rho2_raw, kRmin2);
+    const T rho = sqrt_(rho2);
+    const T h = sqrt_(rho2 + zz0 * zz0);
+    const T inv_h = T(1.0f) / h;
+    const T inv_rho = T(1.0f) / rho;
+    T sts[4], cts[4], sps[4], cps[4];
+    sts[0] = rho * inv_h; cts[0] = zz0 * inv_h;
+    sps[0] = zy0 * inv_rho; cps[0] = zx0 * inv_rho;
+    for (int k = 0; k < 3; ++k) {
+      sts[k + 1] = T(2.0f) * sts[k] * cts[k];
+      cts[k + 1] = cts[k] * cts[k] - sts[k] * sts[k];
+      sps[k + 1] = T(2.0f) * sps[k] * cps[k];
+      cps[k + 1] = cps[k] * cps[k] - sps[k] * sps[k];
+    }
+    const T st = sts[3], ct = cts[3], sp = sps[3], cp = cps[3];
+    const T r2s = r_safe * r_safe;
+    const T r4 = r2s * r2s;
+    const T r8 = r4 * r4;
+    const T r7 = r4 * r2s * r_safe;
+
+    const T d_r8 = dzx * st * cp + dzy * st * sp + dzz * ct;
+    T d_st = (dzx * cp + dzy * sp) * r8;
+    T d_cp = dzx * r8 * st;
+    T d_sp = dzy * r8 * st;
+    T d_ct = dzz * r8;
+    const T d_r7 = d_dr * T(8.0f) * drs[it];
+    d_dr = d_dr * T(8.0f) * r7;
+    T d_r4 = T(2.0f) * r4 * d_r8 + d_r7 * r2s * r_safe;
+    T d_r2s = d_r7 * r4 * r_safe;
+    T d_rs = d_r7 * r4 * r2s;
+    d_r2s += T(2.0f) * r2s * d_r4;
+    d_rs += T(2.0f) * r_safe * d_r2s;
+    const float rn = val(r_new);
+    T d_rnew = (rn >= kRmin && rn <= kBailout) ? d_rs : T(0.0f);
+    if (it == last) d_rnew += d_r;  // no escape: r is this step's |z|
+    for (int k = 2; k >= 0; --k) {
+      const T n_st = d_st * T(2.0f) * cts[k] - d_ct * T(2.0f) * sts[k];
+      const T n_ct = d_st * T(2.0f) * sts[k] + d_ct * T(2.0f) * cts[k];
+      const T n_sp = d_sp * T(2.0f) * cps[k] - d_cp * T(2.0f) * sps[k];
+      const T n_cp = d_sp * T(2.0f) * sps[k] + d_cp * T(2.0f) * cps[k];
+      d_st = n_st; d_ct = n_ct; d_sp = n_sp; d_cp = n_cp;
+    }
+    // st0 = rho/h, ct0 = z/h, sp0 = y/rho, cp0 = x/rho
+    T d_rho = d_st * inv_h;
+    const T d_inv_h = d_st * rho + d_ct * zz0;
+    T nzz = d_ct * inv_h;
+    T nzy = d_sp * inv_rho;
+    T nzx = d_cp * inv_rho;
+    const T d_inv_rho = d_sp * zy0 + d_cp * zx0;
+    d_rho -= d_inv_rho * inv_rho * inv_rho;
+    const T d_h = -(d_inv_h * inv_h * inv_h);
+    const T d_hin = d_h * T(0.5f) / h;  // h = sqrt(rho2 + z^2)
+    T d_rho2 = d_hin + d_rho * T(0.5f) / rho;
+    nzz += T(2.0f) * zz0 * d_hin;
+    if (val(rho2_raw) >= kRmin2) {
+      nzx += T(2.0f) * zx0 * d_rho2;
+      nzy += T(2.0f) * zy0 * d_rho2;
+    }
+    if (val(s2) >= kRmin2) {
+      const T w = d_rnew / r_new;
+      nzx += zx0 * w; nzy += zy0 * w; nzz += zz0 * w;
+    }
+    dzx = nzx; dzy = nzy; dzz = nzz;
+  }
+  if (last >= 0) {  // z_0 is p
+    gx += dzx; gy += dzy; gz += dzz;
+  }
+  g[0] = gx; g[1] = gy; g[2] = gz;
+  return de;
+}
+
+// Gradient of one primitive's distance at p: dp (3) and dth (its packed
+// parameters, prim_stride(kind) of them, in layout order).
+template <typename T>
+__device__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
+                         T pz, T dp[3], T dth[7]) {
+  for (int k = 0; k < 7; ++k) dth[k] = T(0.0f);
+  if (kind == kSphere) {  // |p - c| - r
+    const T ax = px - T(q[0]), ay = py - T(q[1]), az = pz - T(q[2]);
+    const T s = ax * ax + ay * ay + az * az;
+    const T len = sqrt_(max_c(s, 1e-12f));
+    const T w = val(s) >= 1e-12f ? T(1.0f) / len : T(0.0f);
+    dp[0] = ax * w; dp[1] = ay * w; dp[2] = az * w;
+    dth[0] = -dp[0]; dth[1] = -dp[1]; dth[2] = -dp[2];
+    dth[3] = T(-1.0f);
+  } else if (kind == kPlane) {  // dot(p, n) - offset
+    dp[0] = T(q[0]); dp[1] = T(q[1]); dp[2] = T(q[2]);
+    dth[0] = px; dth[1] = py; dth[2] = pz;
+    dth[3] = T(-1.0f);
+  } else if (kind == kBox) {  // |max(q, 0)| + min(max(q), 0) - round
+    const T a[3] = {px - T(q[0]), py - T(q[1]), pz - T(q[2])};
+    T qq[3], o[3];
+    for (int k = 0; k < 3; ++k) {
+      const float sg = val(a[k]) > 0.0f ? 1.0f : (val(a[k]) < 0.0f ? -1.0f : 0.0f);
+      qq[k] = a[k] * T(sg) - T(q[3 + k]);
+      o[k] = max_c(qq[k], 0.0f);
+    }
+    const T s = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
+    const T outside = sqrt_(max_c(s, 1e-12f));
+    T dq[3];
+    const T w = val(s) >= 1e-12f ? T(1.0f) / outside : T(0.0f);
+    for (int k = 0; k < 3; ++k) dq[k] = val(qq[k]) >= 0.0f ? o[k] * w : T(0.0f);
+    // inside = min(max(qx, qy, qz), 0): the first largest component
+    int kmax = 0;
+    if (val(qq[1]) > val(qq[kmax])) kmax = 1;
+    if (val(qq[2]) > val(qq[kmax])) kmax = 2;
+    if (val(qq[kmax]) <= 0.0f) dq[kmax] += T(1.0f);
+    for (int k = 0; k < 3; ++k) {
+      const float sg = val(a[k]) > 0.0f ? 1.0f : (val(a[k]) < 0.0f ? -1.0f : 0.0f);
+      dp[k] = dq[k] * T(sg);
+      dth[k] = -dp[k];
+      dth[3 + k] = -dq[k];
+    }
+    dth[6] = T(-1.0f);
+  } else {  // bulb: mb((p - c) / s) * s
+    const T sc = T(q[3]);
+    const T lx = (px - T(q[0])) / sc, ly = (py - T(q[1])) / sc,
+            lz = (pz - T(q[2])) / sc;
+    T gl[3];
+    const T m = mandelbulb_pow8_adj(lx, ly, lz, mb_iters, gl);
+    dp[0] = gl[0]; dp[1] = gl[1]; dp[2] = gl[2];
+    dth[0] = -gl[0]; dth[1] = -gl[1]; dth[2] = -gl[2];
+    dth[3] = m - (gl[0] * lx + gl[1] * ly + gl[2] * lz);
+  }
+}
+
+}  // namespace tr

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernel library.
 
 All `tpu_ray_torch/csrc/*.cu` files compile with nvcc into one shared
-library with a plain C interface, loaded with ctypes. The library is keyed
+library with a plain C interface, loaded with ctypes: one nvcc process per
+source, all started together, then one link. The library is keyed
 by a hash of the sources and flags, written to a temporary file and renamed
 into `build/tpu_ray_torch/` at the repository root, so concurrent builds
 never see a half-written file. A missing nvcc or a failed build raises with
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -28,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,12 @@ _SIGNATURES = {
     # perm, perm_len, any_hit, t, tri, hit, stream
     "tr_intersect_packet": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
                             _P, _I, _I, _P, _P, _P, _P],
+    # o, d, corners, t_bar, hs, hm, closer, mat, vis, ct, n, small, n_sph,
+    # n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh,
+    # d_o, d_d, d_corners, partials, n_partial_rows, d_small, stream
+    "tr_shade_bwd": [_P] * 10 + [_I, _P] + [_I] * 10 + [_P] * 4 + [_I, _P, _P],
+    # rays per block of tr_shade_bwd (one partial row each)
+    "tr_shade_bwd_threads": [],
 }
 
 _LIB = None
@@ -74,6 +82,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpu_ray_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stderr + proc.stdout
+
+
 def _compile(out: Path) -> None:
     nvcc = _nvcc_path()
     if nvcc is None:
@@ -83,16 +99,21 @@ def _compile(out: Path) -> None:
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    objs = [out.with_name(f"{out.stem}.{f.stem}.{os.getpid()}.o") for f in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            logs = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(cu, objs)]))
+        _run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-o", str(tmp), *map(str, objs)])
+        os.replace(tmp, out)
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
     BUILD_LOG.update(seconds=time.perf_counter() - t0, built=True,
-                     ptxas=proc.stderr + proc.stdout)
+                     ptxas="".join(logs))
 
 
 def kernel_lib() -> ctypes.CDLL:

@@ -1,18 +1,21 @@
 """The render core: ray generation -> geometry pass -> reconstruct -> shade ->
 spp mean, over blocks of samples in Morton 8x8 pixel order.
 
-Counterpart of `tpu_ray/render/render.py`, forward only. The geometry pass
+Counterpart of `tpu_ray/render/render.py`. The geometry pass
 (`geometry_residuals`) runs under `torch.no_grad()` and goes through the
 kernel wrappers: the primary SDF march (`cuda_sdf.march`), the mesh closest
 hit seeded with the SDF hit t and the mesh any-hit for shadow rays
 (`cuda_mt.intersect_packet`), and the hard SDF shadow march
 (`cuda_sdf.shadow_hard`). It emits compact per-ray residuals; the shade
-rebuilds hit state from them (SDF normal by autograd of the distance field,
-mesh hit by re-solving the selected triangle) and shades with the static
-shadow visibility.
+rebuilds hit state from them (SDF hit t by the IFT attach, normal by
+autograd of the distance field, mesh hit by re-solving the selected
+triangle) and shades with the static shadow visibility.
 
-Not ported yet: soft shadows, ambient occlusion, jittered sampling and the
-backward pass (the IFT attach and the fused shade backward).
+Gradients: ray generation runs inside autograd, so the camera gets its
+gradient; the shade of a block is one `cuda_shade.ShadeFn`, whose backward
+is the fused shade-backward kernel on a CUDA device.
+
+Not ported yet: soft shadows, ambient occlusion and jittered sampling.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ import numpy as np
 import torch
 
 from tpu_ray_torch.core.math3d import clamp01, dot, normalize
-from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import moller_trumbore as mt
-from tpu_ray_torch.kernels.sphere_trace import surface_normal
+from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
 from tpu_ray_torch.render import shading
 from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene.types import Scene
@@ -145,12 +148,19 @@ def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str,
 
 
 def _sdf_from_res(scene: Scene, cfg: RenderConfig, o, d, res, lite=False):
-    """SDF hit state from the march residuals. lite skips the soft-silhouette
-    coverage DE (unused by the geometry pass)."""
-    t, hit, tmin = res["sdf_t"], res["sdf_hit"], res["sdf_tmin"]
+    """SDF hit state from the march residuals.
+
+    lite: values only, for the geometry pass: no IFT attach, no Hessian
+    term in the normal, no soft-silhouette coverage DE. Gradient callers
+    keep lite=False."""
+    t_bar, hit = res["sdf_t"], res["sdf_hit"]
+    t = t_bar if lite else IftAttach.apply(
+        sdf_distance, scene.sdf, o, d, t_bar, hit.to(o.dtype),
+        *scene.sdf.float_leaves())
     cov = hit.to(o.dtype)
     t_eff = t
     if cfg.soft_silhouette > 0.0:
+        tmin = res["sdf_tmin"]
         if not lite:
             # coverage from the DE at the closest-approach point
             d_min = sdf_distance(scene.sdf, o + tmin[..., None] * d)
@@ -158,22 +168,30 @@ def _sdf_from_res(scene: Scene, cfg: RenderConfig, o, d, res, lite=False):
                               torch.sigmoid(-d_min / cfg.soft_silhouette))
         t_eff = torch.where(hit, t, tmin)
     p = o + t_eff[..., None] * d
-    n = surface_normal(sdf_distance, scene.sdf, p)
+    # the Hessian term only where p carries a gradient (o, d or the field)
+    n = surface_normal(sdf_distance, scene.sdf, p,
+                       create_graph=not lite and p.requires_grad)
     _, mat = sdf_distance_and_mat(scene.sdf, p.detach())
     return t, hit, p, n, mat, cov
 
 
 def _mesh_from_res(scene: Scene, cfg: RenderConfig, o, d, res,
-                   mesh_rows=None, lite=False):
+                   mesh_rows=None, lite=False, corners=None):
     """Mesh hit state re-solved from the selected triangle. mesh_rows: the
-    packed (T, 10) table of mesh_table, one row gather per ray."""
+    packed (T, 10) table of mesh_table, one row gather per ray; corners:
+    the (R, 9) gathered corners themselves, when the caller has them."""
     tri, hit = res["mesh_tri"], res["mesh_hit"]
-    if mesh_rows is None:
-        mesh_rows = mesh_table(scene.mesh)
-    rows = mesh_rows[torch.clamp(tri, 0, mesh_rows.shape[0] - 1).long()]
-    v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    idx = torch.clamp(tri, 0, scene.mesh.num_tris - 1).long()
+    if corners is None:
+        if mesh_rows is None:
+            mesh_rows = mesh_table(scene.mesh)
+        rows = mesh_rows[idx]
+        corners, tri_mat = rows[:, :9], rows[:, 9].to(torch.int32)
+    else:
+        tri_mat = scene.mesh.tri_mat[idx]
+    v0, v1, v2 = corners[:, 0:3], corners[:, 3:6], corners[:, 6:9]
     t, u, v, n = mt.recompute_hit_corners(v0, v1, v2, o, d)
-    mat = torch.where(hit, rows[:, 9].to(torch.int32), torch.zeros_like(tri))
+    mat = torch.where(hit, tri_mat, torch.zeros_like(tri))
     if cfg.mesh_silhouette > 0.0 and not lite:
         margin = mt.edge_margin_corners(v0, v1, v2, u, v)
         cov = torch.where(hit, clamp01(margin / cfg.mesh_silhouette),
@@ -186,17 +204,23 @@ def _mesh_from_res(scene: Scene, cfg: RenderConfig, o, d, res,
 
 
 def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                     lite: bool = False, mesh_rows=None):
-    """(t, hit, p, n, mat, cov) from the geometry residuals."""
+                     lite: bool = False, mesh_rows=None, aux_out=None,
+                     corners=None):
+    """(t, hit, p, n, mat, cov) from the geometry residuals.
+
+    aux_out: a dict that receives the by-products the fused shade backward
+    takes as residuals: the hit material id and, for mixed, the
+    closest-select mask."""
     if method == "sdf":
-        return _sdf_from_res(scene, cfg, o, d, res, lite=lite)
-    if method in ("mesh_brute", "mesh_grid"):
-        return _mesh_from_res(scene, cfg, o, d, res, mesh_rows=mesh_rows,
-                              lite=lite)
-    if method == "mixed":
+        out = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
+    elif method in ("mesh_brute", "mesh_grid"):
+        out = _mesh_from_res(scene, cfg, o, d, res, mesh_rows=mesh_rows,
+                             lite=lite, corners=corners)
+    elif method == "mixed":
         ts, hs, ps, ns, ms, cs = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
         tm, hm, pm, nm, mm, cm = _mesh_from_res(scene, cfg, o, d, res,
-                                                mesh_rows=mesh_rows, lite=lite)
+                                                mesh_rows=mesh_rows, lite=lite,
+                                                corners=corners)
         ts_eff = torch.where(hs, ts, torch.full_like(ts, BIG))
         tm_eff = torch.where(hm, tm, torch.full_like(tm, BIG))
         sdf_closer = ts_eff <= tm_eff
@@ -207,12 +231,18 @@ def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
         mat = torch.where(sdf_closer, ms.to(mm.dtype), mm)
         # soft SDF coverage applies only where the mesh does not hit in front
         cov = torch.where(hm & (~sdf_closer), cm, torch.maximum(cs, cm))
-        return t, hit, p, n, mat, cov
-    raise ValueError(f"unknown method {method!r}")
+        if aux_out is not None:
+            aux_out["closer"] = sdf_closer
+        out = t, hit, p, n, mat, cov
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if aux_out is not None:
+        aux_out["mat"] = out[4]
+    return out
 
 
 def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                       mesh_rows=None):
+                       mesh_rows=None, aux_out=None):
     """Hit state and shadow-ray origins from the primary residuals ->
     (hits, p_off, live): the reconstructed (t, hit, p, n, mat, cov), the hit
     points offset along the ray-facing normal, and the lanes whose shadows
@@ -220,9 +250,10 @@ def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 
     Without soft silhouettes a miss lane's shadow never reaches the image
     and o + BIG*d is a garbage origin: such lanes are parked at the camera,
-    and the shadow queries give them a zero budget."""
+    and the shadow queries give them a zero budget. aux_out: see
+    reconstruct_hits."""
     hits = reconstruct_hits(scene, cfg, o, d, res, method, lite=True,
-                            mesh_rows=mesh_rows)
+                            mesh_rows=mesh_rows, aux_out=aux_out)
     _t, hit_any, p, n, _mat, _cov = hits
     n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
     p_off = p + cfg.shadow_bias * n
@@ -242,11 +273,17 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
       mesh_tri, mesh_hit         mesh closest hit (when the mesh is traced)
       sh_vis (L, R)              shadow visibility per light: hard SDF
                                  march x mesh any-hit
-      hits                       the reconstructed hit state, kept for the
-                                 forward shade (without silhouettes the
-                                 geometry pass's reconstruct is the shade's)
+      hit_mat, hit_closer        the hit material id and (mixed) the
+                                 closest-select mask, residuals of the
+                                 fused shade backward (with shadows)
+      hits                       the reconstructed hit state, whose values
+                                 the forward shade reuses (without
+                                 silhouettes the geometry pass's
+                                 reconstruct is the shade's); never saved
+                                 for the backward
     """
     _check_supported(cfg)
+    o, d = o.detach(), d.detach()
     res = {}
     t_seed = None
     if _use_sdf(scene, method):
@@ -263,8 +300,12 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     if cfg.shadow == "none":
         return res
 
+    aux = {}
     hits, p_off, live = shadow_ray_origins(scene, cfg, o, d, res, method,
-                                           mesh_rows=mesh_rows)
+                                           mesh_rows=mesh_rows, aux_out=aux)
+    res["hit_mat"] = aux["mat"]
+    if "closer" in aux:
+        res["hit_closer"] = aux["closer"]
     if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
         res["hits"] = hits
     p = hits[2]
@@ -322,30 +363,63 @@ def mesh_table(mesh) -> torch.Tensor:
                       mesh.tri_mat[:, None].to(v.dtype)], dim=-1)
 
 
-def shade_forward(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                  mesh_rows=None) -> torch.Tensor:
-    """Shade a flat ray batch from its geometry residuals -> (R, 3)."""
-    hits = res.get("hits")
+def _shade_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                 mesh_rows=None, corners=None) -> torch.Tensor:
+    """The shade computation itself: reconstruct + occluder + shade, plain
+    PyTorch and differentiable (counterpart of `_shade_xla`). Without a
+    gradient it reuses the geometry pass's hit state where there is one."""
+    hits = None if torch.is_grad_enabled() else res.get("hits")
     if hits is None:
         hits = reconstruct_hits(scene, cfg, o, d, res, method,
-                                mesh_rows=mesh_rows)
+                                mesh_rows=mesh_rows, corners=corners)
     _t, hit, p, n, mat, cov = hits
     return shading.shade(scene, cfg, p, n, d, mat, hit,
                          make_residual_occluder(cfg, res), None, coverage=cov)
+
+
+def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
+                         method: str, mesh_rows=None) -> torch.Tensor:
+    """Shade a flat ray batch from its geometry residuals -> (R, 3).
+
+    When a gradient is asked for, the chain goes through one
+    `cuda_shade.ShadeFn`: its forward is the plain shade, its backward the
+    fused shade-backward kernel on a CUDA device (its plain version on the
+    CPU). The per-ray corners of the selected triangles are gathered here,
+    from the per-frame `mesh_table`, so the vertex gradient scatters by
+    triangle per block and by vertex once per frame. On a CUDA device a
+    chain the kernel does not take raises; on the CPU it runs through
+    autograd of the plain shade."""
+    if not (torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)):
+        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    spec = cuda_shade.kernel_spec(scene, cfg, method)
+    if spec is None:
+        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    corners = None
+    if spec["use_mesh"]:
+        if mesh_rows is None:
+            mesh_rows = mesh_table(scene.mesh)
+        idx = torch.clamp(res["mesh_tri"], 0, mesh_rows.shape[0] - 1).long()
+        corners = mesh_rows[idx][:, :9].contiguous()
+    return cuda_shade.shade(scene, cfg, o, d, res, method, corners, mesh_rows)
 
 
 def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
                        method: str | None = None) -> torch.Tensor:
     """Render flat sample coords covering whole pixels (a pixel's spp samples
     contiguous) -> per-pixel colors (3, n_px), spp-averaged, channel-major.
-    Samples run in blocks of cfg.block_size (rounded up to whole pixels)."""
+    Samples run in blocks of cfg.block_size (rounded up to whole pixels).
+
+    Rays are generated per block inside autograd (the camera's gradient);
+    no block is checkpointed: the shade's Function saves only compact
+    residuals, so the backward keeps ~100 bytes per ray."""
     method = method or resolve_method(scene, cfg)
     mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
 
     def block_fn(x, y):
         o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
         res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows)
-        colors = shade_forward(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+        colors = shade_with_residuals(scene, cfg, o, d, res, method,
+                                      mesh_rows=mesh_rows)
         return colors.reshape(-1, cfg.spp, 3).mean(1).T  # (3, n_px_block)
 
     R = flat_x.shape[0]

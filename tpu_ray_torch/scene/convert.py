@@ -1,8 +1,10 @@
-"""Build the port's Scene from arrays addressed by dotted path.
+"""Build the port's Scene, and carry fit parameters, as arrays addressed by
+dotted path.
 
 The paths are those of the reference's scene parameters ("sdf.mb_center",
 "mesh.verts", "camera.origin", "lights.direction", "bg_top", ...), so a
-scene defined anywhere as plain arrays renders the same in both packages.
+scene defined anywhere as plain arrays renders the same in both packages,
+and a gradient dict of one compares with the other's by key.
 """
 
 from __future__ import annotations
@@ -48,3 +50,15 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], statics: dict,
                          f"statics say {statics['num_tris']}")
     scene = Scene(**groups, bg_top=tensor("bg_top"), bg_bottom=tensor("bg_bottom"))
     return scene.with_packet()
+
+
+def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
+    """{dotted path: tensor} -> {dotted path: numpy array} (detached)."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def params_from_numpy(arrays: dict, device="cpu",
+                      dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """{dotted path: array} -> {dotted path: tensor} on `device`."""
+    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in arrays.items()}

@@ -89,6 +89,33 @@ class Scene:
         return self.mesh.num_tris > 0
 
 
+def get_param(scene: Scene, path: str):
+    """A scene leaf by dotted path ("sdf.sph_radius", "mesh.verts", ...)."""
+    obj = scene
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _set(obj, parts, value):
+    if len(parts) == 1:
+        return dataclasses.replace(obj, **{parts[0]: value})
+    return dataclasses.replace(
+        obj, **{parts[0]: _set(getattr(obj, parts[0]), parts[1:], value)})
+
+
+def set_param(scene: Scene, path: str, value) -> Scene:
+    """A copy of the scene with one leaf replaced; the others are shared."""
+    return _set(scene, path.split("."), value)
+
+
+def apply_params(scene: Scene, params: dict) -> Scene:
+    """A copy of the scene with the {dotted path: tensor} leaves replaced."""
+    for path, value in params.items():
+        scene = set_param(scene, path, value)
+    return scene
+
+
 def background_color(scene: Scene, d: torch.Tensor) -> torch.Tensor:
     """Vertical sky gradient by ray direction: (..., 3) -> (..., 3)."""
     s = 0.5 * (d[..., 1] + 1.0)

@@ -17,6 +17,11 @@ from tpu_ray_torch.sdf.mandelbulb import mandelbulb_de, mandelbulb_de_pow8_compo
 
 BIG = 1e10  # sentinel distance for "no primitive"
 
+# the differentiable fields, in layout order (the *_mat ids are int)
+FLOAT_FIELDS = ("sph_center", "sph_radius", "pln_normal", "pln_offset",
+                "box_center", "box_half", "box_round", "mb_center", "mb_scale",
+                "mb_power")
+
 
 @dataclasses.dataclass
 class SdfScene:
@@ -52,6 +57,13 @@ class SdfScene:
 
     def replace(self, **kw) -> "SdfScene":
         return dataclasses.replace(self, **kw)
+
+    def float_leaves(self) -> list:
+        """The FLOAT_FIELDS tensors, in order."""
+        return [getattr(self, f) for f in FLOAT_FIELDS]
+
+    def with_float_leaves(self, leaves) -> "SdfScene":
+        return self.replace(**dict(zip(FLOAT_FIELDS, leaves)))
 
     @property
     def num_primitives(self) -> int:

@@ -1,5 +1,5 @@
-"""Typed render configuration: the same fields and defaults as
-`tpu_ray.utils.config.RenderConfig`, minus `pallas`.
+"""Typed render and fit configuration: the same fields and defaults as
+`tpu_ray.utils.config.RenderConfig` (minus `pallas`) and `FitConfig`.
 
 There is no kernel switch: kernel dispatch follows the device of the tensors
 (`tpu_ray_torch/kernels/cuda_*.py`).
@@ -62,3 +62,12 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    steps: int = 200
+    learning_rate: float = 1e-2
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    log_every: int = 10
