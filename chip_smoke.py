@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Phases, each with its seconds (any failure exits non-zero and prints no
-result):
+Two paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
+mesh) and the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
+fit step with diff_vis). Phases, each with its seconds (any failure exits
+non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills.
   3. kernel parity on real rays: 4 blocks of the `mixed` frame in Morton
      order (those holding the bulb, the sphere, the knot and the ground in
      front) and the shadow rays the geometry pass makes from them; each
-     kernel against its plain PyTorch version on the card, with times. The
-     shade backward on the same rays and their residuals, with a seeded
-     cotangent: per parameter group, per ray, and bit equality of two runs;
-     again without shadows, which block every lane of the bulb's block.
+     kernel against its plain PyTorch version on the card, with times and
+     bounds. The shade backward on the same rays and their residuals, with
+     a seeded cotangent: per parameter group, per ray, and bit equality of
+     two runs; again without shadows, which block every lane of the bulb's
+     block, and with the 5-tap AO (its Mandelbulb and mesh terms).
   4. small frame: `mixed` at 320x180, 1 spp, kernel path against plain path:
      the image, and the gradient of mean(img**2) for the six trainables.
   5. the forward slice: `render_image` of `mixed` at 1920x1080, 16 spp,
@@ -23,8 +26,26 @@ result):
      for the six trainables: time, launch counts, peak memory, gradients.
   7. a fit: `fit()` for 3 Adam steps at 480x272, 16 spp, toward the CLI
      demo target, with the packet accel refit every step; the loss falls.
-Then the kernels as one JSON line, the card's name and power limit, and
-the result as the last line.
+  8. `mandelbulb` parity: 2 blocks of its frame (the bulb's silhouette, the
+     plane's penumbra): the march and the soft-shadow march against their
+     plain versions, the soft march again on the `pointlight` frame's
+     shadow rays (cut at the light's distance), and the shade backward with
+     AO and the penumbra (diff_vis) against its plain version, again with
+     the point light's penumbra on the `pointlight` frame. Where the
+     backward reads the Mandelbulb through the AO or the penumbra, the
+     rays on which float32 rounding alone moves the plain version's
+     cotangents past the per-ray bound (found against its float64
+     evaluation, without the kernel) are set apart, at most 25% of them.
+  9. `mandelbulb` small frame: 256x256x1, kernel path against plain path,
+     the image and the gradient of its five trainables, without and with
+     diff_vis, both without the frame's ill-conditioned rays (phase 8).
+ 10. `mandelbulb` frame: 1024x1024x4 with launch counts; the PNG to build/.
+ 11. `mandelbulb` fit step with diff_vis: time, launch counts, memory,
+     gradients.
+Then the kernels as one JSON line (one entry per kernel and path, each
+with its time, its plain version's time and the bound the card could not
+beat for the same work), the card's name and power limit, and the result
+as the last line.
 """
 
 from __future__ import annotations
@@ -43,16 +64,29 @@ SRC = "tpu_ray_torch/csrc"
 REPLACES = {
     "march": "tpu_ray/kernels/pallas_sdf.py:223",
     "shadow_hard": "tpu_ray/kernels/pallas_sdf.py:328",
+    "shadow_soft": "tpu_ray/kernels/pallas_sdf.py:328",  # soft mode, :393-415
     "packet_closest": "tpu_ray/kernels/pallas_mt.py:347",
     "packet_any_hit": "tpu_ray/kernels/pallas_mt.py:347",
     "shade_bwd": "tpu_ray/kernels/pallas_shade.py:591",
 }
 SOURCES = {"march": "sdf_march.cu", "shadow_hard": "sdf_march.cu",
-           "packet_closest": "packet_mt.cu", "packet_any_hit": "packet_mt.cu",
-           "shade_bwd": "shade_bwd.cu"}
+           "shadow_soft": "sdf_march.cu", "packet_closest": "packet_mt.cu",
+           "packet_any_hit": "packet_mt.cu", "shade_bwd": "shade_bwd.cu"}
+# the kernels each path runs, forward then backward
+PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
+                          "shade_bwd"),
+                "mandelbulb": ("march", "shadow_soft", "shade_bwd")}
 # the six trainables of the reference's backward bench (tpu_ray/bench_lib.py)
 TRAINABLES = ("sdf.sph_radius", "sdf.mb_scale", "camera.origin",
               "materials.albedo", "lights.color", "mesh.verts")
+# the bench's list filtered to the `mandelbulb` scene, plus the light
+# direction, which only the diff_vis penumbra moves
+BULB_TRAINABLES = ("sdf.mb_scale", "camera.origin", "materials.albedo",
+                   "lights.color", "lights.direction")
+# the published peaks of one H100 SXM: HBM bytes/s, float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(phase, msg):
@@ -124,14 +158,67 @@ def _max(x) -> float:
     return float(x.max()) if x.numel() else 0.0
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def de_ops(sdf, q) -> torch.Tensor:
+    """The arithmetic operations one scene DE takes at each point (R,), as
+    csrc/sdf.cuh counts them: a sphere 11, a plane 7, a box 26; a bulb 20
+    around its loop, 7 for each escape test its loop makes and 62 more for
+    each iteration it runs (the loop ends at the escape, as the point
+    needs)."""
+    ops = torch.full(q.shape[:1], 11.0 * sdf.sph_center.shape[0] + 7.0 * sdf.pln_normal.shape[0]
+                     + 26.0 * sdf.box_center.shape[0], device=q.device)
+    for c, s in zip(sdf.mb_center, sdf.mb_scale):
+        loc = (q - c) / s
+        z = loc
+        live = torch.ones_like(ops, dtype=torch.bool)
+        ops += 20.0
+        for _ in range(sdf.mb_iters):
+            r = z.norm(dim=-1)
+            ops += 7.0 * live
+            live = live & (r <= 4.0)
+            ops += 62.0 * live
+            th = torch.atan2(torch.sqrt(z[:, 0] ** 2 + z[:, 1] ** 2), z[:, 2]) * 8.0
+            ph = torch.atan2(z[:, 1], z[:, 0]) * 8.0
+            z8 = r.clamp(max=4.0)[:, None] ** 8 * torch.stack(
+                [torch.sin(th) * torch.cos(ph), torch.sin(th) * torch.sin(ph), torch.cos(th)], -1)
+            z = torch.where(live[:, None], z8 + loc, z)
+    return ops
+
+
+class StepWork:
+    """A march's `visit` hook: sums the operations of the DE evaluations the
+    march takes (de_ops at each active lane's point) plus `per_step` for the
+    step's own arithmetic."""
+
+    def __init__(self, sdf, per_step: float):
+        self.sdf, self.per_step, self.ops, self.steps = sdf, per_step, 0.0, 0
+
+    def __call__(self, q, active):
+        self.ops += float((de_ops(self.sdf, q[active]) + self.per_step).sum())
+        self.steps += int(active.sum())
+
+
 # world points whose blocks the parity phase takes: the bulb, the sphere and
 # the knot (their centres) and the ground in front of them
 PARITY_POINTS = ((1.4, 1.05, 0.0), (0.0, 0.55, -1.6), (-1.3, 0.82, 0.0), (0.0, 0.0, 2.0))
 
 
-def parity_blocks(scene, cfg, perm) -> list:
-    """Indices of the 4 blocks (in the frame's Morton block order) whose
-    pixels hold the PARITY_POINTS: every kernel then sees hits and misses."""
+def parity_blocks(scene, cfg, perm, points=PARITY_POINTS) -> list:
+    """Indices of the blocks (in the frame's Morton block order) whose
+    pixels hold the given world points: every kernel then sees hits and
+    misses."""
     from tpu_ray_torch.core.math3d import dot
 
     cam = scene.camera
@@ -140,7 +227,7 @@ def parity_blocks(scene, cfg, perm) -> list:
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     blocks = []
-    for pt in PARITY_POINTS:
+    for pt in points:
         v = torch.tensor(pt, device=cam.origin.device) - cam.origin
         z = dot(v, fwd)
         x = (dot(v, right) / z / (half_h * cfg.width / cfg.height) + 1) * 0.5 * cfg.width
@@ -153,12 +240,28 @@ def parity_blocks(scene, cfg, perm) -> list:
     return blocks
 
 
-def kernel_parity(scene, cfg, results):
-    """Phase 3: each kernel against its plain version on 4 blocks of the
-    frame's primary rays (parity_blocks) and the shadow rays the geometry
-    pass makes from them."""
-    from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+def march_entry(sdf, o, d, kw, err) -> dict:
+    """The march's times and bound on rays o, d: bytes o, d in and t, hit,
+    steps, tmin out; the operations of the DEs its steps take (+8 a step)."""
+    from tpu_ray_torch.kernels import cuda_sdf
+
+    work = StepWork(sdf, 8.0)
+    cuda_sdf.march_torch(sdf, o, d, **kw, visit=work)
+    return dict(max_abs_err=err, ms=kernel_ms(lambda: cuda_sdf.march(sdf, o, d, **kw)),
+                plain_ms=wall_ms(lambda: cuda_sdf.march_torch(sdf, o, d, **kw)),
+                **bound(nbytes(o, d) + o.shape[0] * 13, work.ops))
+
+
+def packet_bound(packet, o, t_init) -> dict:
+    """The packet walk's bound: the rays in (o, d, t_init) and out (t, tri,
+    hit) and the accel read once; one Moller-Trumbore test (~40
+    operations) a ray, the least any ray needs."""
+    return bound(nbytes(o, o, t_init, packet.corners, packet.chunk_aabb, packet.super_aabb,
+                        packet.perm) + o.shape[0] * 9, o.shape[0] * 40.0)
+
+
+def block_rays(scene, cfg, points, tag):
+    """The primary rays (o, d) of the frame's blocks that hold the points."""
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
 
@@ -167,13 +270,25 @@ def kernel_parity(scene, cfg, results):
     perm = R._block_order_perm(cfg).to(dev)
     fx = sx.reshape(-1, cfg.spp)[perm].reshape(-1)
     fy = sy.reshape(-1, cfg.spp)[perm].reshape(-1)
-    blocks = parity_blocks(scene, cfg, perm)
+    blocks = parity_blocks(scene, cfg, perm, points)
     idx = torch.cat([torch.arange(b * cfg.block_size, (b + 1) * cfg.block_size, device=dev)
                      for b in blocks])
-    o, d = generate_rays(scene.camera, fx[idx], fy[idx], cfg.width, cfg.height)
-    n = o.shape[0]
-    log("parity", f"blocks {blocks} of {-(-fx.shape[0] // cfg.block_size)} "
+    log(tag, f"blocks {blocks} of {-(-fx.shape[0] // cfg.block_size)} "
         f"({cfg.block_size} rays each, Morton order)")
+    return generate_rays(scene.camera, fx[idx], fy[idx], cfg.width, cfg.height)
+
+
+def kernel_parity(scene, cfg, results):
+    """Phase 3: each kernel against its plain version on 4 blocks of the
+    frame's primary rays (parity_blocks) and the shadow rays the geometry
+    pass makes from them."""
+    from tpu_ray_torch.core.math3d import normalize
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
+
+    o, d = block_rays(scene, cfg, PARITY_POINTS, "parity")
+    n = o.shape[0]
     sdf, packet = scene.sdf, scene.packet
 
     # A: primary march
@@ -191,9 +306,7 @@ def kernel_parity(scene, cfg, results):
         f"worst rel dt {_max(rel_t):.3e}, worst rel dtmin {_max(rel_m):.3e}, "
         f"{bad_t} over rtol 1e-5")
     check(agree >= 0.999 and bad_t == 0, "march parity")
-    results["march"] = dict(max_abs_err=err,
-                            ms=kernel_ms(lambda: cuda_sdf.march(sdf, o, d, **kw)),
-                            plain_ms=wall_ms(lambda: cuda_sdf.march_torch(sdf, o, d, **kw)))
+    results["march"] = march_entry(sdf, o, d, kw, err)
 
     # C closest: seeded with the SDF hit t
     seed = torch.where(hk, tk, torch.full_like(tk, cfg.t_far))
@@ -217,14 +330,15 @@ def kernel_parity(scene, cfg, results):
         ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, o, d, t_max=cfg.t_far,
                                                       t_init=seed)),
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(
-            packet, o, d, t_max=cfg.t_far, t_init=seed)))
+            packet, o, d, t_max=cfg.t_far, t_init=seed)),
+        **packet_bound(packet, o, seed))
 
     # the geometry pass's shadow rays for the one directional light
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk, "mesh_tri": ck.tri,
            "mesh_hit": ck.hit}
     with torch.no_grad():
-        _, p_off, live = R.shadow_ray_origins(scene, cfg, o, d, res, "mixed",
-                                              mesh_rows=R.mesh_table(scene.mesh))
+        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "mixed",
+                                                 mesh_rows=R.mesh_table(scene.mesh))
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
     t_far_rays = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
 
@@ -238,10 +352,16 @@ def kernel_parity(scene, cfg, results):
     log("parity", f"shadow hard: vis agreement {agree:.6f} ({int((vk != vp).sum())} "
         f"mismatches), blocked {(vk == 0).float().mean().item():.4f}, worst |dvis| {err:.1f}")
     check(agree >= 0.999, "shadow parity")
+    # bytes: p, l, t_far_rays in, vis and ts out; the DEs of its steps (+8 a
+    # step) and the bound-exit cull (~20 operations a bound)
+    work = StepWork(sdf, 8.0)
+    cuda_sdf.shadow_hard_torch(sdf, p_off, l_dir, **skw, visit=work)
+    n_bounds = 0 if sdf_bounding_spheres(sdf) is None else sdf_bounding_spheres(sdf).shape[0]
     results["shadow_hard"] = dict(
         max_abs_err=err,
         ms=kernel_ms(lambda: cuda_sdf.shadow_hard(sdf, p_off, l_dir, **skw)),
-        plain_ms=wall_ms(lambda: cuda_sdf.shadow_hard_torch(sdf, p_off, l_dir, **skw)))
+        plain_ms=wall_ms(lambda: cuda_sdf.shadow_hard_torch(sdf, p_off, l_dir, **skw)),
+        **bound(nbytes(p_off, l_dir, t_far_rays) + 8 * n, work.ops + 20.0 * n_bounds * n))
 
     # C any-hit: 0-seeds for lanes the SDF already blocked and for misses
     dead = (vk <= 0.0) | ~live
@@ -260,91 +380,266 @@ def kernel_parity(scene, cfg, results):
         ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, p_off, l_dir, t_max=cfg.t_far,
                                                       any_hit=True, t_init=aseed)),
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(
-            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)))
+            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
+        **packet_bound(packet, p_off, aseed))
     for name, r in results.items():
-        log("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        log("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return o, d
 
 
-def shade_bwd_parity(scene, cfg, o, d, results=None):
-    """Phase 3, shade backward: the kernel against shade_bwd_torch on the
-    parity rays, their geometry residuals and a cotangent uniform in
+def shade_bwd_ops(scene, cfg, res, spec) -> float:
+    """The least operations of the shade backward on these rays: at each
+    hit point, one DE for its primitive, its adjoint and the Dual adjoint
+    for the normal (each at least one DE) on SDF-selected lanes; for each AO
+    tap and each penumbra, a DE, the argmin again and the adjoint (all
+    counted at the hit point's DE); ~300 for a mesh lane's re-solve; ~60 a
+    lane for the shading itself."""
+    t, hit, p = res["hits"][:3]
+    sel_sdf = res["sdf_hit"] & res.get("hit_closer", torch.ones_like(hit)) \
+        if spec["use_sdf"] else torch.zeros_like(hit)
+    per = de_ops(scene.sdf, p[hit]) if scene.has_sdf else torch.zeros(int(hit.sum()))
+    mult = (15.0 if spec["ao_sdf"] else 0.0) + (
+        3.0 * (spec["n_dir"] + spec["n_pos"]) if spec["soft_diff"] else 0.0)
+    ops = float(per.sum()) * mult
+    if spec["use_sdf"]:
+        ops += 4.0 * float(de_ops(scene.sdf, p[sel_sdf]).sum())
+    ops += 300.0 * float((hit & ~sel_sdf).sum()) + 60.0 * hit.shape[0]
+    return ops
+
+
+# the most of a frame's or a parity set's rays that may be ill-conditioned
+# (cuda_shade.ill_conditioned_rays); measured 4.5% of the `mandelbulb` parity
+# blocks' rays and 12-16% of a 128x128 `mandelbulb` frame's on the CPU
+ILL_SHARE_MAX = 0.25
+SMOOTH = ("materials.albedo", "lights.color", "lights.ambient", "bg_top", "bg_bottom",
+          "lights.position", "lights.pos_color", "sdf.sph_center", "sdf.sph_radius",
+          "sdf.pln_normal", "sdf.pln_offset", "sdf.box_center", "sdf.box_half",
+          "sdf.box_round")
+CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "lights.direction")
+
+
+def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
+    """Phase 3 and 8, shade backward: the kernel against shade_bwd_torch on
+    the parity rays, their geometry residuals and a cotangent uniform in
     [-1, 1] from a seeded generator on the card. With results, also the
-    kernel's and the plain version's times."""
+    kernel's and the plain version's times and the bound.
+
+    Where the AO taps or the penumbra read the Mandelbulb, float32 rounding
+    alone moves some rays' cotangents by more than the per-ray bound: the
+    rays cuda_shade.ill_conditioned_rays picks from the plain version and
+    its float64 evaluation, without the kernel. At most ILL_SHARE_MAX of
+    the rays may be such; both sides then run with their cotangent set to
+    0, and every bound below holds on the rest. The log also counts the
+    rays on which kernel and plain differ by more than the per-ray bound,
+    and how many of those lie outside the ill-conditioned set."""
     from tpu_ray_torch.kernels import cuda_shade
     from tpu_ray_torch.render import render as R
 
-    tag = f"shade_bwd shadow={cfg.shadow}"
-    rows = R.mesh_table(scene.mesh)
+    tag = (f"shade_bwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
+           f"lights {scene.lights.direction.shape[0]}+{scene.lights.position.shape[0]}")
+    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
     with torch.no_grad():
-        res = R.geometry_residuals(scene, cfg, o, d, "mixed", mesh_rows=rows)
-    corners = rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
-    aux = cuda_shade._make_aux(scene, cfg, "mixed", o, d, res, rows)
+        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
+    corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
+               if rows is not None else None)
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
+    spec = cuda_shade.kernel_spec(scene, cfg, method)
     gen = torch.Generator(device=o.device).manual_seed(0)
     ct = torch.rand(o.shape, generator=gen, device=o.device) * 2.0 - 1.0
     args = (scene, cfg, o, d, res)
 
-    def kernel():
-        return cuda_shade.shade_bwd(*args, aux, corners, ct, "mixed")
+    def kernel(c=ct):
+        return cuda_shade.shade_bwd(*args, aux, corners, c, method)
 
-    def plain():
-        return cuda_shade.shade_bwd_torch(*args, corners, ct, "mixed")
+    def plain(c=ct):
+        return cuda_shade.shade_bwd_torch(*args, corners, c, method)
+
+    def per_ray(a, b, key_):
+        nz = b[key_].norm(dim=1) > 0
+        return nz, (a[key_] - b[key_]).norm(dim=1) / b[key_].norm(dim=1).clamp_min(1e-30)
 
     k1, k2, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
-    hit = res["sdf_hit"] | res["mesh_hit"]
-    sdf_sel = res["sdf_hit"] & aux["closer"]
+    hit = res["sdf_hit"] | res["mesh_hit"] if spec["mixed"] else (
+        res["sdf_hit"] if spec["use_sdf"] else res["mesh_hit"])
+    sdf_sel = res["sdf_hit"] & aux["closer"] if spec["mixed"] else (
+        res["sdf_hit"] if spec["use_sdf"] else torch.zeros_like(hit))
     lit = res["sh_vis"][0] > 0 if "sh_vis" in res else torch.ones_like(hit)
     log(tag, f"{o.shape[0]} rays: hit {hit.float().mean().item():.4f}, SDF hit selected "
         f"{sdf_sel.float().mean().item():.4f} (lit {(sdf_sel & lit).float().mean().item():.4f}), "
         f"mesh hit selected {(hit & ~sdf_sel).float().mean().item():.4f}")
-    smooth = ("materials.albedo", "lights.color", "lights.ambient", "bg_top", "bg_bottom",
-              "sdf.sph_center", "sdf.sph_radius")
-    chaotic = ("sdf.mb_center", "sdf.mb_scale", "lights.direction")
-    ok, worst = True, 0.0
-    for path in smooth + chaotic:
-        a, b = k1[path], ref[path]
-        rel, cos = rel_max(a, b), cosine(a, b)
-        zero = not bool(a.any()) and not bool(b.any())  # no lane reaches it
-        good = rel < 1e-4 if path in smooth else (zero or (cos > 0.999 and rel < 5e-2))
-        ok &= good
-        worst = max(worst, float((a - b).abs().max()))
-        log(tag, f"{path}: rel {rel:.3e}, cosine {cos:.9f}, |plain| {float(b.norm()):.4e}"
-            f"{', both exactly 0' if zero else ''} ({'ok' if good else 'FAIL'}, "
-            f"{'rel < 1e-4' if path in smooth else 'cos > 0.999, rel < 5e-2'})")
-    for key in ("o", "d", "corners"):
-        a, b = k1[key], ref[key]
-        nz = b.norm(dim=1) > 0
-        per = (a - b).norm(dim=1)[nz] / b.norm(dim=1)[nz]
+    off = torch.maximum(per_ray(k1, ref, "o")[1], per_ray(k1, ref, "d")[1]) > 1e-3
+    g_k, g_p, ok = k1, ref, True
+    if scene.sdf.mb_center.shape[0] and (spec["ao_sdf"] or spec["soft_diff"]):
+        ill = cuda_shade.ill_conditioned_rays(*args, corners, ct, method)
+        share = float(ill.float().mean())
+        ok &= share <= ILL_SHARE_MAX
+        log(tag, f"ill-conditioned rays (plain float32 against float64, per-ray d_o or d_d "
+            f"rel > 1e-3): {int(ill.sum())}, share {share:.5f} (at most {ILL_SHARE_MAX}); "
+            f"kernel against plain per-ray rel > 1e-3 on {int(off.sum())} rays, "
+            f"{int((off & ~ill).sum())} of them outside that set; compared with their "
+            f"cotangent 0")
+        ct_m = torch.where(ill[:, None], 0.0, ct)
+        g_k, g_p = kernel(ct_m), plain(ct_m)
+    else:
+        log(tag, f"kernel against plain per-ray rel > 1e-3 on {int(off.sum())} rays")
+    worst = 0.0
+    for key_ in ("o", "d", "corners"):
+        if ref[key_] is None:
+            continue
+        nz, per = per_ray(g_k, g_p, key_)
+        per = per[nz]
         p99 = float(torch.quantile(per.double(), 0.99)) if per.numel() else 0.0
-        cos = cosine(a, b)
+        cos = cosine(g_k[key_], g_p[key_])
+        worst = max(worst, float((k1[key_] - ref[key_]).abs().max()))
         good = p99 < 1e-3 and cos > 0.999
         ok &= good
-        worst = max(worst, float((a - b).abs().max()))
-        log(tag, f"d_{key}: {int(nz.sum())} nonzero rays, per-ray rel p50 "
+        nz_all, per_all = per_ray(k1, ref, key_)
+        log(tag, f"d_{key_}: {int(nz.sum())} rays compared, per-ray rel p50 "
             f"{float(per.median()) if per.numel() else 0.0:.3e} p99 {p99:.3e} max "
             f"{_max(per):.3e}, over 1e-3 {int((per > 1e-3).sum())}, cosine {cos:.9f} "
-            f"({'ok' if good else 'FAIL'})")
+            f"({'ok' if good else 'FAIL'}, p99 < 1e-3, cosine > 0.999); on all "
+            f"{int(nz_all.sum())} rays p99 "
+            f"{float(torch.quantile(per_all[nz_all].double(), 0.99)) if nz_all.any() else 0.0:.3e}"
+            f", cosine {cosine(k1[key_], ref[key_]):.9f}")
+    for path in SMOOTH + CHAOTIC:
+        a, b = g_k[path], g_p[path]
+        if not b.numel():
+            continue
+        rel, cos = rel_max(a, b), cosine(a, b)
+        zero = not bool(a.any()) and not bool(b.any())  # no lane reaches it
+        good = rel < 1e-4 if path in SMOOTH else (zero or (cos > 0.999 and rel < 5e-2))
+        ok &= good
+        worst = max(worst, float((k1[path] - ref[path]).abs().max()))
+        log(tag, f"{path}: rel {rel:.3e}, cosine {cos:.9f}, |plain| {float(b.norm()):.4e}"
+            f"{', both exactly 0' if zero else ''} ({'ok' if good else 'FAIL'}, "
+            f"{'rel < 1e-4' if path in SMOOTH else 'cos > 0.999, rel < 5e-2'})"
+            f"; on all rays rel {rel_max(k1[path], ref[path]):.3e}, cosine "
+            f"{cosine(k1[path], ref[path]):.9f}")
     same = all(torch.equal(k1[p], k2[p]) for p in cuda_shade.SHADE_PATHS)
-    same_rays = all(torch.equal(k1[k], k2[k]) for k in ("o", "d", "corners"))
+    same_rays = all(torch.equal(k1[k], k2[k]) for k in ("o", "d", "corners")
+                    if k1[k] is not None)
     log(tag, f"two kernel runs: parameter cotangents bit-identical {same}, "
         f"per-ray bit-identical {same_rays}")
     check(ok, f"{tag} parity")
     check(same, f"{tag}: parameter cotangents differ between two runs")
     if results is not None:
-        results["shade_bwd"] = dict(max_abs_err=worst, ms=kernel_ms(kernel),
-                                    plain_ms=wall_ms(plain))
-        log(tag, f"kernel {results['shade_bwd']['ms']:.3f} ms, plain "
-            f"{results['shade_bwd']['plain_ms']:.3f} ms")
+        ins = [o, d, corners, res.get("sdf_t"), res.get("sdf_hit"), res.get("mesh_hit"),
+               aux.get("closer"), aux["mat"], res.get("sh_vis"), res.get("sh_ts"),
+               res.get("ao_tmesh"), ct]
+        outs = [k1["o"], k1["d"], k1["corners"]]
+        results[key] = dict(max_abs_err=worst, ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
+                            **bound(nbytes(*ins, *outs), shade_bwd_ops(scene, cfg, res, spec)))
+        log(tag, f"kernel {results[key]['ms']:.3f} ms, plain "
+            f"{results[key]['plain_ms']:.3f} ms, bound {results[key]['bound_ms']:.4f} ms "
+            f"({results[key]['bound_by']})")
 
 
 def parity(scene, cfg, results):
     """Phase 3: the forward kernels, then the shade backward on the same
-    rays, with the frame's hard shadows and (so that the lit Mandelbulb's
-    Hessian chain runs: hard shadows block the bulb's lanes) without."""
+    rays, with the frame's hard shadows, without them (so that the lit
+    Mandelbulb's Hessian chain runs: hard shadows block the bulb's lanes),
+    and with the 5-tap AO."""
     o, d = kernel_parity(scene, cfg, results)
-    shade_bwd_parity(scene, cfg, o, d, results)
-    shade_bwd_parity(scene, cfg.replace(shadow="none"), o, d)
+    shade_bwd_parity(scene, cfg, o, d, "mixed", results)
+    shade_bwd_parity(scene, cfg.replace(shadow="none"), o, d, "mixed")
+    # the AO's taps, the Mandelbulb's and the mesh's (`mixed --ao sdf5`)
+    shade_bwd_parity(scene, cfg.replace(ao="sdf5"), o, d, "mixed")
+
+
+def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False) -> dict:
+    """The soft-shadow march against shadow_soft_torch on shadow rays: vis
+    within 1e-6 on >= 99.9% of them and ts the same wherever vis agrees.
+    timed: also the kernel's and the plain version's times and the bound
+    (bytes p, l, t_far_rays in and vis, ts out; the DEs of its steps +10 a
+    step)."""
+    from tpu_ray_torch.kernels import cuda_sdf
+
+    skw = dict(eps=cfg.eps, t_far=cfg.t_far, steps=cfg.shadow_steps, bias=cfg.shadow_bias,
+               soft_k=cfg.soft_k, t_far_rays=far)
+    vk, tk = cuda_sdf.shadow_soft(sdf, p_off, l_dir, **skw)
+    vp, tp = cuda_sdf.shadow_soft_torch(sdf, p_off, l_dir, **skw)
+    agree = (vk - vp).abs() <= 1e-6
+    ts_bad = int((agree & (tk != tp)).sum())
+    err = float((vk - vp).abs().max())
+    frac = float(agree.float().mean())
+    log(tag, f"shadow soft: {p_off.shape[0]} rays, vis agreement {frac:.6f} at |dvis| <= 1e-6 "
+        f"({int((~agree).sum())} off), worst |dvis| {err:.3e}, ts differs on {ts_bad} agreeing "
+        f"rays; penumbra 0 < vis < 1 on {float(((vp > 0) & (vp < 1)).float().mean()):.4f}, "
+        f"vis 0 on {float((vp == 0).float().mean()):.4f}")
+    check(frac >= 0.999 and ts_bad == 0, f"{tag} shadow soft parity")
+    if not timed:
+        return {}
+    work = StepWork(sdf, 10.0)
+    cuda_sdf.shadow_soft_torch(sdf, p_off, l_dir, **skw, visit=work)
+    out = dict(max_abs_err=err, ms=kernel_ms(lambda: cuda_sdf.shadow_soft(sdf, p_off, l_dir, **skw)),
+               plain_ms=wall_ms(lambda: cuda_sdf.shadow_soft_torch(sdf, p_off, l_dir, **skw)),
+               **bound(nbytes(p_off, l_dir, far) + 8 * p_off.shape[0], work.ops))
+    log(tag, f"shadow soft: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+        f"{work.steps} DE steps, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+# world points whose `mandelbulb` blocks phase 8 takes: the bulb's silhouette
+# and the plane's penumbra beside it
+BULB_POINTS = ((1.15, 1.1, 0.0), (-1.3, 0.0, 0.3))
+
+
+def bulb_parity(scene, cfg, results):
+    """Phase 8: on 2 blocks of the `mandelbulb` frame, the march and the soft
+    march against their plain versions; the soft march on the `pointlight`
+    frame's shadow rays, each cut at its light's distance; the shade
+    backward with AO and the penumbra (diff_vis) on the blocks' rays, and
+    with the point light's penumbra on the `pointlight` frame's rays."""
+    from tpu_ray_torch.core.math3d import dot, normalize
+    from tpu_ray_torch.kernels import cuda_sdf
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+    from tpu_ray_torch.scene.scenes import build_scene
+
+    o, d = block_rays(scene, cfg, BULB_POINTS, "bulb_parity")
+    sdf = scene.sdf
+    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far)
+    tk, hk, _, mk = cuda_sdf.march(sdf, o, d, **kw)
+    tp, hp, _, _ = cuda_sdf.march_torch(sdf, o, d, **kw)
+    both = hk & hp
+    rel_t = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))[both]
+    agree = frac_equal(hk, hp)
+    err = _max((tk - tp).abs()[both])
+    log("bulb_parity", f"march: {o.shape[0]} rays, hit agreement {agree:.6f}, hit rate "
+        f"{hk.float().mean().item():.4f}, worst |dt| {err:.3e}, "
+        f"{int((rel_t > 1e-5).sum())} over rtol 1e-5")
+    check(agree >= 0.999 and int((rel_t > 1e-5).sum()) == 0, "mandelbulb march parity")
+    results["march"] = march_entry(sdf, o, d, kw, err)
+    log("bulb_parity", f"march: kernel {results['march']['ms']:.3f} ms, plain "
+        f"{results['march']['plain_ms']:.3f} ms, bound {results['march']['bound_ms']:.4f} ms")
+
+    res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk}
+    with torch.no_grad():
+        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
+    l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
+    far = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
+    results["shadow_soft"] = soft_parity(sdf, cfg, p_off, l_dir, far, "bulb_parity",
+                                         timed=True)
+
+    pscene, pcfg = build_scene("pointlight", device=scene.device)
+    sx, sy = R.pixel_sample_coords(pcfg, scene.device)
+    po, pd = generate_rays(pscene.camera, sx.reshape(-1), sy.reshape(-1), pcfg.width,
+                           pcfg.height)
+    pt, ph, _, pm = cuda_sdf.march(pscene.sdf, po, pd, t0=0.0, max_steps=pcfg.max_steps,
+                                   eps=pcfg.eps, t_far=pcfg.t_far)
+    with torch.no_grad():
+        _, pp, _, plive = R.shadow_ray_origins(pscene, pcfg, po, pd, {
+            "sdf_t": pt, "sdf_hit": ph, "sdf_tmin": pm}, "sdf")
+    lvec = pscene.lights.position[0] - pp
+    dist = torch.sqrt(torch.clamp_min(dot(lvec, lvec), 1e-12))
+    soft_parity(pscene.sdf, pcfg, pp, (lvec / dist[:, None]).contiguous(),
+                torch.where(plive, dist, 0.0).contiguous(), "bulb_parity pointlight")
+
+    shade_bwd_parity(scene, cfg.replace(diff_vis=True), o, d, "sdf", results)
+    # the point light's penumbra (its direction and distance from p_off)
+    shade_bwd_parity(pscene, pcfg.replace(diff_vis=True), po, pd, "sdf")
 
 
 def plain_paths():
@@ -359,6 +654,7 @@ def plain_paths():
     stack = ExitStack()
     stack.enter_context(mock.patch.object(cuda_sdf, "march", cuda_sdf.march_torch))
     stack.enter_context(mock.patch.object(cuda_sdf, "shadow_hard", cuda_sdf.shadow_hard_torch))
+    stack.enter_context(mock.patch.object(cuda_sdf, "shadow_soft", cuda_sdf.shadow_soft_torch))
     stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet",
                                           cuda_mt.intersect_packet_torch))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_bwd", shade_bwd_plain))
@@ -376,57 +672,140 @@ def grads_of(scene, cfg, paths=TRAINABLES):
     return loss.detach(), {p: v.grad for p, v in params.items()}
 
 
-def small_frame(scene, cfg):
-    """Phase 4: 320x180 x 1 spp, kernel path against plain path on the card:
-    the image, then the gradient of mean(img**2) for the six trainables."""
+def ill_conditioned_paths():
+    """Two context managers, for the kernel path and then the plain path of
+    the same frame, that set to 0 the shade backward's cotangent of each
+    block's ill-conditioned rays (cuda_shade.ill_conditioned_rays: found
+    from the plain version and its float64 evaluation, once per block, and
+    read by both paths). The kernel path also counts the rays on which
+    kernel and plain differ by more than 1e-3 per ray on the whole
+    cotangent, and how many of those lie outside the set.
+    Returns (kernel_ctx, plain_ctx, stats)."""
+    from tpu_ray_torch.kernels import cuda_shade
+
+    kernel_bwd, masks = cuda_shade.shade_bwd, {}
+    stats = {"rays": 0, "ill": 0, "off": 0, "off_outside": 0}
+
+    def ill_of(scene, cfg, o, d, res, corners, ct, method):
+        key = tuple(d[0].tolist() + d[-1].tolist() + o[0].tolist() + [o.shape[0]])
+        if key not in masks:
+            masks[key] = cuda_shade.ill_conditioned_rays(scene, cfg, o, d, res, corners, ct,
+                                                         method)
+            stats["rays"] += o.shape[0]
+            stats["ill"] += int(masks[key].sum())
+        return masks[key]
+
+    def masked_kernel(scene, cfg, o, d, res, aux, corners, ct, method):
+        ill = ill_of(scene, cfg, o, d, res, corners, ct, method)
+        k = kernel_bwd(scene, cfg, o, d, res, aux, corners, ct, method)
+        p = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
+        off = torch.stack([(k[x] - p[x]).norm(dim=1) / p[x].norm(dim=1).clamp_min(1e-30)
+                           for x in ("o", "d")]).amax(0) > 1e-3
+        stats["off"] += int(off.sum())
+        stats["off_outside"] += int((off & ~ill).sum())
+        return kernel_bwd(scene, cfg, o, d, res, aux, corners,
+                          torch.where(ill[:, None], 0.0, ct), method)
+
+    def masked_plain(scene, cfg, o, d, res, aux, corners, ct, method):
+        ill = ill_of(scene, cfg, o, d, res, corners, ct, method)
+        return cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners,
+                                          torch.where(ill[:, None], 0.0, ct), method)
+
+    return (mock.patch.object(cuda_shade, "shade_bwd", masked_kernel),
+            mock.patch.object(cuda_shade, "shade_bwd", masked_plain), stats)
+
+
+def small_frame(scene, small, name, trainables, tag="small", ill=False):
+    """Phases 4 and 9: a small frame, kernel path against plain path on the
+    card: the image, then the gradient of mean(img**2) for the trainables.
+    ill: compare the gradients with the ill-conditioned rays' cotangent set
+    to 0 on both paths (ill_conditioned_paths), at most ILL_SHARE_MAX of
+    the frame's rays; the gradients on all rays are logged."""
     from tpu_ray_torch.render.render import render_image
 
-    small = cfg.replace(width=320, height=180, spp=1)
     with torch.no_grad():
         img_k = render_image(scene, small)
         with plain_paths():
             img_p = render_image(scene, small)
     err = (img_k - img_p).abs().amax(-1)
     p95 = float(torch.quantile(err.flatten(), 0.95))
-    log("small", f"mixed 320x180x1: kernel vs plain path p95 {p95:.3e}, max "
-        f"{float(err.max()):.3e}, mean {float((img_k - img_p).abs().mean()):.3e}, "
-        f"pixels over 1e-3: {int((err > 1e-3).sum())} of {err.numel()}")
-    check(bool(torch.isfinite(img_k).all()) and p95 < 1e-3, "small-frame parity")
+    log(tag, f"{name} {small.width}x{small.height}x{small.spp} diff_vis={small.diff_vis}: "
+        f"kernel vs plain path p95 {p95:.3e}, max {float(err.max()):.3e}, mean "
+        f"{float((img_k - img_p).abs().mean()):.3e}, pixels over 1e-3: "
+        f"{int((err > 1e-3).sum())} of {err.numel()}")
+    check(bool(torch.isfinite(img_k).all()) and p95 < 1e-3, f"{name} small-frame parity")
 
-    loss_k, g_k = grads_of(scene, small)
-    _, g_k2 = grads_of(scene, small)
-    same = {p: torch.equal(g_k[p], g_k2[p]) for p in TRAINABLES}
-    log("small", f"two kernel-path passes, gradients bit-identical: {same}")
+    loss_k, g_k = grads_of(scene, small, trainables)
+    _, g_k2 = grads_of(scene, small, trainables)
+    same = {p: torch.equal(g_k[p], g_k2[p]) for p in trainables}
+    log(tag, f"two kernel-path passes, gradients bit-identical: {same}")
     with plain_paths():
-        loss_p, g_p = grads_of(scene, small)
+        loss_p, g_p = grads_of(scene, small, trainables)
+    held_k, held_p = g_k, g_p
+    if ill:
+        kernel_ctx, plain_ctx, stats = ill_conditioned_paths()
+        with kernel_ctx:
+            _, held_k = grads_of(scene, small, trainables)
+        with plain_paths(), plain_ctx:
+            _, held_p = grads_of(scene, small, trainables)
+        share = stats["ill"] / max(stats["rays"], 1)
+        log(tag, f"ill-conditioned rays (plain float32 against float64, per-ray d_o or d_d "
+            f"rel > 1e-3): {stats['ill']} of {stats['rays']} ({share:.5f}, at most "
+            f"{ILL_SHARE_MAX}); kernel against plain per-ray rel > 1e-3 on {stats['off']} "
+            f"rays, {stats['off_outside']} of them outside that set")
+        check(share <= ILL_SHARE_MAX, f"{name}: ill-conditioned rays over {ILL_SHARE_MAX}")
     ok = True
-    for path in TRAINABLES:
-        cos = cosine(g_k[path], g_p[path])
+    for path in trainables:
+        cos = cosine(held_k[path], held_p[path])
         ok &= cos > 0.999 and bool(torch.isfinite(g_k[path]).all())
-        log("small", f"grad {path}: cosine {cos:.9f}, rel {rel_max(g_k[path], g_p[path]):.3e}, "
-            f"|kernel| {float(g_k[path].norm()):.4e}, |plain| {float(g_p[path].norm()):.4e}")
-    log("small", f"loss kernel {float(loss_k):.8f}, plain {float(loss_p):.8f}")
-    check(ok, "small-frame gradient cosine > 0.999")
+        log(tag, f"grad {path}: cosine {cos:.9f}, rel {rel_max(held_k[path], held_p[path]):.3e}, "
+            f"|kernel| {float(held_k[path].norm()):.4e}, |plain| {float(held_p[path].norm()):.4e}"
+            + (f"; on all rays cosine {cosine(g_k[path], g_p[path]):.9f}, |kernel| "
+               f"{float(g_k[path].norm()):.4e}, |plain| {float(g_p[path].norm()):.4e}"
+               if ill else ""))
+    log(tag, f"loss kernel {float(loss_k):.8f}, plain {float(loss_p):.8f}")
+    check(ok, f"{name} small-frame gradient cosine > 0.999")
+
+
+def bulb_small(scene, small):
+    """Phase 9: the `mandelbulb` small frame at the scene's own diff_vis=False
+    (the AO chain), then with diff_vis (the penumbra too), each without its
+    ill-conditioned rays (shade_bwd_parity's docstring)."""
+    small_frame(scene, small, "mandelbulb", BULB_TRAINABLES, "bulb_small", ill=True)
+    small_frame(scene, small.replace(diff_vis=True), "mandelbulb", BULB_TRAINABLES,
+                "bulb_small", ill=True)
 
 
 def forward_counts():
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
 
-    return {"march": cuda_sdf.LAUNCHES["march"], "shadow_hard": cuda_sdf.LAUNCHES["shadow"],
+    return {"march": cuda_sdf.LAUNCHES["march"],
+            "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
+            "shadow_soft": cuda_sdf.LAUNCHES["shadow_soft"],
             "packet_closest": cuda_mt.LAUNCHES["closest"],
             "packet_any_hit": cuda_mt.LAUNCHES["any_hit"]}
 
 
-def full_frame(scene, cfg, smi: str):
-    """Phase 5: the whole frame through the kernels -> launch counts."""
+def check_counts(name, cfg, counts, kernels) -> None:
+    """Every kernel of the path launched; the march once per block."""
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    check(all(counts[k] > 0 for k in kernels), f"{name}: a kernel never launched: {counts}")
+    check(counts["march"] == n_blocks, f"{name}: {counts['march']} march launches for "
+          f"{n_blocks} blocks")
+
+
+def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
+    """Phases 5 and 10: the whole frame through the kernels -> launch
+    counts."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
 
     with torch.no_grad():
-        render_image(scene, cfg.replace(width=320, height=180))  # warm-up
+        render_image(scene, warm)
         reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         img = render_image(scene, cfg)
         torch.cuda.synchronize()
@@ -434,18 +813,18 @@ def full_frame(scene, cfg, smi: str):
     counts = forward_counts()
     check(tuple(img.shape) == (cfg.height, cfg.width, 3), f"frame shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "frame not finite")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check_counts(name, cfg, counts, PATH_KERNELS[name][:-1])
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    png = os.path.join(REPO, "build", "chip_smoke_mixed.png")
+    png = os.path.join(REPO, "build", f"chip_smoke_{name}.png")
     write_png(png, img.cpu().numpy())
-    log("frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}: {dt:.3f} s, "
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp}: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
         f"launches {counts}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"on {smi}; wrote {png}")
     return counts
 
 
-def profile_step(scene, cfg):
+def profile_step(scene, cfg, trainables, tag):
     """A fit step over a small frame under torch.profiler: the device's busy
     share of the wall time and where the device time goes."""
     from torch.autograd import DeviceType
@@ -454,7 +833,7 @@ def profile_step(scene, cfg):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        grads_of(scene, cfg)
+        grads_of(scene, cfg, trainables)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the kernels' own events (the CPU ops that launched them carry the same
@@ -463,28 +842,30 @@ def profile_step(scene, cfg):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in events)
     n_blocks = -(-cfg.num_rays // cfg.block_size)
-    log("fit_step", f"profile of a {cfg.width}x{cfg.height}x{cfg.spp} fit step ({n_blocks} "
+    log(tag, f"profile of a {cfg.width}x{cfg.height}x{cfg.spp} fit step ({n_blocks} "
         f"blocks): wall {wall * 1e3:.1f} ms, device {dev_us / 1e3:.1f} ms, busy "
         f"{dev_us / 1e6 / wall:.4f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log("fit_step", f"  device {e.self_device_time_total / 1e3:8.2f} ms "
+        log(tag, f"  device {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.count:6d} calls  {e.key[:90]}")
 
 
-def fit_step(scene, cfg, smi: str):
-    """Phase 6: one forward + backward of mean(img**2) over the full frame
-    for the six trainables -> the shade backward's launch count."""
+def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
+             tag="fit_step"):
+    """Phases 6 and 11: one forward + backward of mean(img**2) over the full
+    frame for the trainables -> launch counts, the shade backward's among
+    them."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     from tpu_ray_torch.fit import apply_params, extract_params
     from tpu_ray_torch.render.render import render_image
 
-    grads_of(scene, cfg.replace(width=320, height=180))  # warm-up
+    grads_of(scene, warm, trainables)
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = extract_params(scene, TRAINABLES)
+    params = extract_params(scene, trainables)
     loss = torch.mean(render_image(apply_params(scene, params), cfg) ** 2)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -495,18 +876,20 @@ def fit_step(scene, cfg, smi: str):
     dt = t2 - t0
     counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log("fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp} forward + backward: {dt:.3f} s "
-        f"(forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s), "
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} diff_vis={cfg.diff_vis} forward + "
+        f"backward: {dt:.3f} s (forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s), "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss {float(loss.detach()):.8f}, "
         f"launches {counts}, peak mem {peak:.2f} GiB on {smi}")
     for path, g in grads.items():
         fin = bool(torch.isfinite(g).all())
-        log("fit_step", f"grad {path}: norm {float(g.norm()):.6e}, finite {fin}, "
+        log(tag, f"grad {path}: norm {float(g.norm()):.6e}, finite {fin}, "
             f"nonzero {int((g != 0).sum())} of {g.numel()}")
         check(fin and bool((g != 0).any()), f"gradient of {path} not finite and nonzero")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
+    check_counts(name, cfg, counts, PATH_KERNELS[name])
+    check(counts["shade_bwd"] == counts["march"], f"{name}: {counts['shade_bwd']} shade_bwd "
+          f"launches for {counts['march']} blocks")
     # after the timed step: the profiler slows the launches that follow it
-    profile_step(scene, cfg.replace(width=256, height=128))
+    profile_step(scene, profile_cfg, trainables, tag)
     return counts
 
 
@@ -556,26 +939,47 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     scene, cfg = build_scene("mixed", device=dev)
-    results = {}
-    phases = (("parity", lambda: parity(scene, cfg, results)),
-              ("small", lambda: small_frame(scene, cfg)),
-              ("frame", lambda: full_frame(scene, cfg, smi)),
-              ("fit_step", lambda: fit_step(scene, cfg, smi)),
-              ("fit", lambda: fit_run(scene, cfg)))
+    bulb, bcfg = build_scene("mandelbulb", device=dev)
+    bcfg = bcfg.replace(block_size=min(bcfg.block_size, 1 << 16))  # bench_lib.py:121-122
+    results = {"mixed": {}, "mandelbulb": {}}
+    warm = cfg.replace(width=320, height=180)
+    bsmall = bcfg.replace(width=256, height=256, spp=1)
+    phases = (
+        ("parity", lambda: parity(scene, cfg, results["mixed"])),
+        ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
+                                      "mixed", TRAINABLES)),
+        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm)),
+        ("fit_step", lambda: fit_step(scene, cfg, smi, "mixed", TRAINABLES, warm,
+                                      cfg.replace(width=256, height=128))),
+        ("fit", lambda: fit_run(scene, cfg)),
+        ("bulb_parity", lambda: bulb_parity(bulb, bcfg, results["mandelbulb"])),
+        ("bulb_small", lambda: bulb_small(bulb, bsmall)),
+        ("bulb_frame", lambda: full_frame(bulb, bcfg, smi, "mandelbulb", bsmall,
+                                          "bulb_frame")),
+        ("bulb_fit_step", lambda: fit_step(
+            bulb, bcfg.replace(diff_vis=True), smi, "mandelbulb", BULB_TRAINABLES,
+            bsmall.replace(diff_vis=True), bcfg.replace(width=256, height=256, diff_vis=True),
+            "bulb_fit_step")),
+    )
     out = {}
+    t_start = time.perf_counter()
     for phase, run in phases:
         t0 = time.perf_counter()
         out[phase] = run()
         log(phase, f"phase seconds {time.perf_counter() - t0:.2f}")
-    counts = dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"])
+    log("done", f"all phases {time.perf_counter() - t_start:.2f} s")
+    counts = {"mixed": dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"]),
+              "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"])}
 
     kernels = []
-    for key, src in SOURCES.items():
-        r = results[key]
-        kernels.append({"name": key, "route": "cuda", "source": f"{SRC}/{src}",
-                        "replaces": REPLACES[key], "launches": counts[key],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+    for path, names in PATH_KERNELS.items():
+        for key in names:
+            r = results[path][key]
+            kernels.append({"name": key, "path": path, "route": "cuda",
+                            "source": f"{SRC}/{SOURCES[key]}", "replaces": REPLACES[key],
+                            "launches": counts[path][key], "max_abs_err": r["max_abs_err"],
+                            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

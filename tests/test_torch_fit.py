@@ -96,7 +96,7 @@ def test_refit_packet_accel_matches_jax(mixed):
 def test_params_round_trip_through_numpy(mixed):
     _, _, tscene = mixed
     params = tfit.extract_params(tscene, TRAINABLES)
-    back = params_from_numpy(params_to_numpy(params))
+    back = params_from_numpy(params_to_numpy(params), device="cpu")
     for k, v in params.items():
         assert torch.equal(back[k], v.detach()) and not back[k].requires_grad, k
 
@@ -124,7 +124,7 @@ def test_fit_with_vertices_refits_the_accel():
     """A mesh.verts fit walks an accel refit to the moved vertices."""
     from tpu_ray_torch.scene.scenes import build_scene
 
-    scene, cfg = build_scene("triangles")
+    scene, cfg = build_scene("triangles", device="cpu")
     scene = scene.with_packet()
     cfg = cfg.replace(width=12, height=12, method="mesh_grid")
     target = torch.full((12, 12, 3), 0.5)

@@ -80,23 +80,38 @@ def test_sample_coords_and_block_order_match_jax(w, h, spp):
     np.testing.assert_array_equal(got[inv].numpy(), np.arange(w * h))
 
 
-def test_scene_from_numpy_round_trips_mixed(mixed):
-    jscene, tscene, _, _ = mixed
-    own, _ = tscenes.build_scene("mixed")
+def _assert_same_scene(a, b):
+    """Every parameter of two port scenes equal, dtypes and statics too."""
     for group in ("camera", "sdf", "mesh", "materials", "lights"):
-        a, b = getattr(tscene, group), getattr(own, group)
-        for f in dataclasses.fields(a):
-            x, y = getattr(a, f.name), getattr(b, f.name)
+        ga, gb = getattr(a, group), getattr(b, group)
+        for f in dataclasses.fields(ga):
+            x, y = getattr(ga, f.name), getattr(gb, f.name)
             if isinstance(x, torch.Tensor):
                 assert x.dtype == y.dtype and torch.equal(x, y), f"{group}.{f.name}"
             else:
                 assert x == y, f"{group}.{f.name}"
-    assert torch.equal(tscene.bg_top, own.bg_top)
+    assert torch.equal(a.bg_top, b.bg_top) and torch.equal(a.bg_bottom, b.bg_bottom)
+
+
+def test_scene_from_numpy_round_trips_mixed(mixed):
+    jscene, tscene, _, _ = mixed
+    own, _ = tscenes.build_scene("mixed", device="cpu")
+    _assert_same_scene(tscene, own)
     # the packet accel built from the converted scene is the reference's
     jpacket = jscene.packet[0]
     for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
         np.testing.assert_array_equal(getattr(tscene.packet, name).numpy(),
                                       np.asarray(getattr(jpacket, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("name", tscenes.scene_names())
+def test_registry_entry_matches_jax(name):
+    """Each of the port's registry entries holds the reference's scene
+    parameters and render config, value for value."""
+    jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
+    own, cfg = tscenes.build_scene(name, device="cpu")
+    _assert_same_scene(own, port_scene(jscene))
+    assert cfg == port_cfg(jcfg)
 
 
 def _frame_errors(got, want):
@@ -135,7 +150,7 @@ def test_sphere_frame_matches_jax():
     jscene, jcfg = jscenes.build_scene("sphere", dtype=jnp.float32)
     jcfg = jcfg.replace(width=32, height=32, pallas="off")
     ref = np.asarray(jrender.render_image(jscene, jcfg))
-    tscene, tcfg = tscenes.build_scene("sphere")
+    tscene, tcfg = tscenes.build_scene("sphere", device="cpu")
     img = trender.render_image(tscene, tcfg.replace(width=32, height=32)).numpy()
     assert np.abs(img - ref).max() < 1e-4
 
@@ -148,7 +163,7 @@ def test_mesh_scene_frame_matches_jax(name):
     jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
     ref = np.asarray(jrender.render_image(jscene, jcfg.replace(width=16, height=16,
                                                                pallas="off")))
-    tscene, tcfg = tscenes.build_scene(name)
+    tscene, tcfg = tscenes.build_scene(name, device="cpu")
     with torch.no_grad():
         img = trender.render_image(tscene, tcfg.replace(width=16, height=16)).numpy()
     assert np.abs(img - ref).max() < 1e-4
@@ -158,7 +173,7 @@ def test_cpu_render_launches_no_kernel(mixed):
     _, tscene, tcfg, _ = mixed
     with torch.no_grad():
         trender.render_image(tscene, tcfg.replace(width=8, height=8))
-    assert cuda_sdf.LAUNCHES == {"march": 0, "shadow": 0}
+    assert cuda_sdf.LAUNCHES == {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
     assert cuda_mt.LAUNCHES == {"closest": 0, "any_hit": 0}
 
 

@@ -201,4 +201,4 @@ def test_cpu_wrappers_use_plain_versions():
     b = cuda_sdf.march_torch(ts, o, d, **_march_kw())
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert cuda_sdf.LAUNCHES == before == {"march": 0, "shadow": 0}
+    assert cuda_sdf.LAUNCHES == before == {"march": 0, "shadow_hard": 0, "shadow_soft": 0}

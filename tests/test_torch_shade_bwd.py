@@ -16,6 +16,13 @@ Tolerances and why:
   * the host build of the CUDA arithmetic against the plain version: the
     same bounds, plus the 99th percentile of the per-ray relative error of
     d_o, d_d and d_corners < 1e-3 (the on-card check of chip_smoke.py).
+    Where the AO taps or the soft-shadow penumbra evaluate the Mandelbulb,
+    float32 rounding alone moves some rays' cotangents by more than that:
+    `cuda_shade.ill_conditioned_rays` picks them from the plain version
+    and its float64 evaluation, without the host build. At most 25% of the
+    rays may be such (measured: 14% at 24x24 on `mandelbulb` with
+    diff_vis), and with their cotangent set to 0 every bound above holds
+    on the rest.
 """
 
 import ctypes
@@ -314,7 +321,7 @@ def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
     """The render's backward calls shade_bwd once per block with what the
     CUDA wrapper accepts: contiguous float32 tensors that need no grad,
     bool or int32 masks, per-ray shapes."""
-    scene, cfg = tscenes.build_scene("mixed")
+    scene, cfg = tscenes.build_scene("mixed", device="cpu")
     cfg = cfg.replace(width=8, height=8, spp=4, block_size=128, max_steps=64)
     calls = []
     plain = cuda_shade.shade_bwd
@@ -338,16 +345,22 @@ def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
 
 
 def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
-    scene, cfg = tscenes.build_scene("mixed")
+    scene, cfg = tscenes.build_scene("mixed", device="cpu")
     cfg = cfg.replace(width=8, height=8, spp=1)
-    refused = [cfg.replace(soft_silhouette=0.02), cfg.replace(mesh_silhouette=0.01),
-               cfg.replace(ao="sdf5"), cfg.replace(shadow="soft", diff_vis=True)]
+    refused = [cfg.replace(soft_silhouette=0.02), cfg.replace(mesh_silhouette=0.01)]
+    taken = {"ao": cfg.replace(ao="sdf5"),
+             "penumbra": cfg.replace(shadow="soft", diff_vis=True)}
     spec = cuda_shade.kernel_spec(scene, cfg, "mixed")
     assert spec["mixed"] and spec["n_dir"] == 1 and spec["n_pos"] == 0
+    assert not (spec["ao_sdf"] or spec["ao_mesh"] or spec["soft_diff"])
     for c in refused:  # on the CPU: autograd of the plain shade
         assert cuda_shade.kernel_spec(scene, c, "mixed") is None
     monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
     assert cuda_shade.kernel_spec(scene, cfg, "mixed") == spec
+    ao = cuda_shade.kernel_spec(scene, taken["ao"], "mixed")
+    assert ao["ao_sdf"] and ao["ao_mesh"] and not ao["soft_diff"]
+    pen = cuda_shade.kernel_spec(scene, taken["penumbra"], "mixed")
+    assert pen["soft_diff"] and not (pen["ao_sdf"] or pen["ao_mesh"])
     for c in refused:
         with pytest.raises(NotImplementedError, match="shade backward kernel"):
             cuda_shade.kernel_spec(scene, c, "mixed")
@@ -358,7 +371,7 @@ def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
 
 def test_silhouette_gradient_on_cpu_runs_plain_autograd():
     """A chain the kernel does not take still differentiates on the CPU."""
-    scene, cfg = tscenes.build_scene("sphere")
+    scene, cfg = tscenes.build_scene("sphere", device="cpu")
     cfg = cfg.replace(width=12, height=12, soft_silhouette=0.05)
     r = scene.sdf.sph_radius.clone().requires_grad_(True)
     img = trender.render_image(scene.replace(sdf=scene.sdf.replace(sph_radius=r)), cfg)
@@ -368,7 +381,7 @@ def test_silhouette_gradient_on_cpu_runs_plain_autograd():
 
 
 def test_pack_small_round_trips():
-    scene, _ = tscenes.build_scene("mixed")
+    scene, _ = tscenes.build_scene("mixed", device="cpu")
     scene = scene.replace(lights=Lights.make([[0.6, 0.8, 0.3], [-0.2, 1.0, 0.1]],
                                              [[1.0, 1.0, 1.0], [0.3, 0.2, 0.1]],
                                              positions=[[0.5, 2.5, 1.0]],
@@ -385,27 +398,51 @@ def test_pack_small_round_trips():
 # ---------------------------------------------------------------------------
 
 _HOST_MAIN = r"""
+#include "sdf_march.cu"
 #include "shade_bwd.cu"
 extern "C" void host_shade_bwd(
     const float* o, const float* d, const float* corners, const float* t_bar,
     const uint8_t* hs, const uint8_t* hm, const uint8_t* closer, const int* mat,
-    const float* vis, const float* ct, int n, const float* small, int n_sph,
-    int n_pln, int n_box, int n_mb, int mb_iters, int n_mat, int n_dir, int n_pos,
-    int use_sdf, int use_mesh, float* d_o, float* d_d, float* d_corners,
+    const float* vis, const float* ts, const float* ao_tmesh, const float* ct,
+    int n, const float* small, int n_sph, int n_pln, int n_box, int n_mb,
+    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
+    int ao_sdf, int ao_mesh, int soft_diff, double ao_step, float ao_strength,
+    float soft_k, float bias, float* d_o, float* d_d, float* d_corners,
     double* d_small) {
   const tr::ShadeParams s = tr::make_params(small, n_sph, n_pln, n_box, n_mb,
-      mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh);
+      mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh,
+      soft_diff, ao_step, ao_strength, soft_k, bias);
   float* one = new float[s.n_par];
   for (int i = 0; i < n; ++i) {
     for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, hs, hm, closer,
-                                     mat, vis, ct);
+                                     mat, vis, ts, ao_tmesh, ct);
     tr::shade_bwd_ray(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
     for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
   }
   delete[] one;
 }
+extern "C" void host_shadow_soft(
+    const float* p, const float* l, const float* t_far_rays, int n,
+    const float* params, int n_sph, int n_pln, int n_box, int n_mb,
+    int mb_iters, float eps, float t_far, int steps, float bias, float soft_k,
+    float* vis, float* ts) {
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
+  for (int i = 0; i < n; ++i)
+    tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+                        l[3 * i + 1], l[3 * i + 2],
+                        t_far_rays ? t_far_rays[i] : t_far, eps, steps, bias,
+                        soft_k, vis + i, ts + i);
+}
 """
+
+
+def _per_ray_rel(got, want, keys):
+    """Per ray, the largest |got - want| / |want| over the (R, k) keys (0 where
+    want is 0)."""
+    rel = [(got[k] - want[k]).norm(dim=1) / want[k].norm(dim=1).clamp_min(1e-30)
+           for k in keys]
+    return torch.stack(rel).amax(0)
 
 
 @pytest.fixture(scope="module")
@@ -421,9 +458,12 @@ def host_kernel(tmp_path_factory):
                     "-I", csrc, "-o", str(lib), str(tmp / "main.cpp")], check=True,
                    capture_output=True, timeout=120)
     so = ctypes.CDLL(str(lib))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    so.host_shade_bwd.argtypes = [P] * 10 + [I, P] + [I] * 10 + [P] * 4
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.host_shade_bwd.argtypes = ([P] * 12 + [I, P] + [I] * 13
+                                  + [ctypes.c_double, F, F, F] + [P] * 4)
     so.host_shade_bwd.restype = None
+    so.host_shadow_soft.argtypes = [P, P, P, I, P] + [I] * 5 + [F, F, I, F, F, P, P]
+    so.host_shadow_soft.restype = None
     return so
 
 
@@ -440,31 +480,47 @@ def _host_bwd(so, scene, cfg, o, d, res, corners, ct, method):
         corners, res.get("sdf_t") if spec["use_sdf"] else None,
         res.get("sdf_hit") if spec["use_sdf"] else None,
         res.get("mesh_hit") if spec["use_mesh"] else None,
-        aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"))]
+        aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"),
+        res["sh_ts"] if spec["soft_diff"] else None,
+        res["ao_tmesh"] if spec["ao_mesh"] else None)]
     ptr = lambda t: None if t is None else t.data_ptr()
     sdf = scene.sdf
     so.host_shade_bwd(o.data_ptr(), d.data_ptr(), *map(ptr, keep), ct.data_ptr(), n,
                       small.data_ptr(), sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
                       sdf.box_center.shape[0], sdf.mb_center.shape[0], sdf.mb_iters,
                       scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
-                      int(spec["use_sdf"]), int(spec["use_mesh"]),
+                      *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
+                                               "soft_diff")),
+                      cfg.ao_step, cfg.ao_strength, cfg.soft_k, cfg.shadow_bias,
                       *(x.data_ptr() for x in out), d_small.data_ptr())
     got = cuda_shade.unpack_small(d_small.float(), scene)
     got.update(o=out[0], d=out[1], corners=out[2])
     return got
 
 
-@pytest.mark.parametrize("name,point_light", [("mixed", False), ("mixed", True),
-                                              ("sphere", True), ("triangles", True)])
-def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light):
-    scene, cfg = tscenes.build_scene(name)
+# (scene, an added point light, config overrides): the hard-shadow cases hold
+# the static chains, the others add the AO taps and the penumbra
+HOST_CASES = [
+    pytest.param("mixed", False, dict(shadow="hard"), id="mixed-False"),
+    pytest.param("mixed", True, dict(shadow="hard"), id="mixed-True"),
+    pytest.param("sphere", True, dict(shadow="hard"), id="sphere-True"),
+    pytest.param("triangles", True, dict(shadow="hard"), id="triangles-True"),
+    pytest.param("mandelbulb", False, dict(diff_vis=True), id="mandelbulb-ao-diffvis"),
+    pytest.param("pointlight", False, dict(diff_vis=True), id="pointlight-diffvis"),
+    pytest.param("mixed", False, dict(shadow="hard", ao="sdf5"), id="mixed-ao"),
+]
+
+
+@pytest.mark.parametrize("name,point_light,over", HOST_CASES)
+def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light, over):
+    scene, cfg = tscenes.build_scene(name, device="cpu")
     if point_light:
         lt = scene.lights
         scene = scene.replace(lights=Lights(lt.direction, lt.color, lt.ambient,
                                             torch.tensor([[0.5, 2.5, 1.0]]),
                                             torch.tensor([[2.0, 1.5, 1.0]])))
     w, h = (48, 27) if name == "mixed" else (24, 24)
-    cfg = cfg.replace(width=w, height=h, spp=1, block_size=0, shadow="hard")
+    cfg = cfg.replace(width=w, height=h, spp=1, block_size=0, **over)
     method = trender.resolve_method(scene, cfg)
     sx, sy = trender.pixel_sample_coords(cfg)
     o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), w, h)
@@ -474,15 +530,86 @@ def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light)
     ct = torch.rand(o.shape, generator=gen) * 2 - 1
     want = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
     got = _host_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+    if scene.sdf.mb_center.shape[0] and (cfg.ao != "none" or cfg.diff_vis):
+        # the ill-conditioned rays, picked without the host build (module
+        # docstring)
+        ill = cuda_shade.ill_conditioned_rays(scene, cfg, o, d, res, corners, ct, method)
+        assert 0.0 < float(ill.float().mean()) <= 0.25
+        ct = torch.where(ill[:, None], 0.0, ct)
+        want = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
+        got = _host_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
     params = [p for p in cuda_shade.SHADE_PATHS if want[p].abs().sum() > 0]
     assert {"materials.albedo", "lights.color", "bg_top"} <= set(params)
-    if point_light:
+    if point_light or name == "pointlight":
         assert {"lights.position", "lights.pos_color"} <= set(params)
+    if cfg.shadow == "soft" and cfg.diff_vis:  # the penumbra moves the lights
+        assert {"lights.direction", "sdf.pln_normal"} <= set(params)
     _assert_groups(got, want, [p for p in params if not p.startswith("sdf.mb_")],
                    [p for p in params if p.startswith("sdf.mb_")] + ["o", "d"])
     for k in ("o", "d", "corners"):
         if want[k] is None:
             continue
         nz = want[k].norm(dim=1) > 0
-        per = (got[k] - want[k]).norm(dim=1)[nz] / want[k].norm(dim=1)[nz]
+        per = _per_ray_rel(got, want, (k,))[nz]
         assert per.numel() == 0 or float(torch.quantile(per, 0.99)) < 1e-3, k
+
+
+@pytest.mark.parametrize("name,over,share", [
+    ("pointlight", dict(diff_vis=True), (0.0, 0.0)),
+    ("mandelbulb", dict(), (0.02, 0.25)),
+    ("mandelbulb", dict(diff_vis=True), (0.02, 0.25))])
+def test_ill_conditioned_rays_are_the_plain_versions_own(name, over, share):
+    """The rays set apart are those where the plain float32 backward itself
+    leaves its float64 evaluation by more than 1e-3, per ray: none without
+    a fractal; on the Mandelbulb, some but at most a quarter."""
+    scene, cfg = tscenes.build_scene(name, device="cpu")
+    cfg = cfg.replace(width=16, height=16, spp=1, block_size=0, **over)
+    sx, sy = trender.pixel_sample_coords(cfg)
+    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), 16, 16)
+    res = trender.geometry_residuals(scene, cfg, o, d, "sdf")
+    ct = torch.rand(o.shape, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    ill = cuda_shade.ill_conditioned_rays(scene, cfg, o, d, res, None, ct, "sdf")
+    assert ill.shape == (256,) and ill.dtype == torch.bool
+    assert share[0] <= float(ill.float().mean()) <= share[1]
+
+
+@pytest.mark.parametrize("name", ["mandelbulb", "pointlight"])
+def test_shadow_soft_host_build_matches_plain_version(host_kernel, name):
+    """The CUDA soft march's per-ray loop, built as host C++, against
+    shadow_soft_torch on the shadow rays of a 24x24 frame. Both run the same
+    IEEE ops in the same order, so `pointlight` (spheres, a box, a plane;
+    each ray cut at its light's distance) is bit-equal. The Mandelbulb's DE
+    ends in a log, which glibc and torch's vectorized CPU log round an ulp
+    apart (on the card both sides call CUDA's logf): there vis is within
+    1e-6 + 1e-5 |vis| and ts within 1e-5 ts on >= 99% of the rays, the rest
+    one march step apart at the fractal's edge."""
+    scene, cfg = tscenes.build_scene(name, device="cpu")
+    cfg = cfg.replace(width=24, height=24, spp=1, block_size=0)
+    sx, sy = trender.pixel_sample_coords(cfg)
+    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), 24, 24)
+    res = trender.geometry_residuals(scene, cfg.replace(shadow="none"), o, d, "sdf")
+    _, p_off, _, live = trender.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
+    if name == "pointlight":
+        lvec = scene.lights.position[0] - p_off
+        dist = lvec.norm(dim=1)
+        l_dir, far = (lvec / dist[:, None]).contiguous(), torch.where(live, dist, 0.0)
+    else:
+        l_dir = torch.nn.functional.normalize(scene.lights.direction, dim=1)
+        l_dir, far = l_dir.expand_as(p_off).contiguous(), torch.where(live, cfg.t_far, 0.0)
+    kw = dict(eps=cfg.eps, t_far=cfg.t_far, steps=cfg.shadow_steps, bias=cfg.shadow_bias,
+              soft_k=cfg.soft_k)
+    want_vis, want_ts = cuda_sdf.shadow_soft_torch(scene.sdf, p_off, l_dir, t_far_rays=far,
+                                                   **kw)
+    params, counts, _ = cuda_sdf._sdf_args(scene.sdf)
+    n = p_off.shape[0]
+    vis, ts = torch.empty(n), torch.empty(n)
+    host_kernel.host_shadow_soft(p_off.contiguous().data_ptr(), l_dir.data_ptr(),
+                                 far.contiguous().data_ptr(), n, params.data_ptr(), *counts,
+                                 *kw.values(), vis.data_ptr(), ts.data_ptr())
+    assert 0.05 < float((want_vis < 1.0).float().mean()) < 0.95  # penumbra and light
+    if name == "pointlight":
+        assert torch.equal(vis, want_vis) and torch.equal(ts, want_ts)
+    else:
+        ok = (((vis - want_vis).abs() <= 1e-6 + 1e-5 * want_vis.abs())
+              & ((ts - want_ts).abs() <= 1e-5 * want_ts.abs()))
+        assert float(ok.float().mean()) >= 0.99

@@ -27,8 +27,8 @@ def flatten(scene):
 
 
 def port_scene(jscene):
-    """The port's copy of a JAX scene (with its packet accel)."""
-    return scene_from_numpy(*flatten(jscene))
+    """The port's copy of a JAX scene (with its packet accel), on the CPU."""
+    return scene_from_numpy(*flatten(jscene), device="cpu")
 
 
 def port_cfg(jcfg) -> RenderConfig:

@@ -1,13 +1,16 @@
 """Command-line entry point of the port.
 
     python -m tpu_ray_torch.cli render --scene mixed --out mixed.png
+    python -m tpu_ray_torch.cli render --scene mandelbulb --out bulb.png
     python -m tpu_ray_torch.cli render --scene sphere --width 64 --height 64 --device cpu --out s.png
     python -m tpu_ray_torch.cli fit --scene sphere --steps 20 --width 32 --height 32 --device cpu
 
-On a CUDA device the geometry pass and the shade backward run the
-hand-written kernels; on the CPU they run their plain PyTorch versions
-(slow for large frames). `fit` recovers a demo target: the render of the
-scene with every trainable leaf v set to v * 1.15 + 0.02.
+The device is the CUDA device unless `--device cpu` is given; without a
+CUDA device and without `--device cpu` the CLI stops with an error. On a
+CUDA device the geometry pass and the shade backward run the hand-written
+kernels; on the CPU they run their plain PyTorch versions (slow for large
+frames). `fit` recovers a demo target: the render of the scene with every
+trainable leaf v set to v * 1.15 + 0.02.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from tpu_ray_torch.scene.scenes import build_scene, scene_names
 
-_CFG_FLAGS = ("width", "height", "spp", "method", "shadow", "max_steps",
+_CFG_FLAGS = ("width", "height", "spp", "method", "shadow", "ao", "max_steps",
               "block_size", "soft_silhouette", "mesh_silhouette")
 
 
@@ -30,6 +33,7 @@ def _add_cfg_flags(p):
     p.add_argument("--spp", type=int)
     p.add_argument("--method")
     p.add_argument("--shadow")
+    p.add_argument("--ao", help="none or sdf5")
     p.add_argument("--max-steps", type=int, dest="max_steps")
     p.add_argument("--block-size", type=int, dest="block_size")
     p.add_argument("--soft-silhouette", type=float, dest="soft_silhouette")
@@ -57,7 +61,10 @@ def cmd_render(args):
 
 
 def _device_and_scene(args):
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("tpu_ray_torch: no CUDA device; pass --device cpu to "
+                         "run the plain PyTorch versions on the CPU")
     scene, cfg = build_scene(args.scene, device=device)
     overrides = {k: getattr(args, k) for k in _CFG_FLAGS if getattr(args, k) is not None}
     return device, scene, cfg.replace(**overrides)
@@ -104,7 +111,7 @@ def main(argv=None):
     r = sub.add_parser("render", help="render a registry scene to PNG")
     r.add_argument("--scene", default="mixed", choices=scene_names())
     r.add_argument("--out", default="render.png")
-    r.add_argument("--device", help="cuda or cpu (default: cuda when available)")
+    r.add_argument("--device", help="cuda (the default) or cpu")
     _add_cfg_flags(r)
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse-render: recover perturbed scene leaves")
@@ -113,7 +120,7 @@ def main(argv=None):
     f.add_argument("--steps", type=int, default=100)
     f.add_argument("--lr", type=float, default=1e-2)
     f.add_argument("--out", help="PNG of the fitted scene")
-    f.add_argument("--device", help="cuda or cpu (default: cuda when available)")
+    f.add_argument("--device", help="cuda (the default) or cpu")
     _add_cfg_flags(f)
     f.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)

@@ -1,12 +1,14 @@
-// Sphere-trace march and hard-shadow march over the scene distance field.
+// Sphere-trace march, hard-shadow march and soft-shadow march over the
+// scene distance field.
 //
 // Replaces the Pallas kernels `march_pallas` (tpu_ray/kernels/pallas_sdf.py:223)
-// and `shadow_pallas` in hard mode (pallas_sdf.py:328). Plain PyTorch
-// versions: march_torch and shadow_hard_torch in
+// and `shadow_pallas` in hard mode and in soft mode (pallas_sdf.py:328,
+// the soft step rule at :393-415). Plain PyTorch versions: march_torch,
+// shadow_hard_torch and shadow_soft_torch in
 // tpu_ray_torch/kernels/cuda_sdf.py.
 //
 // What bounds them on an H100: compute and divergence. Each step evaluates
-// the distance field (twelve Mandelbulb iterations of ~60 flops) and rays of
+// the distance field (twelve Mandelbulb iterations of ~70 flops) and rays of
 // one warp converge after different step counts. Memory traffic is a few
 // dozen bytes per ray.
 //
@@ -16,11 +18,49 @@
 // does not depend on its neighbours. The packed scene parameters are a few
 // hundred bytes, read through the L1 cache. Rays keep the reference's
 // bounding-sphere culls: a primary ray that misses every bound starts at
-// t_far, a shadow ray marches only up to its last bound exit.
-#include <cuda_runtime.h>
+// t_far, a hard-shadow ray marches only up to its last bound exit. The soft
+// march has no cull (its penumbra darkens rays that pass near a bound
+// without entering it), so its bound is compute: one DE per step, every
+// step up to the ray's own cutoff or the step budget. It is as chaotic near
+// the Mandelbulb as the primary march: the argmin t flips on one rounding
+// difference, so it keeps the reference's op order (and the library builds
+// with --fmad=false).
+//
+// The soft march's per-ray loop is plain C++ above the __CUDACC__ guard, so
+// that it also builds as host code (tests/test_torch_shade_bwd.py holds
+// that build against shadow_soft_torch on the CPU).
 #include <stdint.h>
 
 #include "sdf.cuh"
+
+namespace tr {
+
+// One soft-shadow ray: the penumbra s = min over the march of
+// soft_k * DE / max(t, bias) from 1, the step DE clipped to [eps/2, 0.4],
+// until t >= tf or the step budget is spent. Writes clip(s, 0, 1) and the t
+// of the first step that attained the min (bias when none went below 1).
+__device__ __forceinline__ void shadow_soft_ray(
+    const SdfParams& sdf, float px, float py, float pz, float lx, float ly,
+    float lz, float tf, float eps, int max_steps, float bias, float soft_k,
+    float* vis, float* ts_out) {
+  float t = bias, s = 1.0f, ts = bias;
+  for (int k = 0; k < max_steps; ++k) {
+    if (!(t < tf)) break;
+    const float dd = scene_de(sdf, px + t * lx, py + t * ly, pz + t * lz);
+    const float s_new = soft_k * dd / fmaxf(t, bias);
+    if (s_new < s) {
+      ts = t;
+      s = s_new;
+    }
+    t = t + fminf(fmaxf(dd, eps * 0.5f), 0.4f);
+  }
+  *vis = fminf(fmaxf(s, 0.0f), 1.0f);
+  *ts_out = ts;
+}
+
+}  // namespace tr
+
+#ifdef __CUDACC__
 
 namespace {
 
@@ -120,6 +160,21 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
   ts_out[i] = bias;
 }
 
+__global__ void shadow_soft_kernel(const float* __restrict__ p,
+                                   const float* __restrict__ l,
+                                   const float* __restrict__ t_far_rays, int n,
+                                   tr::SdfParams sdf, float eps, float t_far,
+                                   int max_steps, float bias, float soft_k,
+                                   float* __restrict__ vis_out,
+                                   float* __restrict__ ts_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+                      l[3 * i + 1], l[3 * i + 2],
+                      t_far_rays ? t_far_rays[i] : t_far, eps, max_steps, bias,
+                      soft_k, vis_out + i, ts_out + i);
+}
+
 }  // namespace
 
 extern "C" int tr_march(const float* o, const float* d, int n,
@@ -152,3 +207,19 @@ extern "C" int tr_shadow_hard(const float* p, const float* l,
       ts);
   return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int tr_shadow_soft(const float* p, const float* l,
+                              const float* t_far_rays, int n,
+                              const float* params, int n_sph, int n_pln,
+                              int n_box, int n_mb, int mb_iters, float eps,
+                              float t_far, int steps, float bias, float soft_k,
+                              float* vis, float* ts, void* stream) {
+  if (n <= 0) return 0;
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
+  shadow_soft_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      p, l, t_far_rays, n, sdf, eps, t_far, steps, bias, soft_k, vis, ts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // __CUDACC__

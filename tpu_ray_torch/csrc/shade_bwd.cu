@@ -1,11 +1,14 @@
-// Fused backward of the static-visibility shade chain: reconstruct + shade
-// from the geometry residuals, pulled back to the scene parameters and to
-// the per-ray o, d and selected-triangle corners.
+// Fused backward of the shade chain: reconstruct + shade from the geometry
+// residuals, pulled back to the scene parameters and to the per-ray o, d
+// and selected-triangle corners.
 //
 // Replaces the Pallas kernel `shade_bwd_pallas` (tpu_ray/kernels/
 // pallas_shade.py:591) for the chains it takes here: methods sdf, mesh_*
-// and mixed; directional and point lights; hard or no shadows (the sh_vis
-// residual); no AO, no differentiable penumbra, no silhouettes. The plain
+// and mixed; directional and point lights; static shadow visibility (the
+// sh_vis residual: hard, soft or none); the 5-tap distance-field AO with its
+// SDF and mesh terms (pallas_shade.py:278-296); the differentiable soft-
+// shadow penumbra, recomputed from one DE at the march's argmin t
+// (diff_vis, pallas_shade.py:302-355). Not the silhouettes. The plain
 // PyTorch version is shade_bwd_torch (tpu_ray_torch/kernels/cuda_shade.py):
 // torch.autograd of the port's plain shade.
 //
@@ -13,7 +16,9 @@
 // Mandelbulb. Such a ray runs the field's first-order adjoint at the hit
 // (IFT numerator and denominator, the normal) and the same adjoint again on
 // Dual numbers for the normal's Hessian term (sdf_adj.cuh), each over twelve
-// stored iterations. Memory traffic is ~100 bytes per ray.
+// stored iterations; with AO, five tap DEs and their first-order adjoints;
+// with the penumbra, one DE and its adjoint per light. Memory traffic is
+// ~100 bytes per ray.
 //
 // The simple design: one thread per ray, and a per-ray branch in place of
 // the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438): a
@@ -41,22 +46,32 @@ constexpr float kDetEps = 1e-10f;   // the Moller-Trumbore determinant's
 // The small parameters, packed in one float block whose layout is also the
 // layout of their cotangents: the SDF block of sdf.cuh, then albedo (K,3),
 // light directions and colours (L,3 each), ambient, bg_top, bg_bottom (3
-// each), point-light positions and colours (P,3 each).
+// each), point-light positions and colours (P,3 each). The chain's flags
+// and constants ride beside it.
 struct ShadeParams {
   SdfParams sdf;  // sdf.p is the start of the block
   int n_mat, n_dir, n_pos;
   int use_sdf, use_mesh;
+  int ao_sdf, ao_mesh;  // the AO taps' SDF term, their mesh term (ao_tmesh)
+  int soft_diff;        // the penumbra recompute at the sh_ts residual
+  double ao_step;       // in double: the tap heights round as the host's do
+  float ao_strength, soft_k, bias;
   int off_alb, off_ldir, off_lcol, off_amb, off_bgt, off_bgb, off_lpos, off_lpcol;
   int n_par;
 };
 
 __host__ __device__ __forceinline__ ShadeParams make_params(
     const float* small, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh) {
+    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
+    int ao_sdf, int ao_mesh, int soft_diff, double ao_step, float ao_strength,
+    float soft_k, float bias) {
   ShadeParams s;
   s.sdf = SdfParams{small, n_sph, n_pln, n_box, n_mb, mb_iters};
   s.n_mat = n_mat; s.n_dir = n_dir; s.n_pos = n_pos;
   s.use_sdf = use_sdf; s.use_mesh = use_mesh;
+  s.ao_sdf = ao_sdf; s.ao_mesh = ao_mesh; s.soft_diff = soft_diff;
+  s.ao_step = ao_step; s.ao_strength = ao_strength;
+  s.soft_k = soft_k; s.bias = bias;
   s.off_alb = 4 * n_sph + 4 * n_pln + 7 * n_box + 4 * n_mb;
   s.off_ldir = s.off_alb + 3 * n_mat;
   s.off_lcol = s.off_ldir + 3 * n_dir;
@@ -76,7 +91,9 @@ struct RayIn {
   bool hs, hm, closer;     // SDF hit, mesh hit, SDF selected (mixed)
   int mat;
   const float* vis;        // one value per light at stride vis_stride, or null
+  const float* ts;         // the soft march's argmin t, as vis, or null
   int vis_stride;
+  float t_mesh;            // ao_tmesh: the closest mesh hit along the normal
   float ct[3];
 };
 
@@ -84,7 +101,8 @@ struct RayIn {
 __device__ __forceinline__ RayIn load_ray(
     int i, int n, const float* o, const float* d, const float* corners,
     const float* t_bar, const uint8_t* hs, const uint8_t* hm,
-    const uint8_t* closer, const int* mat, const float* vis, const float* ct) {
+    const uint8_t* closer, const int* mat, const float* vis, const float* ts,
+    const float* ao_tmesh, const float* ct) {
   RayIn r;
   for (int k = 0; k < 3; ++k) {
     r.o[k] = o[3 * i + k];
@@ -98,7 +116,9 @@ __device__ __forceinline__ RayIn load_ray(
   r.closer = closer ? closer[i] != 0 : false;
   r.mat = mat[i];
   r.vis = vis ? vis + i : nullptr;
+  r.ts = ts ? ts + i : nullptr;
   r.vis_stride = n;
+  r.t_mesh = ao_tmesh ? ao_tmesh[i] : 0.0f;
   return r;
 }
 
@@ -119,6 +139,35 @@ __device__ __forceinline__ void normalize_adj(const float* a, const float* d_n,
   const float len = sqrtf(fmaxf(a2, 1e-12f));
   const float w = a2 >= 1e-12f ? dot3(d_n, a) / (len * len * len) : 0.0f;
   for (int k = 0; k < 3; ++k) d_a[k] = d_n[k] / len - a[k] * w;
+}
+
+constexpr int kAoTaps = 5;
+
+// The cotangent w of DE(q) pulled back to first order: the parameters of the
+// primitive that attains the DE at q (first on a tie) gain w * dDE/dtheta in
+// acc, and d_q gains w * grad_q DE.
+__device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
+                           float* acc, int stride, float* d_q) {
+  if (w == 0.0f) return;
+  int kind = 0;
+  const int prim = scene_argmin(s.sdf, q[0], q[1], q[2], &kind);
+  if (prim < 0) return;
+  float g[3], gth[7];
+  prim_adj<float>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth);
+  for (int k = 0; k < prim_stride(kind); ++k) acc[(prim + k) * stride] += w * gth[k];
+  for (int k = 0; k < 3; ++k) d_q[k] += w * g[k];
+}
+
+// The soft-shadow penumbra recomputed at the march's argmin t:
+// clip(soft_k * DE(q) / max(ts, bias), 0, 1) at q = p_off + ts * l. Writes q
+// and whether the clip passes a gradient.
+__device__ float penumbra(const ShadeParams& s, const float* p_off,
+                          const float* l, float ts, float* q, bool* pass) {
+  for (int k = 0; k < 3; ++k) q[k] = p_off[k] + ts * l[k];
+  const float dd = scene_de(s.sdf, q[0], q[1], q[2]);
+  const float raw = s.soft_k * dd / fmaxf(ts, s.bias);
+  *pass = raw >= 0.0f && raw <= 1.0f;
+  return fminf(fmaxf(raw, 0.0f), 1.0f);
 }
 
 // Adds ray r's parameter cotangents into acc (parameter j at acc[j * stride])
@@ -189,15 +238,52 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
   const int mat = r.mat < 0 ? 0 : (r.mat >= s.n_mat ? s.n_mat - 1 : r.mat);
   const float* alb = P + s.off_alb + 3 * mat;
 
-  // radiance = ambient + sum of the lights' terms
+  // 5-tap AO: occ = sum_i 0.7^(i-1) (h_i - min(DE(p + h_i nf), |t_mesh - h_i|))
+  // over h_i = ao_step * i, ao = clip(1 - ao_strength * occ, 0, 1)
+  const bool use_ao = s.ao_sdf || s.ao_mesh;
+  bool tap_sdf[kAoTaps];  // the tap's occluder distance is its DE
+  float ao = 1.0f;
+  bool ao_pass = false;
+  if (use_ao) {
+    float occ = 0.0f;
+    double w = 1.0;
+    for (int i = 0; i < kAoTaps; ++i) {
+      const float h = static_cast<float>(s.ao_step * (i + 1));
+      float dd = 0.0f;
+      tap_sdf[i] = s.ao_sdf != 0;
+      if (s.ao_sdf) dd = scene_de(s.sdf, p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]);
+      if (s.ao_mesh) {
+        const float dm = fabsf(r.t_mesh - h);
+        if (!s.ao_sdf || dm < dd) {
+          dd = dm;
+          tap_sdf[i] = false;
+        }
+      }
+      occ = occ + static_cast<float>(w) * (h - dd);
+      w *= 0.7;
+    }
+    const float ao_raw = 1.0f - s.ao_strength * occ;
+    ao = fminf(fmaxf(ao_raw, 0.0f), 1.0f);
+    ao_pass = ao_raw >= 0.0f && ao_raw <= 1.0f;
+  }
+  // the shadow rays' origin (the penumbra recompute marches from it)
+  float p_off[3];
+  for (int k = 0; k < 3; ++k) p_off[k] = p[k] + s.bias * nf[k];
+
+  // radiance = ambient * ao + sum of the lights' terms
   float rad[3];
-  for (int c = 0; c < 3; ++c) rad[c] = P[s.off_amb + c];
+  for (int c = 0; c < 3; ++c) rad[c] = P[s.off_amb + c] * ao;
   for (int li = 0; li < s.n_dir; ++li) {
     const float* lraw = P + s.off_ldir + 3 * li;
     const float ll = sqrtf(fmaxf(dot3(lraw, lraw), 1e-12f));
     const float l[3] = {lraw[0] / ll, lraw[1] / ll, lraw[2] / ll};
     const float ndotl = fmaxf(dot3(nf, l), 0.0f);
-    const float vis = r.vis ? r.vis[li * r.vis_stride] : 1.0f;
+    float vis = r.vis ? r.vis[li * r.vis_stride] : 1.0f;
+    if (s.soft_diff) {
+      float q[3];
+      bool pass;
+      vis = vis * penumbra(s, p_off, l, r.ts[li * r.vis_stride], q, &pass);
+    }
     for (int c = 0; c < 3; ++c) rad[c] += P[s.off_lcol + 3 * li + c] * (ndotl * vis);
   }
   for (int pi = 0; pi < s.n_pos; ++pi) {
@@ -207,38 +293,67 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     const float dist = sqrtf(fmaxf(dist2, 1e-12f));
     const float l[3] = {lv[0] / dist, lv[1] / dist, lv[2] / dist};
     const float ndotl = fmaxf(dot3(nf, l), 0.0f);
-    const float vis = r.vis ? r.vis[(s.n_dir + pi) * r.vis_stride] : 1.0f;
+    float vis = r.vis ? r.vis[(s.n_dir + pi) * r.vis_stride] : 1.0f;
+    if (s.soft_diff) {
+      const float lvo[3] = {lp[0] - p_off[0], lp[1] - p_off[1], lp[2] - p_off[2]};
+      const float dist_o = sqrtf(fmaxf(dot3(lvo, lvo), 1e-12f));
+      const float lo[3] = {lvo[0] / dist_o, lvo[1] / dist_o, lvo[2] / dist_o};
+      float q[3];
+      bool pass;
+      vis = vis * penumbra(s, p_off, lo, r.ts[(s.n_dir + pi) * r.vis_stride], q, &pass);
+    }
     const float falloff = ndotl * vis / fmaxf(dist2, 1e-8f);
     for (int c = 0; c < 3; ++c) rad[c] += P[s.off_lpcol + 3 * pi + c] * falloff;
   }
 
   // --- reverse: colour = albedo[mat] * radiance ---------------------------
-  float d_rad[3];
+  float d_rad[3], d_ao = 0.0f;
   for (int c = 0; c < 3; ++c) {
     acc[(s.off_alb + 3 * mat + c) * stride] += r.ct[c] * rad[c];
     d_rad[c] = r.ct[c] * alb[c];
-    acc[(s.off_amb + c) * stride] += d_rad[c];
+    acc[(s.off_amb + c) * stride] += d_rad[c] * ao;
+    d_ao += d_rad[c] * P[s.off_amb + c];
   }
+  // d_n, d_p: cotangents of the flipped normal nf and of p; d_poff: of p_off
   float d_n[3] = {0.0f, 0.0f, 0.0f}, d_p[3] = {0.0f, 0.0f, 0.0f};
+  float d_poff[3] = {0.0f, 0.0f, 0.0f};
   for (int li = 0; li < s.n_dir; ++li) {
     const float* lraw = P + s.off_ldir + 3 * li;
     const float ll = sqrtf(fmaxf(dot3(lraw, lraw), 1e-12f));
     const float l[3] = {lraw[0] / ll, lraw[1] / ll, lraw[2] / ll};
     const float raw = dot3(nf, l);
     const float ndotl = fmaxf(raw, 0.0f);
-    const float vis = r.vis ? r.vis[li * r.vis_stride] : 1.0f;
+    const float vs = r.vis ? r.vis[li * r.vis_stride] : 1.0f;
+    float vis = vs, ts = 0.0f, q[3];
+    bool pen_pass = false;
+    if (s.soft_diff) {
+      ts = r.ts[li * r.vis_stride];
+      vis = vs * penumbra(s, p_off, l, ts, q, &pen_pass);
+    }
     float d_term = 0.0f;
     for (int c = 0; c < 3; ++c) {
       acc[(s.off_lcol + 3 * li + c) * stride] += d_rad[c] * (ndotl * vis);
       d_term += d_rad[c] * P[s.off_lcol + 3 * li + c];
     }
+    float d_l[3] = {0.0f, 0.0f, 0.0f};
     if (raw >= 0.0f) {
       const float d_raw = d_term * vis;
-      float d_l[3], d_lraw[3];
       for (int k = 0; k < 3; ++k) {
         d_n[k] += d_raw * l[k];
         d_l[k] = d_raw * nf[k];
       }
+    }
+    if (pen_pass) {  // vis = vs * clip(soft_k * DE(p_off + ts l) / max(ts, bias))
+      const float d_pen = d_term * ndotl * vs;
+      float d_q[3] = {0.0f, 0.0f, 0.0f};
+      de_adj_add(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      for (int k = 0; k < 3; ++k) {
+        d_poff[k] += d_q[k];
+        d_l[k] += ts * d_q[k];
+      }
+    }
+    if (raw >= 0.0f || pen_pass) {
+      float d_lraw[3];
       normalize_adj(lraw, d_l, d_lraw);
       for (int k = 0; k < 3; ++k) acc[(s.off_ldir + 3 * li + k) * stride] += d_lraw[k];
     }
@@ -251,7 +366,16 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     const float l[3] = {lv[0] / dist, lv[1] / dist, lv[2] / dist};
     const float raw = dot3(nf, l);
     const float ndotl = fmaxf(raw, 0.0f);
-    const float vis = r.vis ? r.vis[(s.n_dir + pi) * r.vis_stride] : 1.0f;
+    const float vs = r.vis ? r.vis[(s.n_dir + pi) * r.vis_stride] : 1.0f;
+    float vis = vs, ts = 0.0f, q[3], lvo[3], lo[3];
+    bool pen_pass = false;
+    if (s.soft_diff) {
+      for (int k = 0; k < 3; ++k) lvo[k] = lp[k] - p_off[k];
+      const float dist_o = sqrtf(fmaxf(dot3(lvo, lvo), 1e-12f));
+      for (int k = 0; k < 3; ++k) lo[k] = lvo[k] / dist_o;
+      ts = r.ts[(s.n_dir + pi) * r.vis_stride];
+      vis = vs * penumbra(s, p_off, lo, ts, q, &pen_pass);
+    }
     const float den = fmaxf(dist2, 1e-8f);
     const float falloff = ndotl * vis / den;
     float d_f = 0.0f;
@@ -274,6 +398,41 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
       const float d_lv = d_l[k] / dist + 2.0f * lv[k] * d_dist2;
       acc[(s.off_lpos + 3 * pi + k) * stride] += d_lv;
       d_p[k] -= d_lv;
+    }
+    if (pen_pass) {  // the penumbra along lo = normalize(lpos - p_off)
+      const float d_pen = d_f / den * ndotl * vs;
+      float d_q[3] = {0.0f, 0.0f, 0.0f}, d_lo[3], d_lvo[3];
+      de_adj_add(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      for (int k = 0; k < 3; ++k) {
+        d_poff[k] += d_q[k];
+        d_lo[k] = ts * d_q[k];
+      }
+      normalize_adj(lvo, d_lo, d_lvo);
+      for (int k = 0; k < 3; ++k) {
+        acc[(s.off_lpos + 3 * pi + k) * stride] += d_lvo[k];
+        d_poff[k] -= d_lvo[k];
+      }
+    }
+  }
+  for (int k = 0; k < 3; ++k) {  // p_off = p + bias * nf
+    d_p[k] += d_poff[k];
+    d_n[k] += s.bias * d_poff[k];
+  }
+  if (ao_pass) {  // each tap's DE pulled back into p, nf and its primitive
+    const float d_occ = -(s.ao_strength * d_ao);
+    double w = 1.0;
+    for (int i = 0; i < kAoTaps; ++i) {
+      if (tap_sdf[i]) {
+        const float h = static_cast<float>(s.ao_step * (i + 1));
+        const float q[3] = {p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]};
+        float d_q[3] = {0.0f, 0.0f, 0.0f};
+        de_adj_add(s, q, -(static_cast<float>(w) * d_occ), acc, stride, d_q);
+        for (int k = 0; k < 3; ++k) {
+          d_p[k] += d_q[k];
+          d_n[k] += h * d_q[k];
+        }
+      }
+      w *= 0.7;
     }
   }
   for (int k = 0; k < 3; ++k) d_n[k] *= flip;  // cotangent of the unflipped n
@@ -360,7 +519,8 @@ __global__ void shade_bwd_kernel(
     const float* __restrict__ corners, const float* __restrict__ t_bar,
     const uint8_t* __restrict__ hs, const uint8_t* __restrict__ hm,
     const uint8_t* __restrict__ closer, const int* __restrict__ mat,
-    const float* __restrict__ vis, const float* __restrict__ ct, int n,
+    const float* __restrict__ vis, const float* __restrict__ ts,
+    const float* __restrict__ ao_tmesh, const float* __restrict__ ct, int n,
     float* __restrict__ d_o, float* __restrict__ d_d,
     float* __restrict__ d_corners, float* __restrict__ partials) {
   extern __shared__ float acc[];  // [n_par][kStride]: column tid is ray tid's
@@ -369,7 +529,7 @@ __global__ void shade_bwd_kernel(
   const int i = blockIdx.x * kThreads + tid;
   if (i < n) {
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, hs, hm,
-                                     closer, mat, vis, ct);
+                                     closer, mat, vis, ts, ao_tmesh, ct);
     float go[3], gd[3], gc[9];
     tr::shade_bwd_ray(s, r, acc + tid, kStride, go, gd, gc);
     for (int k = 0; k < 3; ++k) {
@@ -406,18 +566,20 @@ extern "C" int tr_shade_bwd_threads() { return kThreads; }
 extern "C" int tr_shade_bwd(
     const float* o, const float* d, const float* corners, const float* t_bar,
     const uint8_t* hs, const uint8_t* hm, const uint8_t* closer,
-    const int* mat, const float* vis, const float* ct, int n,
-    const float* small, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
-    float* d_o, float* d_d, float* d_corners, float* partials,
-    int n_partial_rows, float* d_small, void* stream) {
-  const tr::ShadeParams s = tr::make_params(small, n_sph, n_pln, n_box, n_mb,
-                                           mb_iters, n_mat, n_dir, n_pos,
-                                           use_sdf, use_mesh);
+    const int* mat, const float* vis, const float* ts, const float* ao_tmesh,
+    const float* ct, int n, const float* small, int n_sph, int n_pln,
+    int n_box, int n_mb, int mb_iters, int n_mat, int n_dir, int n_pos,
+    int use_sdf, int use_mesh, int ao_sdf, int ao_mesh, int soft_diff,
+    double ao_step, float ao_strength, float soft_k, float bias, float* d_o,
+    float* d_d, float* d_corners, float* partials, int n_partial_rows,
+    float* d_small, void* stream) {
+  const tr::ShadeParams s = tr::make_params(
+      small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf,
+      use_mesh, ao_sdf, ao_mesh, soft_diff, ao_step, ao_strength, soft_k, bias);
   const int n_blocks = n > 0 ? (n + kThreads - 1) / kThreads : 0;
   const size_t smem = static_cast<size_t>(s.n_par) * kStride * sizeof(float);
   if (mb_iters > tr::kMaxMbIters || n_mat < 1 || smem > kMaxSmem ||
-      n_partial_rows != n_blocks)
+      n_partial_rows != n_blocks || (soft_diff && !ts) || (ao_mesh && !ao_tmesh))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_blocks > 0) {
@@ -428,8 +590,8 @@ extern "C" int tr_shade_bwd(
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     shade_bwd_kernel<<<n_blocks, kThreads, smem, st>>>(
-        s, o, d, corners, t_bar, hs, hm, closer, mat, vis, ct, n, d_o, d_d,
-        d_corners, partials);
+        s, o, d, corners, t_bar, hs, hm, closer, mat, vis, ts, ao_tmesh, ct, n,
+        d_o, d_d, d_corners, partials);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points (csrc/*.cu): each returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # o, d, n, params, n_sph, n_pln, n_box, n_mb, mb_iters, bounds, n_bounds,
@@ -45,14 +46,21 @@ _SIGNATURES = {
     # bounds, n_bounds, eps, t_far, steps, bias, vis, ts, stream
     "tr_shadow_hard": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
                        _F, _F, _I, _F, _P, _P, _P],
+    # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
+    # eps, t_far, steps, bias, soft_k, vis, ts, stream
+    "tr_shadow_soft": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                       _F, _F, _I, _F, _F, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers,
     # perm, perm_len, any_hit, t, tri, hit, stream
     "tr_intersect_packet": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
                             _P, _I, _I, _P, _P, _P, _P],
-    # o, d, corners, t_bar, hs, hm, closer, mat, vis, ct, n, small, n_sph,
-    # n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh,
-    # d_o, d_d, d_corners, partials, n_partial_rows, d_small, stream
-    "tr_shade_bwd": [_P] * 10 + [_I, _P] + [_I] * 10 + [_P] * 4 + [_I, _P, _P],
+    # o, d, corners, t_bar, hs, hm, closer, mat, vis, ts, ao_tmesh, ct, n,
+    # small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos,
+    # use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, ao_step, ao_strength,
+    # soft_k, bias, d_o, d_d, d_corners, partials, n_partial_rows, d_small,
+    # stream
+    "tr_shade_bwd": ([_P] * 12 + [_I, _P] + [_I] * 13 + [_D, _F, _F, _F]
+                     + [_P] * 4 + [_I, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],
 }

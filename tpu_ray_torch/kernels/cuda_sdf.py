@@ -1,14 +1,18 @@
-"""SDF march and hard-shadow march: CUDA kernels and their plain versions.
+"""SDF march and shadow marches: CUDA kernels and their plain versions.
 
 Counterpart of `tpu_ray/kernels/pallas_sdf.py` (`march_pallas`,
-`shadow_pallas` in hard mode). Kernels: `csrc/sdf_march.cu` over the device
-distance field `csrc/sdf.cuh`.
+`shadow_pallas` in hard and soft mode). Kernels: `csrc/sdf_march.cu` over
+the device distance field `csrc/sdf.cuh`.
 
-Dispatch follows the device: `march` / `shadow_hard` run `march_torch` /
-`shadow_hard_torch` on CPU tensors and launch the kernel on CUDA tensors,
-raising on what the kernel does not take (non-float32 or non-contiguous
-input, a generic-power Mandelbulb, an input that requires grad). Each
-kernel launch adds one to `LAUNCHES`.
+Dispatch follows the device: `march` / `shadow_hard` / `shadow_soft` run
+`march_torch` / `shadow_hard_torch` / `shadow_soft_torch` on CPU tensors and
+launch the kernel on CUDA tensors, raising on what the kernel does not take
+(non-float32 or non-contiguous input, a generic-power Mandelbulb, an input
+that requires grad). Each kernel launch adds one to `LAUNCHES`.
+
+The plain versions take an optional `visit(points, active)`, called once per
+march step with the step's sample points (R, 3) and the lanes that evaluate
+the distance field there: a way to count the work a march needs.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
 from tpu_ray_torch.sdf.primitives import SdfScene, sdf_bounding_spheres, sdf_distance
 
-LAUNCHES = {"march": 0, "shadow": 0}
+LAUNCHES = {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -37,7 +41,7 @@ def _bound_terms(bounds, o, d, inflate: float):
 
 
 def march_torch(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
-                t_far: float):
+                t_far: float, visit=None):
     """Sphere trace (R,3),(R,3) -> (t, hit, steps, tmin), the kernel's rule:
     `t += DE` until DE < eps, t >= t_far or max_steps; rays that miss every
     bounding sphere start at t_far (tmin stays t0)."""
@@ -56,7 +60,10 @@ def march_torch(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
         active = (~hit) & (t < t_far)
         if not bool(active.any()):
             break  # nothing changes once every ray is done
-        dist = sdf_distance(sdf, o + t[:, None] * d)
+        q = o + t[:, None] * d
+        if visit is not None:
+            visit(q, active)
+        dist = sdf_distance(sdf, q)
         closer = active & (dist < dmin)
         dmin = torch.where(closer, dist, dmin)
         tmin = torch.where(closer, t, tmin)
@@ -68,7 +75,7 @@ def march_torch(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
 
 
 def shadow_hard_torch(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
-                      steps: int, bias: float, t_far_rays=None):
+                      steps: int, bias: float, t_far_rays=None, visit=None):
     """0/1 visibility marching from p toward l_dir -> (vis, ts), both (R,).
 
     The step is max(DE, eps/2); a ray is blocked at DE < eps. Without planes
@@ -91,11 +98,48 @@ def shadow_hard_torch(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
         active = (~blocked) & (t < tf)
         if not bool(active.any()):
             break
-        dd = sdf_distance(sdf, p + t[:, None] * l_dir)
+        q = p + t[:, None] * l_dir
+        if visit is not None:
+            visit(q, active)
+        dd = sdf_distance(sdf, q)
         blocked = blocked | (active & (dd < eps))
         t = torch.where(active, t + torch.clamp_min(dd, eps * 0.5), t)
     vis = 1.0 - blocked.to(p.dtype)
     return vis, torch.full_like(vis, float(bias))
+
+
+def shadow_soft_torch(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
+                      steps: int, bias: float, soft_k: float, t_far_rays=None,
+                      visit=None):
+    """Penumbra visibility marching from p toward l_dir -> (vis, ts), both (R,).
+
+    The classic distance-field soft shadow: s = min over the march of
+    soft_k * DE / max(t, bias), starting at 1; the step is DE clipped to
+    [eps/2, 0.4]; no bound clamp (the penumbra darkens rays that pass near a
+    primitive without entering its bound). vis = clip(s, 0, 1); ts is the t
+    of the first step that attained the min (bias when none went below 1),
+    so clip(soft_k * DE(p + ts l) / max(ts, bias), 0, 1) recomputes vis from
+    one DE. t_far_rays: optional per-ray cutoff."""
+    R = p.shape[0]
+    tf = (torch.full((R,), float(t_far), dtype=p.dtype, device=p.device)
+          if t_far_rays is None else t_far_rays)
+    t = torch.full((R,), float(bias), dtype=p.dtype, device=p.device)
+    s = torch.ones_like(t)
+    ts = t.clone()
+    for _ in range(steps):
+        active = t < tf
+        if not bool(active.any()):
+            break  # nothing changes once every ray is past its cutoff
+        q = p + t[:, None] * l_dir
+        if visit is not None:
+            visit(q, active)
+        dd = sdf_distance(sdf, q)
+        s_new = soft_k * dd / torch.clamp_min(t, bias)
+        better = active & (s_new < s)
+        ts = torch.where(better, t, ts)
+        s = torch.where(better, s_new, s)
+        t = torch.where(active, t + torch.clamp(dd, eps * 0.5, 0.4), t)
+    return torch.clamp(s, 0.0, 1.0), ts
 
 
 # ---------------------------------------------------------------------------
@@ -183,5 +227,30 @@ def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
             float(eps), float(t_far), int(steps), float(bias),
             vis.data_ptr(), ts.data_ptr(), _stream(dev))
     check_launch("shadow_hard", rc)
-    LAUNCHES["shadow"] += 1
+    LAUNCHES["shadow_hard"] += 1
+    return vis, ts
+
+
+def shadow_soft(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
+                steps: int, bias: float, soft_k: float, t_far_rays=None):
+    """Soft-shadow visibility and its argmin t -> (vis, ts); see
+    shadow_soft_torch."""
+    if p.device.type == "cpu":
+        return shadow_soft_torch(sdf, p, l_dir, eps=eps, t_far=t_far, steps=steps,
+                                 bias=bias, soft_k=soft_k, t_far_rays=t_far_rays)
+    params, counts, _ = _sdf_args(sdf)
+    check_cuda_inputs("shadow_soft", p, l_dir, t_far_rays, params)
+    R = p.shape[0]
+    dev = p.device
+    vis = torch.empty(R, dtype=torch.float32, device=dev)
+    ts = torch.empty(R, dtype=torch.float32, device=dev)
+    lib = kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.tr_shadow_soft(
+            p.data_ptr(), l_dir.data_ptr(), _ptr(t_far_rays), R,
+            params.data_ptr(), *counts, float(eps), float(t_far), int(steps),
+            float(bias), float(soft_k), vis.data_ptr(), ts.data_ptr(),
+            _stream(dev))
+    check_launch("shadow_soft", rc)
+    LAUNCHES["shadow_soft"] += 1
     return vis, ts

@@ -8,15 +8,17 @@ distance field's adjoint `csrc/sdf_adj.cuh`.
 `ShadeFn` takes the scene's shade leaves (SHADE_PATHS), the rays o, d and
 the selected triangles' corners. Its forward is the plain shade, as the
 reference's default forward rule is; it saves only compact residuals: o, d,
-the march t and hit masks, the shadow visibility, the hit material and the
-mixed closest-select mask, and the corners. Its backward is `shade_bwd`.
+the march t and hit masks, the shadow visibility and the soft march's
+argmin t, the AO's mesh distance, the hit material and the mixed
+closest-select mask, and the corners. Its backward is `shade_bwd`.
 
 Dispatch follows the device: `shade_bwd` runs `shade_bwd_torch` (autograd
 of the plain shade) on CPU tensors and launches the kernel on CUDA tensors,
 raising on what the kernel does not take. Each kernel launch adds one to
 `LAUNCHES["shade_bwd"]`. The chains the kernel takes: methods sdf, mesh_*
-and mixed, directional and point lights, hard or no shadows, a power-8
-Mandelbulb of at most 16 iterations, float32.
+and mixed, directional and point lights, static shadow visibility (hard,
+soft or none), the soft-shadow penumbra with `diff_vis`, the 5-tap AO, a
+power-8 Mandelbulb of at most 16 iterations, float32. Not the silhouettes.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ SHADE_PATHS = tuple(f"sdf.{f}" for f in FLOAT_FIELDS) + (
     "bg_top", "bg_bottom", "lights.position", "lights.pos_color")
 _SMALL_PATHS = SHADE_PATHS[len(FLOAT_FIELDS):]
 # the residuals the backward keeps (the geometry pass's hit state is not)
-_SAVED_RES = ("sdf_t", "sdf_hit", "mesh_tri", "mesh_hit", "sh_vis")
+_SAVED_RES = ("sdf_t", "sdf_hit", "mesh_tri", "mesh_hit", "sh_vis", "sh_ts",
+              "ao_tmesh")
 _MAX_MB_ITERS = 16  # kMaxMbIters in csrc/sdf_adj.cuh
 
 
@@ -61,24 +64,25 @@ def kernel_spec(scene, cfg, method: str):
     lights = scene.lights
     spec = {"use_sdf": use_sdf, "use_mesh": use_mesh,
             "mixed": use_sdf and use_mesh, "n_dir": lights.direction.shape[0],
-            "n_pos": lights.position.shape[0]}
+            "n_pos": lights.position.shape[0],
+            # the AO's SDF term runs whenever the scene has an SDF, its mesh
+            # term when the traced method includes the mesh (render.make_ao)
+            "ao_sdf": cfg.ao == "sdf5" and scene.has_sdf,
+            "ao_mesh": cfg.ao == "sdf5" and use_mesh,
+            "soft_diff": cfg.shadow == "soft" and cfg.diff_vis and use_sdf}
     sdf = scene.sdf
     why = None
     if not (use_sdf or use_mesh):
         why = f"method {method!r} on a scene without its geometry"
     elif method == "mixed" and not spec["mixed"]:
         why = "method 'mixed' without both an SDF and a mesh"
-    elif cfg.ao != "none":
-        why = f"ao={cfg.ao!r}"
-    elif cfg.shadow == "soft" and cfg.diff_vis and use_sdf:
-        why = "soft shadows with diff_vis"
     elif cfg.soft_silhouette > 0.0:
         why = "soft_silhouette > 0"
     elif cfg.mesh_silhouette > 0.0:
         why = "mesh_silhouette > 0"
     elif spec["n_dir"] + spec["n_pos"] == 0:
         why = "a scene without lights"
-    elif use_sdf and sdf.mb_center.shape[0] and not (
+    elif (use_sdf or spec["ao_sdf"]) and sdf.mb_center.shape[0] and not (
             sdf.mb_pow8 and sdf.mb_iters <= _MAX_MB_ITERS):
         why = f"a Mandelbulb other than power 8 with <= {_MAX_MB_ITERS} iterations"
     elif scene.camera.origin.dtype != torch.float32:
@@ -191,6 +195,26 @@ def shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method: str) -> dict:
     return result
 
 
+def ill_conditioned_rays(scene, cfg, o, d, res, corners, ct, method: str):
+    """(R,) bool: the rays on which shade_bwd_torch in float32 is itself off
+    by more than 1e-3, the parity checks' per-ray bound, in d_o or d_d from
+    the same computation in float64 on the same inputs. Where the AO taps
+    or the penumbra read the Mandelbulb near its surface, float32 rounding
+    alone moves a ray's cotangents that far: no float32 version has an
+    answer there to agree on, so the parity checks set such rays apart. The
+    kernel takes no part in picking them."""
+    def f64(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+    scene64 = apply_params(scene, {p: f64(get_param(scene, p)) for p in SHADE_PATHS})
+    res64 = {k: f64(v) for k, v in res.items() if k != "hits"}
+    g32 = shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
+    g64 = shade_bwd_torch(scene64, cfg, f64(o), f64(d), res64, f64(corners), f64(ct), method)
+    rel = [(g32[k].double() - g64[k]).norm(dim=1) / g64[k].norm(dim=1).clamp_min(1e-300)
+           for k in ("o", "d")]
+    return torch.maximum(*rel) > 1e-3
+
+
 # ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
@@ -259,12 +283,17 @@ def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str) -> dict:
     hm = res["mesh_hit"] if spec["use_mesh"] else None
     closer = aux.get("closer") if spec["mixed"] else None
     vis = res.get("sh_vis")
+    ts = res["sh_ts"] if spec["soft_diff"] else None
+    t_mesh = res["ao_tmesh"] if spec["ao_mesh"] else None
     n_lights = spec["n_dir"] + spec["n_pos"]
-    if vis is not None and tuple(vis.shape) != (n_lights, R):
-        raise ValueError(f"shade_bwd: sh_vis must be ({n_lights}, {R})")
+    for name, rows in (("sh_vis", vis), ("sh_ts", ts)):
+        if rows is not None and tuple(rows.shape) != (n_lights, R):
+            raise ValueError(f"shade_bwd: {name} must be ({n_lights}, {R})")
+    if t_mesh is not None and tuple(t_mesh.shape) != (R,):
+        raise ValueError(f"shade_bwd: ao_tmesh must be ({R},)")
     if spec["use_mesh"] and (corners is None or tuple(corners.shape) != (R, 9)):
         raise ValueError("shade_bwd: a mesh chain needs the (R, 9) corners")
-    check_cuda_inputs("shade_bwd", o, d, corners, t_bar, vis, ct, small)
+    check_cuda_inputs("shade_bwd", o, d, corners, t_bar, vis, ts, t_mesh, ct, small)
     _check_masks("shade_bwd", hs, hm, closer, aux["mat"])
     lib = kernel_lib()
     threads = lib.tr_shade_bwd_threads()
@@ -279,12 +308,15 @@ def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str) -> dict:
     with torch.cuda.device(dev):
         rc = lib.tr_shade_bwd(
             o.data_ptr(), d.data_ptr(), _ptr(corners), _ptr(t_bar), _ptr(hs),
-            _ptr(hm), _ptr(closer), aux["mat"].data_ptr(), _ptr(vis),
-            ct.data_ptr(), R, small.data_ptr(), sdf.sph_center.shape[0],
-            sdf.pln_normal.shape[0], sdf.box_center.shape[0],
-            sdf.mb_center.shape[0], int(sdf.mb_iters),
+            _ptr(hm), _ptr(closer), aux["mat"].data_ptr(), _ptr(vis), _ptr(ts),
+            _ptr(t_mesh), ct.data_ptr(), R, small.data_ptr(),
+            sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
+            sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
             scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
-            int(spec["use_sdf"]), int(spec["use_mesh"]), d_o.data_ptr(),
+            *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
+                                     "soft_diff")),
+            float(cfg.ao_step), float(cfg.ao_strength), float(cfg.soft_k),
+            float(cfg.shadow_bias), d_o.data_ptr(),
             d_d.data_ptr(), _ptr(d_c), partials.data_ptr(), n_rows,
             d_small.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("shade_bwd", rc)

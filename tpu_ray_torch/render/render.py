@@ -4,18 +4,21 @@ spp mean, over blocks of samples in Morton 8x8 pixel order.
 Counterpart of `tpu_ray/render/render.py`. The geometry pass
 (`geometry_residuals`) runs under `torch.no_grad()` and goes through the
 kernel wrappers: the primary SDF march (`cuda_sdf.march`), the mesh closest
-hit seeded with the SDF hit t and the mesh any-hit for shadow rays
-(`cuda_mt.intersect_packet`), and the hard SDF shadow march
-(`cuda_sdf.shadow_hard`). It emits compact per-ray residuals; the shade
-rebuilds hit state from them (SDF hit t by the IFT attach, normal by
+hit seeded with the SDF hit t, the mesh any-hit for shadow rays and the
+mesh term of the AO taps (`cuda_mt.intersect_packet`), and the hard or soft
+SDF shadow march (`cuda_sdf.shadow_hard`; `cuda_sdf.shadow_soft` through
+`shading.sdf_soft_shadow_argmin`). It emits compact per-ray residuals; the
+shade rebuilds hit state from them (SDF hit t by the IFT attach, normal by
 autograd of the distance field, mesh hit by re-solving the selected
-triangle) and shades with the static shadow visibility.
+triangle) and shades with the static shadow visibility or, with `diff_vis`
+soft shadows, the penumbra recomputed from one DE at the march's argmin t,
+and the 5-tap distance-field AO.
 
 Gradients: ray generation runs inside autograd, so the camera gets its
 gradient; the shade of a block is one `cuda_shade.ShadeFn`, whose backward
 is the fused shade-backward kernel on a CUDA device.
 
-Not ported yet: soft shadows, ambient occlusion and jittered sampling.
+Not ported yet: jittered sampling.
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.shadow not in ("none", "hard"):
-        raise NotImplementedError(f"shadow={cfg.shadow!r} is not ported yet")
-    if cfg.ao != "none":
-        raise NotImplementedError(f"ao={cfg.ao!r} is not ported yet")
+    if cfg.shadow not in ("none", "hard", "soft"):
+        raise ValueError(f"unknown shadow mode {cfg.shadow!r}")
+    if cfg.ao not in ("none", "sdf5"):
+        raise ValueError(f"unknown ao mode {cfg.ao!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +148,20 @@ def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str,
         return cuda_mt.intersect_packet(scene.packet, p, d, t_max=t_max,
                                         any_hit=True, t_init=t_init).hit
     return mt.any_hit_brute(scene.mesh, p, d, t_max=t_max)
+
+
+def _mesh_closest_t(scene: Scene, o, d, t_max: float):
+    """Closest mesh hit distance along per-ray dirs within t_max (BIG on a
+    miss): the mesh term of the AO taps (make_ao)."""
+    if scene.packet is not None:
+        return cuda_mt.intersect_packet(scene.packet, o, d, t_max=t_max).t
+    res = mt.intersect_brute(scene.mesh, o, d, t_max=t_max)
+    return torch.where(res.hit, res.t, torch.full_like(res.t, BIG))
+
+
+def _soft_diff(scene: Scene, cfg: RenderConfig, method: str) -> bool:
+    """Whether the shade recomputes the soft-shadow penumbra with gradients."""
+    return cfg.shadow == "soft" and cfg.diff_vis and _use_sdf(scene, method)
 
 
 def _sdf_from_res(scene: Scene, cfg: RenderConfig, o, d, res, lite=False):
@@ -244,9 +261,10 @@ def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
                        mesh_rows=None, aux_out=None):
     """Hit state and shadow-ray origins from the primary residuals ->
-    (hits, p_off, live): the reconstructed (t, hit, p, n, mat, cov), the hit
-    points offset along the ray-facing normal, and the lanes whose shadows
-    can reach the image (None with soft silhouettes, where every lane may).
+    (hits, p_off, n, live): the reconstructed (t, hit, p, n, mat, cov), the
+    hit points offset along the ray-facing normal, that normal, and the lanes
+    whose shadows can reach the image (None with soft silhouettes, where
+    every lane may).
 
     Without soft silhouettes a miss lane's shadow never reaches the image
     and o + BIG*d is a garbage origin: such lanes are parked at the camera,
@@ -261,7 +279,7 @@ def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
     if cfg.soft_silhouette <= 0.0:
         live = hit_any
         p_off = torch.where(hit_any[..., None], p_off, o)
-    return hits, p_off, live
+    return hits, p_off, n, live
 
 
 @torch.no_grad()
@@ -271,8 +289,14 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
 
       sdf_t, sdf_hit, sdf_tmin   primary march (when the SDF is traced)
       mesh_tri, mesh_hit         mesh closest hit (when the mesh is traced)
-      sh_vis (L, R)              shadow visibility per light: hard SDF
-                                 march x mesh any-hit
+      sh_vis (L, R)              shadow visibility per light: the hard
+                                 or soft SDF march (unless its penumbra is
+                                 recomputed in the shade) x mesh any-hit
+      sh_ts (L, R)               the soft march's argmin t per light (soft
+                                 shadows with diff_vis)
+      ao_tmesh                   closest mesh hit along the shade normal
+                                 within the AO taps' reach, from p (AO with
+                                 a traced mesh)
       hit_mat, hit_closer        the hit material id and (mixed) the
                                  closest-select mask, residuals of the
                                  fused shade backward (with shadows)
@@ -297,33 +321,51 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     if _use_mesh(scene, method):
         res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(
             scene, cfg, o, d, method, t_init=t_seed)
-    if cfg.shadow == "none":
+    ao_mesh = cfg.ao == "sdf5" and _use_mesh(scene, method)
+    if cfg.shadow == "none" and not ao_mesh:
         return res
 
     aux = {}
-    hits, p_off, live = shadow_ray_origins(scene, cfg, o, d, res, method,
-                                           mesh_rows=mesh_rows, aux_out=aux)
+    hits, p_off, n, live = shadow_ray_origins(scene, cfg, o, d, res, method,
+                                              mesh_rows=mesh_rows, aux_out=aux)
     res["hit_mat"] = aux["mat"]
     if "closer" in aux:
         res["hit_closer"] = aux["closer"]
     if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
         res["hits"] = hits
     p = hits[2]
+    if ao_mesh:
+        # the mesh term of the AO taps: the closest hit along the shade
+        # normal within the taps' reach, measured from p
+        cut = 5.0 * cfg.ao_step + cfg.shadow_bias
+        res["ao_tmesh"] = _mesh_closest_t(scene, p_off, n, cut) + cfg.shadow_bias
+    if cfg.shadow == "none":
+        return res
+    soft = cfg.shadow == "soft"
+    soft_diff = _soft_diff(scene, cfg, method)
 
     def one_light(l_dir, t_far_rays, mesh_dir, mesh_tmax):
         vis = torch.ones_like(p_off[:, 0])
+        ts = torch.full_like(vis, cfg.shadow_bias)
         if live is not None:
             base = cfg.t_far if t_far_rays is None else t_far_rays
             t_far_rays = torch.where(live, base, 0.0).to(p.dtype)
         if _use_sdf(scene, method):
-            v, _ts = cuda_sdf.shadow_hard(
-                scene.sdf, p_off, l_dir, eps=cfg.eps, t_far=cfg.t_far,
-                steps=cfg.shadow_steps, bias=cfg.shadow_bias,
-                t_far_rays=t_far_rays)
-            vis = vis * v
+            if soft:
+                v, ts_m = shading.sdf_soft_shadow_argmin(scene.sdf, p_off, l_dir, cfg,
+                                                         t_far_rays)
+            else:
+                v, ts_m = cuda_sdf.shadow_hard(
+                    scene.sdf, p_off, l_dir, eps=cfg.eps, t_far=cfg.t_far,
+                    steps=cfg.shadow_steps, bias=cfg.shadow_bias,
+                    t_far_rays=t_far_rays)
+            if soft_diff:
+                ts = ts_m  # the shade recomputes the penumbra from it
+            else:
+                vis = vis * v
         if _use_mesh(scene, method):
             dead = None
-            if _use_sdf(scene, method):
+            if _use_sdf(scene, method) and not soft:
                 dead = vis <= 0.0  # the SDF march already blocked these
             if live is not None:
                 dead = ~live if dead is None else (dead | ~live)
@@ -332,28 +374,57 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
             blocked = _mesh_any_hit(scene, cfg, p_off, mesh_dir, mesh_tmax,
                                     method, t_init=seed)
             vis = vis * (1.0 - blocked.to(p.dtype))
-        return vis
+        return vis, ts
 
-    vis_rows = []
+    rows = []
     for li in range(scene.lights.direction.shape[0]):
         l_dir = normalize(scene.lights.direction[li]).expand_as(p_off).contiguous()
-        vis_rows.append(one_light(l_dir, None, l_dir, cfg.t_far))
+        rows.append(one_light(l_dir, None, l_dir, cfg.t_far))
     for pi in range(scene.lights.position.shape[0]):
         # point light: march clamped at the light distance; the mesh any-hit
         # takes the unnormalized segment with t_max = 1 (MT is scale-free)
         lvec = scene.lights.position[pi] - p_off
         dist = torch.sqrt(torch.clamp_min(dot(lvec, lvec), 1e-12))
-        vis_rows.append(one_light((lvec / dist[..., None]).contiguous(), dist,
-                                  lvec.contiguous(), 1.0))
-    res["sh_vis"] = torch.stack(vis_rows)
+        rows.append(one_light((lvec / dist[..., None]).contiguous(), dist,
+                              lvec.contiguous(), 1.0))
+    res["sh_vis"] = torch.stack([v for v, _ in rows])
+    if soft_diff:
+        res["sh_ts"] = torch.stack([t for _, t in rows])
     return res
 
 
-def make_residual_occluder(cfg: RenderConfig, res):
-    """Shadow callback for shade(): the geometry pass's static visibility."""
+def make_residual_occluder(scene: Scene, cfg: RenderConfig, res, method: str):
+    """Shadow callback for shade(): the geometry pass's static visibility,
+    times, with diff_vis soft shadows, the penumbra recomputed from one DE
+    at the saved argmin t, clip(soft_k * DE / max(ts, bias), 0, 1): the
+    march's own min value, now with gradients."""
     if cfg.shadow == "none":
         return None
-    return lambda p, l_dir, li: res["sh_vis"][li]
+    soft_diff = _soft_diff(scene, cfg, method)
+
+    def occluder(p, l_dir, li):
+        vis = res["sh_vis"][li]
+        if soft_diff:
+            ts = res["sh_ts"][li]
+            dd = sdf_distance(scene.sdf, p + ts[..., None] * l_dir)
+            vis = vis * clamp01(cfg.soft_k * dd / torch.clamp_min(ts, cfg.shadow_bias))
+        return vis
+
+    return occluder
+
+
+def make_ao(scene: Scene, cfg: RenderConfig, res):
+    """5-tap distance-field AO callback for shade(), or None. Its SDF term
+    runs whenever the scene has an SDF (an SDF occludes whatever the traced
+    method); its mesh term when the geometry pass left `ao_tmesh`."""
+    if cfg.ao != "sdf5":
+        return None
+    t_mesh = res.get("ao_tmesh")
+    if not scene.has_sdf and t_mesh is None:
+        return None
+    sdf = scene.sdf if scene.has_sdf else None
+    return lambda p, n: shading.sdf_ambient_occlusion(sdf_distance, sdf, p, n, cfg,
+                                                      t_mesh=t_mesh)
 
 
 def mesh_table(mesh) -> torch.Tensor:
@@ -374,7 +445,8 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
                                 mesh_rows=mesh_rows, corners=corners)
     _t, hit, p, n, mat, cov = hits
     return shading.shade(scene, cfg, p, n, d, mat, hit,
-                         make_residual_occluder(cfg, res), None, coverage=cov)
+                         make_residual_occluder(scene, cfg, res, method),
+                         make_ao(scene, cfg, res), coverage=cov)
 
 
 def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,

@@ -27,7 +27,7 @@ _STATIC_FIELDS = {"mb_iters", "mb_pow8"}
 
 
 def scene_from_numpy(arrays: dict[str, np.ndarray], statics: dict,
-                     device="cpu", dtype=torch.float32) -> Scene:
+                     device="cuda", dtype=torch.float32) -> Scene:
     """arrays: every array field of the scene by dotted path; statics:
     `mb_iters`, `mb_pow8` and `num_tris`. Builds the packet accel when the
     mesh has triangles."""
@@ -57,7 +57,7 @@ def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def params_from_numpy(arrays: dict, device="cpu",
+def params_from_numpy(arrays: dict, device="cuda",
                       dtype=torch.float32) -> dict[str, torch.Tensor]:
     """{dotted path: array} -> {dotted path: tensor} on `device`."""
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)

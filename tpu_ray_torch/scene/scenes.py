@@ -4,13 +4,18 @@
     triangles  config 2: 10 triangles + ground quad, brute MT, hard shadows
     bunny      config 3: the ~70k-triangle knot on a ground quad, hard
                shadows, through the packet accel
-    mixed     config 5: a ~70k-triangle knot on a ground quad, a power-8
+    mandelbulb config 4: a power-8 Mandelbulb on a ground plane, 1024x1024
+               at 4 spp, soft shadows and 5-tap distance-field AO,
+               64k-ray blocks
+    pointlight a sphere and a rounded box on a plane, lit by a point light
+               with inverse-square falloff and soft shadows, 512x512
+    mixed      config 5: a ~70k-triangle knot on a ground quad, a power-8
                Mandelbulb and a sphere, 1920x1080 at 16 spp, hard shadows,
                32k-ray blocks; the mesh is walked through the packet accel
 
-Same parameters as the reference. The other scenes wait for their slices:
-the soft-shadow scenes mandelbulb (config 4) and pointlight, and the large
-meshes knot1m and knot8m.
+Same parameters as the reference. The large meshes knot1m and knot8m wait
+for their slice. Scenes are built on the CUDA device unless the caller
+names another.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ def scene_names():
     return sorted(_REGISTRY)
 
 
-def build_scene(name: str, device="cpu", dtype=torch.float32) -> Tuple[Scene, RenderConfig]:
+def build_scene(name: str, device="cuda", dtype=torch.float32) -> Tuple[Scene, RenderConfig]:
     return _REGISTRY[name](device=torch.device(device), dtype=dtype)
 
 
@@ -119,6 +124,66 @@ def bunny_scene(device, dtype):
                   albedos=[[0.82, 0.71, 0.55], [0.7, 0.73, 0.72]]).with_packet()
     cfg = RenderConfig(width=512, height=512, spp=1, method="mesh_grid",
                        shadow="hard", t_far=40.0)
+    return scene, cfg
+
+
+@register("mandelbulb")
+def mandelbulb_scene(device, dtype):
+    """BASELINE config 4: Mandelbulb DE, 4x supersampling, soft shadows + AO."""
+    f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    i = lambda v: torch.as_tensor(v, dtype=torch.int32, device=device)
+    sdf = SdfScene.empty(device, dtype).replace(
+        mb_center=f([[0.0, 1.1, 0.0]]),
+        mb_scale=f([1.0]),
+        mb_power=f([8.0]),
+        mb_mat=i([0]),
+        mb_pow8=True,  # power is exactly 8 -> trig-free DE
+        pln_normal=f([[0.0, 1.0, 0.0]]),
+        pln_offset=f([0.0]),
+        pln_mat=i([1]),
+    )
+    cam = Camera.make((0.0, 1.9, 3.2), (0.0, 1.0, 0.0), vfov_deg=45.0,
+                      device=device, dtype=dtype)
+    scene = _base(device, dtype, cam, sdf=sdf,
+                  albedos=[[0.85, 0.5, 0.3], [0.6, 0.62, 0.65]],
+                  light_dir=(0.5, 0.75, 0.45))
+    # diff_vis=False: the shadow penumbra is static; turn it on to fit
+    # through the soft-shadow factor
+    cfg = RenderConfig(width=1024, height=1024, spp=4, method="sdf",
+                       shadow="soft", ao="sdf5", max_steps=128, eps=6e-4,
+                       t_far=20.0, block_size=1 << 16, diff_vis=False)
+    return scene, cfg
+
+
+@register("pointlight")
+def pointlight_scene(device, dtype):
+    """A sphere and a rounded box on a plane, lit by one point light with
+    inverse-square falloff and soft shadows: per-ray shadow directions and
+    shadow marches cut at the light's distance."""
+    f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
+    i = lambda v: torch.as_tensor(v, dtype=torch.int32, device=device)
+    sdf = SdfScene.empty(device, dtype).replace(
+        sph_center=f([[-0.7, 0.6, 0.0]]),
+        sph_radius=f([0.6]),
+        sph_mat=i([0]),
+        box_center=f([[0.9, 0.45, -0.2]]),
+        box_half=f([[0.45, 0.45, 0.45]]),
+        box_round=f([0.08]),
+        box_mat=i([2]),
+        pln_normal=f([[0.0, 1.0, 0.0]]),
+        pln_offset=f([0.0]),
+        pln_mat=i([1]),
+    )
+    cam = Camera.make((0.0, 1.7, 4.2), (0.0, 0.6, 0.0), vfov_deg=45.0,
+                      device=device, dtype=dtype)
+    scene = _base(device, dtype, cam, sdf=sdf,
+                  albedos=[[0.85, 0.4, 0.3], [0.66, 0.68, 0.7], [0.3, 0.55, 0.85]])
+    scene = scene.replace(lights=Lights.make(
+        [[0.5, 0.8, 0.4]], [[0.25, 0.25, 0.25]], ambient=(0.06, 0.06, 0.07),
+        device=device, dtype=dtype, positions=[[1.3, 2.6, 1.4]],
+        pos_colors=[[6.0, 5.7, 5.2]]))
+    cfg = RenderConfig(width=512, height=512, spp=1, method="sdf",
+                       shadow="soft", t_far=30.0, diff_vis=False)
     return scene, cfg
 
 
