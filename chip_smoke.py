@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Two paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
-mesh) and the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
-fit step with diff_vis). Phases, each with its seconds (any failure exits
-non-zero and prints no result):
+Three paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
+mesh), the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
+fit step with diff_vis), and `mixed_sil`: `mixed` with the soft SDF
+silhouette and the mesh edge band (width 0.05 each), the silhouette-
+gradient path, with the README's two silhouette fits. Phases, each with
+its seconds (any failure exits non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills.
@@ -13,10 +15,14 @@ non-zero and prints no result):
      order (those holding the bulb, the sphere, the knot and the ground in
      front) and the shadow rays the geometry pass makes from them; each
      kernel against its plain PyTorch version on the card, with times and
-     bounds. The shade backward on the same rays and their residuals, with
-     a seeded cotangent: per parameter group, per ray, and bit equality of
-     two runs; again without shadows, which block every lane of the bulb's
-     block, and with the 5-tap AO (its Mandelbulb and mesh terms).
+     bounds. The shade forward on the same rays and residuals (per-ray
+     p99 < 1e-4, at most 0.1% over 1e-3), and the shade backward with a
+     seeded cotangent: per parameter group, per ray, and bit equality of
+     two runs; the backward again without shadows, which block every lane
+     of the bulb's block, and both with the 5-tap AO (its Mandelbulb and
+     mesh terms).
+  3b. content: the shade forward timed on all-sky, all-bulb and all-mesh
+     sets of 32,768 rays from those blocks.
   4. small frame: `mixed` at 320x180, 1 spp, kernel path against plain path:
      the image, and the gradient of mean(img**2) for the six trainables.
   5. the forward slice: `render_image` of `mixed` at 1920x1080, 16 spp,
@@ -29,19 +35,30 @@ non-zero and prints no result):
   8. `mandelbulb` parity: 2 blocks of its frame (the bulb's silhouette, the
      plane's penumbra): the march and the soft-shadow march against their
      plain versions, the soft march again on the `pointlight` frame's
-     shadow rays (cut at the light's distance), and the shade backward with
-     AO and the penumbra (diff_vis) against its plain version, again with
-     the point light's penumbra on the `pointlight` frame. Where the
-     backward reads the Mandelbulb through the AO or the penumbra, the
-     rays on which float32 rounding alone moves the plain version's
-     cotangents past the per-ray bound (found against its float64
-     evaluation, without the kernel) are set apart, at most 25% of them.
+     shadow rays (cut at the light's distance), the shade forward with AO,
+     without and with the penumbra, and the shade backward with AO and the
+     penumbra (diff_vis) against their plain versions, again with the
+     point light's penumbra on the `pointlight` frame. Where the shade
+     reads the Mandelbulb through the AO or the penumbra, the rays on which
+     float32 rounding alone moves the plain version past the per-ray bound
+     (found against its float64 evaluation, without the kernel) are set
+     apart, at most 25% of them.
   9. `mandelbulb` small frame: 256x256x1, kernel path against plain path,
      the image and the gradient of its five trainables, without and with
      diff_vis, both without the frame's ill-conditioned rays (phase 8).
  10. `mandelbulb` frame: 1024x1024x4 with launch counts; the PNG to build/.
  11. `mandelbulb` fit step with diff_vis: time, launch counts, memory,
      gradients.
+ 12. `mixed_sil` parity: phase 3's kernels on its 4 blocks (the march with
+     its bound cull padded, every lane's shadow ray) and both shade
+     kernels with the silhouettes.
+ 13. `mixed_sil` small frame (as phase 4), 14. its 1920x1080x16 frame (as
+     phase 5) and 15. its fit step (as phase 6): 1013 launches each of
+     `shade_fwd` and `shade_bwd`.
+ 16. the silhouette fits: `tpu_ray_torch.examples.inverse_rendering` at
+     256x256 (200 steps; the loss falls at least 10x) and
+     `inverse_pose.main_silhouette` at 96x96 (hard visibility stalls, the
+     mesh edge band brings |translate| from 0.1 below 0.01).
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work), the card's name and power limit, and the result
@@ -67,15 +84,22 @@ REPLACES = {
     "shadow_soft": "tpu_ray/kernels/pallas_sdf.py:328",  # soft mode, :393-415
     "packet_closest": "tpu_ray/kernels/pallas_mt.py:347",
     "packet_any_hit": "tpu_ray/kernels/pallas_mt.py:347",
+    "shade_fwd": "tpu_ray/kernels/pallas_shade.py:510",
     "shade_bwd": "tpu_ray/kernels/pallas_shade.py:591",
 }
 SOURCES = {"march": "sdf_march.cu", "shadow_hard": "sdf_march.cu",
            "shadow_soft": "sdf_march.cu", "packet_closest": "packet_mt.cu",
-           "packet_any_hit": "packet_mt.cu", "shade_bwd": "shade_bwd.cu"}
+           "packet_any_hit": "packet_mt.cu", "shade_fwd": "shade_fwd.cu",
+           "shade_bwd": "shade_bwd.cu"}
 # the kernels each path runs, forward then backward
 PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                          "shade_bwd"),
-                "mandelbulb": ("march", "shadow_soft", "shade_bwd")}
+                          "shade_fwd", "shade_bwd"),
+                "mandelbulb": ("march", "shadow_soft", "shade_fwd", "shade_bwd"),
+                "mixed_sil": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
+                              "shade_fwd", "shade_bwd")}
+# the silhouette-gradient path: `mixed` with both silhouettes (the README's
+# fit width; VERDICT.md:180-187)
+SILHOUETTES = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
 # the six trainables of the reference's backward bench (tpu_ray/bench_lib.py)
 TRAINABLES = ("sdf.sph_radius", "sdf.mb_scale", "camera.origin",
               "materials.albedo", "lights.color", "mesh.verts")
@@ -213,6 +237,10 @@ class StepWork:
 # world points whose blocks the parity phase takes: the bulb, the sphere and
 # the knot (their centres) and the ground in front of them
 PARITY_POINTS = ((1.4, 1.05, 0.0), (0.0, 0.55, -1.6), (-1.3, 0.82, 0.0), (0.0, 0.0, 2.0))
+# the silhouette path's: the bulb's top edge and the sky above it (the soft
+# band: elsewhere the ground stands behind every object), the sphere and
+# the knot
+SIL_POINTS = ((1.4, 1.9, 0.0), (1.4, 2.1, 0.0)) + PARITY_POINTS[1:3]
 
 
 def parity_blocks(scene, cfg, perm, points=PARITY_POINTS) -> list:
@@ -278,21 +306,22 @@ def block_rays(scene, cfg, points, tag):
     return generate_rays(scene.camera, fx[idx], fy[idx], cfg.width, cfg.height)
 
 
-def kernel_parity(scene, cfg, results):
+def kernel_parity(scene, cfg, results, points=PARITY_POINTS):
     """Phase 3: each kernel against its plain version on 4 blocks of the
-    frame's primary rays (parity_blocks) and the shadow rays the geometry
-    pass makes from them."""
+    frame's primary rays (parity_blocks, the blocks of the points) and the
+    shadow rays the geometry pass makes from them."""
     from tpu_ray_torch.core.math3d import normalize
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
 
-    o, d = block_rays(scene, cfg, PARITY_POINTS, "parity")
+    o, d = block_rays(scene, cfg, points, "parity")
     n = o.shape[0]
     sdf, packet = scene.sdf, scene.packet
 
-    # A: primary march
-    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far)
+    # A: primary march (with soft silhouettes its bound cull is padded)
+    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
+              bound_pad=R.SIL_REACH * cfg.soft_silhouette)
     tk, hk, _, mk = cuda_sdf.march(sdf, o, d, **kw)
     tp, hp, _, mp = cuda_sdf.march_torch(sdf, o, d, **kw)
     both = hk & hp
@@ -340,6 +369,8 @@ def kernel_parity(scene, cfg, results):
         _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "mixed",
                                                  mesh_rows=R.mesh_table(scene.mesh))
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
+    if live is None:  # soft silhouettes: every lane's shadow may reach the image
+        live = torch.ones_like(hk)
     t_far_rays = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
 
     # B: hard SDF shadow
@@ -388,24 +419,146 @@ def kernel_parity(scene, cfg, results):
     return o, d
 
 
-def shade_bwd_ops(scene, cfg, res, spec) -> float:
-    """The least operations of the shade backward on these rays: at each
-    hit point, one DE for its primitive, its adjoint and the Dual adjoint
-    for the normal (each at least one DE) on SDF-selected lanes; for each AO
-    tap and each penumbra, a DE, the argmin again and the adjoint (all
-    counted at the hit point's DE); ~300 for a mesh lane's re-solve; ~60 a
-    lane for the shading itself."""
-    t, hit, p = res["hits"][:3]
-    sel_sdf = res["sdf_hit"] & res.get("hit_closer", torch.ones_like(hit)) \
-        if spec["use_sdf"] else torch.zeros_like(hit)
-    per = de_ops(scene.sdf, p[hit]) if scene.has_sdf else torch.zeros(int(hit.sum()))
-    mult = (15.0 if spec["ao_sdf"] else 0.0) + (
-        3.0 * (spec["n_dir"] + spec["n_pos"]) if spec["soft_diff"] else 0.0)
-    ops = float(per.sum()) * mult
+def selection(scene, cfg, o, d, res, aux, spec, method):
+    """The shade kernels' per-ray branch (csrc/shade_chain.cuh
+    shade_surface): (sel_sdf, sel_mesh, p), p the selected hit point of the
+    values-only reconstruct. With soft silhouettes a lane that misses runs
+    the SDF chain at its closest approach."""
+    from tpu_ray_torch.render import render as R
+
+    R_ = o.shape[0]
+    no = torch.zeros(R_, dtype=torch.bool, device=o.device)
+    hs = res["sdf_hit"] if spec["use_sdf"] else no
+    hm = res["mesh_hit"] if spec["use_mesh"] else no
+    if spec["mixed"]:
+        closer = aux["closer"]
+        sel_sdf, sel_mesh = closer & (hs | spec["soft_sil"]), ~closer & hm
+    else:
+        sel_sdf, sel_mesh = hs | (spec["use_sdf"] and spec["soft_sil"]), hm
+    with torch.no_grad():
+        rows = R.mesh_table(scene.mesh) if spec["use_mesh"] else None
+        p = R.reconstruct_hits(scene, cfg, o, d, res, method, lite=True, mesh_rows=rows)[2]
+    return sel_sdf, sel_mesh, p
+
+
+def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float:
+    """The least operations of the shade kernels on these rays: on each
+    SDF-selected lane one DE for its primitive and the adjoint for the
+    normal (at least one DE more; the backward's IFT and Dual adjoints two
+    more); for each AO tap and each penumbra a DE (the backward: the argmin
+    again and the adjoint), each counted at the hit point's DE; ~150 for a
+    mesh lane's re-solve and edge band (~300 with the backward); ~40 a lane
+    for the shading itself (~60 with the backward)."""
+    sel_sdf, sel_mesh, p = selection(scene, cfg, o, d, res, aux, spec, method)
+    surf = sel_sdf | sel_mesh
+    per = de_ops(scene.sdf, p[surf]) if scene.has_sdf else torch.zeros(int(surf.sum()))
+    taps = (5.0 if spec["ao_sdf"] else 0.0) + (
+        float(spec["n_dir"] + spec["n_pos"]) if spec["soft_diff"] else 0.0)
+    ops = float(per.sum()) * taps * (3.0 if backward else 1.0)
     if spec["use_sdf"]:
-        ops += 4.0 * float(de_ops(scene.sdf, p[sel_sdf]).sum())
-    ops += 300.0 * float((hit & ~sel_sdf).sum()) + 60.0 * hit.shape[0]
-    return ops
+        ops += (4.0 if backward else 2.0) * float(de_ops(scene.sdf, p[sel_sdf]).sum())
+    ops += (300.0 if backward else 150.0) * float(sel_mesh.sum())
+    return ops + (60.0 if backward else 40.0) * o.shape[0]
+
+
+def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
+    """Phases 3 and 8 (and the silhouette path's parity), shade forward: the
+    kernel against shade_fwd_torch on the parity rays and their geometry
+    residuals. Gates on the per-ray error (the largest channel difference):
+    its 99th percentile < 1e-4 and at most 0.1% of the rays over 1e-3.
+    Where the AO taps or the penumbra read the Mandelbulb, the rays whose
+    float32 plain forward leaves its float64 evaluation by more than 1e-4
+    (cuda_shade.ill_conditioned_colors, without the kernel), at most
+    ILL_SHARE_MAX of them, are set apart. With results, also the times and
+    the bound (bytes of the residuals in and the colours out; shade_ops)."""
+    from tpu_ray_torch.kernels import cuda_shade
+    from tpu_ray_torch.render import render as R
+
+    tag = (f"shade_fwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
+           f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette}")
+    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
+    with torch.no_grad():
+        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
+    corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
+               if rows is not None else None)
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
+    spec = cuda_shade.kernel_spec(scene, cfg, method)
+
+    def kernel():
+        return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
+
+    def plain():
+        return cuda_shade.shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners)
+
+    k1, k2, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err = (k1 - ref).abs().amax(1)
+    keep = torch.ones_like(err, dtype=torch.bool)
+    ok = bool(torch.isfinite(k1).all())
+    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
+    log(tag, f"{o.shape[0]} rays: SDF selected {sel_sdf.float().mean().item():.4f}, mesh "
+        f"selected {sel_mesh.float().mean().item():.4f}, sky "
+        f"{(~(sel_sdf | sel_mesh)).float().mean().item():.4f}")
+    if scene.sdf.mb_center.shape[0] and (spec["ao_sdf"] or spec["soft_diff"]):
+        ill = cuda_shade.ill_conditioned_colors(scene, cfg, o, d, res, corners, method)
+        share = float(ill.float().mean())
+        ok &= share <= ILL_SHARE_MAX
+        keep = ~ill
+        log(tag, f"ill-conditioned rays (plain float32 against float64, per-ray |dc| > "
+            f"1e-4): {int(ill.sum())}, share {share:.5f} (at most {ILL_SHARE_MAX}); "
+            f"kernel against plain over 1e-4 on {int((err > 1e-4).sum())} rays, "
+            f"{int(((err > 1e-4) & ~ill).sum())} of them outside that set")
+    kept = err[keep].double()
+    p99 = float(torch.quantile(kept, 0.99)) if kept.numel() else 0.0
+    over = float((kept > 1e-3).float().mean()) if kept.numel() else 0.0
+    good = p99 < 1e-4 and over <= 1e-3
+    ok &= good
+    log(tag, f"per-ray |kernel - plain|: p50 {float(kept.median()):.3e} p99 {p99:.3e} max "
+        f"{_max(kept):.3e}, over 1e-3 {over:.6f} ({'ok' if good else 'FAIL'}, p99 < 1e-4, "
+        f"<= 0.1% over 1e-3); on all rays max {_max(err):.3e}; two kernel runs "
+        f"bit-identical {torch.equal(k1, k2)}")
+    check(ok and torch.equal(k1, k2), f"{tag} parity")
+    if results is not None:
+        _, small, ins, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+        results[key] = dict(max_abs_err=_max(err), ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
+                            **bound(nbytes(*ins, small, k1), shade_ops(scene, cfg, o, d, res, aux,
+                                                                spec, method, False)))
+        log(tag, f"kernel {results[key]['ms']:.3f} ms, plain {results[key]['plain_ms']:.3f} ms, "
+            f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
+    return res, aux, corners, (sel_sdf, sel_mesh)
+
+
+def content_classes(scene, cfg, o, d, n=32768):
+    """The shade forward on all-sky, all-Mandelbulb and all-mesh ray sets of
+    n rays each (the counterpart of tools/profile_shade_kernel.py), taken by
+    the kernel's own branch from the `mixed` parity rays and the frame's top
+    two pixel rows (sky; the parity blocks hit the ground everywhere):
+    kernel ms and ns a ray."""
+    from tpu_ray_torch.kernels import cuda_shade
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+
+    sx, sy = R.pixel_sample_coords(cfg, o.device)
+    to, td = generate_rays(scene.camera, sx[:2].reshape(-1), sy[:2].reshape(-1), cfg.width,
+                           cfg.height)
+    o, d = torch.cat([o, to]), torch.cat([d, td])
+    res, aux, corners, (sel_sdf, sel_mesh) = shade_fwd_parity(scene, cfg, o, d, "mixed")
+    bulb = sel_sdf & (aux["mat"] == int(scene.sdf.mb_mat[0]))
+    out = {}
+    for name, mask in (("sky", ~(sel_sdf | sel_mesh)), ("bulb", bulb), ("mesh", sel_mesh)):
+        src = torch.nonzero(mask).flatten()
+        check(src.numel() > 0, f"content class {name}: no such ray in the parity blocks")
+        idx = src[torch.arange(n, device=o.device) % src.numel()]
+        sub = {k: (v[:, idx] if v.dim() == 2 else v[idx]).contiguous()
+               for k, v in res.items() if k != "hits"}
+        aux_s = {k: v[idx].contiguous() for k, v in aux.items()}
+        args = (scene, cfg, o[idx].contiguous(), d[idx].contiguous(), sub, "mixed")
+        ms = kernel_ms(lambda: cuda_shade.shade_fwd(*args, corners=corners[idx].contiguous(),
+                                                    aux=aux_s))
+        out[name] = ms
+        log("content", f"shade_fwd on {n} {name} rays ({src.numel()} distinct): {ms:.4f} ms, "
+            f"{ms * 1e6 / n:.2f} ns a ray")
+    return out
 
 
 # the most of a frame's or a parity set's rays that may be ill-conditioned
@@ -525,12 +678,12 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     check(ok, f"{tag} parity")
     check(same, f"{tag}: parameter cotangents differ between two runs")
     if results is not None:
-        ins = [o, d, corners, res.get("sdf_t"), res.get("sdf_hit"), res.get("mesh_hit"),
-               aux.get("closer"), aux["mat"], res.get("sh_vis"), res.get("sh_ts"),
-               res.get("ao_tmesh"), ct]
+        _, small, ins, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+        ins += [small, ct]
         outs = [k1["o"], k1["d"], k1["corners"]]
         results[key] = dict(max_abs_err=worst, ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **bound(nbytes(*ins, *outs), shade_bwd_ops(scene, cfg, res, spec)))
+                            **bound(nbytes(*ins, *outs), shade_ops(scene, cfg, o, d, res, aux,
+                                                                   spec, method, True)))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain "
             f"{results[key]['plain_ms']:.3f} ms, bound {results[key]['bound_ms']:.4f} ms "
             f"({results[key]['bound_by']})")
@@ -542,10 +695,35 @@ def parity(scene, cfg, results):
     Mandelbulb's Hessian chain runs: hard shadows block the bulb's lanes),
     and with the 5-tap AO."""
     o, d = kernel_parity(scene, cfg, results)
+    shade_fwd_parity(scene, cfg, o, d, "mixed", results)
     shade_bwd_parity(scene, cfg, o, d, "mixed", results)
     shade_bwd_parity(scene, cfg.replace(shadow="none"), o, d, "mixed")
     # the AO's taps, the Mandelbulb's and the mesh's (`mixed --ao sdf5`)
+    shade_fwd_parity(scene, cfg.replace(ao="sdf5"), o, d, "mixed")
     shade_bwd_parity(scene, cfg.replace(ao="sdf5"), o, d, "mixed")
+    return o, d
+
+
+def sil_parity(scene, cfg, results):
+    """The silhouette path's parity on the blocks of SIL_POINTS: the forward
+    kernels with the padded march and every lane's shadow ray, then both
+    shade kernels (the backward per group, per ray and over two runs). The
+    blocks must hold rays in both bands: misses whose soft coverage lies
+    strictly between 0 and 1, and mesh hits inside the edge band."""
+    from tpu_ray_torch.render import render as R
+
+    o, d = kernel_parity(scene, cfg, results, SIL_POINTS)
+    res, aux, corners, (sel_sdf, sel_mesh) = shade_fwd_parity(scene, cfg, o, d, "mixed",
+                                                              results)
+    with torch.no_grad():
+        cov = R.reconstruct_hits(scene, cfg, o, d, res, "mixed", corners=corners)[5]
+    band = (cov > 1e-3) & (cov < 0.999)
+    soft = int((band & ~(res["sdf_hit"] | res["mesh_hit"])).sum())
+    edge = int((band & sel_mesh).sum())
+    log("sil_parity", f"{o.shape[0]} rays: {soft} misses in the soft silhouette's band, "
+        f"{edge} mesh hits in the edge band (0.001 < coverage < 0.999)")
+    check(soft >= 500 and edge >= 500, "silhouette parity blocks without both bands")
+    shade_bwd_parity(scene, cfg, o, d, "mixed", results)
 
 
 def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False) -> dict:
@@ -637,8 +815,11 @@ def bulb_parity(scene, cfg, results):
     soft_parity(pscene.sdf, pcfg, pp, (lvec / dist[:, None]).contiguous(),
                 torch.where(plive, dist, 0.0).contiguous(), "bulb_parity pointlight")
 
+    shade_fwd_parity(scene, cfg, o, d, "sdf", results)
+    shade_fwd_parity(scene, cfg.replace(diff_vis=True), o, d, "sdf")
     shade_bwd_parity(scene, cfg.replace(diff_vis=True), o, d, "sdf", results)
     # the point light's penumbra (its direction and distance from p_off)
+    shade_fwd_parity(pscene, pcfg.replace(diff_vis=True), po, pd, "sdf")
     shade_bwd_parity(pscene, pcfg.replace(diff_vis=True), po, pd, "sdf")
 
 
@@ -647,6 +828,11 @@ def plain_paths():
     from contextlib import ExitStack
 
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+
+    def shade_fwd_plain(scene, cfg, o, d, res, method, corners=None, aux=None,
+                        mesh_rows=None):
+        return cuda_shade.shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners,
+                                          mesh_rows=mesh_rows)
 
     def shade_bwd_plain(scene, cfg, o, d, res, aux, corners, ct, method):
         return cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
@@ -657,6 +843,7 @@ def plain_paths():
     stack.enter_context(mock.patch.object(cuda_sdf, "shadow_soft", cuda_sdf.shadow_soft_torch))
     stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet",
                                           cuda_mt.intersect_packet_torch))
+    stack.enter_context(mock.patch.object(cuda_shade, "shade_fwd", shade_fwd_plain))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_bwd", shade_bwd_plain))
     return stack
 
@@ -777,33 +964,35 @@ def bulb_small(scene, small):
 
 
 def forward_counts():
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     return {"march": cuda_sdf.LAUNCHES["march"],
             "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
             "shadow_soft": cuda_sdf.LAUNCHES["shadow_soft"],
             "packet_closest": cuda_mt.LAUNCHES["closest"],
-            "packet_any_hit": cuda_mt.LAUNCHES["any_hit"]}
+            "packet_any_hit": cuda_mt.LAUNCHES["any_hit"],
+            "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"]}
 
 
 def check_counts(name, cfg, counts, kernels) -> None:
-    """Every kernel of the path launched; the march once per block."""
+    """Every kernel of the path launched; the march and the shade forward
+    once per block."""
     n_blocks = -(-cfg.num_rays // cfg.block_size)
     check(all(counts[k] > 0 for k in kernels), f"{name}: a kernel never launched: {counts}")
-    check(counts["march"] == n_blocks, f"{name}: {counts['march']} march launches for "
-          f"{n_blocks} blocks")
+    for k in ("march", "shade_fwd"):
+        check(counts[k] == n_blocks, f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
 
 
 def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
     """Phases 5 and 10: the whole frame through the kernels -> launch
     counts."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
 
     with torch.no_grad():
         render_image(scene, warm)
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES)
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -817,7 +1006,8 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     png = os.path.join(REPO, "build", f"chip_smoke_{name}.png")
     write_png(png, img.cpu().numpy())
-    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp}: {dt:.3f} s, "
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} soft_sil={cfg.soft_silhouette} "
+        f"mesh_sil={cfg.mesh_silhouette}: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
         f"launches {counts}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"on {smi}; wrote {png}")
@@ -876,7 +1066,8 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     dt = t2 - t0
     counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} diff_vis={cfg.diff_vis} forward + "
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} diff_vis={cfg.diff_vis} "
+        f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette} forward + "
         f"backward: {dt:.3f} s (forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s), "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss {float(loss.detach()):.8f}, "
         f"launches {counts}, peak mem {peak:.2f} GiB on {smi}")
@@ -886,7 +1077,8 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
             f"nonzero {int((g != 0).sum())} of {g.numel()}")
         check(fin and bool((g != 0).any()), f"gradient of {path} not finite and nonzero")
     check_counts(name, cfg, counts, PATH_KERNELS[name])
-    check(counts["shade_bwd"] == counts["march"], f"{name}: {counts['shade_bwd']} shade_bwd "
+    check(counts["shade_bwd"] == counts["shade_fwd"] == counts["march"],
+          f"{name}: {counts['shade_fwd']} shade_fwd and {counts['shade_bwd']} shade_bwd "
           f"launches for {counts['march']} blocks")
     # after the timed step: the profiler slows the launches that follow it
     profile_step(scene, profile_cfg, trainables, tag)
@@ -911,6 +1103,35 @@ def fit_run(scene, cfg):
         f"{time.perf_counter() - t0:.2f} s")
     check(len(history) == 3 and all(map(torch.isfinite, torch.tensor(history)))
           and history[-1] < history[0], "the fit's loss did not fall")
+
+
+def sil_fits(dev):
+    """The README's silhouette fits through the port's examples: the sphere's
+    radius, centre and albedo with the soft silhouette (256x256, 200 Adam
+    steps; the loss falls at least 10x), and the floating triangle's slide,
+    which hard visibility cannot see and the mesh edge band recovers
+    (96x96, 150 steps each; |translate| from 0.1 to below 0.01)."""
+    from tpu_ray_torch.examples import inverse_pose, inverse_rendering
+
+    out = os.path.join(REPO, "build", "chip_smoke_fits")
+    t0 = time.perf_counter()
+    _, hist = inverse_rendering.main(out, device=dev, size=256, steps=200, verbose=False)
+    torch.cuda.synchronize()
+    fall = hist[0] / max(hist[-1], 1e-30)
+    log("sil_fits", f"inverse_rendering 256x256, 200 steps, soft_silhouette 0.05: loss "
+        f"{hist[0]:.6f} -> {hist[-1]:.6e} ({fall:.1f}x) in {time.perf_counter() - t0:.2f} s")
+    check(all(map(torch.isfinite, torch.tensor(hist))) and fall >= 10.0,
+          "inverse_rendering: the loss did not fall 10x")
+    t0 = time.perf_counter()
+    err_hard, err_soft, h_hard, h_soft = inverse_pose.main_silhouette(
+        out, device=dev, size=96, steps=150, verbose=False)
+    torch.cuda.synchronize()
+    log("sil_fits", f"inverse_pose --silhouette 96x96, 150 steps each: hard visibility loss "
+        f"{h_hard[0]:.3e} -> {h_hard[-1]:.3e}, |translate| 0.1 -> {err_hard:.5f}; "
+        f"mesh_silhouette 0.05 loss {h_soft[0]:.3e} -> {h_soft[-1]:.3e}, |translate| 0.1 -> "
+        f"{err_soft:.5f} in {time.perf_counter() - t0:.2f} s")
+    check(err_hard > 0.05 and err_soft < 0.01,
+          "inverse_pose: hard visibility should stall and the edge band converge")
 
 
 def main() -> int:
@@ -944,8 +1165,12 @@ def main() -> int:
     results = {"mixed": {}, "mandelbulb": {}}
     warm = cfg.replace(width=320, height=180)
     bsmall = bcfg.replace(width=256, height=256, spp=1)
+    sil = cfg.replace(**SILHOUETTES)
+    results["mixed_sil"] = {}
+    parity_rays = []
     phases = (
-        ("parity", lambda: parity(scene, cfg, results["mixed"])),
+        ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"]))),
+        ("content", lambda: content_classes(scene, cfg, *parity_rays)),
         ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
                                       "mixed", TRAINABLES)),
         ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm)),
@@ -960,6 +1185,15 @@ def main() -> int:
             bulb, bcfg.replace(diff_vis=True), smi, "mandelbulb", BULB_TRAINABLES,
             bsmall.replace(diff_vis=True), bcfg.replace(width=256, height=256, diff_vis=True),
             "bulb_fit_step")),
+        ("sil_parity", lambda: sil_parity(scene, sil, results["mixed_sil"])),
+        ("sil_small", lambda: small_frame(scene, sil.replace(width=320, height=180, spp=1),
+                                          "mixed_sil", TRAINABLES, "sil_small")),
+        ("sil_frame", lambda: full_frame(scene, sil, smi, "mixed_sil",
+                                         sil.replace(width=320, height=180), "sil_frame")),
+        ("sil_fit_step", lambda: fit_step(scene, sil, smi, "mixed_sil", TRAINABLES,
+                                          sil.replace(width=320, height=180),
+                                          sil.replace(width=256, height=128), "sil_fit_step")),
+        ("sil_fits", lambda: sil_fits(dev)),
     )
     out = {}
     t_start = time.perf_counter()
@@ -969,7 +1203,8 @@ def main() -> int:
         log(phase, f"phase seconds {time.perf_counter() - t0:.2f}")
     log("done", f"all phases {time.perf_counter() - t_start:.2f} s")
     counts = {"mixed": dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"]),
-              "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"])}
+              "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"]),
+              "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"])}
 
     kernels = []
     for path, names in PATH_KERNELS.items():

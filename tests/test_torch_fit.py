@@ -1,6 +1,7 @@
 """The port's gradient slice and fit loop against the JAX package: the
 gradient of an image loss through the whole `mixed` render, the packet
-accel refit, a few Adam steps of `fit`, and `cli fit`.
+accel refit, a few Adam steps of `fit`, an object-pose fit through the
+mesh edge band, and `cli fit`.
 
 Tolerances and why:
   * the whole-slice gradient: smooth leaves (sphere radius, albedo, light
@@ -12,6 +13,9 @@ Tolerances and why:
     and maxes.
   * the fit: loss history rel < 1e-4. torch.optim.Adam and optax.adam
     compute the same update; the losses differ by f32 rounding.
+  * the pose gradient: max|a - b| / max|b| < 1e-4, the smooth bound: the
+    edge band's margin and the pose fold are f32 arithmetic of the same
+    formulas.
 """
 
 import os
@@ -28,6 +32,7 @@ from tpu_ray import fit as jfit
 from tpu_ray.accel.packet import refit_packet_accel as jrefit
 from tpu_ray.render import render as jrender
 from tpu_ray.scene import scenes as jscenes
+from tpu_ray.scene import transform as jtf
 from tpu_ray.utils.config import FitConfig as JFitConfig
 from tpu_ray_torch import fit as tfit
 from tpu_ray_torch.accel.packet import refit_packet_accel
@@ -74,7 +79,7 @@ def test_mixed_gradient_matches_jax(mixed):
         rel = np.abs(a - b).max() / np.abs(b).max()
         assert cos > 0.999 and rel < 5e-2, (k, cos, rel)
     assert all(np.abs(v).max() > 0 for v in got.values())
-    assert cuda_shade.LAUNCHES == {"shade_bwd": 0}
+    assert cuda_shade.LAUNCHES == {"shade_fwd": 0, "shade_bwd": 0}
 
 
 def test_refit_packet_accel_matches_jax(mixed):
@@ -120,6 +125,29 @@ def test_fit_matches_jax_fit():
     assert float(fitted.sdf.sph_radius) > float(tscene.sdf.sph_radius)  # grows toward 1.17
 
 
+def test_soft_silhouette_fit_matches_jax_fit():
+    """examples/inverse_rendering.py at 32x32 for 3 steps: the sphere's
+    radius, centre and albedo fitted with the soft silhouette, through the
+    port's own geometry pass. The silhouette reads the march's closest
+    approach on every miss near the sphere, which the march's bounding
+    cull must not drop (render.SIL_REACH)."""
+    jscene, jcfg = jscenes.build_scene("sphere", dtype=jnp.float32)
+    paths = ["sdf.sph_radius", "sdf.sph_center", "materials.albedo"]
+    start = {"sdf.sph_radius": [0.55], "sdf.sph_center": [[0.25, 0.15, 0.0]],
+             "materials.albedo": [[0.2, 0.5, 0.8]]}
+    with jax.enable_x64(False):
+        jcfg = jcfg.replace(width=32, height=32, soft_silhouette=0.05, pallas="off")
+        target = jrender.render_image(jscene, jcfg.replace(soft_silhouette=0.0))
+        init = jfit.apply_params(jscene, {k: jnp.asarray(v, jnp.float32)
+                                          for k, v in start.items()})
+        _, want = jfit.fit(init, jcfg, target, paths,
+                           JFitConfig(steps=3, learning_rate=1e-2), verbose=False)
+    _, got = tfit.fit(port_scene(init), port_cfg(jcfg), torch.as_tensor(np.asarray(target)),
+                      paths, FitConfig(steps=3, learning_rate=1e-2), verbose=False)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]
+
+
 def test_fit_with_vertices_refits_the_accel():
     """A mesh.verts fit walks an accel refit to the moved vertices."""
     from tpu_ray_torch.scene.scenes import build_scene
@@ -134,6 +162,47 @@ def test_fit_with_vertices_refits_the_accel():
     want = refit_packet_accel(scene.packet, fitted.mesh.verts, scene.mesh.tris)
     assert not torch.equal(fitted.mesh.verts, scene.mesh.verts)
     assert torch.equal(fitted.packet.chunk_aabb, want.chunk_aabb)
+
+
+def test_pose_fit_with_mesh_silhouette_matches_jax():
+    """A translation of the floating triangle in its own plane moves only
+    its silhouette (examples/inverse_pose.py `main_silhouette`): with the
+    mesh edge band the pose gets a gradient, which matches jax.grad of the
+    reference's loss, and two Adam steps of `fit` lower the loss as the
+    reference's do."""
+    jscene, jcfg = jscenes.build_scene("triangles", dtype=jnp.float32)
+    inst = np.full((jscene.mesh.verts.shape[0],), -1, np.int32)
+    inst[:3] = 0
+    jscene = jscene.replace(poses=jtf.MeshPoses.identity(1, inst, dtype=jnp.float32))
+    with jax.enable_x64(False):
+        jcfg = jcfg.replace(width=24, height=24, shadow="none", block_size=0,
+                            mesh_silhouette=0.05, pallas="off")
+        target = jrender.render_image(jscene, jcfg)
+        start = jscene.replace(poses=jscene.poses.replace(
+            translate=jnp.asarray([[0.1, 0.0, 0.0]], jnp.float32)))
+
+        def jloss(t):
+            s = start.replace(poses=start.poses.replace(translate=t))
+            return jnp.mean((jrender.render_image(s, jcfg) - target) ** 2)
+
+        want = np.asarray(jax.jit(jax.grad(jloss))(start.poses.translate))
+        _, want_hist = jfit.fit(start, jcfg, target, ["poses.translate"],
+                                JFitConfig(steps=2, learning_rate=8e-3), verbose=False)
+    tscene, cfg = port_scene(start), port_cfg(jcfg)
+    ttarget = torch.as_tensor(np.asarray(target))
+    params = tfit.extract_params(tscene, ["poses.translate"])
+    torch.mean((trender.render_image(tfit.apply_params(tscene, params), cfg)
+                - ttarget) ** 2).backward()
+    got = params["poses.translate"].grad.numpy()
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4, (got, want)
+    fitted, hist = tfit.fit(tscene, cfg, ttarget, ["poses.translate"],
+                            FitConfig(steps=2, learning_rate=8e-3), verbose=False)
+    np.testing.assert_allclose(hist, want_hist, rtol=1e-4)
+    assert hist[1] < hist[0]
+    assert fitted.poses is not None  # the fitted scene keeps its poses
+    assert float(fitted.poses.translate[0, 0]) < 0.1  # moves back toward 0
+    assert cuda_shade.LAUNCHES == {"shade_fwd": 0, "shade_bwd": 0}
 
 
 def test_cli_fit_runs_on_cpu():

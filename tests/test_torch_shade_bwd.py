@@ -1,9 +1,10 @@
 """The port's shade backward against the JAX package: the IFT attach and the
 Hessian-preserving normal, the plain shade backward (`shade_bwd_torch`)
 against the Pallas kernel in interpret mode and against `jax.grad` of the
-XLA shade, `ShadeFn` against autograd of the plain shade, the chains the
-CUDA kernel refuses, and a host build of the CUDA kernel's per-ray
-arithmetic against the plain version.
+XLA shade, with and without the soft SDF silhouette and the mesh edge
+band, `ShadeFn` against autograd of the plain shade, the chains the CUDA
+kernels refuse, and a host build of the CUDA kernel's per-ray arithmetic
+against the plain version.
 
 Tolerances and why:
   * smooth parameter groups (albedo, light colour and direction, ambient,
@@ -25,10 +26,7 @@ Tolerances and why:
     on the rest.
 """
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
 
 import numpy as np
 import jax
@@ -50,6 +48,7 @@ from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene import scenes as tscenes
 from tpu_ray_torch.scene.types import Lights, Scene
 from tpu_ray_torch.sdf import primitives as tprim
+import torch_host_build
 from torch_jax_bridge import port_cfg, port_scene
 
 torch.set_num_threads(1)
@@ -97,6 +96,20 @@ def _jax_block(jscene, jcfg, width, method):
     return (o, d, rows, res, jnp.asarray(ct)), (
         tscene, torch.as_tensor(np.asarray(o)), torch.as_tensor(np.asarray(d)),
         _to_torch(res), torch.as_tensor(ct))
+
+
+def _get(scene, path):
+    obj = scene
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _put(scene, path, value):
+    head, *rest = path.split(".")
+    if not rest:
+        return scene.replace(**{head: value})
+    return scene.replace(**{head: _put(getattr(scene, head), ".".join(rest), value)})
 
 
 def _corners(tscene, tres):
@@ -199,23 +212,28 @@ def _small_mixed():
     return scene, cfg.replace(method="mixed")
 
 
-@pytest.mark.parametrize("name", ["small_mixed", "triangles"])
-def test_shade_bwd_torch_matches_pallas_kernel(name):
+def _pallas_case(name, **over):
+    """A bulb-free scene of the reference's kernel tests at 20x20, its JAX
+    rays, residuals and cotangent, and their copies in the port."""
     if name == "small_mixed":
         jscene, jcfg = _small_mixed()
     else:
         jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
     with jax.enable_x64(False):
         jcfg = jcfg.replace(width=20, height=20, spp=1, block_size=0, diff_vis=False,
-                            max_steps=64, pallas="off")
+                            max_steps=64, pallas="off").replace(**over)
         method = jrender.resolve_method(jscene, jcfg)
-        (o, d, rows, res, ct), (tscene, ot, dt, tres, ctt) = _jax_block(jscene, jcfg, 20, method)
-        corners = rows[jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)][:, :9]
+        return jscene, jcfg, method, _jax_block(jscene, jcfg, 20, method)
+
+
+def _pallas_want(jscene, jcfg, method, o, d, rows, res, ct):
+    """shade_bwd_pallas in interpret mode, by the port's paths."""
+    with jax.enable_x64(False):
+        corners = (None if rows is None else
+                   rows[jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)][:, :9])
         aux = pallas_shade._make_aux(jcfg, method, jscene, o, d, res, corners=corners)
         d_ops, d_prm, d_o, d_d, d_c = pallas_shade.shade_bwd_pallas(
             jscene, jcfg, o, d, res, aux, ct, method, interpret=True)
-    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
-                                     _corners(tscene, tres), ctt, method)
     want = {"o": d_o, "d": d_d, "corners": d_c}
     names = {"albedo": "materials.albedo", "ldir": "lights.direction",
              "lcol": "lights.color", "ambient": "lights.ambient",
@@ -228,10 +246,80 @@ def test_shade_bwd_torch_matches_pallas_kernel(name):
             c = next(it)
             if f.name not in _INT:
                 want[f"sdf.{f.name}"] = c
+    return want
+
+
+@pytest.mark.parametrize("name", ["small_mixed", "triangles"])
+def test_shade_bwd_torch_matches_pallas_kernel(name):
+    jscene, jcfg, method, ((o, d, rows, res, ct), (tscene, ot, dt, tres, ctt)) = \
+        _pallas_case(name)
+    want = _pallas_want(jscene, jcfg, method, o, d, rows, res, ct)
+    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
+                                     _corners(tscene, tres), ctt, method)
     assert set(want) <= set(got)
     hit = np.asarray(res["mesh_hit"]) | (np.asarray(res["sdf_hit"]) if "sdf_hit" in res else False)
     assert 0.1 < hit.mean() < 0.95
     _assert_groups(got, want, sorted(want))
+
+
+# the reference's own silhouette cases (tests/test_pallas_shade.py:139-172)
+SILHOUETTE_CASES = [
+    pytest.param("sphere", dict(soft_silhouette=0.05), id="sphere-soft"),
+    pytest.param("triangles", dict(mesh_silhouette=0.06), id="triangles-mesh"),
+    pytest.param("small_mixed", dict(shadow="soft", diff_vis=True, ao="sdf5",
+                                     soft_silhouette=0.05, mesh_silhouette=0.06),
+                 id="small_mixed-both"),
+]
+
+
+def _silhouette_lanes(res, cfg):
+    """The lanes a silhouette chain reads: the SDF's misses (sigmoid
+    coverage at tmin) and the mesh hits (edge band)."""
+    n = int(np.sum(~np.asarray(res["sdf_hit"]))) if cfg.soft_silhouette else 0
+    return n + (int(np.sum(np.asarray(res["mesh_hit"]))) if cfg.mesh_silhouette else 0)
+
+
+@pytest.mark.parametrize("name,over", SILHOUETTE_CASES)
+def test_silhouette_shade_bwd_torch_matches_pallas_kernel(name, over):
+    """The soft SDF silhouette's sigmoid at tmin (miss lanes carry the SDF
+    chain) and the mesh edge band's margin, against the Pallas kernel."""
+    jscene, jcfg, method, ((o, d, rows, res, ct), (tscene, ot, dt, tres, ctt)) = \
+        _pallas_case(name, **over)
+    assert _silhouette_lanes(res, jcfg) > 0
+    want = _pallas_want(jscene, jcfg, method, o, d, rows, res, ct)
+    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
+                                     _corners(tscene, tres) if tscene.has_mesh else None,
+                                     ctt, method)
+    _assert_groups(got, want, sorted(k for k in want if want[k] is not None))
+
+
+@pytest.mark.parametrize("name,over", SILHOUETTE_CASES)
+def test_silhouette_shade_bwd_torch_matches_jax_grad(name, over):
+    """The same chains against jax.grad of the XLA shade, per group."""
+    jscene, jcfg, method, ((o, d, rows, res, ct), (tscene, ot, dt, tres, ctt)) = \
+        _pallas_case(name, **over)
+    paths = [p for p in PARAM_PATHS if np.size(_get(jscene, p))]
+
+    def loss(params, oo, dd, rws):
+        s = jscene
+        for p, v in params.items():
+            s = _put(s, p, v)
+        return jnp.sum(ct * jrender._shade_xla(s, jcfg, oo, dd, res, method, mesh_rows=rws))
+
+    with jax.enable_x64(False):
+        jg = jax.jit(jax.grad(loss, argnums=(0, 1, 2) + ((3,) if rows is not None else ())))(
+            {p: _get(jscene, p) for p in paths}, o, d, rows)
+    corners = _corners(tscene, tres) if tscene.has_mesh else None
+    got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres, corners, ctt,
+                                     method)
+    want = {p: np.asarray(v) for p, v in jg[0].items()}
+    want.update(o=np.asarray(jg[1]), d=np.asarray(jg[2]))
+    if corners is not None:
+        idx = jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)
+        want["corners"] = np.asarray(jg[3])[:, :9]
+        got["corners"] = torch.zeros(rows.shape[0], 9).index_add_(
+            0, torch.as_tensor(np.asarray(idx)).long(), got["corners"])
+    _assert_groups(got, want, sorted(k for k in want if np.abs(want[k]).max() > 0))
 
 
 # ---------------------------------------------------------------------------
@@ -257,27 +345,15 @@ def test_shade_bwd_torch_matches_jax_grad_mixed(mixed16):
     jscene, jcfg, ((o, d, rows, res, ct), (tscene, ot, dt, tres, ctt)) = mixed16
     idx = jnp.clip(res["mesh_tri"], 0, rows.shape[0] - 1)
 
-    def get(scene, path):
-        obj = scene
-        for part in path.split("."):
-            obj = getattr(obj, part)
-        return obj
-
-    def put(scene, path, value):
-        head, *rest = path.split(".")
-        if not rest:
-            return scene.replace(**{head: value})
-        return scene.replace(**{head: put(getattr(scene, head), ".".join(rest), value)})
-
     def loss(params, oo, dd, rws):
         s = jscene
         for p, v in params.items():
-            s = put(s, p, v)
+            s = _put(s, p, v)
         return jnp.sum(ct * jrender._shade_xla(s, jcfg, oo, dd, res, "mixed", mesh_rows=rws))
 
     with jax.enable_x64(False):
         jg = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
-            {p: get(jscene, p) for p in PARAM_PATHS}, o, d, rows)
+            {p: _get(jscene, p) for p in PARAM_PATHS}, o, d, rows)
     got = cuda_shade.shade_bwd_torch(tscene, port_cfg(jcfg), ot, dt, tres,
                                      _corners(tscene, tres), ctt, "mixed")
     want = {p: np.asarray(v) for p, v in jg[0].items()}
@@ -314,7 +390,7 @@ def test_shade_fn_gradient_equals_plain_autograd(mixed16):
     for k in b:
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=1e-5,
                                    atol=1e-6 * float(b[k].abs().max()), err_msg=k)
-    assert cuda_shade.LAUNCHES == before == {"shade_bwd": 0}
+    assert cuda_shade.LAUNCHES == before == {"shade_fwd": 0, "shade_bwd": 0}
 
 
 def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
@@ -344,40 +420,85 @@ def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
     assert all(torch.isfinite(v.grad).all() for v in params.values())
 
 
+@pytest.mark.parametrize("grad", [True, False])
+def test_render_hands_the_forward_kernel_what_it_takes(monkeypatch, grad):
+    """With and without a gradient the render calls shade_fwd once per block
+    with what the CUDA wrapper accepts: contiguous float32 tensors that need
+    no grad (the scene's packed parameters too), bool or int32 masks."""
+    scene, cfg = tscenes.build_scene("mixed", device="cpu")
+    cfg = cfg.replace(width=8, height=8, spp=4, block_size=128, max_steps=64,
+                      soft_silhouette=0.05, mesh_silhouette=0.05)
+    calls = []
+    plain = cuda_shade.shade_fwd
+
+    def spy(s, c, o, d, res, method, corners=None, aux=None, mesh_rows=None):
+        small = cuda_shade.pack_small(s)
+        for t in (o, d, corners, res["sdf_t"], res["sdf_tmin"], res["sh_vis"], small):
+            assert t.dtype == torch.float32 and t.is_contiguous() and not t.requires_grad
+        assert corners.shape == (o.shape[0], 9)
+        calls.append((o.shape[0], aux is not None))
+        return plain(s, c, o, d, res, method, corners=corners, aux=aux, mesh_rows=mesh_rows)
+
+    monkeypatch.setattr(cuda_shade, "shade_fwd", spy)
+    params = extract_params(scene, ("sdf.mb_scale", "camera.origin", "mesh.verts"))
+    if grad:
+        torch.mean(trender.render_image(apply_params(scene, params), cfg) ** 2).backward()
+        assert all(torch.isfinite(v.grad).all() for v in params.values())
+        assert calls == [(128, True), (128, True)]
+    else:
+        with torch.no_grad():
+            trender.render_image(apply_params(scene, params), cfg)
+        assert calls == []  # the CPU renders without a gradient through _shade_plain
+
+
 def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
+    """The kernels take the silhouettes, the AO and the penumbra; on a CUDA
+    device they still refuse a Mandelbulb other than power 8, float64 and a
+    scene without lights, and on the CPU such a chain runs the plain
+    shade."""
     scene, cfg = tscenes.build_scene("mixed", device="cpu")
     cfg = cfg.replace(width=8, height=8, spp=1)
-    refused = [cfg.replace(soft_silhouette=0.02), cfg.replace(mesh_silhouette=0.01)]
     taken = {"ao": cfg.replace(ao="sdf5"),
-             "penumbra": cfg.replace(shadow="soft", diff_vis=True)}
+             "penumbra": cfg.replace(shadow="soft", diff_vis=True),
+             "soft_sil": cfg.replace(soft_silhouette=0.02),
+             "mesh_sil": cfg.replace(mesh_silhouette=0.01)}
     spec = cuda_shade.kernel_spec(scene, cfg, "mixed")
     assert spec["mixed"] and spec["n_dir"] == 1 and spec["n_pos"] == 0
-    assert not (spec["ao_sdf"] or spec["ao_mesh"] or spec["soft_diff"])
-    for c in refused:  # on the CPU: autograd of the plain shade
-        assert cuda_shade.kernel_spec(scene, c, "mixed") is None
+    assert not any(spec[k] for k in ("ao_sdf", "ao_mesh", "soft_diff", "soft_sil",
+                                     "mesh_sil"))
+    generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
+    dark = scene.replace(lights=Lights.make(torch.zeros(0, 3), torch.zeros(0, 3)))
+    wide = scene.replace(camera=dataclasses.replace(
+        scene.camera, origin=scene.camera.origin.double()))
+    refused = {"power 8": (generic, cfg), "without lights": (dark, cfg),
+               "float64": (wide, cfg)}
+    for s, c in refused.values():  # on the CPU: the plain shade
+        assert cuda_shade.kernel_spec(s, c, "mixed") is None
     monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
     assert cuda_shade.kernel_spec(scene, cfg, "mixed") == spec
     ao = cuda_shade.kernel_spec(scene, taken["ao"], "mixed")
     assert ao["ao_sdf"] and ao["ao_mesh"] and not ao["soft_diff"]
     pen = cuda_shade.kernel_spec(scene, taken["penumbra"], "mixed")
     assert pen["soft_diff"] and not (pen["ao_sdf"] or pen["ao_mesh"])
-    for c in refused:
-        with pytest.raises(NotImplementedError, match="shade backward kernel"):
-            cuda_shade.kernel_spec(scene, c, "mixed")
-    generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
-    with pytest.raises(NotImplementedError, match="power 8"):
-        cuda_shade.kernel_spec(generic, cfg, "mixed")
+    assert cuda_shade.kernel_spec(scene, taken["soft_sil"], "mixed")["soft_sil"]
+    assert cuda_shade.kernel_spec(scene, taken["mesh_sil"], "mixed")["mesh_sil"]
+    # a silhouette of geometry the method does not trace is not a chain
+    assert not cuda_shade.kernel_spec(scene, taken["mesh_sil"], "sdf")["mesh_sil"]
+    for what, (s, c) in refused.items():
+        with pytest.raises(NotImplementedError, match=f"shade kernels do not take.*{what}"):
+            cuda_shade.kernel_spec(s, c, "mixed")
 
 
 def test_silhouette_gradient_on_cpu_runs_plain_autograd():
-    """A chain the kernel does not take still differentiates on the CPU."""
+    """A silhouette chain differentiates on the CPU through the kernels'
+    plain versions: no kernel launches there."""
     scene, cfg = tscenes.build_scene("sphere", device="cpu")
     cfg = cfg.replace(width=12, height=12, soft_silhouette=0.05)
     r = scene.sdf.sph_radius.clone().requires_grad_(True)
     img = trender.render_image(scene.replace(sdf=scene.sdf.replace(sph_radius=r)), cfg)
     torch.mean(img ** 2).backward()
     assert torch.isfinite(r.grad).all() and float(r.grad.abs()) > 0
-    assert cuda_shade.LAUNCHES == {"shade_bwd": 0}
+    assert cuda_shade.LAUNCHES == {"shade_fwd": 0, "shade_bwd": 0}
 
 
 def test_pack_small_round_trips():
@@ -397,46 +518,6 @@ def test_pack_small_round_trips():
 # The CUDA kernel's per-ray arithmetic, built as host C++
 # ---------------------------------------------------------------------------
 
-_HOST_MAIN = r"""
-#include "sdf_march.cu"
-#include "shade_bwd.cu"
-extern "C" void host_shade_bwd(
-    const float* o, const float* d, const float* corners, const float* t_bar,
-    const uint8_t* hs, const uint8_t* hm, const uint8_t* closer, const int* mat,
-    const float* vis, const float* ts, const float* ao_tmesh, const float* ct,
-    int n, const float* small, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
-    int ao_sdf, int ao_mesh, int soft_diff, double ao_step, float ao_strength,
-    float soft_k, float bias, float* d_o, float* d_d, float* d_corners,
-    double* d_small) {
-  const tr::ShadeParams s = tr::make_params(small, n_sph, n_pln, n_box, n_mb,
-      mb_iters, n_mat, n_dir, n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh,
-      soft_diff, ao_step, ao_strength, soft_k, bias);
-  float* one = new float[s.n_par];
-  for (int i = 0; i < n; ++i) {
-    for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
-    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, hs, hm, closer,
-                                     mat, vis, ts, ao_tmesh, ct);
-    tr::shade_bwd_ray(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
-    for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
-  }
-  delete[] one;
-}
-extern "C" void host_shadow_soft(
-    const float* p, const float* l, const float* t_far_rays, int n,
-    const float* params, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, float eps, float t_far, int steps, float bias, float soft_k,
-    float* vis, float* ts) {
-  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
-  for (int i = 0; i < n; ++i)
-    tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
-                        l[3 * i + 1], l[3 * i + 2],
-                        t_far_rays ? t_far_rays[i] : t_far, eps, steps, bias,
-                        soft_k, vis + i, ts + i);
-}
-"""
-
-
 def _per_ray_rel(got, want, keys):
     """Per ray, the largest |got - want| / |want| over the (R, k) keys (0 where
     want is 0)."""
@@ -447,89 +528,19 @@ def _per_ray_rel(got, want, keys):
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    so = torch_host_build.build(tmp_path_factory.mktemp("host_kernel"))
+    if so is None:
         pytest.skip("no g++ to build the kernel arithmetic as host code")
-    tmp = tmp_path_factory.mktemp("host_kernel")
-    (tmp / "main.cpp").write_text(_HOST_MAIN)
-    lib = tmp / "libshade_bwd_host.so"
-    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-I", csrc, "-o", str(lib), str(tmp / "main.cpp")], check=True,
-                   capture_output=True, timeout=120)
-    so = ctypes.CDLL(str(lib))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    so.host_shade_bwd.argtypes = ([P] * 12 + [I, P] + [I] * 13
-                                  + [ctypes.c_double, F, F, F] + [P] * 4)
-    so.host_shade_bwd.restype = None
-    so.host_shadow_soft.argtypes = [P, P, P, I, P] + [I] * 5 + [F, F, I, F, F, P, P]
-    so.host_shadow_soft.restype = None
     return so
 
 
-def _host_bwd(so, scene, cfg, o, d, res, corners, ct, method):
-    """shade_bwd's arguments, as the CUDA wrapper passes them, into the host
-    build; the parameter sums in float64."""
-    spec = cuda_shade.kernel_spec(scene, cfg, method)
-    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res)
-    small = cuda_shade.pack_small(scene)
-    n = o.shape[0]
-    out = [torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 9)]
-    d_small = torch.zeros(small.numel(), dtype=torch.float64)
-    keep = [t.contiguous() if t is not None else None for t in (
-        corners, res.get("sdf_t") if spec["use_sdf"] else None,
-        res.get("sdf_hit") if spec["use_sdf"] else None,
-        res.get("mesh_hit") if spec["use_mesh"] else None,
-        aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"),
-        res["sh_ts"] if spec["soft_diff"] else None,
-        res["ao_tmesh"] if spec["ao_mesh"] else None)]
-    ptr = lambda t: None if t is None else t.data_ptr()
-    sdf = scene.sdf
-    so.host_shade_bwd(o.data_ptr(), d.data_ptr(), *map(ptr, keep), ct.data_ptr(), n,
-                      small.data_ptr(), sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
-                      sdf.box_center.shape[0], sdf.mb_center.shape[0], sdf.mb_iters,
-                      scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
-                      *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
-                                               "soft_diff")),
-                      cfg.ao_step, cfg.ao_strength, cfg.soft_k, cfg.shadow_bias,
-                      *(x.data_ptr() for x in out), d_small.data_ptr())
-    got = cuda_shade.unpack_small(d_small.float(), scene)
-    got.update(o=out[0], d=out[1], corners=out[2])
-    return got
-
-
-# (scene, an added point light, config overrides): the hard-shadow cases hold
-# the static chains, the others add the AO taps and the penumbra
-HOST_CASES = [
-    pytest.param("mixed", False, dict(shadow="hard"), id="mixed-False"),
-    pytest.param("mixed", True, dict(shadow="hard"), id="mixed-True"),
-    pytest.param("sphere", True, dict(shadow="hard"), id="sphere-True"),
-    pytest.param("triangles", True, dict(shadow="hard"), id="triangles-True"),
-    pytest.param("mandelbulb", False, dict(diff_vis=True), id="mandelbulb-ao-diffvis"),
-    pytest.param("pointlight", False, dict(diff_vis=True), id="pointlight-diffvis"),
-    pytest.param("mixed", False, dict(shadow="hard", ao="sdf5"), id="mixed-ao"),
-]
-
-
-@pytest.mark.parametrize("name,point_light,over", HOST_CASES)
+@pytest.mark.parametrize("name,point_light,over", torch_host_build.HOST_CASES)
 def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light, over):
-    scene, cfg = tscenes.build_scene(name, device="cpu")
-    if point_light:
-        lt = scene.lights
-        scene = scene.replace(lights=Lights(lt.direction, lt.color, lt.ambient,
-                                            torch.tensor([[0.5, 2.5, 1.0]]),
-                                            torch.tensor([[2.0, 1.5, 1.0]])))
-    w, h = (48, 27) if name == "mixed" else (24, 24)
-    cfg = cfg.replace(width=w, height=h, spp=1, block_size=0, **over)
-    method = trender.resolve_method(scene, cfg)
-    sx, sy = trender.pixel_sample_coords(cfg)
-    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), w, h)
-    res = trender.geometry_residuals(scene, cfg, o, d, method)
-    corners = _corners(scene, res).contiguous() if scene.has_mesh else None
+    scene, cfg, method, o, d, res, corners = torch_host_build.case(name, point_light, over)
     gen = torch.Generator().manual_seed(0)
     ct = torch.rand(o.shape, generator=gen) * 2 - 1
     want = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
-    got = _host_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+    got = torch_host_build.shade_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
     if scene.sdf.mb_center.shape[0] and (cfg.ao != "none" or cfg.diff_vis):
         # the ill-conditioned rays, picked without the host build (module
         # docstring)
@@ -537,7 +548,8 @@ def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light,
         assert 0.0 < float(ill.float().mean()) <= 0.25
         ct = torch.where(ill[:, None], 0.0, ct)
         want = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
-        got = _host_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+        got = torch_host_build.shade_bwd(host_kernel, scene, cfg, o, d, res, corners, ct,
+                                         method)
     params = [p for p in cuda_shade.SHADE_PATHS if want[p].abs().sum() > 0]
     assert {"materials.albedo", "lights.color", "bg_top"} <= set(params)
     if point_light or name == "pointlight":

@@ -1,0 +1,174 @@
+"""The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
+port's tests (tests/test_torch_shade_*.py): the shade forward, the shade
+backward and the soft march, called with the arguments their CUDA wrappers
+pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
+g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
+`--fmad=false`)."""
+
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from tpu_ray_torch.kernels import cuda_shade
+from tpu_ray_torch.render import render as trender
+from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.scene import scenes as tscenes
+from tpu_ray_torch.scene.types import Lights
+
+HOST_MAIN = r"""
+#include "sdf_march.cu"
+#include "shade_bwd.cu"
+#include "shade_fwd.cu"
+#define SHADE_ARGS                                                            \
+    const float *o, const float *d, const float *corners, const float *t_bar, \
+    const float *tmin, const uint8_t *hs, const uint8_t *hm,                  \
+    const uint8_t *closer, const int *mat, const float *vis, const float *ts, \
+    const float *ao_tmesh
+#define SHADE_STATICS                                                         \
+    int n, const float *small, int n_sph, int n_pln, int n_box, int n_mb,     \
+    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh, \
+    int ao_sdf, int ao_mesh, int soft_diff, float soft_sil, float mesh_sil,   \
+    double ao_step, float ao_strength, float soft_k, float bias
+#define MAKE_PARAMS                                                           \
+  tr::make_params(small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir,   \
+                  n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff,       \
+                  soft_sil, mesh_sil, ao_step, ao_strength, soft_k, bias)
+extern "C" void host_shade_bwd(SHADE_ARGS, const float* ct, SHADE_STATICS,
+                               float* d_o, float* d_d, float* d_corners,
+                               double* d_small) {
+  const tr::ShadeParams s = MAKE_PARAMS;
+  float* one = new float[s.n_par];
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
+    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
+                                     closer, mat, vis, ts, ao_tmesh, ct);
+    tr::shade_bwd_ray(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+    for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
+  }
+  delete[] one;
+}
+extern "C" void host_shade_fwd(SHADE_ARGS, SHADE_STATICS, float* out) {
+  const tr::ShadeParams s = MAKE_PARAMS;
+  for (int i = 0; i < n; ++i) {
+    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
+                                     closer, mat, vis, ts, ao_tmesh, nullptr);
+    tr::shade_fwd_ray(s, r, out + 3 * i);
+  }
+}
+extern "C" void host_shadow_soft(
+    const float* p, const float* l, const float* t_far_rays, int n,
+    const float* params, int n_sph, int n_pln, int n_box, int n_mb,
+    int mb_iters, float eps, float t_far, int steps, float bias, float soft_k,
+    float* vis, float* ts) {
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
+  for (int i = 0; i < n; ++i)
+    tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+                        l[3 * i + 1], l[3 * i + 2],
+                        t_far_rays ? t_far_rays[i] : t_far, eps, steps, bias,
+                        soft_k, vis + i, ts + i);
+}
+"""
+
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_STATICS = [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
+
+
+def build(tmp_dir):
+    """The host library built into tmp_dir, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    (tmp_dir / "main.cpp").write_text(HOST_MAIN)
+    lib = tmp_dir / "libshade_host.so"
+    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", str(lib), str(tmp_dir / "main.cpp")], check=True,
+                   capture_output=True, timeout=180)
+    so = ctypes.CDLL(str(lib))
+    so.host_shade_bwd.argtypes = [_P] * 13 + _STATICS + [_P] * 4
+    so.host_shade_fwd.argtypes = [_P] * 12 + _STATICS + [_P]
+    so.host_shadow_soft.argtypes = [_P, _P, _P, _I, _P] + [_I] * 5 + [_F, _F, _I, _F, _F, _P, _P]
+    for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft):
+        fn.restype = None
+    return so
+
+
+def _args(scene, cfg, o, d, res, corners, method):
+    """The shade kernels' arguments as their CUDA wrapper assembles them
+    (cuda_shade.kernel_args), on CPU tensors: (pointers, statics, small)."""
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res)
+    _, small, rays, statics = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners,
+                                                     method)
+    for t in rays:
+        assert t is None or t.is_contiguous()
+    statics[1] = small.data_ptr()
+    return [None if t is None else t.data_ptr() for t in rays], statics, small
+
+
+def shade_bwd(so, scene, cfg, o, d, res, corners, ct, method):
+    """The host build of the shade backward, the parameter sums in float64;
+    the result as shade_bwd_torch's."""
+    pointers, statics, small = _args(scene, cfg, o, d, res, corners, method)
+    n = o.shape[0]
+    out = [torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 9)]
+    d_small = torch.zeros(small.numel(), dtype=torch.float64)
+    ct = ct.contiguous()
+    so.host_shade_bwd(*pointers, ct.data_ptr(), *statics, *(x.data_ptr() for x in out),
+                      d_small.data_ptr())
+    got = cuda_shade.unpack_small(d_small.float(), scene)
+    got.update(o=out[0], d=out[1], corners=out[2])
+    return got
+
+
+def shade_fwd(so, scene, cfg, o, d, res, corners, method):
+    """The host build of the shade forward -> (R, 3)."""
+    pointers, statics, _small = _args(scene, cfg, o, d, res, corners, method)
+    out = torch.zeros(o.shape[0], 3)
+    so.host_shade_fwd(*pointers, *statics, out.data_ptr())
+    return out
+
+
+# (scene, an added point light, config overrides): the hard-shadow cases hold
+# the static chains, the others add the AO taps, the penumbra and the
+# silhouettes
+HOST_CASES = [
+    pytest.param("mixed", False, dict(shadow="hard"), id="mixed-False"),
+    pytest.param("mixed", True, dict(shadow="hard"), id="mixed-True"),
+    pytest.param("sphere", True, dict(shadow="hard"), id="sphere-True"),
+    pytest.param("triangles", True, dict(shadow="hard"), id="triangles-True"),
+    pytest.param("mandelbulb", False, dict(diff_vis=True), id="mandelbulb-ao-diffvis"),
+    pytest.param("pointlight", False, dict(diff_vis=True), id="pointlight-diffvis"),
+    pytest.param("mixed", False, dict(shadow="hard", ao="sdf5"), id="mixed-ao"),
+    pytest.param("sphere", True, dict(shadow="hard", soft_silhouette=0.05),
+                 id="sphere-soft-silhouette"),
+    pytest.param("triangles", True, dict(shadow="hard", mesh_silhouette=0.06),
+                 id="triangles-mesh-silhouette"),
+    pytest.param("mixed", False, dict(shadow="hard", soft_silhouette=0.05,
+                                      mesh_silhouette=0.05), id="mixed-silhouettes"),
+]
+
+
+def case(name, point_light, over, mixed_size=(48, 27)):
+    """A HOST_CASES frame (mixed_size for `mixed`, else 24x24, 1 spp):
+    (scene, cfg, method, o, d, residuals, corners or None)."""
+    scene, cfg = tscenes.build_scene(name, device="cpu")
+    if point_light:
+        lt = scene.lights
+        scene = scene.replace(lights=Lights(lt.direction, lt.color, lt.ambient,
+                                            torch.tensor([[0.5, 2.5, 1.0]]),
+                                            torch.tensor([[2.0, 1.5, 1.0]])))
+    w, h = mixed_size if name == "mixed" else (24, 24)
+    cfg = cfg.replace(width=w, height=h, spp=1, block_size=0, **over)
+    method = trender.resolve_method(scene, cfg)
+    sx, sy = trender.pixel_sample_coords(cfg)
+    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), w, h)
+    res = trender.geometry_residuals(scene, cfg, o, d, method)
+    corners = None
+    if scene.has_mesh:
+        rows = trender.mesh_table(scene.mesh)
+        corners = rows[torch.clamp(res["mesh_tri"], 0, rows.shape[0] - 1).long()][:, :9]
+        corners = corners.contiguous()
+    return scene, cfg, method, o, d, res, corners

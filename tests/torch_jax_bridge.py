@@ -11,7 +11,8 @@ from tpu_ray_torch.utils.config import RenderConfig
 
 
 def flatten(scene):
-    """A JAX scene's arrays by dotted path, plus its static fields."""
+    """A JAX scene's arrays by dotted path (its object poses' too), plus its
+    static fields."""
     arrays = {}
     for group in ("camera", "sdf", "mesh", "materials", "lights"):
         obj = getattr(scene, group)
@@ -21,6 +22,9 @@ def flatten(scene):
                 arrays[f"{group}.{f.name}"] = np.asarray(v)
     arrays["bg_top"] = np.asarray(scene.bg_top)
     arrays["bg_bottom"] = np.asarray(scene.bg_bottom)
+    if scene.poses is not None:
+        for f in dataclasses.fields(scene.poses):
+            arrays[f"poses.{f.name}"] = np.asarray(getattr(scene.poses, f.name))
     statics = {"mb_iters": scene.sdf.mb_iters, "mb_pow8": scene.sdf.mb_pow8,
                "num_tris": scene.mesh.num_tris}
     return arrays, statics

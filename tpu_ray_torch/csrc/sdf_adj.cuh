@@ -1,5 +1,5 @@
 // Reverse-mode adjoint of the scene distance field, for the fused shade
-// backward (shade_bwd.cu).
+// kernels (shade_chain.cuh, shade_fwd.cu, shade_bwd.cu).
 //
 // Replaces what `jax.vjp` of `de_tile` computes inside the Pallas backward
 // `shade_bwd_pallas` (tpu_ray/kernels/pallas_shade.py:148-151 and 258-260):
@@ -73,9 +73,11 @@ __device__ __forceinline__ int prim_stride(int kind) { return kind == kBox ? 7 :
 
 // The primitive that attains the scene DE at p (first on a tie), by the
 // float forward of sdf.cuh in its op order. Returns its packed offset and
-// kind, or -1 when the scene has no primitive.
+// kind, or -1 when the scene has no primitive; dmin, when given, receives
+// the DE itself.
 __device__ __forceinline__ int scene_argmin(const SdfParams& s, float px,
-                                            float py, float pz, int* kind) {
+                                            float py, float pz, int* kind,
+                                            float* dmin = nullptr) {
   float d = kBig;
   int best = -1;
   const float* q = s.p;
@@ -104,6 +106,7 @@ __device__ __forceinline__ int scene_argmin(const SdfParams& s, float px,
                                      (pz - q[2]) / sc, s.mb_iters) * sc;
     if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBulb; }
   }
+  if (dmin) *dmin = d;
   return best;
 }
 

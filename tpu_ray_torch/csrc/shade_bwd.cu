@@ -3,29 +3,36 @@
 // and selected-triangle corners.
 //
 // Replaces the Pallas kernel `shade_bwd_pallas` (tpu_ray/kernels/
-// pallas_shade.py:591) for the chains it takes here: methods sdf, mesh_*
-// and mixed; directional and point lights; static shadow visibility (the
+// pallas_shade.py:591) and every chain it takes: methods sdf, mesh_* and
+// mixed; directional and point lights; static shadow visibility (the
 // sh_vis residual: hard, soft or none); the 5-tap distance-field AO with its
 // SDF and mesh terms (pallas_shade.py:278-296); the differentiable soft-
 // shadow penumbra, recomputed from one DE at the march's argmin t
-// (diff_vis, pallas_shade.py:302-355). Not the silhouettes. The plain
-// PyTorch version is shade_bwd_torch (tpu_ray_torch/kernels/cuda_shade.py):
-// torch.autograd of the port's plain shade.
+// (diff_vis, pallas_shade.py:302-355); the soft SDF silhouette (sigmoid
+// coverage from the DE at the march's closest approach tmin) and the mesh
+// edge band (pallas_shade.py:158-172, 202-223, 226-240, 370-375). The
+// forward it pulls back is shade_chain.cuh's, the same as the forward
+// kernel's (shade_fwd.cu). The plain PyTorch version is shade_bwd_torch
+// (tpu_ray_torch/kernels/cuda_shade.py): torch.autograd of the port's plain
+// shade.
 //
 // What bounds it on an H100: compute on the rays whose selected hit is the
 // Mandelbulb. Such a ray runs the field's first-order adjoint at the hit
 // (IFT numerator and denominator, the normal) and the same adjoint again on
 // Dual numbers for the normal's Hessian term (sdf_adj.cuh), each over twelve
 // stored iterations; with AO, five tap DEs and their first-order adjoints;
-// with the penumbra, one DE and its adjoint per light. Memory traffic is
-// ~100 bytes per ray.
+// with the penumbra, one DE and its adjoint per light. With soft
+// silhouettes every lane that misses runs that chain at its closest
+// approach. Memory traffic is ~100 bytes per ray.
 //
 // The simple design: one thread per ray, and a per-ray branch in place of
 // the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438): a
-// miss runs the sky's pullback, a selected mesh hit the Moller-Trumbore
-// re-solve of its triangle, a selected SDF hit the IFT attach and the
-// normal. The branch is exact: the unselected branches' cotangents are zero
-// in the reference too. The parameter cotangents are reduced without
+// lane that selects no surface runs the sky's pullback, a selected mesh hit
+// the Moller-Trumbore re-solve of its triangle, a selected SDF hit the IFT
+// attach and the normal. The branch is exact: the unselected branches'
+// cotangents are zero in the reference too. Ties of the coverage's max and
+// min split the cotangent in halves and clips pass it at their bounds, as
+// torch's autograd does. The parameter cotangents are reduced without
 // atomics: each thread writes its ray's into its own column of shared
 // memory, each block sums its columns in a fixed order into one partial row,
 // and a second kernel sums the rows in a fixed order, so two runs give
@@ -36,101 +43,9 @@
 // against the plain version on the CPU).
 #include <stdint.h>
 
-#include "sdf_adj.cuh"
+#include "shade_chain.cuh"
 
 namespace tr {
-
-constexpr float kDenomMin = 1e-6f;  // the IFT denominator's clamp
-constexpr float kDetEps = 1e-10f;   // the Moller-Trumbore determinant's
-
-// The small parameters, packed in one float block whose layout is also the
-// layout of their cotangents: the SDF block of sdf.cuh, then albedo (K,3),
-// light directions and colours (L,3 each), ambient, bg_top, bg_bottom (3
-// each), point-light positions and colours (P,3 each). The chain's flags
-// and constants ride beside it.
-struct ShadeParams {
-  SdfParams sdf;  // sdf.p is the start of the block
-  int n_mat, n_dir, n_pos;
-  int use_sdf, use_mesh;
-  int ao_sdf, ao_mesh;  // the AO taps' SDF term, their mesh term (ao_tmesh)
-  int soft_diff;        // the penumbra recompute at the sh_ts residual
-  double ao_step;       // in double: the tap heights round as the host's do
-  float ao_strength, soft_k, bias;
-  int off_alb, off_ldir, off_lcol, off_amb, off_bgt, off_bgb, off_lpos, off_lpcol;
-  int n_par;
-};
-
-__host__ __device__ __forceinline__ ShadeParams make_params(
-    const float* small, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
-    int ao_sdf, int ao_mesh, int soft_diff, double ao_step, float ao_strength,
-    float soft_k, float bias) {
-  ShadeParams s;
-  s.sdf = SdfParams{small, n_sph, n_pln, n_box, n_mb, mb_iters};
-  s.n_mat = n_mat; s.n_dir = n_dir; s.n_pos = n_pos;
-  s.use_sdf = use_sdf; s.use_mesh = use_mesh;
-  s.ao_sdf = ao_sdf; s.ao_mesh = ao_mesh; s.soft_diff = soft_diff;
-  s.ao_step = ao_step; s.ao_strength = ao_strength;
-  s.soft_k = soft_k; s.bias = bias;
-  s.off_alb = 4 * n_sph + 4 * n_pln + 7 * n_box + 4 * n_mb;
-  s.off_ldir = s.off_alb + 3 * n_mat;
-  s.off_lcol = s.off_ldir + 3 * n_dir;
-  s.off_amb = s.off_lcol + 3 * n_dir;
-  s.off_bgt = s.off_amb + 3;
-  s.off_bgb = s.off_bgt + 3;
-  s.off_lpos = s.off_bgb + 3;
-  s.off_lpcol = s.off_lpos + 3 * n_pos;
-  s.n_par = s.off_lpcol + 3 * n_pos;
-  return s;
-}
-
-// One ray's inputs: the residuals of the geometry pass and its cotangent.
-struct RayIn {
-  float o[3], d[3], c[9];  // c: the selected triangle's v0, v1, v2
-  float t_bar;             // SDF march t
-  bool hs, hm, closer;     // SDF hit, mesh hit, SDF selected (mixed)
-  int mat;
-  const float* vis;        // one value per light at stride vis_stride, or null
-  const float* ts;         // the soft march's argmin t, as vis, or null
-  int vis_stride;
-  float t_mesh;            // ao_tmesh: the closest mesh hit along the normal
-  float ct[3];
-};
-
-// Ray i of the kernel's inputs (null masks read as false, null corners as 0).
-__device__ __forceinline__ RayIn load_ray(
-    int i, int n, const float* o, const float* d, const float* corners,
-    const float* t_bar, const uint8_t* hs, const uint8_t* hm,
-    const uint8_t* closer, const int* mat, const float* vis, const float* ts,
-    const float* ao_tmesh, const float* ct) {
-  RayIn r;
-  for (int k = 0; k < 3; ++k) {
-    r.o[k] = o[3 * i + k];
-    r.d[k] = d[3 * i + k];
-    r.ct[k] = ct[3 * i + k];
-  }
-  for (int k = 0; k < 9; ++k) r.c[k] = corners ? corners[9 * i + k] : 0.0f;
-  r.t_bar = t_bar ? t_bar[i] : 0.0f;
-  r.hs = hs ? hs[i] != 0 : false;
-  r.hm = hm ? hm[i] != 0 : false;
-  r.closer = closer ? closer[i] != 0 : false;
-  r.mat = mat[i];
-  r.vis = vis ? vis + i : nullptr;
-  r.ts = ts ? ts + i : nullptr;
-  r.vis_stride = n;
-  r.t_mesh = ao_tmesh ? ao_tmesh[i] : 0.0f;
-  return r;
-}
-
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-__device__ __forceinline__ void cross3(const float* a, const float* b, float* c) {
-  c[0] = a[1] * b[2] - a[2] * b[1];
-  c[1] = a[2] * b[0] - a[0] * b[2];
-  c[2] = a[0] * b[1] - a[1] * b[0];
-}
 
 // Cotangent of a in n = a / sqrt(max(a.a, 1e-12)) given the cotangent of n.
 __device__ __forceinline__ void normalize_adj(const float* a, const float* d_n,
@@ -141,7 +56,21 @@ __device__ __forceinline__ void normalize_adj(const float* a, const float* d_n,
   for (int k = 0; k < 3; ++k) d_a[k] = d_n[k] / len - a[k] * w;
 }
 
-constexpr int kAoTaps = 5;
+// Cotangent of x in l = sqrt(max(x.x, 1e-24)) given the cotangent of l,
+// added to d_x with the sign given.
+__device__ __forceinline__ void length_adj(const float* x, float l, float d_l,
+                                           float sign, float* d_x) {
+  if (dot3(x, x) < 1e-24f) return;
+  for (int k = 0; k < 3; ++k) d_x[k] += sign * (x[k] * (d_l / l));
+}
+
+// The cotangents of a = min(x, y) on x and y: the smaller takes it, a tie
+// splits it in halves (torch.minimum).
+__device__ __forceinline__ void min_adj(float x, float y, float d_a, float* d_x,
+                                        float* d_y) {
+  *d_x = x < y ? d_a : (x == y ? d_a / 2.0f : 0.0f);
+  *d_y = y < x ? d_a : (x == y ? d_a / 2.0f : 0.0f);
+}
 
 // The cotangent w of DE(q) pulled back to first order: the parameters of the
 // primitive that attains the DE at q (first on a tie) gain w * dDE/dtheta in
@@ -158,16 +87,81 @@ __device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
   for (int k = 0; k < 3; ++k) d_q[k] += w * g[k];
 }
 
-// The soft-shadow penumbra recomputed at the march's argmin t:
-// clip(soft_k * DE(q) / max(ts, bias), 0, 1) at q = p_off + ts * l. Writes q
-// and whether the clip passes a gradient.
-__device__ float penumbra(const ShadeParams& s, const float* p_off,
-                          const float* l, float ts, float* q, bool* pass) {
-  for (int k = 0; k < 3; ++k) q[k] = p_off[k] + ts * l[k];
-  const float dd = scene_de(s.sdf, q[0], q[1], q[2]);
-  const float raw = s.soft_k * dd / fmaxf(ts, s.bias);
-  *pass = raw >= 0.0f && raw <= 1.0f;
-  return fminf(fmaxf(raw, 0.0f), 1.0f);
+// The mesh chain's pullback into o, d and the corners: p = o + tm d and
+// n = normalize(e1 x e2) with cotangents d_p and d_n (where the mesh hit is
+// selected), and the edge band's margin with cotangent d_margin.
+__device__ void mesh_bwd(const RayIn& r, const float* d_p, const float* d_n,
+                         float d_margin, float* d_o, float* d_d, float* d_c) {
+  MtSolve m;
+  mt_solve(r, &m);
+  for (int k = 0; k < 3; ++k) {
+    d_o[k] += d_p[k];
+    d_d[k] += m.tm * d_p[k];
+  }
+  const float d_tm = dot3(d_p, r.d);
+  float d_inv = d_tm * dot3(m.e2, m.qv);
+  float d_e1[3], d_e2[3], d_qv[3], d_pv[3], d_tv[3], d_cn[3], d_ex[3], tmp[3];
+  for (int k = 0; k < 3; ++k) {
+    d_e2[k] = d_tm * m.inv_det * m.qv[k];
+    d_qv[k] = d_tm * m.inv_det * m.e2[k];
+    d_e1[k] = d_pv[k] = d_tv[k] = d_ex[k] = 0.0f;
+  }
+  normalize_adj(m.cn, d_n, d_cn);  // cn = e1 x e2
+  if (d_margin != 0.0f) {
+    // margin = min(b0 2A / l0, min(u 2A / l1, v 2A / l2)), b0 = 1 - u - v
+    EdgeBand b;
+    edge_band(r, m, &b);
+    float d_dist[3], d_inner;
+    min_adj(b.dist[0], fminf(b.dist[1], b.dist[2]), d_margin, &d_dist[0], &d_inner);
+    min_adj(b.dist[1], b.dist[2], d_inner, &d_dist[1], &d_dist[2]);
+    const float bary[3] = {1.0f - b.u - b.v, b.u, b.v};
+    float d_bary[3], d_area = 0.0f, d_len[3];
+    for (int e = 0; e < 3; ++e) {
+      const float d_num = d_dist[e] / b.l[e];  // dist = (bary * 2A) / l
+      d_len[e] = -(d_dist[e] * (bary[e] * b.two_area) / (b.l[e] * b.l[e]));
+      d_bary[e] = d_num * b.two_area;
+      d_area += d_num * bary[e];
+    }
+    const float d_u = d_bary[1] - d_bary[0];
+    const float d_v = d_bary[2] - d_bary[0];
+    float ex[3];
+    for (int k = 0; k < 3; ++k) ex[k] = r.c[6 + k] - r.c[3 + k];
+    length_adj(ex, b.l[0], d_len[0], 1.0f, d_ex);
+    length_adj(m.e2, b.l[1], d_len[1], 1.0f, d_e2);
+    length_adj(m.e1, b.l[2], d_len[2], 1.0f, d_e1);
+    length_adj(m.cn, b.two_area, d_area, 1.0f, d_cn);
+    // u = <tv, pv> / det, v = <d, qv> / det
+    d_inv += d_u * dot3(m.tv, m.pv) + d_v * dot3(r.d, m.qv);
+    for (int k = 0; k < 3; ++k) {
+      d_tv[k] += d_u * m.inv_det * m.pv[k];
+      d_pv[k] += d_u * m.inv_det * m.tv[k];
+      d_d[k] += d_v * m.inv_det * m.qv[k];
+      d_qv[k] += d_v * m.inv_det * r.d[k];
+    }
+  }
+  const float d_det = m.det_ok ? -d_inv * m.inv_det * m.inv_det : 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    d_e1[k] += d_det * m.pv[k];
+    d_pv[k] += d_det * m.e1[k];
+  }
+  cross3(m.e2, d_pv, tmp);  // pv = d x e2
+  for (int k = 0; k < 3; ++k) d_d[k] += tmp[k];
+  cross3(d_pv, r.d, tmp);
+  for (int k = 0; k < 3; ++k) d_e2[k] += tmp[k];
+  cross3(m.e1, d_qv, tmp);  // qv = tv x e1
+  for (int k = 0; k < 3; ++k) d_tv[k] += tmp[k];
+  cross3(d_qv, m.tv, tmp);
+  for (int k = 0; k < 3; ++k) d_e1[k] += tmp[k];
+  cross3(m.e2, d_cn, tmp);
+  for (int k = 0; k < 3; ++k) d_e1[k] += tmp[k];
+  cross3(d_cn, m.e1, tmp);
+  for (int k = 0; k < 3; ++k) d_e2[k] += tmp[k];
+  for (int k = 0; k < 3; ++k) {  // e1 = v1 - v0, e2 = v2 - v0, tv = o - v0, ex = v2 - v1
+    d_o[k] += d_tv[k];
+    d_c[k] = -d_tv[k] - d_e1[k] - d_e2[k];
+    d_c[3 + k] = d_e1[k] - d_ex[k];
+    d_c[6 + k] = d_e2[k] + d_ex[k];
+  }
 }
 
 // Adds ray r's parameter cotangents into acc (parameter j at acc[j * stride])
@@ -177,143 +171,42 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
   for (int k = 0; k < 3; ++k) d_o[k] = d_d[k] = 0.0f;
   for (int k = 0; k < 9; ++k) d_c[k] = 0.0f;
   const float* P = s.sdf.p;
-  bool sel_sdf, sel_mesh;
-  if (s.use_sdf && s.use_mesh) {
-    sel_sdf = r.closer && r.hs;
-    sel_mesh = !r.closer && r.hm;
-  } else {
-    sel_sdf = s.use_sdf && r.hs;
-    sel_mesh = s.use_mesh && r.hm;
-  }
+  const float sb = 0.5f * (r.d[1] + 1.0f);
+  SurfFwd f;
+  const bool surf = shade_surface(s, r, &f);
 
-  if (!sel_sdf && !sel_mesh) {  // miss: the sky gradient by d.y
-    const float sb = 0.5f * (r.d[1] + 1.0f);
-    float d_s = 0.0f;
-    for (int c = 0; c < 3; ++c) {
-      acc[(s.off_bgb + c) * stride] += r.ct[c] - r.ct[c] * sb;
-      acc[(s.off_bgt + c) * stride] += r.ct[c] * sb;
-      d_s += r.ct[c] * (P[s.off_bgt + c] - P[s.off_bgb + c]);
+  // --- reverse: out = bg + cov * (colour - bg), colour = albedo[mat] * rad
+  float d_bg[3], d_color[3], d_cov = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    if (!surf) {  // the sky alone
+      d_bg[c] = r.ct[c];
+      continue;
     }
-    d_d[1] = 0.5f * d_s;
-    return;
+    const float bg = sky(s, c, sb);
+    d_color[c] = r.ct[c] * f.cov;
+    d_cov += r.ct[c] * (P[s.off_alb + 3 * f.mat + c] * f.rad[c] - bg);
+    d_bg[c] = r.ct[c] - r.ct[c] * f.cov;
   }
+  float d_s = 0.0f;  // the sky gradient by d.y
+  for (int c = 0; c < 3; ++c) {
+    acc[(s.off_bgb + c) * stride] += d_bg[c] - d_bg[c] * sb;
+    acc[(s.off_bgt + c) * stride] += d_bg[c] * sb;
+    d_s += d_bg[c] * (P[s.off_bgt + c] - P[s.off_bgb + c]);
+  }
+  d_d[1] = 0.5f * d_s;
+  if (!surf) return;
 
-  // --- forward: the selected hit point p and normal n --------------------
-  float p[3], n[3];
-  float g[3], gth[7], glen = 1.0f;  // SDF: grad_p DE and grad_theta DE at p
-  int prim = -1, kind = 0;
-  float e1[3], e2[3], pv[3], qv[3], tv[3], cn[3];  // mesh: the MT re-solve
-  float det = 0.0f, inv_det = 0.0f, tm = 0.0f, cl = 1.0f;
-  bool det_ok = false;
-  if (sel_sdf) {
-    for (int k = 0; k < 3; ++k) p[k] = r.o[k] + r.t_bar * r.d[k];
-    prim = scene_argmin(s.sdf, p[0], p[1], p[2], &kind);
-    if (prim < 0) return;  // no primitive: the wrapper never sends such a scene
-    prim_adj<float>(P + prim, kind, s.sdf.mb_iters, p[0], p[1], p[2], g, gth);
-    glen = sqrtf(fmaxf(dot3(g, g), 1e-12f));
-    for (int k = 0; k < 3; ++k) n[k] = g[k] / glen;
-  } else {
-    const float* v0 = r.c;
-    for (int k = 0; k < 3; ++k) {
-      e1[k] = r.c[3 + k] - v0[k];
-      e2[k] = r.c[6 + k] - v0[k];
-      tv[k] = r.o[k] - v0[k];
-    }
-    cross3(r.d, e2, pv);
-    det = dot3(e1, pv);
-    det_ok = fabsf(det) > kDetEps;
-    const float det_safe = det_ok ? det : (det >= 0.0f ? kDetEps : -kDetEps);
-    inv_det = 1.0f / det_safe;
-    cross3(tv, e1, qv);
-    tm = dot3(e2, qv) * inv_det;
-    for (int k = 0; k < 3; ++k) p[k] = r.o[k] + tm * r.d[k];
-    cross3(e1, e2, cn);
-    cl = sqrtf(fmaxf(dot3(cn, cn), 1e-12f));
-    for (int k = 0; k < 3; ++k) n[k] = cn[k] / cl;
-  }
-  // two-sided: face the normal against the ray
-  const float flip = dot3(n, r.d) > 0.0f ? -1.0f : 1.0f;
-  float nf[3];
-  for (int k = 0; k < 3; ++k) nf[k] = flip * n[k];
-  const int mat = r.mat < 0 ? 0 : (r.mat >= s.n_mat ? s.n_mat - 1 : r.mat);
-  const float* alb = P + s.off_alb + 3 * mat;
-
-  // 5-tap AO: occ = sum_i 0.7^(i-1) (h_i - min(DE(p + h_i nf), |t_mesh - h_i|))
-  // over h_i = ao_step * i, ao = clip(1 - ao_strength * occ, 0, 1)
-  const bool use_ao = s.ao_sdf || s.ao_mesh;
-  bool tap_sdf[kAoTaps];  // the tap's occluder distance is its DE
-  float ao = 1.0f;
-  bool ao_pass = false;
-  if (use_ao) {
-    float occ = 0.0f;
-    double w = 1.0;
-    for (int i = 0; i < kAoTaps; ++i) {
-      const float h = static_cast<float>(s.ao_step * (i + 1));
-      float dd = 0.0f;
-      tap_sdf[i] = s.ao_sdf != 0;
-      if (s.ao_sdf) dd = scene_de(s.sdf, p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]);
-      if (s.ao_mesh) {
-        const float dm = fabsf(r.t_mesh - h);
-        if (!s.ao_sdf || dm < dd) {
-          dd = dm;
-          tap_sdf[i] = false;
-        }
-      }
-      occ = occ + static_cast<float>(w) * (h - dd);
-      w *= 0.7;
-    }
-    const float ao_raw = 1.0f - s.ao_strength * occ;
-    ao = fminf(fmaxf(ao_raw, 0.0f), 1.0f);
-    ao_pass = ao_raw >= 0.0f && ao_raw <= 1.0f;
-  }
-  // the shadow rays' origin (the penumbra recompute marches from it)
-  float p_off[3];
-  for (int k = 0; k < 3; ++k) p_off[k] = p[k] + s.bias * nf[k];
-
-  // radiance = ambient * ao + sum of the lights' terms
-  float rad[3];
-  for (int c = 0; c < 3; ++c) rad[c] = P[s.off_amb + c] * ao;
-  for (int li = 0; li < s.n_dir; ++li) {
-    const float* lraw = P + s.off_ldir + 3 * li;
-    const float ll = sqrtf(fmaxf(dot3(lraw, lraw), 1e-12f));
-    const float l[3] = {lraw[0] / ll, lraw[1] / ll, lraw[2] / ll};
-    const float ndotl = fmaxf(dot3(nf, l), 0.0f);
-    float vis = r.vis ? r.vis[li * r.vis_stride] : 1.0f;
-    if (s.soft_diff) {
-      float q[3];
-      bool pass;
-      vis = vis * penumbra(s, p_off, l, r.ts[li * r.vis_stride], q, &pass);
-    }
-    for (int c = 0; c < 3; ++c) rad[c] += P[s.off_lcol + 3 * li + c] * (ndotl * vis);
-  }
-  for (int pi = 0; pi < s.n_pos; ++pi) {
-    const float* lp = P + s.off_lpos + 3 * pi;
-    const float lv[3] = {lp[0] - p[0], lp[1] - p[1], lp[2] - p[2]};
-    const float dist2 = dot3(lv, lv);
-    const float dist = sqrtf(fmaxf(dist2, 1e-12f));
-    const float l[3] = {lv[0] / dist, lv[1] / dist, lv[2] / dist};
-    const float ndotl = fmaxf(dot3(nf, l), 0.0f);
-    float vis = r.vis ? r.vis[(s.n_dir + pi) * r.vis_stride] : 1.0f;
-    if (s.soft_diff) {
-      const float lvo[3] = {lp[0] - p_off[0], lp[1] - p_off[1], lp[2] - p_off[2]};
-      const float dist_o = sqrtf(fmaxf(dot3(lvo, lvo), 1e-12f));
-      const float lo[3] = {lvo[0] / dist_o, lvo[1] / dist_o, lvo[2] / dist_o};
-      float q[3];
-      bool pass;
-      vis = vis * penumbra(s, p_off, lo, r.ts[(s.n_dir + pi) * r.vis_stride], q, &pass);
-    }
-    const float falloff = ndotl * vis / fmaxf(dist2, 1e-8f);
-    for (int c = 0; c < 3; ++c) rad[c] += P[s.off_lpcol + 3 * pi + c] * falloff;
-  }
-
-  // --- reverse: colour = albedo[mat] * radiance ---------------------------
+  const float* alb = P + s.off_alb + 3 * f.mat;
   float d_rad[3], d_ao = 0.0f;
   for (int c = 0; c < 3; ++c) {
-    acc[(s.off_alb + 3 * mat + c) * stride] += r.ct[c] * rad[c];
-    d_rad[c] = r.ct[c] * alb[c];
-    acc[(s.off_amb + c) * stride] += d_rad[c] * ao;
+    acc[(s.off_alb + 3 * f.mat + c) * stride] += d_color[c] * f.rad[c];
+    d_rad[c] = d_color[c] * alb[c];
+    acc[(s.off_amb + c) * stride] += d_rad[c] * f.ao;
     d_ao += d_rad[c] * P[s.off_amb + c];
   }
+  const float* nf = f.nf;
+  const float* p = f.p;
+  const float* p_off = f.p_off;
   // d_n, d_p: cotangents of the flipped normal nf and of p; d_poff: of p_off
   float d_n[3] = {0.0f, 0.0f, 0.0f}, d_p[3] = {0.0f, 0.0f, 0.0f};
   float d_poff[3] = {0.0f, 0.0f, 0.0f};
@@ -418,11 +311,11 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     d_p[k] += d_poff[k];
     d_n[k] += s.bias * d_poff[k];
   }
-  if (ao_pass) {  // each tap's DE pulled back into p, nf and its primitive
+  if (f.ao_pass) {  // each tap's DE pulled back into p, nf and its primitive
     const float d_occ = -(s.ao_strength * d_ao);
     double w = 1.0;
     for (int i = 0; i < kAoTaps; ++i) {
-      if (tap_sdf[i]) {
+      if (f.tap_sdf[i]) {
         const float h = static_cast<float>(s.ao_step * (i + 1));
         const float q[3] = {p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]};
         float d_q[3] = {0.0f, 0.0f, 0.0f};
@@ -435,72 +328,68 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
       w *= 0.7;
     }
   }
-  for (int k = 0; k < 3; ++k) d_n[k] *= flip;  // cotangent of the unflipped n
+  for (int k = 0; k < 3; ++k) d_n[k] *= f.flip;  // cotangent of the unflipped n
 
-  if (sel_sdf) {
+  // the coverage: cov_s on an SDF chain, cm on a mesh chain, and in mixed
+  // (hm && !closer) ? cm : max(cov_s, cm)
+  float d_cov_s = 0.0f, d_cm = 0.0f;
+  if (s.use_sdf && s.use_mesh) {
+    if (f.sel_sdf)
+      min_adj(-f.cov_s, -f.cm, d_cov, &d_cov_s, &d_cm);  // max(a, b) = -min(-a, -b)
+    else
+      d_cm = d_cov;
+  } else if (s.use_sdf) {
+    d_cov_s = d_cov;
+  } else {
+    d_cm = d_cov;
+  }
+  // cov_s = sigmoid(-DE(o + tmin d) / soft_sil) on a miss, whose point is p
+  float d_dmin = 0.0f;
+  if (f.sel_sdf && !r.hs && s.soft_sil > 0.0f)
+    d_dmin = -(d_cov_s * (1.0f - f.cov_s) * f.cov_s / s.soft_sil);
+  // cm = clip(margin / mesh_sil, 0, 1) on a mesh hit; the clip passes at its bounds
+  const float d_margin = s.mesh_sil > 0.0f && r.hm && f.ratio >= 0.0f && f.ratio <= 1.0f
+                             ? d_cm / s.mesh_sil : 0.0f;
+
+  if (f.sel_sdf) {
     // n = g / |g| at p = o + t d: its pullback u on g, then (H u, d2DE/dth dp
     // u) from the adjoint run on Dual numbers at p + eps u
-    const float nd = dot3(n, d_n);
-    const bool n_ok = dot3(g, g) >= 1e-12f;
+    const float nd = dot3(f.n, d_n);
+    const bool n_ok = dot3(f.g, f.g) >= 1e-12f;
     float u[3];
-    for (int k = 0; k < 3; ++k) u[k] = (d_n[k] - (n_ok ? n[k] * nd : 0.0f)) / glen;
+    for (int k = 0; k < 3; ++k) u[k] = (d_n[k] - (n_ok ? f.n[k] * nd : 0.0f)) / f.glen;
     Dual hp[3], hth[7];
-    prim_adj<Dual>(P + prim, kind, s.sdf.mb_iters, Dual(p[0], u[0]),
+    prim_adj<Dual>(P + f.prim, f.kind, s.sdf.mb_iters, Dual(p[0], u[0]),
                    Dual(p[1], u[1]), Dual(p[2], u[2]), hp, hth);
-    const int np = prim_stride(kind);
+    const int np = prim_stride(f.kind);
     float d_ps[3];
-    for (int k = 0; k < 3; ++k) d_ps[k] = d_p[k] + tan_(hp[k]);
-    // p = o + t d, t the IFT-attached march t
-    const float d_t = dot3(d_ps, r.d);
+    for (int k = 0; k < 3; ++k) d_ps[k] = d_p[k] + tan_(hp[k]) + d_dmin * f.g[k];
+    // p = o + t d, t the IFT-attached march t (tmin on a miss: no gradient)
     for (int k = 0; k < 3; ++k) {
       d_o[k] += d_ps[k];
-      d_d[k] += r.t_bar * d_ps[k];
+      d_d[k] += f.t_eff * d_ps[k];
     }
-    // IFT: dt/d(theta, o, d) = -dDE/d(theta, o, d) / <grad_p DE, d>
-    const float denom = dot3(g, r.d);
-    const float denom_safe = fabsf(denom) < kDenomMin
-                                 ? (denom < 0.0f ? -kDenomMin : kDenomMin)
-                                 : denom;
-    const float scale = -d_t / denom_safe;
-    for (int k = 0; k < np; ++k) acc[(prim + k) * stride] += tan_(hth[k]) + scale * gth[k];
-    for (int k = 0; k < 3; ++k) {
-      d_o[k] += scale * g[k];
-      d_d[k] += scale * r.t_bar * g[k];
+    float scale = 0.0f;
+    if (r.hs) {
+      // IFT: dt/d(theta, o, d) = -dDE/d(theta, o, d) / <grad_p DE, d>
+      const float d_t = dot3(d_ps, r.d);
+      const float denom = dot3(f.g, r.d);
+      const float denom_safe = fabsf(denom) < kDenomMin
+                                   ? (denom < 0.0f ? -kDenomMin : kDenomMin)
+                                   : denom;
+      scale = -d_t / denom_safe;
+      for (int k = 0; k < 3; ++k) {
+        d_o[k] += scale * f.g[k];
+        d_d[k] += scale * r.t_bar * f.g[k];
+      }
     }
-  } else {
-    // p = o + tm d, tm = <e2, q> / det, n = normalize(e1 x e2)
-    for (int k = 0; k < 3; ++k) {
-      d_o[k] += d_p[k];
-      d_d[k] += tm * d_p[k];
-    }
-    const float d_tm = dot3(d_p, r.d);
-    const float d_inv = d_tm * dot3(e2, qv);
-    const float d_det = det_ok ? -d_inv * inv_det * inv_det : 0.0f;
-    float d_e1[3], d_e2[3], d_qv[3], d_pv[3], d_tv[3], d_cn[3], tmp[3];
-    for (int k = 0; k < 3; ++k) {
-      d_e2[k] = d_tm * inv_det * qv[k];
-      d_qv[k] = d_tm * inv_det * e2[k];
-      d_e1[k] = d_det * pv[k];
-      d_pv[k] = d_det * e1[k];
-    }
-    cross3(e2, d_pv, tmp);  // pv = d x e2
-    for (int k = 0; k < 3; ++k) d_d[k] += tmp[k];
-    cross3(d_pv, r.d, tmp);
-    for (int k = 0; k < 3; ++k) d_e2[k] += tmp[k];
-    cross3(e1, d_qv, d_tv);  // qv = tv x e1
-    cross3(d_qv, tv, tmp);
-    for (int k = 0; k < 3; ++k) d_e1[k] += tmp[k];
-    normalize_adj(cn, d_n, d_cn);  // cn = e1 x e2
-    cross3(e2, d_cn, tmp);
-    for (int k = 0; k < 3; ++k) d_e1[k] += tmp[k];
-    cross3(d_cn, e1, tmp);
-    for (int k = 0; k < 3; ++k) d_e2[k] += tmp[k];
-    for (int k = 0; k < 3; ++k) {
-      d_o[k] += d_tv[k];
-      d_c[k] = -d_tv[k] - d_e1[k] - d_e2[k];
-      d_c[3 + k] = d_e1[k];
-      d_c[6 + k] = d_e2[k];
-    }
+    // on a hit the IFT's scale, on a miss the silhouette's d_dmin: one is 0
+    for (int k = 0; k < np; ++k)
+      acc[(f.prim + k) * stride] += tan_(hth[k]) + (scale + d_dmin) * f.gth[k];
+  }
+  if (s.use_mesh && r.hm && (!f.sel_sdf || d_margin != 0.0f)) {
+    const float zero[3] = {0.0f, 0.0f, 0.0f};
+    mesh_bwd(r, f.sel_sdf ? zero : d_p, f.sel_sdf ? zero : d_n, d_margin, d_o, d_d, d_c);
   }
 }
 
@@ -517,18 +406,19 @@ constexpr int kMaxSmem = 227 * 1024;
 __global__ void shade_bwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ corners, const float* __restrict__ t_bar,
-    const uint8_t* __restrict__ hs, const uint8_t* __restrict__ hm,
-    const uint8_t* __restrict__ closer, const int* __restrict__ mat,
-    const float* __restrict__ vis, const float* __restrict__ ts,
-    const float* __restrict__ ao_tmesh, const float* __restrict__ ct, int n,
-    float* __restrict__ d_o, float* __restrict__ d_d,
-    float* __restrict__ d_corners, float* __restrict__ partials) {
+    const float* __restrict__ tmin, const uint8_t* __restrict__ hs,
+    const uint8_t* __restrict__ hm, const uint8_t* __restrict__ closer,
+    const int* __restrict__ mat, const float* __restrict__ vis,
+    const float* __restrict__ ts, const float* __restrict__ ao_tmesh,
+    const float* __restrict__ ct, int n, float* __restrict__ d_o,
+    float* __restrict__ d_d, float* __restrict__ d_corners,
+    float* __restrict__ partials) {
   extern __shared__ float acc[];  // [n_par][kStride]: column tid is ray tid's
   const int tid = threadIdx.x;
   for (int j = 0; j < s.n_par; ++j) acc[j * kStride + tid] = 0.0f;
   const int i = blockIdx.x * kThreads + tid;
   if (i < n) {
-    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, hs, hm,
+    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, ct);
     float go[3], gd[3], gc[9];
     tr::shade_bwd_ray(s, r, acc + tid, kStride, go, gd, gc);
@@ -565,21 +455,24 @@ extern "C" int tr_shade_bwd_threads() { return kThreads; }
 
 extern "C" int tr_shade_bwd(
     const float* o, const float* d, const float* corners, const float* t_bar,
-    const uint8_t* hs, const uint8_t* hm, const uint8_t* closer,
-    const int* mat, const float* vis, const float* ts, const float* ao_tmesh,
-    const float* ct, int n, const float* small, int n_sph, int n_pln,
-    int n_box, int n_mb, int mb_iters, int n_mat, int n_dir, int n_pos,
-    int use_sdf, int use_mesh, int ao_sdf, int ao_mesh, int soft_diff,
-    double ao_step, float ao_strength, float soft_k, float bias, float* d_o,
-    float* d_d, float* d_corners, float* partials, int n_partial_rows,
-    float* d_small, void* stream) {
+    const float* tmin, const uint8_t* hs, const uint8_t* hm,
+    const uint8_t* closer, const int* mat, const float* vis, const float* ts,
+    const float* ao_tmesh, const float* ct, int n, const float* small,
+    int n_sph, int n_pln, int n_box, int n_mb, int mb_iters, int n_mat,
+    int n_dir, int n_pos, int use_sdf, int use_mesh, int ao_sdf, int ao_mesh,
+    int soft_diff, float soft_sil, float mesh_sil, double ao_step,
+    float ao_strength, float soft_k, float bias, float* d_o, float* d_d,
+    float* d_corners, float* partials, int n_partial_rows, float* d_small,
+    void* stream) {
   const tr::ShadeParams s = tr::make_params(
       small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf,
-      use_mesh, ao_sdf, ao_mesh, soft_diff, ao_step, ao_strength, soft_k, bias);
+      use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil, ao_step,
+      ao_strength, soft_k, bias);
   const int n_blocks = n > 0 ? (n + kThreads - 1) / kThreads : 0;
   const size_t smem = static_cast<size_t>(s.n_par) * kStride * sizeof(float);
   if (mb_iters > tr::kMaxMbIters || n_mat < 1 || smem > kMaxSmem ||
-      n_partial_rows != n_blocks || (soft_diff && !ts) || (ao_mesh && !ao_tmesh))
+      n_partial_rows != n_blocks || (soft_diff && !ts) || (ao_mesh && !ao_tmesh) ||
+      (soft_sil > 0.0f && !tmin))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_blocks > 0) {
@@ -590,8 +483,8 @@ extern "C" int tr_shade_bwd(
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     shade_bwd_kernel<<<n_blocks, kThreads, smem, st>>>(
-        s, o, d, corners, t_bar, hs, hm, closer, mat, vis, ts, ao_tmesh, ct, n,
-        d_o, d_d, d_corners, partials);
+        s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
+        ct, n, d_o, d_d, d_corners, partials);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -2,11 +2,12 @@
 image (inverse rendering). Counterpart of `tpu_ray/fit.py`.
 
 Any float leaf of the Scene can be optimized, addressed by dotted path
-("sdf.sph_radius", "camera.origin", "mesh.verts", "materials.albedo", ...).
-The parameters are leaf tensors that require grad; `apply_params` puts them
-into a copy of the scene that shares every other tensor.
+("sdf.sph_radius", "camera.origin", "mesh.verts", "materials.albedo",
+"poses.translate", ...). The parameters are leaf tensors that require grad;
+`apply_params` puts them into a copy of the scene that shares every other
+tensor.
 
-Not ported yet: the sharded step, object-pose fits and checkpoints.
+Not ported yet: the sharded step and checkpoints.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from tpu_ray_torch.accel.packet import refit_packet_accel
 from tpu_ray_torch.render.render import render_image
+from tpu_ray_torch.scene.transform import apply_poses, realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils.config import FitConfig, RenderConfig
 
@@ -33,11 +35,15 @@ def extract_params(scene: Scene, paths: Sequence[str]) -> ParamDict:
 
 
 def _maybe_refit(scene: Scene, refit_accel: bool) -> Scene:
-    """Refit the packet accel to the current vertices (never differentiated):
-    keeps the accel valid while mesh.verts move."""
+    """Refit the packet accel to the current world-space vertices (never
+    differentiated; posed, where the scene has object poses): keeps the
+    accel valid while mesh.verts or the poses move."""
     if not refit_accel or scene.packet is None:
         return scene
-    return scene.replace(packet=refit_packet_accel(scene.packet, scene.mesh.verts,
+    verts = scene.mesh.verts
+    if scene.poses is not None:
+        verts = apply_poses(scene.poses, verts)
+    return scene.replace(packet=refit_packet_accel(scene.packet, verts,
                                                    scene.mesh.tris))
 
 
@@ -49,7 +55,11 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
 
     def step() -> float:
         optimizer.zero_grad(set_to_none=True)
-        img = render_image(_maybe_refit(apply_params(scene, params), refit_accel), cfg)
+        current = apply_params(scene, params)
+        # the poses fold into world-space vertices, which refits the accel
+        current = (realize_scene(current) if current.poses is not None
+                   else _maybe_refit(current, refit_accel))
+        img = render_image(current, cfg)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()
@@ -65,14 +75,12 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     Returns (fitted_scene, loss_history)."""
     if fit_cfg.checkpoint_dir:
         raise NotImplementedError("fit checkpoints are not ported yet")
-    if any(p.split(".")[0] == "poses" for p in trainable):
-        raise NotImplementedError("object-pose fits are not ported yet")
     if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
         # the power-8 field ignores mb_power: use the generic DE, whose
         # power has a gradient (the CUDA kernels take power 8 only)
         scene = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
-    # moving vertices: the packet accel is refit every step
-    refit_accel = any(p.split(".")[0] == "mesh" for p in trainable)
+    # moving vertices or poses: the packet accel is refit every step
+    refit_accel = any(p.split(".")[0] in ("mesh", "poses") for p in trainable)
 
     params = extract_params(scene, trainable)
     optimizer = torch.optim.Adam(params.values(), lr=fit_cfg.learning_rate)

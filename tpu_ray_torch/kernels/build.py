@@ -54,12 +54,15 @@ _SIGNATURES = {
     # perm, perm_len, any_hit, t, tri, hit, stream
     "tr_intersect_packet": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
                             _P, _I, _I, _P, _P, _P, _P],
-    # o, d, corners, t_bar, hs, hm, closer, mat, vis, ts, ao_tmesh, ct, n,
+    # o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh, n,
     # small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos,
-    # use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, ao_step, ao_strength,
-    # soft_k, bias, d_o, d_d, d_corners, partials, n_partial_rows, d_small,
-    # stream
-    "tr_shade_bwd": ([_P] * 12 + [_I, _P] + [_I] * 13 + [_D, _F, _F, _F]
+    # use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil,
+    # ao_step, ao_strength, soft_k, bias, out, stream
+    "tr_shade_fwd": ([_P] * 12 + [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
+                     + [_P, _P]),
+    # as tr_shade_fwd with ct after ao_tmesh, then d_o, d_d, d_corners,
+    # partials, n_partial_rows, d_small, stream after bias
+    "tr_shade_bwd": ([_P] * 13 + [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
                      + [_P] * 4 + [_I, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],

@@ -41,16 +41,18 @@ def _bound_terms(bounds, o, d, inflate: float):
 
 
 def march_torch(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
-                t_far: float, visit=None):
+                t_far: float, bound_pad: float = 0.0, visit=None):
     """Sphere trace (R,3),(R,3) -> (t, hit, steps, tmin), the kernel's rule:
     `t += DE` until DE < eps, t >= t_far or max_steps; rays that miss every
-    bounding sphere start at t_far (tmin stays t0)."""
+    bounding sphere, its radius grown by bound_pad, start at t_far (tmin
+    stays t0). A ray that misses the grown spheres stays bound_pad away from
+    every primitive."""
     R = o.shape[0]
     t = torch.full((R,), float(t0), dtype=o.dtype, device=o.device)
     tmin = t.clone()
     bounds = sdf_bounding_spheres(sdf)
     if bounds is not None:
-        b, disc = _bound_terms(bounds, o, d, 0.0)
+        b, disc = _bound_terms(bounds, o, d, bound_pad)
         reach = ((disc >= 0.0) & (torch.sqrt(torch.clamp_min(disc, 0.0)) - b > 0.0)).any(1)
         t = torch.where(reach, t, torch.full_like(t, t_far))
     hit = torch.zeros((R,), dtype=torch.bool, device=o.device)
@@ -180,12 +182,14 @@ def _stream(device):
 
 
 def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
-          t_far: float):
+          t_far: float, bound_pad: float = 0.0):
     """Primary sphere trace -> (t, hit, steps, tmin); see march_torch."""
     if o.device.type == "cpu":
         return march_torch(sdf, o, d, t0=t0, max_steps=max_steps, eps=eps,
-                           t_far=t_far)
+                           t_far=t_far, bound_pad=bound_pad)
     params, counts, bounds = _sdf_args(sdf)
+    if bounds is not None and bound_pad:
+        bounds = torch.cat([bounds[:, :3], bounds[:, 3:] + bound_pad], 1).contiguous()
     check_cuda_inputs("march", o, d, params, bounds)
     R = o.shape[0]
     dev = o.device

@@ -1,24 +1,28 @@
-"""The fused shade backward: CUDA kernel, its plain version, and the
-autograd Function around the shade of a ray block.
+"""The fused shade forward and backward: CUDA kernels, their plain
+versions, and the autograd Function around the shade of a ray block.
 
-Counterpart of `tpu_ray/kernels/pallas_shade.py` (`shade_bwd_pallas` and
-its wrapper `make_shade_sdf_vjp`). Kernel: `csrc/shade_bwd.cu`, over the
-distance field's adjoint `csrc/sdf_adj.cuh`.
+Counterpart of `tpu_ray/kernels/pallas_shade.py` (`shade_fwd_pallas`,
+`shade_bwd_pallas` and their wrapper `make_shade_sdf_vjp`). Kernels:
+`csrc/shade_fwd.cu` and `csrc/shade_bwd.cu`, over the per-ray chain both
+recompute (`csrc/shade_chain.cuh`) and the distance field's adjoint
+(`csrc/sdf_adj.cuh`).
 
 `ShadeFn` takes the scene's shade leaves (SHADE_PATHS), the rays o, d and
-the selected triangles' corners. Its forward is the plain shade, as the
-reference's default forward rule is; it saves only compact residuals: o, d,
-the march t and hit masks, the shadow visibility and the soft march's
-argmin t, the AO's mesh distance, the hit material and the mixed
-closest-select mask, and the corners. Its backward is `shade_bwd`.
+the selected triangles' corners. Its forward is `shade_fwd`; it saves only
+compact residuals: o, d, the march t, closest approach and hit masks, the
+shadow visibility and the soft march's argmin t, the AO's mesh distance,
+the hit material and the mixed closest-select mask, and the corners. Its
+backward is `shade_bwd`.
 
-Dispatch follows the device: `shade_bwd` runs `shade_bwd_torch` (autograd
-of the plain shade) on CPU tensors and launches the kernel on CUDA tensors,
-raising on what the kernel does not take. Each kernel launch adds one to
-`LAUNCHES["shade_bwd"]`. The chains the kernel takes: methods sdf, mesh_*
-and mixed, directional and point lights, static shadow visibility (hard,
-soft or none), the soft-shadow penumbra with `diff_vis`, the 5-tap AO, a
-power-8 Mandelbulb of at most 16 iterations, float32. Not the silhouettes.
+Dispatch follows the device: `shade_fwd` and `shade_bwd` run their plain
+versions (`shade_fwd_torch`, the plain shade without gradient;
+`shade_bwd_torch`, its autograd) on CPU tensors and launch their kernel on
+CUDA tensors, raising on what the kernels do not take. Each launch adds one
+to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`. The chains the
+kernels take: methods sdf, mesh_* and mixed, directional and point lights,
+static shadow visibility (hard, soft or none), the soft-shadow penumbra
+with `diff_vis`, the 5-tap AO, the soft SDF silhouette and the mesh edge
+band, a power-8 Mandelbulb of at most 16 iterations, float32.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from tpu_ray_torch.kernels.cuda_sdf import pack_sdf
 from tpu_ray_torch.scene.types import apply_params, get_param
 from tpu_ray_torch.sdf.primitives import FLOAT_FIELDS
 
-LAUNCHES = {"shade_bwd": 0}
+LAUNCHES = {"shade_fwd": 0, "shade_bwd": 0}
 
 # the differentiable scene leaves of the shade chain, in the kernel's packed
 # order after the SDF block; the vertices' gradient flows through the corners
@@ -42,8 +46,8 @@ SHADE_PATHS = tuple(f"sdf.{f}" for f in FLOAT_FIELDS) + (
     "bg_top", "bg_bottom", "lights.position", "lights.pos_color")
 _SMALL_PATHS = SHADE_PATHS[len(FLOAT_FIELDS):]
 # the residuals the backward keeps (the geometry pass's hit state is not)
-_SAVED_RES = ("sdf_t", "sdf_hit", "mesh_tri", "mesh_hit", "sh_vis", "sh_ts",
-              "ao_tmesh")
+_SAVED_RES = ("sdf_t", "sdf_hit", "sdf_tmin", "mesh_tri", "mesh_hit", "sh_vis",
+              "sh_ts", "ao_tmesh")
 _MAX_MB_ITERS = 16  # kMaxMbIters in csrc/sdf_adj.cuh
 
 
@@ -55,10 +59,11 @@ def wants_grad(scene, o, d, mesh_rows=None) -> bool:
 
 
 def kernel_spec(scene, cfg, method: str):
-    """Static shape of the shade chain (what the kernel recomputes): a dict,
-    or None on the CPU when the kernel does not take the chain, which then
-    runs through autograd of the plain shade. On a CUDA device such a chain
-    raises NotImplementedError: there is no plain fallback on the card."""
+    """Static shape of the shade chain (what the kernels recompute): a dict,
+    or None on the CPU when the kernels do not take the chain, which then
+    runs through the plain shade and its autograd. On a CUDA device such a
+    chain raises NotImplementedError: there is no plain fallback on the
+    card."""
     use_sdf = method in ("sdf", "mixed") and scene.has_sdf
     use_mesh = method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
     lights = scene.lights
@@ -69,17 +74,16 @@ def kernel_spec(scene, cfg, method: str):
             # term when the traced method includes the mesh (render.make_ao)
             "ao_sdf": cfg.ao == "sdf5" and scene.has_sdf,
             "ao_mesh": cfg.ao == "sdf5" and use_mesh,
-            "soft_diff": cfg.shadow == "soft" and cfg.diff_vis and use_sdf}
+            "soft_diff": cfg.shadow == "soft" and cfg.diff_vis and use_sdf,
+            # the soft SDF silhouette and the mesh edge band
+            "soft_sil": cfg.soft_silhouette > 0.0 and use_sdf,
+            "mesh_sil": cfg.mesh_silhouette > 0.0 and use_mesh}
     sdf = scene.sdf
     why = None
     if not (use_sdf or use_mesh):
         why = f"method {method!r} on a scene without its geometry"
     elif method == "mixed" and not spec["mixed"]:
         why = "method 'mixed' without both an SDF and a mesh"
-    elif cfg.soft_silhouette > 0.0:
-        why = "soft_silhouette > 0"
-    elif cfg.mesh_silhouette > 0.0:
-        why = "mesh_silhouette > 0"
     elif spec["n_dir"] + spec["n_pos"] == 0:
         why = "a scene without lights"
     elif (use_sdf or spec["ao_sdf"]) and sdf.mb_center.shape[0] and not (
@@ -90,14 +94,14 @@ def kernel_spec(scene, cfg, method: str):
     if why is None:
         return spec
     if scene.device.type == "cuda":
-        raise NotImplementedError(
-            f"the shade backward kernel does not take {why} yet")
+        raise NotImplementedError(f"the shade kernels do not take {why}")
     return None
 
 
 def _make_aux(scene, cfg, method: str, o, d, res, mesh_rows=None) -> dict:
     """The hit material id and the mixed closest-select mask: the geometry
-    pass's residuals when it made them (with shadows), else recomputed."""
+    pass's residuals when it made them (with shadows or the AO's mesh term),
+    else recomputed by a values-only reconstruct."""
     if "hit_mat" not in res:
         from tpu_ray_torch.render.render import reconstruct_hits
 
@@ -131,16 +135,15 @@ class _ShadeCall:
 
 
 class ShadeFn(torch.autograd.Function):
-    """colors = ShadeFn.apply(call, o, d, corners, *shade leaves): the plain
-    shade forward; the fused shade backward (counterpart of
-    `make_shade_sdf_vjp`)."""
+    """colors = ShadeFn.apply(call, o, d, corners, *shade leaves): the fused
+    shade forward and backward (counterpart of `make_shade_sdf_vjp` with
+    the Pallas forward rule)."""
 
     @staticmethod
     def forward(ctx, call: _ShadeCall, o, d, corners, *leaves):
-        from tpu_ray_torch.render.render import _shade_plain
-
-        out = _shade_plain(call.scene, call.cfg, o, d, call.res, call.method,
-                           mesh_rows=call.mesh_rows)
+        out = shade_fwd(call.scene, call.cfg, o.detach(), d.detach(), call.res,
+                        call.method, corners=None if corners is None else corners.detach(),
+                        aux=call.aux, mesh_rows=call.mesh_rows)
         saved = {k: call.res[k] for k in _SAVED_RES if k in call.res}
         ctx.call = _ShadeCall(_detached(call.scene), call.cfg, call.method,
                               saved, call.aux)
@@ -167,8 +170,19 @@ def shade(scene, cfg, o, d, res, method: str, corners=None, mesh_rows=None):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version (the CPU path; the card's parity reference)
+# Plain PyTorch versions (the CPU path; the card's parity reference)
 # ---------------------------------------------------------------------------
+
+def shade_fwd_torch(scene, cfg, o, d, res, method: str, corners=None,
+                    mesh_rows=None) -> torch.Tensor:
+    """The plain shade of one block without gradient -> (R, 3): `_shade_plain`
+    (which reuses the geometry pass's hit state where it left one)."""
+    from tpu_ray_torch.render.render import _shade_plain
+
+    with torch.no_grad():
+        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                            corners=corners)
+
 
 def shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method: str) -> dict:
     """Cotangents of the plain shade of one block given the output
@@ -195,6 +209,18 @@ def shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method: str) -> dict:
     return result
 
 
+def _float64(scene, o, d, res, corners):
+    """The shade's inputs in float64: the SHADE_PATHS leaves, the rays, the
+    float residuals (not the geometry pass's float32 hit state) and the
+    corners."""
+    def f64(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+    scene64 = apply_params(scene, {p: f64(get_param(scene, p)) for p in SHADE_PATHS})
+    res64 = {k: f64(v) for k, v in res.items() if k != "hits"}
+    return scene64, f64(o), f64(d), res64, f64(corners)
+
+
 def ill_conditioned_rays(scene, cfg, o, d, res, corners, ct, method: str):
     """(R,) bool: the rays on which shade_bwd_torch in float32 is itself off
     by more than 1e-3, the parity checks' per-ray bound, in d_o or d_d from
@@ -203,16 +229,26 @@ def ill_conditioned_rays(scene, cfg, o, d, res, corners, ct, method: str):
     alone moves a ray's cotangents that far: no float32 version has an
     answer there to agree on, so the parity checks set such rays apart. The
     kernel takes no part in picking them."""
-    def f64(x):
-        return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
-
-    scene64 = apply_params(scene, {p: f64(get_param(scene, p)) for p in SHADE_PATHS})
-    res64 = {k: f64(v) for k, v in res.items() if k != "hits"}
+    scene64, o64, d64, res64, c64 = _float64(scene, o, d, res, corners)
     g32 = shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
-    g64 = shade_bwd_torch(scene64, cfg, f64(o), f64(d), res64, f64(corners), f64(ct), method)
+    g64 = shade_bwd_torch(scene64, cfg, o64, d64, res64, c64, ct.double(), method)
     rel = [(g32[k].double() - g64[k]).norm(dim=1) / g64[k].norm(dim=1).clamp_min(1e-300)
            for k in ("o", "d")]
     return torch.maximum(*rel) > 1e-3
+
+
+def ill_conditioned_colors(scene, cfg, o, d, res, corners, method: str,
+                           tol: float = 1e-4):
+    """(R,) bool: the rays whose float32 plain forward (shade_fwd_torch)
+    leaves its float64 evaluation on the same inputs by more than tol in a
+    channel, the forward parity's per-ray bound. As for the backward, where
+    the AO taps or the penumbra read the Mandelbulb near its surface,
+    float32 rounding alone moves such a colour that far; the kernel takes no
+    part in picking them."""
+    scene64, o64, d64, res64, c64 = _float64(scene, o, d, res, corners)
+    c32 = shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners)
+    c64 = shade_fwd_torch(scene64, cfg, o64, d64, res64, method, corners=c64)
+    return (c32.double() - c64).abs().amax(1) > tol
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +256,8 @@ def ill_conditioned_rays(scene, cfg, o, d, res, corners, ct, method: str):
 # ---------------------------------------------------------------------------
 
 def pack_small(scene) -> torch.Tensor:
-    """The kernel's packed float32 parameter block (layout in
-    csrc/shade_bwd.cu): the SDF block of pack_sdf, then the SHADE_PATHS
+    """The kernels' packed float32 parameter block (layout in
+    csrc/shade_chain.cuh): the SDF block of pack_sdf, then the SHADE_PATHS
     leaves after the SDF's, flattened."""
     parts = [pack_sdf(scene.sdf)]
     parts += [get_param(scene, p).reshape(-1).to(torch.float32) for p in _SMALL_PATHS]
@@ -271,54 +307,97 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def kernel_args(scene, cfg, o, d, res, aux, corners, method: str):
+    """The arguments both shade kernels take: (spec, small, rays, statics).
+    rays: the 12 per-ray tensors (o, d, corners, t_bar, tmin, hs, hm,
+    closer, mat, vis, ts, ao_tmesh; None where the chain reads none), the
+    kernels' pointer arguments; statics: the arguments after them, the ray
+    count and the packed block `small` (as a tensor) first."""
+    spec = kernel_spec(scene, cfg, method)
+    small = pack_small(scene)
+    rays = [o, d, corners, res["sdf_t"] if spec["use_sdf"] else None,
+            res["sdf_tmin"] if spec["soft_sil"] else None,
+            res["sdf_hit"] if spec["use_sdf"] else None,
+            res["mesh_hit"] if spec["use_mesh"] else None,
+            aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"),
+            res["sh_ts"] if spec["soft_diff"] else None,
+            res["ao_tmesh"] if spec["ao_mesh"] else None]
+    sdf = scene.sdf
+    statics = [o.shape[0], small, sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
+               sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
+               scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
+               *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
+                                        "soft_diff")),
+               float(cfg.soft_silhouette) if spec["soft_sil"] else 0.0,
+               float(cfg.mesh_silhouette) if spec["mesh_sil"] else 0.0,
+               float(cfg.ao_step), float(cfg.ao_strength), float(cfg.soft_k),
+               float(cfg.shadow_bias)]
+    return spec, small, rays, statics
+
+
+def _checked_args(name, scene, cfg, o, d, res, aux, corners, method: str):
+    """kernel_args, checked for the CUDA kernels, with the tensors as
+    pointers: (spec, small, pointers, statics)."""
+    spec, small, rays, statics = kernel_args(scene, cfg, o, d, res, aux, corners, method)
+    o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, t_mesh = rays
+    R = o.shape[0]
+    n_lights = spec["n_dir"] + spec["n_pos"]
+    for key, rows in (("sh_vis", vis), ("sh_ts", ts)):
+        if rows is not None and tuple(rows.shape) != (n_lights, R):
+            raise ValueError(f"{name}: {key} must be ({n_lights}, {R})")
+    for key, col in (("ao_tmesh", t_mesh), ("sdf_tmin", tmin)):
+        if col is not None and tuple(col.shape) != (R,):
+            raise ValueError(f"{name}: {key} must be ({R},)")
+    if spec["use_mesh"] and (corners is None or tuple(corners.shape) != (R, 9)):
+        raise ValueError(f"{name}: a mesh chain needs the (R, 9) corners")
+    check_cuda_inputs(name, o, d, corners, t_bar, tmin, vis, ts, t_mesh, small)
+    _check_masks(name, hs, hm, closer, mat)
+    statics[1] = small.data_ptr()
+    return spec, small, [_ptr(t) for t in rays], statics
+
+
+def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
+              mesh_rows=None) -> torch.Tensor:
+    """The shade of one ray block without gradient -> (R, 3); see
+    shade_fwd_torch. aux: _make_aux's dict (made here when None)."""
+    if o.device.type == "cpu":
+        return shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners,
+                               mesh_rows=mesh_rows)
+    if aux is None:
+        aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows)
+    _, _, pointers, statics = _checked_args("shade_fwd", scene, cfg, o, d, res, aux,
+                                            corners, method)
+    out = torch.empty((o.shape[0], 3), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        rc = kernel_lib().tr_shade_fwd(
+            *pointers, *statics, out.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    check_launch("shade_fwd", rc)
+    LAUNCHES["shade_fwd"] += 1
+    return out
+
+
 def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str) -> dict:
     """Cotangents of the shade of one ray block; see shade_bwd_torch."""
     if o.device.type == "cpu":
         return shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
-    spec = kernel_spec(scene, cfg, method)
+    spec, small, pointers, statics = _checked_args("shade_bwd", scene, cfg, o, d, res,
+                                                   aux, corners, method)
+    check_cuda_inputs("shade_bwd", o, ct)
     R, dev = o.shape[0], o.device
-    small = pack_small(scene)
-    t_bar = res["sdf_t"] if spec["use_sdf"] else None
-    hs = res["sdf_hit"] if spec["use_sdf"] else None
-    hm = res["mesh_hit"] if spec["use_mesh"] else None
-    closer = aux.get("closer") if spec["mixed"] else None
-    vis = res.get("sh_vis")
-    ts = res["sh_ts"] if spec["soft_diff"] else None
-    t_mesh = res["ao_tmesh"] if spec["ao_mesh"] else None
-    n_lights = spec["n_dir"] + spec["n_pos"]
-    for name, rows in (("sh_vis", vis), ("sh_ts", ts)):
-        if rows is not None and tuple(rows.shape) != (n_lights, R):
-            raise ValueError(f"shade_bwd: {name} must be ({n_lights}, {R})")
-    if t_mesh is not None and tuple(t_mesh.shape) != (R,):
-        raise ValueError(f"shade_bwd: ao_tmesh must be ({R},)")
-    if spec["use_mesh"] and (corners is None or tuple(corners.shape) != (R, 9)):
-        raise ValueError("shade_bwd: a mesh chain needs the (R, 9) corners")
-    check_cuda_inputs("shade_bwd", o, d, corners, t_bar, vis, ts, t_mesh, ct, small)
-    _check_masks("shade_bwd", hs, hm, closer, aux["mat"])
     lib = kernel_lib()
-    threads = lib.tr_shade_bwd_threads()
-    n_rows = -(-R // threads)
+    n_rows = -(-R // lib.tr_shade_bwd_threads())
     d_o = torch.empty((R, 3), dtype=torch.float32, device=dev)
     d_d = torch.empty((R, 3), dtype=torch.float32, device=dev)
     d_c = (torch.empty((R, 9), dtype=torch.float32, device=dev)
            if spec["use_mesh"] else None)
     partials = torch.empty((n_rows, small.numel()), dtype=torch.float32, device=dev)
     d_small = torch.empty_like(small)
-    sdf = scene.sdf
     with torch.cuda.device(dev):
         rc = lib.tr_shade_bwd(
-            o.data_ptr(), d.data_ptr(), _ptr(corners), _ptr(t_bar), _ptr(hs),
-            _ptr(hm), _ptr(closer), aux["mat"].data_ptr(), _ptr(vis), _ptr(ts),
-            _ptr(t_mesh), ct.data_ptr(), R, small.data_ptr(),
-            sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
-            sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
-            scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
-            *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
-                                     "soft_diff")),
-            float(cfg.ao_step), float(cfg.ao_strength), float(cfg.soft_k),
-            float(cfg.shadow_bias), d_o.data_ptr(),
-            d_d.data_ptr(), _ptr(d_c), partials.data_ptr(), n_rows,
-            d_small.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            *pointers, ct.data_ptr(), *statics, d_o.data_ptr(), d_d.data_ptr(),
+            _ptr(d_c), partials.data_ptr(), n_rows, d_small.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch("shade_bwd", rc)
     LAUNCHES["shade_bwd"] += 1
     result = unpack_small(d_small, scene)

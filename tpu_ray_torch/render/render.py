@@ -10,13 +10,18 @@ SDF shadow march (`cuda_sdf.shadow_hard`; `cuda_sdf.shadow_soft` through
 `shading.sdf_soft_shadow_argmin`). It emits compact per-ray residuals; the
 shade rebuilds hit state from them (SDF hit t by the IFT attach, normal by
 autograd of the distance field, mesh hit by re-solving the selected
-triangle) and shades with the static shadow visibility or, with `diff_vis`
+triangle), with the soft SDF silhouette and the mesh edge band as
+coverage, and shades with the static shadow visibility or, with `diff_vis`
 soft shadows, the penumbra recomputed from one DE at the march's argmin t,
 and the 5-tap distance-field AO.
 
-Gradients: ray generation runs inside autograd, so the camera gets its
-gradient; the shade of a block is one `cuda_shade.ShadeFn`, whose backward
-is the fused shade-backward kernel on a CUDA device.
+On a CUDA device the shade of a block is one launch of the fused forward
+kernel (`cuda_shade.shade_fwd`), with or without a gradient; on the CPU it
+is the plain `_shade_plain`. Gradients: ray generation runs inside
+autograd, so the camera gets its gradient; the shade of a block is one
+`cuda_shade.ShadeFn`, whose backward is the fused shade-backward kernel on
+a CUDA device. Object poses (`scene.poses`) fold into world-space vertices
+once per frame, at `render_image`'s entry.
 
 Not ported yet: jittered sampling.
 """
@@ -32,11 +37,17 @@ from tpu_ray_torch.kernels import moller_trumbore as mt
 from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
 from tpu_ray_torch.render import shading
 from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene
 from tpu_ray_torch.sdf.primitives import sdf_distance, sdf_distance_and_mat
 from tpu_ray_torch.utils.config import RenderConfig
 
 BIG = 1e10
+# with soft silhouettes the march also takes the rays that pass within this
+# many silhouette widths of a primitive's bounding sphere: their closest
+# approach sets their coverage. A ray that stays farther away has coverage
+# below sigmoid(-24) = 4e-11, under float32's resolution of the blend.
+SIL_REACH = 24.0
 
 
 def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
@@ -313,7 +324,7 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     if _use_sdf(scene, method):
         t, hit, _steps, tmin = cuda_sdf.march(
             scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
-            t_far=cfg.t_far)
+            t_far=cfg.t_far, bound_pad=SIL_REACH * max(cfg.soft_silhouette, 0.0))
         res["sdf_t"], res["sdf_hit"], res["sdf_tmin"] = t, hit, tmin
         if method == "mixed":
             # the SDF hit bounds the mesh search
@@ -453,18 +464,18 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
                          method: str, mesh_rows=None) -> torch.Tensor:
     """Shade a flat ray batch from its geometry residuals -> (R, 3).
 
-    When a gradient is asked for, the chain goes through one
-    `cuda_shade.ShadeFn`: its forward is the plain shade, its backward the
-    fused shade-backward kernel on a CUDA device (its plain version on the
-    CPU). The per-ray corners of the selected triangles are gathered here,
-    from the per-frame `mesh_table`, so the vertex gradient scatters by
-    triangle per block and by vertex once per frame. On a CUDA device a
-    chain the kernel does not take raises; on the CPU it runs through
-    autograd of the plain shade."""
-    if not (torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)):
-        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    On a CUDA device the shade is one launch of the fused forward kernel;
+    when a gradient is asked for, through one `cuda_shade.ShadeFn`, whose
+    backward is the fused shade-backward kernel. A chain the kernels do not
+    take raises there. On the CPU the plain `_shade_plain` runs, and with a
+    gradient the same Function with the kernels' plain versions (or, for a
+    chain the kernels do not take, autograd of the plain shade). The
+    per-ray corners of the selected triangles are gathered here, from the
+    per-frame `mesh_table`, so the vertex gradient scatters by triangle per
+    block and by vertex once per frame."""
+    grad = torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)
     spec = cuda_shade.kernel_spec(scene, cfg, method)
-    if spec is None:
+    if spec is None or not (grad or o.is_cuda):
         return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
     corners = None
     if spec["use_mesh"]:
@@ -472,6 +483,9 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
             mesh_rows = mesh_table(scene.mesh)
         idx = torch.clamp(res["mesh_tri"], 0, mesh_rows.shape[0] - 1).long()
         corners = mesh_rows[idx][:, :9].contiguous()
+    if not grad:
+        return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
+                                    mesh_rows=mesh_rows)
     return cuda_shade.shade(scene, cfg, o, d, res, method, corners, mesh_rows)
 
 
@@ -509,7 +523,9 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
 
 
 def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
-    """Full frame: (H, W, 3) linear RGB, spp-averaged."""
+    """Full frame: (H, W, 3) linear RGB, spp-averaged. Object poses fold
+    into world-space vertices first (the packet accel refit to them)."""
+    scene = realize_scene(scene)
     dev, dtype = scene.device, scene.camera.origin.dtype
     sx, sy = pixel_sample_coords(cfg, dev, dtype)
     flat_x, flat_y = sx.reshape(-1), sy.reshape(-1)

@@ -64,6 +64,9 @@ class Scene:
     # Morton-chunked packet accel of the mesh (None until built); selection
     # only, never differentiated
     packet: Optional[PacketAccel] = None
+    # per-object differentiable transforms (scene/transform.MeshPoses),
+    # folded into world-space vertices at render entry
+    poses: Optional[object] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
