@@ -441,6 +441,34 @@ def selection(scene, cfg, o, d, res, aux, spec, method):
     return sel_sdf, sel_mesh, p
 
 
+def shade_bytes(spec, rays, sel_sdf, sel_mesh, full) -> int:
+    """The least bytes the shade kernels move on these rays, lane by lane as
+    the per-ray branch reads them (csrc/shade_chain.cuh shade_surface): d
+    and the masks that pick the branch on every lane; o where a point or an
+    edge band is made; the corners on mesh hits that are selected or read
+    for the edge band; the march t on SDF-selected hits (and every
+    SDF-selected lane without soft silhouettes), tmin on the soft
+    silhouette's misses; the material, the shadow rows and the AO's mesh
+    term on lanes that select a surface. `full`: tensors read or written
+    whole (the outputs, the cotangent, the small block)."""
+    o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, t_mesh = rays
+    surf = sel_sdf | sel_mesh
+    hit_m = hm if hm is not None else torch.zeros_like(surf)
+    hit_s = hs if hs is not None else torch.zeros_like(surf)
+    lanes = [(d, None), (hs, None), (hm, None), (closer, None),
+             (o, surf | (hit_m & spec["mesh_sil"])),
+             (corners, hit_m & (sel_mesh | spec["mesh_sil"])),
+             (t_bar, sel_sdf & (hit_s | (not spec["soft_sil"]))),
+             (tmin, sel_sdf & ~hit_s), (mat, surf), (vis, surf), (ts, surf), (t_mesh, surf)]
+    n = o.shape[0]
+    total = nbytes(*full)
+    for t, mask in lanes:
+        if t is not None:
+            per_lane = t.numel() // n * t.element_size()
+            total += per_lane * (n if mask is None else int(mask.sum()))
+    return total
+
+
 def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float:
     """The least operations of the shade kernels on these rays: on each
     SDF-selected lane one DE for its primitive and the adjoint for the
@@ -470,7 +498,7 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
     float32 plain forward leaves its float64 evaluation by more than 1e-4
     (cuda_shade.ill_conditioned_colors, without the kernel), at most
     ILL_SHARE_MAX of them, are set apart. With results, also the times and
-    the bound (bytes of the residuals in and the colours out; shade_ops)."""
+    the bound (shade_bytes with the colours out; shade_ops)."""
     from tpu_ray_torch.kernels import cuda_shade
     from tpu_ray_torch.render import render as R
 
@@ -519,10 +547,11 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
         f"bit-identical {torch.equal(k1, k2)}")
     check(ok and torch.equal(k1, k2), f"{tag} parity")
     if results is not None:
-        _, small, ins, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+        _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+        n_bytes = shade_bytes(spec, rays, sel_sdf, sel_mesh, [small, k1])
         results[key] = dict(max_abs_err=_max(err), ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **bound(nbytes(*ins, small, k1), shade_ops(scene, cfg, o, d, res, aux,
-                                                                spec, method, False)))
+                            **bound(n_bytes, shade_ops(scene, cfg, o, d, res, aux, spec, method,
+                                                       False)))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain {results[key]['plain_ms']:.3f} ms, "
             f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
     return res, aux, corners, (sel_sdf, sel_mesh)
@@ -678,12 +707,13 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     check(ok, f"{tag} parity")
     check(same, f"{tag}: parameter cotangents differ between two runs")
     if results is not None:
-        _, small, ins, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
-        ins += [small, ct]
-        outs = [k1["o"], k1["d"], k1["corners"]]
+        _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+        sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
+        # the small block is read and its cotangent written
+        full = [small, small, ct, k1["o"], k1["d"], k1["corners"]]
         results[key] = dict(max_abs_err=worst, ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **bound(nbytes(*ins, *outs), shade_ops(scene, cfg, o, d, res, aux,
-                                                                   spec, method, True)))
+                            **bound(shade_bytes(spec, rays, sel_sdf, sel_mesh, full),
+                                    shade_ops(scene, cfg, o, d, res, aux, spec, method, True)))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain "
             f"{results[key]['plain_ms']:.3f} ms, bound {results[key]['bound_ms']:.4f} ms "
             f"({results[key]['bound_by']})")
@@ -1115,7 +1145,7 @@ def sil_fits(dev):
 
     out = os.path.join(REPO, "build", "chip_smoke_fits")
     t0 = time.perf_counter()
-    _, hist = inverse_rendering.main(out, device=dev, size=256, steps=200, verbose=False)
+    _, hist = inverse_rendering.main(out, device=dev, size=256, verbose=False)
     torch.cuda.synchronize()
     fall = hist[0] / max(hist[-1], 1e-30)
     log("sil_fits", f"inverse_rendering 256x256, 200 steps, soft_silhouette 0.05: loss "

@@ -146,6 +146,60 @@ def test_mixed_frame_with_silhouettes_matches_jax(mixed):
     assert p95 < 5e-3 and mx < 1.0 and mean < 1e-3, (p95, mx, mean)
 
 
+def test_soft_silhouette_cull_matches_jax_on_grazing_rays(mixed):
+    """With soft silhouettes the port's march culls only the rays that pass
+    outside every bounding sphere grown by SIL_REACH widths; the reference
+    marches every ray. Rays from the camera that graze the grown spheres of
+    the `mixed` scene (its sphere and Mandelbulb; 1e-4 to 5e-2 outside):
+    on those the port culls, the reference's closest approach stays more
+    than the pad from the scene (the bulb's DE undershoots its distance),
+    its soft coverage is below float32's resolution of the blend (measured
+    4.5e-12), and the two shades agree (measured: exactly)."""
+    from tpu_ray.sdf.primitives import sdf_distance as jdistance
+    from tpu_ray_torch.kernels import cuda_shade
+    from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
+
+    jscene, tscene, tcfg, _ = mixed
+    sil = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
+    jcfg = JConfig(**{f.name: getattr(tcfg, f.name)
+                      for f in dataclasses.fields(RenderConfig)}).replace(pallas="off", **sil)
+    pad = trender.SIL_REACH * sil["soft_silhouette"]
+    bounds = sdf_bounding_spheres(tscene.sdf).double().numpy()
+    origin = tscene.camera.origin.double().numpy()
+    dirs = []
+    for c, r in zip(bounds[:, :3], bounds[:, 3]):
+        w = (c - origin) / np.linalg.norm(c - origin)
+        a = np.cross(w, [0.0, 1.0, 0.0])
+        a /= np.linalg.norm(a)
+        b = np.cross(w, a)
+        for delta in (1e-4, 1e-3, 1e-2, 5e-2):
+            alpha = np.arcsin((r + pad) * (1.0 + delta) / np.linalg.norm(c - origin))
+            for phi in np.linspace(0.0, 2.0 * np.pi, 32, endpoint=False):
+                dirs.append(np.cos(alpha) * w
+                            + np.sin(alpha) * (np.cos(phi) * a + np.sin(phi) * b))
+    d = np.asarray(dirs, np.float32)
+    o = np.broadcast_to(origin.astype(np.float32), d.shape).copy()
+    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
+    bt, disc = cuda_sdf._bound_terms(sdf_bounding_spheres(tscene.sdf), ot, dt, pad)
+    culled = ~((disc >= 0.0) & (torch.sqrt(disc.clamp_min(0.0)) - bt > 0.0)).any(1).numpy()
+    assert culled.sum() >= 100
+
+    res = jrender.geometry_residuals(jscene, jcfg, jnp.asarray(o), jnp.asarray(d), "mixed")
+    want = np.asarray(jrender._shade_xla(jscene, jcfg, jnp.asarray(o), jnp.asarray(d), res,
+                                         "mixed"))
+    q = jnp.asarray(o) + res["sdf_tmin"][:, None] * jnp.asarray(d)
+    de = np.asarray(jdistance(jscene.sdf, q)).astype(np.float64)
+    miss = culled & ~np.asarray(res["sdf_hit"])
+    assert miss.sum() == culled.sum()
+    assert de[miss].min() > pad
+    assert (1.0 / (1.0 + np.exp(de[miss] / sil["soft_silhouette"]))).max() < 6e-8
+    with torch.no_grad():
+        tres = trender.geometry_residuals(tscene, tcfg.replace(**sil), ot, dt, "mixed")
+        got = cuda_shade.shade_fwd_torch(tscene, tcfg.replace(**sil), ot, dt, tres,
+                                         "mixed").numpy()
+    np.testing.assert_allclose(got[culled], want[culled], atol=1e-6, rtol=0)
+
+
 def test_sphere_frame_matches_jax():
     jscene, jcfg = jscenes.build_scene("sphere", dtype=jnp.float32)
     jcfg = jcfg.replace(width=32, height=32, pallas="off")

@@ -2,7 +2,7 @@
 (counterpart of `examples/inverse_pose.py`).
 
     python -m tpu_ray_torch.examples.inverse_pose [outdir] [--device cpu]
-        [--silhouette] [--size 96] [--steps N]
+        [--silhouette] [--size 96]
 
 `main`: the ground quad of the `triangles` scene is a posed instance
 (`scene.transform.MeshPoses`), knocked out of place by a drop and a tilt;
@@ -44,8 +44,7 @@ def _png(outdir, name, img):
     write_png(os.path.join(outdir, name), img.cpu().numpy())
 
 
-def main(outdir: str = ".", device="cuda", size: int = 96, steps=(80, 200),
-         verbose: bool = True):
+def main(outdir: str = ".", device="cuda", size: int = 96, verbose: bool = True):
     """Returns (fitted scene, (stage-1 history, stage-2 history))."""
     os.makedirs(outdir, exist_ok=True)
     scene, cfg = build_scene("triangles", device=device)
@@ -66,9 +65,9 @@ def main(outdir: str = ".", device="cuda", size: int = 96, steps=(80, 200),
                                                     rotate=t([[0.05, 0.0, 0.03]])))
     _png(outdir, "pose_init.png", _render(start, cfg))
     stage1, h1 = fit(start, cfg, target, ["poses.translate"],
-                     FitConfig(steps=steps[0], learning_rate=1e-2), verbose=False)
+                     FitConfig(steps=80, learning_rate=1e-2), verbose=False)
     fitted, h2 = fit(stage1, cfg, target, ["poses.translate", "poses.rotate"],
-                     FitConfig(steps=steps[1], learning_rate=1e-3), verbose=False)
+                     FitConfig(steps=200, learning_rate=1e-3), verbose=False)
     _png(outdir, "pose_result.png", _render(fitted, cfg))
 
     # the observable errors (module docstring)
@@ -131,10 +130,8 @@ if __name__ == "__main__":
     ap.add_argument("--silhouette", action="store_true",
                     help="the floating triangle's slide, hard vs edge band")
     ap.add_argument("--size", type=int, default=96, help="image width and height")
-    ap.add_argument("--steps", type=int,
-                    help="fit steps (each stage of main; default 80 + 200, 150)")
     a = ap.parse_args()
     if a.silhouette:
-        main_silhouette(a.outdir, a.device, a.size, a.steps or 150)
+        main_silhouette(a.outdir, a.device, a.size)
     else:
-        main(a.outdir, a.device, a.size, (a.steps, a.steps) if a.steps else (80, 200))
+        main(a.outdir, a.device, a.size)

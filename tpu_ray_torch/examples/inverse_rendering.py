@@ -2,7 +2,7 @@
 one image (counterpart of `examples/inverse_rendering.py`).
 
     python -m tpu_ray_torch.examples.inverse_rendering [outdir] [--device cpu]
-        [--size 256] [--steps 200]
+        [--size 256]
 
 Renders a target of the `sphere` scene with hard silhouettes, perturbs the
 sphere's radius, centre and albedo, then fits them back with the soft
@@ -25,8 +25,7 @@ from tpu_ray_torch.utils.config import FitConfig
 from tpu_ray_torch.utils.image_io import write_png
 
 
-def main(outdir: str = ".", device="cuda", size: int = 256, steps: int = 200,
-         verbose: bool = True):
+def main(outdir: str = ".", device="cuda", size: int = 256, verbose: bool = True):
     """Returns (fitted scene, loss history)."""
     os.makedirs(outdir, exist_ok=True)
     scene, cfg = build_scene("sphere", device=device)
@@ -47,7 +46,7 @@ def main(outdir: str = ".", device="cuda", size: int = 256, steps: int = 200,
     png("fit_init.png", init)
     fitted, hist = fit(init, cfg, target,
                        ["sdf.sph_radius", "sdf.sph_center", "materials.albedo"],
-                       FitConfig(steps=steps, learning_rate=1e-2), verbose=False)
+                       FitConfig(steps=200, learning_rate=1e-2), verbose=False)
     png("fit_result.png", fitted)
     if verbose:
         print(f"loss: {hist[0]:.4f} -> {hist[-1]:.2e}")
@@ -63,6 +62,5 @@ if __name__ == "__main__":
     ap.add_argument("outdir", nargs="?", default=".")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--size", type=int, default=256, help="image width and height")
-    ap.add_argument("--steps", type=int, default=200)
     a = ap.parse_args()
-    main(a.outdir, a.device, a.size, a.steps)
+    main(a.outdir, a.device, a.size)

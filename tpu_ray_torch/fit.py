@@ -18,7 +18,6 @@ import torch
 
 from tpu_ray_torch.accel.packet import refit_packet_accel
 from tpu_ray_torch.render.render import render_image
-from tpu_ray_torch.scene.transform import apply_poses, realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils.config import FitConfig, RenderConfig
 
@@ -35,15 +34,11 @@ def extract_params(scene: Scene, paths: Sequence[str]) -> ParamDict:
 
 
 def _maybe_refit(scene: Scene, refit_accel: bool) -> Scene:
-    """Refit the packet accel to the current world-space vertices (never
-    differentiated; posed, where the scene has object poses): keeps the
-    accel valid while mesh.verts or the poses move."""
+    """Refit the packet accel to the current vertices (never differentiated):
+    keeps the accel valid while mesh.verts move."""
     if not refit_accel or scene.packet is None:
         return scene
-    verts = scene.mesh.verts
-    if scene.poses is not None:
-        verts = apply_poses(scene.poses, verts)
-    return scene.replace(packet=refit_packet_accel(scene.packet, verts,
+    return scene.replace(packet=refit_packet_accel(scene.packet, scene.mesh.verts,
                                                    scene.mesh.tris))
 
 
@@ -55,11 +50,8 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
 
     def step() -> float:
         optimizer.zero_grad(set_to_none=True)
-        current = apply_params(scene, params)
-        # the poses fold into world-space vertices, which refits the accel
-        current = (realize_scene(current) if current.poses is not None
-                   else _maybe_refit(current, refit_accel))
-        img = render_image(current, cfg)
+        # render_image folds object poses in (and refits the accel to them)
+        img = render_image(_maybe_refit(apply_params(scene, params), refit_accel), cfg)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()
@@ -79,8 +71,8 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         # the power-8 field ignores mb_power: use the generic DE, whose
         # power has a gradient (the CUDA kernels take power 8 only)
         scene = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
-    # moving vertices or poses: the packet accel is refit every step
-    refit_accel = any(p.split(".")[0] in ("mesh", "poses") for p in trainable)
+    # moving vertices: the packet accel is refit every step
+    refit_accel = any(p.split(".")[0] == "mesh" for p in trainable)
 
     params = extract_params(scene, trainable)
     optimizer = torch.optim.Adam(params.values(), lr=fit_cfg.learning_rate)
