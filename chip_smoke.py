@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Three paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
+Five paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
 mesh), the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
-fit step with diff_vis), and `mixed_sil`: `mixed` with the soft SDF
+fit step with diff_vis), `mixed_sil`: `mixed` with the soft SDF
 silhouette and the mesh edge band (width 0.05 each), the silhouette-
-gradient path, with the README's two silhouette fits. Phases, each with
-its seconds (any failure exits non-zero and prints no result):
+gradient path, with the README's two silhouette fits; `mixed_ring`:
+`mixed` with its accel partitioned around a ring of processes (of one,
+in this script); and `knot1m_parts`: the 1.05M-triangle knot split into
+accel parts walked in sequence. Phases, each with its seconds (any failure exits non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills.
@@ -52,13 +54,33 @@ its seconds (any failure exits non-zero and prints no result):
  12. `mixed_sil` parity: phase 3's kernels on its 4 blocks (the march with
      its bound cull padded, every lane's shadow ray) and both shade
      kernels with the silhouettes.
- 13. `mixed_sil` small frame (as phase 4), 14. its 1920x1080x16 frame (as
-     phase 5) and 15. its fit step (as phase 6): 1013 launches each of
+ 13. `mixed_sil` small frame (as phase 4), 14. its frame (as phase 5) and
+     15. its fit step (as phase 6) at 960x540x16, a quarter of the pixels,
+     to keep the script well inside its time: 254 launches each of
      `shade_fwd` and `shade_bwd`.
  16. the silhouette fits: `tpu_ray_torch.examples.inverse_rendering` at
      256x256 (200 steps; the loss falls at least 10x) and
      `inverse_pose.main_silhouette` at 96x96 (hard visibility stalls, the
      mesh edge band brings |translate| from 0.1 below 0.01).
+ 17. resident_parity: TPU kernel #4 (the resident accel, supers visited
+     front to back) against its plain version on phase 3's rays: the
+     closest hit with sort_origin and the SDF seed, the shadow any-hit with
+     sort_dir and 0-seeds (hits equal on >= 99.99%, t rtol 1e-5), timed
+     beside kernel #3 on the same rays.
+ 18. knot1m_parts: the 1.05M-triangle `knot1m` as one whole-mesh accel (#3)
+     and as 6 parts of at most 12 MiB (#4, the running t threaded from part
+     to part): #4 against its plain version part by part and the threaded
+     parts against the whole mesh on 4,096 rays, #3 against its plain
+     version, and both 1024x1024x1 frames (p99 pixel difference < 1e-5)
+     with their launches: 16 of each #3 kernel, 6 x 16 of each #4 kernel.
+ 19. ring_frame: `render_image_sharded(mixed, 1920x1080x16,
+     scene_shards=True)` on a ring of one process (NCCL, world size 1):
+     1013 launches of each #4 kernel, none of #3; the image against phase
+     5's (at most 1e-4 of the pixels off by more than 1e-4); then
+     render_image and the ring in turns at 480x272x16.
+ 20. ring_fit_step: `make_sharded_fit_step` on the same ring, the six
+     trainables, the shard refit every step: loss (rel 1e-5) and gradients
+     (cosine > 0.999999) against phase 6's, 1013 `shade_bwd` launches.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work), the card's name and power limit, and the result
@@ -67,6 +89,7 @@ as the last line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -84,19 +107,31 @@ REPLACES = {
     "shadow_soft": "tpu_ray/kernels/pallas_sdf.py:328",  # soft mode, :393-415
     "packet_closest": "tpu_ray/kernels/pallas_mt.py:347",
     "packet_any_hit": "tpu_ray/kernels/pallas_mt.py:347",
+    "resident_closest": "tpu_ray/kernels/pallas_mt.py:102",
+    "resident_any_hit": "tpu_ray/kernels/pallas_mt.py:102",  # any_hit_packet, :589
     "shade_fwd": "tpu_ray/kernels/pallas_shade.py:510",
     "shade_bwd": "tpu_ray/kernels/pallas_shade.py:591",
 }
 SOURCES = {"march": "sdf_march.cu", "shadow_hard": "sdf_march.cu",
            "shadow_soft": "sdf_march.cu", "packet_closest": "packet_mt.cu",
-           "packet_any_hit": "packet_mt.cu", "shade_fwd": "shade_fwd.cu",
+           "packet_any_hit": "packet_mt.cu", "resident_closest": "packet_mt.cu",
+           "resident_any_hit": "packet_mt.cu", "shade_fwd": "shade_fwd.cu",
            "shade_bwd": "shade_bwd.cu"}
 # the kernels each path runs, forward then backward
 PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
                           "shade_fwd", "shade_bwd"),
                 "mandelbulb": ("march", "shadow_soft", "shade_fwd", "shade_bwd"),
                 "mixed_sil": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                              "shade_fwd", "shade_bwd")}
+                              "shade_fwd", "shade_bwd"),
+                # `mixed` with its accel partitioned around a ring of processes
+                "mixed_ring": ("march", "shadow_hard", "resident_closest", "resident_any_hit",
+                               "shade_fwd", "shade_bwd"),
+                # the packet walks of the 1.05M-triangle knot: one whole-mesh
+                # accel, and 6 parts under the budget
+                "knot1m": ("packet_closest", "packet_any_hit"),
+                "knot1m_parts": ("resident_closest", "resident_any_hit")}
+# the kernels the ring path shares with `mixed`, measured on the same rays
+RING_SHARED = ("march", "shadow_hard", "shade_fwd", "shade_bwd")
 # the silhouette-gradient path: `mixed` with both silhouettes (the README's
 # fit width; VERDICT.md:180-187)
 SILHOUETTES = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
@@ -288,6 +323,32 @@ def packet_bound(packet, o, t_init) -> dict:
                         packet.perm) + o.shape[0] * 9, o.shape[0] * 40.0)
 
 
+def hit_parity(tag, k, p, any_hit: bool) -> float:
+    """A packet walk's hits against another's (its plain version, or the
+    whole-mesh walk): hits equal on >= 99.99% of the rays; for closest
+    hits t within rtol 1e-5 and a different triangle only where the two t's
+    tie to 1e-6. -> the largest |dt| (any-hit: |dhit|)."""
+    agree = frac_equal(k.hit, p.hit)
+    if any_hit:
+        err = float((k.hit.float() - p.hit.float()).abs().max())
+        log(tag, f"any-hit: agreement {agree:.6f} ({int((k.hit != p.hit).sum())} mismatches), "
+            f"blocked {k.hit.float().mean().item():.4f}")
+        check(agree >= 0.9999, f"{tag} any-hit parity")
+        return err
+    both = k.hit & p.hit
+    dt = (k.t - p.t).abs()[both]
+    rel = dt / p.t[both]
+    tri_bad = int(((k.tri != p.tri)[both] & (rel > 1e-6)).sum())
+    err = _max(dt)
+    log(tag, f"closest: hit agreement {agree:.6f} ({int((k.hit != p.hit).sum())} mismatches), "
+        f"hit rate {k.hit.float().mean().item():.4f}, worst |dt| {err:.3e}, worst rel dt "
+        f"{_max(rel):.3e}, tri mismatches off ties {tri_bad}, tri mismatches "
+        f"{int((k.tri != p.tri)[both].sum())}")
+    check(agree >= 0.9999 and bool((rel <= 1e-5).all()) and tri_bad == 0,
+          f"{tag} closest parity")
+    return err
+
+
 def block_rays(scene, cfg, points, tag):
     """The primary rays (o, d) of the frame's blocks that hold the points."""
     from tpu_ray_torch.render import render as R
@@ -306,10 +367,11 @@ def block_rays(scene, cfg, points, tag):
     return generate_rays(scene.camera, fx[idx], fy[idx], cfg.width, cfg.height)
 
 
-def kernel_parity(scene, cfg, results, points=PARITY_POINTS):
+def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
     """Phase 3: each kernel against its plain version on 4 blocks of the
     frame's primary rays (parity_blocks, the blocks of the points) and the
-    shadow rays the geometry pass makes from them."""
+    shadow rays the geometry pass makes from them. keep: a dict that
+    receives the rays and seeds (o, d, seed, p_off, l_dir, aseed)."""
     from tpu_ray_torch.core.math3d import normalize
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
     from tpu_ray_torch.render import render as R
@@ -317,7 +379,7 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS):
 
     o, d = block_rays(scene, cfg, points, "parity")
     n = o.shape[0]
-    sdf, packet = scene.sdf, scene.packet
+    sdf, packet = scene.sdf, scene.packet[0]
 
     # A: primary march (with soft silhouettes its bound cull is padded)
     kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
@@ -339,26 +401,14 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS):
 
     # C closest: seeded with the SDF hit t
     seed = torch.where(hk, tk, torch.full_like(tk, cfg.t_far))
-    ck = cuda_mt.intersect_packet(packet, o, d, t_max=cfg.t_far, t_init=seed)
-    cp = cuda_mt.intersect_packet_torch(packet, o, d, t_max=cfg.t_far, t_init=seed)
-    agree = frac_equal(ck.hit, cp.hit)
-    both = ck.hit & cp.hit
-    dt = (ck.t - cp.t).abs()[both]
-    rel = dt / cp.t[both]
-    # a different triangle is a tie only where the two t's are equal to rtol
-    tri_bad = int(((ck.tri != cp.tri)[both] & (rel > 1e-6)).sum())
-    err = _max(dt)
-    log("parity", f"packet closest: hit agreement {agree:.6f} ({int((ck.hit != cp.hit).sum())} "
-        f"mismatches), hit rate {ck.hit.float().mean().item():.4f}, worst |dt| {err:.3e}, "
-        f"worst rel dt {_max(rel):.3e}, tri mismatches off "
-        f"ties {tri_bad}, tri mismatches {int((ck.tri != cp.tri)[both].sum())}")
-    check(agree >= 0.9999 and bool((rel <= 1e-5).all()) and tri_bad == 0,
-          "packet closest parity")
+    ck = cuda_mt.intersect_packet_streamed(packet, o, d, t_max=cfg.t_far, t_init=seed)
+    cp = cuda_mt.intersect_packet_streamed_torch(packet, o, d, t_max=cfg.t_far, t_init=seed)
+    err = hit_parity("parity packet", ck, cp, False)
     results["packet_closest"] = dict(
         max_abs_err=err,
-        ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, o, d, t_max=cfg.t_far,
-                                                      t_init=seed)),
-        plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(
+        ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, o, d, t_max=cfg.t_far,
+                                                               t_init=seed)),
+        plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, o, d, t_max=cfg.t_far, t_init=seed)),
         **packet_bound(packet, o, seed))
 
@@ -397,22 +447,21 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS):
     # C any-hit: 0-seeds for lanes the SDF already blocked and for misses
     dead = (vk <= 0.0) | ~live
     aseed = torch.where(dead, 0.0, cfg.t_far).to(torch.float32)
-    ak = cuda_mt.intersect_packet(packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True,
-                                  t_init=aseed)
-    ap = cuda_mt.intersect_packet_torch(packet, p_off, l_dir, t_max=cfg.t_far,
-                                        any_hit=True, t_init=aseed)
-    agree = frac_equal(ak.hit, ap.hit)
-    err = float((ak.hit.float() - ap.hit.float()).abs().max())
-    log("parity", f"packet any-hit: agreement {agree:.6f} ({int((ak.hit != ap.hit).sum())} "
-        f"mismatches), blocked {ak.hit.float().mean().item():.4f}, live {(~dead).sum().item()}")
-    check(agree >= 0.9999, "packet any-hit parity")
+    ak = cuda_mt.intersect_packet_streamed(packet, p_off, l_dir, t_max=cfg.t_far,
+                                           any_hit=True, t_init=aseed)
+    ap = cuda_mt.intersect_packet_streamed_torch(packet, p_off, l_dir, t_max=cfg.t_far,
+                                                 any_hit=True, t_init=aseed)
+    log("parity", f"packet any-hit: {(~dead).sum().item()} live shadow rays")
+    err = hit_parity("parity packet", ak, ap, True)
     results["packet_any_hit"] = dict(
         max_abs_err=err,
-        ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, p_off, l_dir, t_max=cfg.t_far,
-                                                      any_hit=True, t_init=aseed)),
-        plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(
+        ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(
+            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
+        plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
         **packet_bound(packet, p_off, aseed))
+    if keep is not None:
+        keep.update(o=o, d=d, seed=seed, p_off=p_off, l_dir=l_dir, aseed=aseed)
     for name, r in results.items():
         log("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -719,12 +768,12 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
             f"({results[key]['bound_by']})")
 
 
-def parity(scene, cfg, results):
+def parity(scene, cfg, results, keep=None):
     """Phase 3: the forward kernels, then the shade backward on the same
     rays, with the frame's hard shadows, without them (so that the lit
     Mandelbulb's Hessian chain runs: hard shadows block the bulb's lanes),
-    and with the 5-tap AO."""
-    o, d = kernel_parity(scene, cfg, results)
+    and with the 5-tap AO. keep: see kernel_parity."""
+    o, d = kernel_parity(scene, cfg, results, keep=keep)
     shade_fwd_parity(scene, cfg, o, d, "mixed", results)
     shade_bwd_parity(scene, cfg, o, d, "mixed", results)
     shade_bwd_parity(scene, cfg.replace(shadow="none"), o, d, "mixed")
@@ -871,6 +920,8 @@ def plain_paths():
     stack.enter_context(mock.patch.object(cuda_sdf, "march", cuda_sdf.march_torch))
     stack.enter_context(mock.patch.object(cuda_sdf, "shadow_hard", cuda_sdf.shadow_hard_torch))
     stack.enter_context(mock.patch.object(cuda_sdf, "shadow_soft", cuda_sdf.shadow_soft_torch))
+    stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet_streamed",
+                                          cuda_mt.intersect_packet_streamed_torch))
     stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet",
                                           cuda_mt.intersect_packet_torch))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_fwd", shade_fwd_plain))
@@ -1001,6 +1052,8 @@ def forward_counts():
             "shadow_soft": cuda_sdf.LAUNCHES["shadow_soft"],
             "packet_closest": cuda_mt.LAUNCHES["closest"],
             "packet_any_hit": cuda_mt.LAUNCHES["any_hit"],
+            "resident_closest": cuda_mt.LAUNCHES["resident_closest"],
+            "resident_any_hit": cuda_mt.LAUNCHES["resident_any_hit"],
             "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"]}
 
 
@@ -1013,9 +1066,9 @@ def check_counts(name, cfg, counts, kernels) -> None:
         check(counts[k] == n_blocks, f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
 
 
-def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
+def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
     """Phases 5 and 10: the whole frame through the kernels -> launch
-    counts."""
+    counts. keep: a dict that receives the image."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
@@ -1036,6 +1089,8 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     png = os.path.join(REPO, "build", f"chip_smoke_{name}.png")
     write_png(png, img.cpu().numpy())
+    if keep is not None:
+        keep["img"] = img
     log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} soft_sil={cfg.soft_silhouette} "
         f"mesh_sil={cfg.mesh_silhouette}: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
@@ -1071,10 +1126,10 @@ def profile_step(scene, cfg, trainables, tag):
 
 
 def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
-             tag="fit_step"):
+             tag="fit_step", keep=None):
     """Phases 6 and 11: one forward + backward of mean(img**2) over the full
     frame for the trainables -> launch counts, the shade backward's among
-    them."""
+    them. keep: a dict that receives the loss and the gradients."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     from tpu_ray_torch.fit import apply_params, extract_params
@@ -1093,6 +1148,8 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     grads = {p: v.grad for p, v in params.items()}
+    if keep is not None:
+        keep.update(loss=loss.detach(), grads=grads)
     dt = t2 - t0
     counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1164,6 +1221,289 @@ def sil_fits(dev):
           "inverse_pose: hard visibility should stall and the edge band converge")
 
 
+def resident_parity(scene, cfg, results, rays):
+    """Phase 17: TPU kernel #4 against its plain version on phase 3's rays:
+    the closest hit with sort_origin = o[0] and the SDF seed, the any-hit on
+    their shadow rays with sort_dir = the light's direction and the 0-seeds
+    of decided lanes; each also timed beside kernel #3 (slot order, the same
+    seeds) on the same rays."""
+    from tpu_ray_torch.kernels import cuda_mt
+
+    packet = scene.packet[0]
+    o, d = rays["o"], rays["d"]
+    cases = (("resident_closest", (o, d), dict(t_init=rays["seed"]), dict(sort_origin=o[0])),
+             ("resident_any_hit", (rays["p_off"], rays["l_dir"]),
+              dict(any_hit=True, t_init=rays["aseed"]), dict(sort_dir=scene.lights.direction[0])))
+    for key, (ro, rd), kw, hint in cases:
+        kw = dict(kw, t_max=cfg.t_far)
+        k = cuda_mt.intersect_packet(packet, ro, rd, **kw, **hint)
+        p = cuda_mt.intersect_packet_torch(packet, ro, rd, **kw, **hint)
+        err = hit_parity(f"resident_parity {key}", k, p, kw.get("any_hit", False))
+        ms3 = kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw))
+        # the ring's call: the reference's ring passes no seed
+        unseeded = dict(kw, t_init=None)
+        ms_ring = kernel_ms(lambda: cuda_mt.intersect_packet(packet, ro, rd, **unseeded, **hint))
+        results[key] = dict(
+            max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, ro, rd, **kw,
+                                                                           **hint)),
+            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(packet, ro, rd, **kw, **hint)),
+            **packet_bound(packet, ro, kw["t_init"]))
+        r = results[key]
+        log("resident_parity", f"{key} on {ro.shape[0]} rays, {list(hint)}: kernel #4 "
+            f"{r['ms']:.3f} ms, kernel #3 (slot order) {ms3:.3f} ms, #4 without the seed (as "
+            f"the ring calls it) {ms_ring:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# the knot1m frame's block that phase 18 takes (4,096 rays): the knot's
+# centre, where the tube crosses itself
+KNOT_POINTS = ((0.0, 1.12, 0.0),)
+
+
+def knot_parts(dev, smi, results, counts):
+    """Phase 18: `knot1m` with the whole-mesh accel (#3) and split into
+    parts for the resident kernel (#4): #4 against its plain version part by
+    part on 4,096 rays with the running t (closest and any-hit), the
+    threaded parts against the whole-mesh walk, #3 against its plain
+    version, then both 1024x1024x1 frames, with their launch counts."""
+    from tpu_ray_torch.accel.packet import build_packet_parts
+    from tpu_ray_torch.core.math3d import normalize
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.utils.image_io import write_png
+
+    t0 = time.perf_counter()
+    knot, kcfg = build_scene("knot1m", device=dev)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = build_packet_parts(knot.mesh.verts.cpu().numpy(), knot.mesh.tris.cpu().numpy(),
+                               streamed=False, device=dev)
+    t_parts = time.perf_counter() - t0
+    whole = knot.packet[0]
+    log("knot1m_parts", f"{knot.mesh.num_tris} triangles: the scene with its whole-mesh accel "
+        f"({whole.super_aabb.shape[0]} supers, {cuda_mt.accel_bytes(whole) / 2**20:.1f} MiB) "
+        f"built on the host in {t_scene:.2f} s; {len(parts)} parts in {t_parts:.2f} s, supers "
+        f"{[a.super_aabb.shape[0] for a in parts]}, MiB "
+        f"{[round(cuda_mt.accel_bytes(a) / 2**20, 2) for a in parts]}")
+    check(len(parts) == 6, f"knot1m split into {len(parts)} parts, 6 expected")
+
+    o, d = block_rays(knot, kcfg.replace(block_size=4096), KNOT_POINTS, "knot1m_parts")
+    entries = {"resident_closest": [], "resident_any_hit": []}
+
+    def walk(ro, rd, seed0, any_hit, hint):
+        """The parts in sequence, #4 against its plain version on each."""
+        key = "resident_any_hit" if any_hit else "resident_closest"
+        best, t_run = None, seed0
+        for i, part in enumerate(parts):
+            kw = dict(t_max=kcfg.t_far, any_hit=any_hit, t_init=t_run, **hint)
+            k = cuda_mt.intersect_packet(part, ro, rd, **kw)
+            p = cuda_mt.intersect_packet_torch(part, ro, rd, **kw)
+            err = hit_parity(f"knot1m_parts part {i} {key}", k, p, any_hit)
+            entries[key].append(dict(
+                max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(part, ro, rd, **kw)),
+                plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(part, ro, rd, **kw)),
+                **packet_bound(part, ro, t_run)))
+            best = cuda_mt.fold_hits(best, k, any_hit)
+            t_run = cuda_mt.running_t(best, kcfg.t_far, any_hit)
+            if seed0 is not None:
+                t_run = torch.minimum(t_run, seed0)
+        return best
+
+    def whole_walk(ro, rd, seed0, any_hit, key):
+        """#3 over the whole-mesh accel against its plain version, timed."""
+        kw = dict(t_max=kcfg.t_far, any_hit=any_hit, t_init=seed0)
+        k = cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw)
+        p = cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)
+        err = hit_parity(f"knot1m whole {key}", k, p, any_hit)
+        results["knot1m"][key] = dict(
+            max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(whole, ro, rd,
+                                                                                    **kw)),
+            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)),
+            **packet_bound(whole, ro, seed0))
+        return k
+
+    w = whole_walk(o, d, None, False, "packet_closest")
+    hit_parity("knot1m parts threaded against the whole mesh",
+               walk(o, d, None, False, dict(sort_origin=o[0])), w, False)
+    with torch.no_grad():
+        _, p_off, _, live = R.shadow_ray_origins(knot, kcfg, o, d, {"mesh_tri": w.tri,
+                                                                    "mesh_hit": w.hit},
+                                                 "mesh_grid", mesh_rows=R.mesh_table(knot.mesh))
+    l_dir = normalize(knot.lights.direction[0]).expand_as(p_off).contiguous()
+    aseed = torch.where(live, kcfg.t_far, 0.0).to(torch.float32)
+    wa = whole_walk(p_off, l_dir, aseed, True, "packet_any_hit")
+    hit_parity("knot1m parts threaded against the whole mesh",
+               walk(p_off, l_dir, aseed, True, dict(sort_dir=knot.lights.direction[0])), wa, True)
+    for key, rows in entries.items():
+        results["knot1m_parts"][key] = {
+            "max_abs_err": max(e["max_abs_err"] for e in rows),
+            **{f: sum(e[f] for e in rows) / len(rows) for f in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": rows[0]["bound_by"]}
+        log("knot1m_parts", f"{key} per part: kernel {[round(e['ms'], 4) for e in rows]} ms, "
+            f"plain {[round(e['plain_ms'], 1) for e in rows]} ms, bound "
+            f"{[round(e['bound_ms'], 5) for e in rows]} ms; #3 on the whole mesh "
+            f"{results['knot1m'][key.replace('resident', 'packet')]['ms']:.3f} ms")
+
+    n_blocks = -(-kcfg.num_rays // kcfg.block_size)
+    imgs = {}
+    with torch.no_grad():
+        R.render_image(knot, kcfg.replace(width=128, height=128))
+        for name, sc in (("knot1m", knot), ("knot1m_parts", knot.replace(packet=parts))):
+            reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            imgs[name] = R.render_image(sc, kcfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts[name] = forward_counts()
+            log("knot1m_parts", f"{name} frame {kcfg.width}x{kcfg.height}x{kcfg.spp}: {dt:.3f} s, "
+                f"{kcfg.num_rays / dt / 1e6:.3f} Mrays/s, launches {counts[name]}, peak mem "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+            check(bool(torch.isfinite(imgs[name]).all()), f"{name} frame not finite")
+            check(counts[name]["shade_fwd"] == n_blocks, f"{name}: shade_fwd launches")
+    c, cp = counts["knot1m"], counts["knot1m_parts"]
+    check(c["packet_closest"] == c["packet_any_hit"] == n_blocks
+          and c["resident_closest"] == c["resident_any_hit"] == 0,
+          f"knot1m whole-mesh frame launches {c}")
+    check(cp["resident_closest"] == cp["resident_any_hit"] == len(parts) * n_blocks
+          and cp["packet_closest"] == cp["packet_any_hit"] == 0,
+          f"knot1m parts frame launches {cp}")
+    err = (imgs["knot1m_parts"] - imgs["knot1m"]).abs().amax(-1)
+    p99 = float(torch.quantile(err.flatten().double(), 0.99))
+    log("knot1m_parts", f"parts frame against whole-mesh frame: per-pixel p99 {p99:.3e}, max "
+        f"{float(err.max()):.3e}, pixels over 1e-5: {int((err > 1e-5).sum())} of {err.numel()}")
+    check(p99 < 1e-5, "knot1m parts frame against the whole-mesh frame")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    write_png(os.path.join(REPO, "build", "chip_smoke_knot1m.png"), imgs["knot1m_parts"].cpu().numpy())
+
+
+@contextlib.contextmanager
+def ring_group(dev):
+    """A process group of this one process (NCCL, through a file:// store
+    under build/), destroyed on exit: the ring at world size 1."""
+    import torch.distributed as dist
+
+    from tpu_ray_torch.dist.multihost import initialize
+
+    store = os.path.join(REPO, "build", f"ring_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(dev)
+    initialize(f"file://{store}", world_size=1, rank=0, backend="nccl")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def ring_frame(scene, cfg, smi, warm, ref_img, dev):
+    """Phase 19: render_image_sharded of `mixed` at full size with the accel
+    partitioned around a ring of one process: every block's closest hit and
+    shadow any-hit through kernel #4, none through #3; the image against
+    phase 5's (the same rays): at most 1e-4 of the pixels off by > 1e-4.
+    Then phase 5's path and the ring in turns on a smaller frame, so that
+    the two compare in one state of the host."""
+    from tpu_ray_torch.dist.sharding import render_image_sharded
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render.render import render_image
+
+    with ring_group(dev), torch.no_grad():
+        render_image_sharded(scene, warm, scene_shards=True)
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = render_image_sharded(scene, cfg, scene_shards=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = forward_counts()
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(img).all()),
+          "ring frame shape or values")
+    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"][:-1])
+    check(counts["resident_closest"] == counts["resident_any_hit"] == n_blocks
+          and counts["packet_closest"] == counts["packet_any_hit"] == 0,
+          f"ring frame launches {counts}")
+    err = (img - ref_img).abs().amax(-1)
+    frac = float((err > 1e-4).float().mean())
+    log("ring_frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1: {dt:.3f} s, "
+        f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, launches {counts}, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; against phase 5's "
+        f"frame: max {float(err.max()):.3e}, pixels over 1e-4 {frac:.2e} (at most 1e-4)")
+    check(frac <= 1e-4, "ring frame against phase 5's frame")
+    # the ring against phase 5's path in the same state of the host, in turns
+    # (plain, ring, ring, plain) on a smaller frame
+    turns = cfg.replace(width=480, height=272)
+    secs = {"render_image": [], "ring": []}
+    with ring_group(dev), torch.no_grad():
+        for kind in ("render_image", "ring", "ring", "render_image"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "ring":
+                render_image_sharded(scene, turns, scene_shards=True)
+            else:
+                render_image(scene, turns)
+            torch.cuda.synchronize()
+            secs[kind].append(round(time.perf_counter() - t0, 3))
+    log("ring_frame", f"in turns at {turns.width}x{turns.height}x{turns.spp}: render_image "
+        f"{secs['render_image']} s, ring {secs['ring']} s")
+    return counts
+
+
+def ring_fit_step(scene, cfg, smi, warm, ref, dev):
+    """Phase 20: make_sharded_fit_step of `mixed` at full size for the six
+    trainables with the ring (each step refits its shard: mesh.verts is
+    trained), target 0 so that the loss is phase 6's mean(img**2), SGD at
+    lr 0: loss and gradients against phase 6's (rel 1e-5, cosine >
+    0.999999 per trainable)."""
+    from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+
+    def step_of(c):
+        params = extract_params(scene, TRAINABLES)
+        target = torch.zeros((c.height, c.width, 3), device=dev)
+        return params, make_sharded_fit_step(scene, c, target, params,
+                                             torch.optim.SGD(params.values(), lr=0.0),
+                                             scene_shards=True)
+
+    with ring_group(dev):
+        step_of(warm)[1]()
+        t0 = time.perf_counter()
+        params, step = step_of(cfg)
+        t_make = time.perf_counter() - t0
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    rel = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
+    log("ring_fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, six trainables: "
+        f"{dt:.3f} s (step made in {t_make:.2f} s), {cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss "
+        f"{loss:.8f} (phase 6 {float(ref['loss']):.8f}, rel {rel:.2e}), launches {counts}, "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    ok = rel < 1e-5
+    for path, v in params.items():
+        cos = cosine(v.grad, ref["grads"][path])
+        ok &= cos > 0.999999 and bool(torch.isfinite(v.grad).all())
+        log("ring_fit_step", f"grad {path}: cosine {cos:.9f} against phase 6, rel "
+            f"{rel_max(v.grad, ref['grads'][path]):.3e}, norm {float(v.grad.norm()):.6e}")
+    check(ok, "ring fit step against phase 6")
+    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"])
+    check(counts["resident_closest"] == counts["resident_any_hit"] == counts["shade_bwd"]
+          == n_blocks and counts["packet_closest"] == counts["packet_any_hit"] == 0,
+          f"ring fit step launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1196,16 +1536,17 @@ def main() -> int:
     warm = cfg.replace(width=320, height=180)
     bsmall = bcfg.replace(width=256, height=256, spp=1)
     sil = cfg.replace(**SILHOUETTES)
-    results["mixed_sil"] = {}
-    parity_rays = []
+    sil_cut = sil.replace(width=960, height=540)  # phases 14, 15
+    results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={})
+    parity_rays, kept, frame_keep, step_keep, knot_counts = [], {}, {}, {}, {}
     phases = (
-        ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"]))),
+        ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"], kept))),
         ("content", lambda: content_classes(scene, cfg, *parity_rays)),
         ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
                                       "mixed", TRAINABLES)),
-        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm)),
+        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm, keep=frame_keep)),
         ("fit_step", lambda: fit_step(scene, cfg, smi, "mixed", TRAINABLES, warm,
-                                      cfg.replace(width=256, height=128))),
+                                      cfg.replace(width=256, height=128), keep=step_keep)),
         ("fit", lambda: fit_run(scene, cfg)),
         ("bulb_parity", lambda: bulb_parity(bulb, bcfg, results["mandelbulb"])),
         ("bulb_small", lambda: bulb_small(bulb, bsmall)),
@@ -1218,12 +1559,16 @@ def main() -> int:
         ("sil_parity", lambda: sil_parity(scene, sil, results["mixed_sil"])),
         ("sil_small", lambda: small_frame(scene, sil.replace(width=320, height=180, spp=1),
                                           "mixed_sil", TRAINABLES, "sil_small")),
-        ("sil_frame", lambda: full_frame(scene, sil, smi, "mixed_sil",
+        ("sil_frame", lambda: full_frame(scene, sil_cut, smi, "mixed_sil",
                                          sil.replace(width=320, height=180), "sil_frame")),
-        ("sil_fit_step", lambda: fit_step(scene, sil, smi, "mixed_sil", TRAINABLES,
+        ("sil_fit_step", lambda: fit_step(scene, sil_cut, smi, "mixed_sil", TRAINABLES,
                                           sil.replace(width=320, height=180),
                                           sil.replace(width=256, height=128), "sil_fit_step")),
         ("sil_fits", lambda: sil_fits(dev)),
+        ("resident_parity", lambda: resident_parity(scene, cfg, results["mixed_ring"], kept)),
+        ("knot1m_parts", lambda: knot_parts(dev, smi, results, knot_counts)),
+        ("ring_frame", lambda: ring_frame(scene, cfg, smi, warm, frame_keep.pop("img"), dev)),
+        ("ring_fit_step", lambda: ring_fit_step(scene, cfg, smi, warm, step_keep, dev)),
     )
     out = {}
     t_start = time.perf_counter()
@@ -1234,7 +1579,12 @@ def main() -> int:
     log("done", f"all phases {time.perf_counter() - t_start:.2f} s")
     counts = {"mixed": dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"]),
               "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"]),
-              "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"])}
+              "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
+              "mixed_ring": dict(out["ring_frame"],
+                                 shade_bwd=out["ring_fit_step"]["shade_bwd"]),
+              **knot_counts}
+    for key in RING_SHARED:
+        results["mixed_ring"][key] = results["mixed"][key]
 
     kernels = []
     for path, names in PATH_KERNELS.items():

@@ -1,0 +1,239 @@
+"""The port's distributed layer in 2 and 4 gloo processes on the CPU, against
+the JAX package's single-device render and fit step.
+
+The processes run tests/torch_dist_worker.py (torch, numpy and the port
+only); one group of each size runs every case once, started together by a
+module fixture while this process computes the references.
+
+Tolerances and why:
+  * pixel-parallel frames, with and without the ring: `triangles` atol
+    1e-5 (no fractal); `mixed` the bound tests/test_torch_render.py holds
+    its frame to (95th-percentile pixel error < 5e-3, max < 1.0, mean <
+    1e-3: the Mandelbulb march is chaotic). Every rank gathers the same
+    frame, bit for bit.
+  * the sharded fit step: loss rtol 1e-5 and parameters after one SGD step
+    atol 1e-6 (the per-rank losses and gradients are summed in another
+    order than the single-device step's; lr 1e-3 scales the gradient's
+    float32 rounding far below that).
+  * the brute ring against brute MT, both float64: t rtol 1e-10, hits and
+    ids equal (ties break by the smallest id in both).
+  * psum_buckets and one all_reduce per leaf: equal (the same sums of the
+    same float32 values).
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+import torch_dist_worker as W
+from tpu_ray import fit as jfit
+from tpu_ray.dist import sharding as jsharding
+from tpu_ray.kernels import moller_trumbore as jmt
+from tpu_ray.render import render as jrender
+from tpu_ray.scene import scenes as jscenes
+from tpu_ray.scene.mesh import MeshScene as JMesh
+from tpu_ray.utils.config import RenderConfig as JConfig
+from tpu_ray_torch.dist import multihost, sharding
+from tpu_ray_torch.utils.config import RenderConfig
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZES = (2, 4)
+
+
+def _inputs() -> dict:
+    """The cases' inputs, made from seeds with numpy."""
+    rng = np.random.default_rng(4)
+    n_tris = 97  # not divisible by 2 or 4: the partition pads
+    c = rng.uniform(-2, 2, (n_tris, 3))
+    e0 = rng.normal(size=(n_tris, 3)) * 0.4
+    e1 = rng.normal(size=(n_tris, 3)) * 0.4
+    verts = np.stack([c - e0, c + e1, c + e0 - e1], 1).reshape(-1, 3)
+    o = rng.uniform(-4, 4, (128, 3))
+    d = rng.normal(size=(128, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    jscene, _ = jscenes.build_scene("triangles", dtype=jnp.float32)
+    base = np.asarray(jscene.mesh.verts)
+    moved = (base + np.random.default_rng(3).normal(size=base.shape) * 0.2).astype(np.float32)
+    h, w = W.FIT_CFG["height"], W.FIT_CFG["width"]
+    target = (0.5 + 0.1 * np.random.default_rng(5).random((h, w, 3))).astype(np.float32)
+    return dict(ring_verts=verts, ring_faces=np.arange(3 * n_tris).reshape(-1, 3), ring_o=o,
+                ring_d=d, fit_moved_verts=moved, fit_target=target)
+
+
+def _references(inputs) -> dict:
+    """The JAX package's single-device frames and fit steps, and brute MT."""
+    ref = {}
+    with jax.enable_x64(False):
+        for case, name, over, _ in W.RENDERS:
+            jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
+            ref[f"img_{case}"] = np.asarray(jrender.render_image(
+                jscene, jcfg.replace(pallas="off", block_size=0, **over)))
+        jscene, jcfg = jscenes.build_scene("triangles", dtype=jnp.float32)
+        jcfg = jcfg.replace(pallas="off", **W.FIT_CFG)
+        opt = optax.sgd(W.FIT_LR)
+        step = jfit.make_fit_step(jscene, jcfg, jnp.asarray(inputs["fit_target"]), opt)
+        for case, _, moved in W.FITS:
+            params = jfit.extract_params(jscene, W.FIT_PATHS)
+            if moved:
+                params["mesh.verts"] = jnp.asarray(inputs["fit_moved_verts"])
+            new, _, loss = step(params, opt.init(params))
+            ref[f"fit_{case}_loss"] = float(loss)
+            for k in W.FIT_PATHS:
+                ref[f"fit_{case}_{k}"] = np.asarray(new[k])
+    mesh = JMesh.from_numpy(inputs["ring_verts"], inputs["ring_faces"], dtype=jnp.float64)
+    brute = jmt.intersect_brute(mesh, jnp.asarray(inputs["ring_o"]),
+                                jnp.asarray(inputs["ring_d"]))
+    ref.update(ring_t=np.asarray(brute.t), ring_tri=np.asarray(brute.tri),
+               ring_hit=np.asarray(brute.hit))
+    return ref
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both process groups, started together; then the references, computed
+    here while they run -> (references, {size: [each rank's outputs]})."""
+    inputs = _inputs()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    worker = os.path.join(REPO, "tests", "torch_dist_worker.py")
+    procs = {}
+    for n in SIZES:
+        io = tmp_path_factory.mktemp(f"dist{n}")
+        np.savez(io / "inputs.npz", **inputs)
+        procs[n] = (io, [subprocess.Popen([sys.executable, worker, str(io / "store"), str(r),
+                                           str(n), str(io)], env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT) for r in range(n)])
+    try:
+        ref = _references(inputs)
+        outs = {}
+        for n, (io, ps) in procs.items():
+            for r, p in enumerate(ps):
+                text = p.communicate(timeout=600)[0].decode(errors="replace")
+                assert p.returncode == 0, f"rank {r} of {n} failed:\n{text}"
+            outs[n] = [dict(np.load(io / f"out_{r}.npz")) for r in range(n)]
+    finally:
+        for _, ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return ref, outs
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.RENDERS])
+def test_render_image_sharded_matches_jax(runs, n, case):
+    ref, outs = runs
+    img = outs[n][0][f"img_{case}"]
+    for other in outs[n][1:]:
+        np.testing.assert_array_equal(other[f"img_{case}"], img)  # one gathered frame
+    want = ref[f"img_{case}"]
+    assert img.shape == want.shape and np.isfinite(img).all()
+    if case.startswith("mixed"):
+        err = np.abs(img - want).max(-1)
+        p95, mx, mean = np.quantile(err, 0.95), err.max(), np.abs(img - want).mean()
+        assert p95 < 5e-3 and mx < 1.0 and mean < 1e-3, (p95, mx, mean)
+    else:
+        np.testing.assert_allclose(img, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.FITS])
+def test_sharded_fit_step_matches_jax(runs, n, case):
+    """One SGD step of `mesh.verts` and `camera.origin` on `triangles`: pixel
+    parallel with the scene replicated, with the ring, and with the ring
+    from vertices moved well past the build's boxes (each rank refits its
+    shard before the ring turns), against the single-device step."""
+    ref, outs = runs
+    for out in outs[n]:  # every rank reports the global loss and takes one step
+        np.testing.assert_allclose(float(out[f"fit_{case}_loss"]), ref[f"fit_{case}_loss"],
+                                   rtol=1e-5)
+        for k in W.FIT_PATHS:
+            np.testing.assert_allclose(out[f"fit_{case}_{k}"], ref[f"fit_{case}_{k}"],
+                                       atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_intersect_ring_matches_brute(runs, n):
+    ref, outs = runs
+    got = {k: np.concatenate([o[k] for o in outs[n]]) for k in ("ring_t", "ring_tri",
+                                                                 "ring_hit")}
+    hit = ref["ring_hit"]
+    assert 0.1 < hit.mean() < 0.9
+    np.testing.assert_array_equal(got["ring_hit"], hit)
+    np.testing.assert_allclose(got["ring_t"][hit], ref["ring_t"][hit], rtol=1e-10)
+    np.testing.assert_array_equal(got["ring_tri"], np.where(hit, ref["ring_tri"], -1))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_psum_buckets_equals_one_all_reduce(runs, n):
+    _, outs = runs
+    for out in outs[n]:
+        for k in "abcd":
+            np.testing.assert_array_equal(out[f"psum_{k}"], out[f"psum_ref_{k}"], err_msg=k)
+    # the sums themselves: rank r contributed (r + 1) * arange(5) to "a"
+    np.testing.assert_array_equal(outs[n][0]["psum_a"], np.arange(5.0) * n * (n + 1) / 2)
+
+
+@pytest.mark.parametrize("w,h,n", [(64, 40, 8), (27, 9, 8), (1920, 1080, 4), (16, 16, 2)])
+def test_balanced_pixel_perm_matches_jax(w, h, n):
+    got = sharding.balanced_pixel_perm(RenderConfig(width=w, height=h, spp=1), n)
+    want = jsharding.balanced_pixel_perm(JConfig(width=w, height=h, spp=1), n)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_shard_sample_coords_match_jax():
+    cfg = dict(width=24, height=8, spp=4)
+    gx, gy, gn, gp = sharding.shard_sample_coords(RenderConfig(**cfg), 3)
+    jx, jy, jn, jp = jsharding.shard_sample_coords(JConfig(**cfg), jnp.float32, 3)
+    assert gn == jn and gx.shape[0] % (3 * 4) == 0
+    np.testing.assert_array_equal(gp, jp)
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(jy))
+
+
+def test_initialize_raises_on_bad_explicit_rank(tmp_path):
+    """An explicit configuration that cannot form a group raises; it is
+    never taken for a single process."""
+    with pytest.raises(ValueError, match="rank 7"):
+        multihost.initialize(f"file://{tmp_path / 'store'}", world_size=2, rank=7,
+                             backend="gloo")
+    with pytest.raises(ValueError):
+        multihost.initialize(world_size=2, rank=0)
+    multihost.initialize(world_size=1)  # one process: nothing to join
+    assert not torch.distributed.is_initialized() and multihost.world() == (1, 0)
+    assert multihost.is_main()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_cli_render_sharded_under_torchrun(tmp_path):
+    """`torchrun --nproc_per_node=2 -m tpu_ray_torch.cli render --sharded` on
+    the CPU writes the frame one process renders alone, byte for byte."""
+    args = ["render", "--scene", "sphere", "--width", "16", "--height", "16", "--device", "cpu"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    one = subprocess.run([sys.executable, "-m", "tpu_ray_torch.cli", *args, "--out",
+                          str(tmp_path / "one.png")], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert one.returncode == 0, one.stderr
+    two = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+                          "--master_addr=localhost", f"--master_port={_free_port()}",
+                          "-m", "tpu_ray_torch.cli", *args, "--sharded", "--out",
+                          str(tmp_path / "two.png")], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert two.returncode == 0, two.stderr
+    assert "x 2 processes" in two.stdout and two.stdout.count("[render] wrote") == 1
+    assert (tmp_path / "two.png").read_bytes() == (tmp_path / "one.png").read_bytes()

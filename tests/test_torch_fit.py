@@ -88,14 +88,14 @@ def test_refit_packet_accel_matches_jax(mixed):
     verts = (np.asarray(jscene.mesh.verts)
              + rng.normal(0, 0.02, jscene.mesh.verts.shape)).astype(np.float32)
     want = jrefit(jscene.packet[0], jnp.asarray(verts), jscene.mesh.tris)
-    got = refit_packet_accel(tscene.packet, torch.as_tensor(verts), tscene.mesh.tris)
+    got = refit_packet_accel(tscene.packet[0], torch.as_tensor(verts), tscene.mesh.tris)
     for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
     # at the build's own vertices the refit is the build
-    same = refit_packet_accel(tscene.packet, tscene.mesh.verts, tscene.mesh.tris)
+    same = refit_packet_accel(tscene.packet[0], tscene.mesh.verts, tscene.mesh.tris)
     for name in ("corners", "chunk_aabb", "super_aabb"):
-        assert torch.equal(getattr(same, name), getattr(tscene.packet, name)), name
+        assert torch.equal(getattr(same, name), getattr(tscene.packet[0], name)), name
 
 
 def test_params_round_trip_through_numpy(mixed):
@@ -159,9 +159,10 @@ def test_fit_with_vertices_refits_the_accel():
     fitted, history = tfit.fit(scene, cfg, target, ["mesh.verts"],
                                FitConfig(steps=2, learning_rate=1e-2), verbose=False)
     assert len(history) == 2 and np.isfinite(history).all()
-    want = refit_packet_accel(scene.packet, fitted.mesh.verts, scene.mesh.tris)
+    want = refit_packet_accel(scene.packet[0], fitted.mesh.verts, scene.mesh.tris)
     assert not torch.equal(fitted.mesh.verts, scene.mesh.verts)
-    assert torch.equal(fitted.packet.chunk_aabb, want.chunk_aabb)
+    assert len(fitted.packet) == 1
+    assert torch.equal(fitted.packet[0].chunk_aabb, want.chunk_aabb)
 
 
 def test_pose_fit_with_mesh_silhouette_matches_jax():

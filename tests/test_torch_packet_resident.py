@@ -1,0 +1,256 @@
+"""TPU kernel #4 (`intersect_packet`, the resident accel walked in a sorted
+super order) and the multi-part walk, in the port against the JAX package;
+the kernels' per-ray walk (csrc/packet_mt.cu, built with g++) against the
+port's plain versions.
+
+Tolerances and why:
+  * #4's plain version against the Pallas kernel in interpret mode: hits
+    equal, t rtol 1e-5, ids equal wherever the two nearest candidate t's of
+    a ray differ by more than 1e-6 * t. Both visit the supers in the same
+    sorted order and keep the first slot of a tie; XLA's CPU backend
+    contracts the kernel's dot products into multiply-adds, which moves t
+    by a few ulps (measured: 2 of 400 rays past rtol 1e-6, the worst
+    1.5e-6), as tests/test_torch_mt.py found for #3.
+  * the parts build: bit-identical (the same numpy build and Morton order).
+  * the parts walk against brute MT: hits equal, t rtol 1e-5, ids with the
+    same fallback, as tests/test_torch_mt.py holds #3.
+  * the host build of the walk against the plain versions: bit-identical t
+    and ids. The same float32 operations in the same order without
+    contraction; the kernels' slab culls drop only chunks that cannot hold
+    a closer hit.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tpu_ray.accel import packet as jpacket
+from tpu_ray.kernels import moller_trumbore as jmt
+from tpu_ray.kernels.pallas_mt import intersect_packet as j_intersect_packet
+from tpu_ray.scene.mesh import MeshScene as JMesh
+from tpu_ray_torch.accel import packet as tpacket
+from tpu_ray_torch.kernels import cuda_mt
+from tpu_ray_torch.scene.mesh import torus_knot
+import torch_host_build
+
+torch.set_num_threads(1)
+
+
+def _knot(seg_u=48, seg_v=48):
+    """4,608 triangles: 36 chunks in 3 supers. Float32-exact vertices."""
+    v, f = torus_knot(2, 3, seg_u, seg_v)
+    return v.astype(np.float32).astype(np.float64), f
+
+
+def _camera_rays(n, seed, origin=(0.3, 0.4, 3.2)):
+    """Rays from one camera point aimed at the knot's bounding box."""
+    rng = np.random.default_rng(seed)
+    o = np.tile(np.asarray(origin), (n, 1))
+    d = rng.uniform([-0.9, -0.9, -0.4], [0.9, 0.9, 0.4], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _shadow_rays(n, seed):
+    """Rays from points around the knot toward one light direction."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.2, 1.2, (n, 3))
+    l_dir = np.asarray([0.6, 0.8, 0.3])
+    d = np.tile(l_dir / np.linalg.norm(l_dir), (n, 1))
+    return o.astype(np.float32), d.astype(np.float32), l_dir.astype(np.float32)
+
+
+def _clear(o, d, mesh, hit):
+    """Hit rays whose two nearest candidate t's differ by more than 1e-6 t
+    (closer than that, rounding may pick either triangle)."""
+    v0, v1, v2 = mesh.triangle_corners()
+    t_all, _ = jmt._mt_t(jnp.asarray(o)[:, None], jnp.asarray(d)[:, None], v0, v1, v2,
+                         jmt.BIG)
+    two = np.sort(np.asarray(t_all), axis=1)[:, :2]
+    return hit & (two[:, 1] - two[:, 0] > 1e-6 * two[:, 0])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_intersect_packet_torch_matches_pallas_interpret(any_hit):
+    """One call of the TPU kernel in interpret mode per mode (its compile
+    takes about a minute): closest-hit from one camera with sort_origin and
+    a seed (BIG, a cut at 2.9, or 0), any-hit toward a light with sort_dir
+    and 0-seeds, on a mesh of 3 supers."""
+    v, f = _knot()
+    jacc = jpacket.build_packet_accel(v, f)
+    tacc = tpacket.build_packet_accel(v, f)
+    assert tacc.super_aabb.shape[0] == 3
+    n = 400
+    if any_hit:
+        o, d, l_dir = _shadow_rays(n, 5)
+        seed = np.where(np.arange(n) % 3 == 0, 0.0, 4.0).astype(np.float32)
+        hint = dict(sort_dir=l_dir)
+        t_max = 4.0
+    else:
+        o, d = _camera_rays(n, 3)
+        seed = np.select([np.arange(n) % 3 == 0, np.arange(n) % 3 == 1], [0.0, 2.9],
+                         1e10).astype(np.float32)
+        hint = dict(sort_origin=o[0])
+        t_max = 1e10
+    want = j_intersect_packet(jacc, jnp.asarray(o), jnp.asarray(d), t_max=t_max,
+                              any_hit=any_hit, t_init=jnp.asarray(seed), interpret=True,
+                              **{k: jnp.asarray(x) for k, x in hint.items()})
+    got = cuda_mt.intersect_packet_torch(tacc, torch.as_tensor(o), torch.as_tensor(d),
+                                         t_max=t_max, any_hit=any_hit,
+                                         t_init=torch.as_tensor(seed),
+                                         **{k: torch.as_tensor(x) for k, x in hint.items()})
+    hit = np.asarray(want.hit)
+    assert 0.1 < hit.mean() < 0.9 and not hit[seed == 0].any()
+    np.testing.assert_array_equal(got.hit.numpy(), hit)
+    if any_hit:
+        # the reference's any-hit t is the first blocker the walk met; the
+        # port reports BIG (cuda_mt's docstring)
+        np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+        assert (got.t.numpy() == 1e10).all()
+        return
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), rtol=1e-5)
+    mesh = JMesh.from_numpy(v, f, dtype=jnp.float32)
+    clear = _clear(o, d, mesh, hit)
+    assert clear.sum() > 0.9 * hit.sum()
+    np.testing.assert_array_equal(got.tri.numpy()[clear], np.asarray(want.tri)[clear])
+
+
+@pytest.mark.parametrize("streamed", [False, None], ids=["split", "whole"])
+def test_build_packet_parts_matches_reference(streamed):
+    """At a budget of one super: 3 parts with streamed=False, one
+    whole-mesh part by default, array for array the reference's."""
+    v, f = _knot()
+    budget = jpacket.packet_accel_bytes(2048)
+    assert tpacket.packet_accel_bytes(2048) == budget and not tpacket.fits_vmem(10 ** 6)
+    want = jpacket.build_packet_parts(v, f, budget_bytes=budget, streamed=streamed)
+    got = tpacket.build_packet_parts(v, f, budget_bytes=budget, streamed=streamed,
+                                     device="cpu")
+    assert len(got) == len(want) == (3 if streamed is False else 1)
+    for g, w in zip(got, want):
+        assert g.num_tris == w.num_tris
+        for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
+            np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                          np.asarray(getattr(w, name)), err_msg=name)
+
+
+def test_knot1m_splits_into_six_parts():
+    """knot1m's 1.05M triangles at the 12 MiB budget: 6 parts of at most 90
+    supers, the reference's, array for array."""
+    from tpu_ray.scene.scenes import build_scene as jbuild
+
+    jscene, _ = jbuild("knot1m", dtype=jnp.float32)
+    v = np.asarray(jscene.mesh.verts, np.float64)
+    f = np.asarray(jscene.mesh.tris)
+    want = jpacket.build_packet_parts(v, f, streamed=False)
+    got = tpacket.build_packet_parts(v, f, streamed=False, device="cpu")
+    assert len(got) == len(want) == 6
+    assert max(g.super_aabb.shape[0] for g in got) == 90
+    assert all(tpacket.fits_vmem(g.num_tris) for g in got)
+    for g, w in zip(got, want):
+        for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
+            np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                          np.asarray(getattr(w, name)), err_msg=name)
+
+
+def test_build_packet_parts_splits_past_the_slot_limit(monkeypatch):
+    """Past the slot limit (2^24 in both packages; lowered here to 2 supers)
+    a streamed build splits into Morton-contiguous parts of one super less,
+    each the reference's build of its slice."""
+    v, f = _knot()
+    monkeypatch.setattr(tpacket, "TRI_SLOT_LIMIT", 2 * 2048)
+    got = tpacket.build_packet_parts(v, f, budget_bytes=tpacket.packet_accel_bytes(2048),
+                                     device="cpu")
+    order = jpacket._morton_order(v, np.asarray(f, np.int64))
+    assert len(got) == 3  # 4,608 triangles in parts of 1 super
+    for i, g in enumerate(got):
+        sel = order[i * 2048:(i + 1) * 2048]
+        w = jpacket.build_packet_accel(v, np.asarray(f)[sel], tri_id_base=sel)
+        for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
+            np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                          np.asarray(getattr(w, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_intersect_packet_parts_matches_brute(any_hit):
+    """The parts walk (3 parts, the running t threaded through them, the
+    caller's seed kept where no part improved on it) against JAX's brute MT
+    over the whole mesh."""
+    v, f = _knot()
+    parts = tpacket.build_packet_parts(v, f, budget_bytes=tpacket.packet_accel_bytes(2048),
+                                       streamed=False, device="cpu")
+    assert len(parts) == 3
+    mesh = JMesh.from_numpy(v, f, dtype=jnp.float32)
+    o, d = _camera_rays(500, 9)
+    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
+    if any_hit:
+        got = cuda_mt.intersect_packet_parts(parts, ot, dt, t_max=4.0, any_hit=True,
+                                             sort_dir=torch.tensor([0.6, 0.8, 0.3]))
+        want = np.asarray(jmt.any_hit_brute(mesh, jnp.asarray(o), jnp.asarray(d), t_max=4.0))
+        assert 0.1 < want.mean() < 0.9
+        np.testing.assert_array_equal(got.hit.numpy(), want)
+        np.testing.assert_array_equal(got.tri.numpy(), np.where(want, 0, -1))
+        return
+    seed = torch.where(torch.arange(500) % 4 == 0, 3.0, 1e10)
+    got = cuda_mt.intersect_packet_parts(parts, ot, dt, sort_origin=ot[0], t_init=seed)
+    brute = jmt.intersect_brute(mesh, jnp.asarray(o), jnp.asarray(d))
+    w_t = np.asarray(brute.t)
+    hit = np.asarray(brute.hit) & (w_t < seed.numpy())
+    assert 0.1 < hit.mean() < 0.9 and (~hit & np.asarray(brute.hit)).any()
+    np.testing.assert_array_equal(got.hit.numpy(), hit)
+    np.testing.assert_allclose(got.t.numpy()[hit], w_t[hit], rtol=1e-5)
+    clear = _clear(o, d, mesh, hit)
+    assert clear.sum() > 0.9 * hit.sum()
+    np.testing.assert_array_equal(got.tri.numpy()[clear], np.asarray(brute.tri)[clear])
+
+
+def test_cpu_calls_launch_no_kernel():
+    v, f = _knot(24, 24)
+    parts = tpacket.build_packet_parts(v, f, device="cpu")
+    o, d = _camera_rays(64, 1)
+    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
+    cuda_mt.intersect_packet(parts[0], ot, dt, sort_origin=ot[0])
+    cuda_mt.any_hit_packet(parts[0], ot, dt, t_max=4.0)
+    cuda_mt.intersect_packet_parts(parts, ot, dt)
+    assert set(cuda_mt.LAUNCHES.values()) == {0}
+
+
+@pytest.fixture(scope="module")
+def host_walk(tmp_path_factory):
+    so = torch_host_build.build_packet(tmp_path_factory.mktemp("packet_host"))
+    if so is None:
+        pytest.skip("g++ not found: the kernels' host build needs it")
+    return so
+
+
+@pytest.mark.parametrize("case", ["streamed", "origin", "dir_any_hit", "slot_any_hit"])
+def test_kernel_walk_matches_plain_version(host_walk, case):
+    """csrc/packet_mt.cu's per-ray walk as the kernels run it: #3 in slot
+    order, #4 with sort_origin and a seed, with sort_dir any-hit and
+    0-seeds, and without a hint; against the plain versions."""
+    v, f = _knot()
+    accel = tpacket.build_packet_accel(v, f)
+    if case in ("streamed", "origin"):
+        o, d = _camera_rays(2000, 21)
+        any_hit, t_max, hint = False, 1e10, {"sort_origin": torch.as_tensor(o[0])}
+        seed = torch.where(torch.arange(2000) % 3 == 0, 3.0, 1e10)
+    else:
+        o, d, l_dir = _shadow_rays(2000, 22)
+        any_hit, t_max = True, 4.0
+        hint = {"sort_dir": torch.as_tensor(l_dir)} if case == "dir_any_hit" else {}
+        seed = torch.where(torch.arange(2000) % 3 == 0, 0.0, 4.0)
+    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
+    if case == "streamed":
+        order = None
+        want = cuda_mt.intersect_packet_streamed_torch(accel, ot, dt, t_max=t_max,
+                                                       t_init=seed)
+    else:
+        order = cuda_mt.super_order(accel, **hint)
+        want = cuda_mt.intersect_packet_torch(accel, ot, dt, t_max=t_max, any_hit=any_hit,
+                                              t_init=seed, **hint)
+    t, tri, hit = torch_host_build.packet_walk(host_walk, accel, ot, dt, t_max, any_hit,
+                                               order, seed)
+    assert 0.05 < float(want.hit.float().mean()) < 0.95
+    assert torch.equal(hit, want.hit)
+    assert torch.equal(t, want.t)
+    assert torch.equal(tri, want.tri)

@@ -100,7 +100,7 @@ def test_scene_from_numpy_round_trips_mixed(mixed):
     # the packet accel built from the converted scene is the reference's
     jpacket = jscene.packet[0]
     for name in ("corners", "chunk_aabb", "super_aabb", "perm"):
-        np.testing.assert_array_equal(getattr(tscene.packet, name).numpy(),
+        np.testing.assert_array_equal(getattr(tscene.packet[0], name).numpy(),
                                       np.asarray(getattr(jpacket, name)), err_msg=name)
 
 
@@ -228,7 +228,8 @@ def test_cpu_render_launches_no_kernel(mixed):
     with torch.no_grad():
         trender.render_image(tscene, tcfg.replace(width=8, height=8))
     assert cuda_sdf.LAUNCHES == {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
-    assert cuda_mt.LAUNCHES == {"closest": 0, "any_hit": 0}
+    assert cuda_mt.LAUNCHES == {"closest": 0, "any_hit": 0, "resident_closest": 0,
+                                "resident_any_hit": 0}
 
 
 def test_port_never_imports_jax():

@@ -108,7 +108,7 @@ def test_realize_scene_matches_jax():
     np.testing.assert_allclose(got.mesh.verts.numpy(), np.asarray(jreal.mesh.verts), **TOL)
     np.testing.assert_array_equal(got.mesh.verts.numpy()[3:],
                                   np.asarray(jscene.mesh.verts)[3:])
-    np.testing.assert_allclose(got.packet.chunk_aabb.numpy(),
+    np.testing.assert_allclose(got.packet[0].chunk_aabb.numpy(),
                                np.asarray(jreal.packet[0].chunk_aabb), **TOL)
     # render_image folds the poses: the posed scene renders as its fold
     cfg = port_cfg(jcfg.replace(width=16, height=16))

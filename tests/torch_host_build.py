@@ -1,6 +1,7 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
-port's tests (tests/test_torch_shade_*.py): the shade forward, the shade
-backward and the soft march, called with the arguments their CUDA wrappers
+port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py):
+the shade forward, the shade backward, the soft march and the packet walk,
+called with the arguments their CUDA wrappers
 pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
@@ -94,6 +95,58 @@ def build(tmp_dir):
     for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft):
         fn.restype = None
     return so
+
+
+PACKET_MAIN = r"""
+#include "packet_mt.cu"
+extern "C" void host_packet_walk(
+    const float* o, const float* d, const float* t_init, int n, float t_far,
+    const float* corners, const float* chunk_aabb, const float* super_aabb,
+    const int* order, int n_supers, const int* perm, int perm_len, int any_hit,
+    float* t, int* tri, uint8_t* hit) {
+  for (int i = 0; i < n; ++i)
+    trmt::walk_ray(i, o, d, t_init, t_far, corners, chunk_aabb, super_aabb,
+                   order, n_supers, perm, perm_len, any_hit, t, tri, hit);
+}
+"""
+
+
+def build_packet(tmp_dir):
+    """The packet kernels' per-ray walk (csrc/packet_mt.cu) built into
+    tmp_dir, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    (tmp_dir / "packet_main.cpp").write_text(PACKET_MAIN)
+    lib = tmp_dir / "libpacket_host.so"
+    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", str(lib), str(tmp_dir / "packet_main.cpp")], check=True,
+                   capture_output=True, timeout=180)
+    so = ctypes.CDLL(str(lib))
+    so.host_packet_walk.argtypes = [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P, _I, _I,
+                                    _P, _P, _P]
+    so.host_packet_walk.restype = None
+    return so
+
+
+def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None):
+    """The host build of the walk on CPU tensors, with the arguments the
+    CUDA wrappers pass (order None: slot order, kernel #3) -> (t, tri, hit)."""
+    n = o.shape[0]
+    o, d = o.contiguous(), d.contiguous()  # as the wrappers require
+    t = torch.empty(n)
+    tri = torch.empty(n, dtype=torch.int32)
+    hit = torch.empty(n, dtype=torch.bool)
+    so.host_packet_walk(o.data_ptr(), d.data_ptr(),
+                        None if t_init is None else t_init.data_ptr(), n,
+                        float(min(t_max, 1e10)), accel.corners.data_ptr(),
+                        accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(),
+                        None if order is None else order.data_ptr(),
+                        accel.super_aabb.shape[0], accel.perm.data_ptr(),
+                        accel.perm.shape[0], int(any_hit), t.data_ptr(), tri.data_ptr(),
+                        hit.data_ptr())
+    return t, tri, hit
 
 
 def _args(scene, cfg, o, d, res, corners, method):

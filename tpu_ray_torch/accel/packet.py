@@ -14,6 +14,11 @@ one for one with the reference's:
 
 C is padded to S * SUPER with never-hit boxes and degenerate triangles.
 The structure selects hits only; they are recomputed from the mesh.
+
+`build_packet_parts` builds a mesh as a list of such accels: one
+whole-mesh accel by default, or, with `streamed=False`, Morton-contiguous
+parts under `VMEM_BUDGET_BYTES` that `cuda_mt.intersect_packet_parts`
+walks in sequence. Not ported: the reference's disk cache and native build.
 """
 
 from __future__ import annotations
@@ -26,6 +31,16 @@ import torch
 CHUNK = 128  # triangles per chunk
 ROWS_PER_CHUNK = 16  # 9 data rows (v0/e1/e2 xyz) + 7 pad
 SUPER = 16  # chunks per super-chunk
+
+# The reference's VMEM budget for the resident kernel's arrays. Here it is
+# only the split and routing rule, kept so that both packages split a mesh
+# into the same parts and launch the resident kernel (#4) at the same call
+# sites; it says nothing about the H100's memory.
+VMEM_BUDGET_BYTES = 12 * 1024 * 1024
+# the reference's limit of exact float32 triangle slots: streamed parts of a
+# larger mesh stay below it (the port's slots are int32, but the split is the
+# reference's)
+TRI_SLOT_LIMIT = 2 ** 24
 
 
 @dataclasses.dataclass
@@ -51,6 +66,19 @@ def _morton3(x: np.ndarray, bits: int = 10) -> np.ndarray:
     return (spread(x[:, 0]) << np.uint64(2)) | (spread(x[:, 1]) << np.uint64(1)) | spread(x[:, 2])
 
 
+def packet_accel_bytes(num_tris: int) -> int:
+    """Bytes of the corners and the chunk and super boxes of a mesh of
+    num_tris triangles (whole supers)."""
+    chunks = -(-num_tris // CHUNK)
+    supers = -(-chunks // SUPER)
+    chunks_padded = supers * SUPER
+    return chunks_padded * ROWS_PER_CHUNK * CHUNK * 4 + (chunks_padded + supers) * 128 * 4
+
+
+def fits_vmem(num_tris: int) -> bool:
+    return packet_accel_bytes(num_tris) <= VMEM_BUDGET_BYTES
+
+
 def _morton_order(verts64: np.ndarray, tris: np.ndarray) -> np.ndarray:
     """Stable Morton ordering of triangle indices by quantized centroid."""
     centroid = verts64[tris].mean(1)
@@ -69,8 +97,11 @@ def _to_accel(corners, chunk_aabb, super_aabb, perm, num_tris, device):
 
 
 def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
+                       tri_id_base: np.ndarray | None = None,
                        device="cpu") -> PacketAccel:
-    """Build the whole-mesh accel on the host and move it to `device`."""
+    """Build one accel on the host and move it to `device`. tri_id_base:
+    the (T,) original triangle ids of a subset of a mesh (identity if
+    omitted), which `perm` then maps to."""
     verts = np.asarray(verts, np.float64)
     tris = np.asarray(tris, np.int64).reshape(-1, 3)
     T = tris.shape[0]
@@ -119,9 +150,47 @@ def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
     sup[:, 0:3] = lo_p.reshape(S, SUPER, 3).min(1)
     sup[:, 3:6] = hi_p.reshape(S, SUPER, 3).max(1)
 
-    perm = np.concatenate([order, np.full(pad, -1, np.int64)])
+    ids = order if tri_id_base is None else np.asarray(tri_id_base)[order]
+    perm = np.concatenate([ids, np.full(pad, -1, np.int64)])
     return _to_accel(corners.reshape(C_pad * ROWS_PER_CHUNK, CHUNK), aabb, sup,
                      perm, T, device)
+
+
+def build_packet_parts(verts: np.ndarray, tris: np.ndarray,
+                       budget_bytes: int = VMEM_BUDGET_BYTES,
+                       streamed: bool | None = None, device="cuda") -> list:
+    """The packet accel of a mesh of any size, as a list of parts
+    (counterpart of the reference's `build_packet_parts`):
+
+      * a mesh under `budget_bytes`: one part;
+      * larger, `streamed` True or None: one whole-mesh part, or, past
+        TRI_SLOT_LIMIT slots, Morton-contiguous parts just below it;
+      * larger, `streamed=False`: Morton-contiguous parts of as many whole
+        supers as fit the budget, walked in sequence with the running best
+        t (`cuda_mt.intersect_packet_parts`).
+    """
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    T = tris.shape[0]
+    build = lambda sel=None: build_packet_accel(
+        verts, tris if sel is None else tris[sel], tri_id_base=sel, device=device)
+    if packet_accel_bytes(T) <= budget_bytes:
+        return [build()]
+    if streamed or streamed is None:
+        if -(-T // CHUNK) * CHUNK < TRI_SLOT_LIMIT:
+            return [build()]
+        part_tris = TRI_SLOT_LIMIT - CHUNK * SUPER  # whole supers below the limit
+    else:
+        per_super = CHUNK * SUPER
+        if packet_accel_bytes(per_super) > budget_bytes:
+            raise ValueError(
+                f"budget_bytes={budget_bytes} is below one super-chunk's footprint "
+                f"({packet_accel_bytes(per_super)} bytes); cannot split smaller")
+        max_supers = 1
+        while packet_accel_bytes((max_supers + 1) * per_super) <= budget_bytes:
+            max_supers += 1
+        part_tris = max_supers * per_super
+    order = _morton_order(np.asarray(verts, np.float64), tris)
+    return [build(order[s:s + part_tris]) for s in range(0, T, part_tris)]
 
 
 def refit_packet_accel(accel: PacketAccel, verts: torch.Tensor,

@@ -1,0 +1,64 @@
+"""Process-group setup and rank-0 gating (counterpart of
+`tpu_ray/dist/multihost.py`).
+
+The port runs one process per device: `torchrun --nproc_per_node=N`, or N
+processes that each call `initialize` with the same `init_method` (a
+`tcp://localhost:<port>` or `file://` address), the world size and their
+rank. Collectives then go through `torch.distributed` (NCCL between cards,
+gloo between CPU processes).
+
+Not ported yet: the per-process image write (`write_image_per_host`), which
+the reference never ran either.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def initialize(init_method: str | None = None, world_size: int | None = None,
+               rank: int | None = None, backend: str | None = None) -> None:
+    """Join the process group (a no-op for a single process).
+
+    With no arguments, reads torchrun's environment (WORLD_SIZE, RANK,
+    MASTER_ADDR, MASTER_PORT) and does nothing when it names one process.
+    An explicit configuration that fails raises: a broken multi-process
+    setup is never taken for a single process. The backend is NCCL when a
+    CUDA device exists, gloo otherwise."""
+    if dist.is_initialized():
+        return
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    if init_method is None and world_size is None and rank is None:
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return
+        dist.init_process_group(backend=backend)  # env://, torchrun's variables
+        return
+    if init_method is None:
+        if world_size is not None and world_size <= 1:
+            return
+        raise ValueError("initialize: a multi-process group needs its init_method")
+    if world_size is None or rank is None:
+        raise ValueError("initialize: init_method needs world_size and rank")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"initialize: rank {rank} outside world size {world_size}")
+    dist.init_process_group(backend=backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+
+
+def world(group=None) -> tuple[int, int]:
+    """(size, rank) of the group, (1, 0) without a process group."""
+    if not dist.is_available() or not dist.is_initialized():
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def is_main() -> bool:
+    return world()[1] == 0
+
+
+def main_print(*args, **kw) -> None:
+    if is_main():
+        print(*args, **kw)

@@ -7,24 +7,31 @@ Any float leaf of the Scene can be optimized, addressed by dotted path
 `apply_params` puts them into a copy of the scene that shares every other
 tensor.
 
-Not ported yet: the sharded step and checkpoints.
+Not ported yet: checkpoints.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_ray_torch.accel.packet import refit_packet_accel
-from tpu_ray_torch.render.render import render_image
+from tpu_ray_torch.dist.grad_allreduce import psum_buckets
+from tpu_ray_torch.dist.multihost import world
+from tpu_ray_torch.dist.scene_shard import refit_ring_packet
+from tpu_ray_torch.dist.sharding import ring_scene, shard_sample_coords
+from tpu_ray_torch.render.render import render_image, render_pixels_flat, resolve_method
+from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils.config import FitConfig, RenderConfig
 
 ParamDict = Dict[str, torch.Tensor]
 
 __all__ = ["get_param", "set_param", "extract_params", "apply_params",
-           "make_fit_step", "fit"]
+           "make_fit_step", "make_sharded_fit_step", "fit"]
 
 
 def extract_params(scene: Scene, paths: Sequence[str]) -> ParamDict:
@@ -34,12 +41,12 @@ def extract_params(scene: Scene, paths: Sequence[str]) -> ParamDict:
 
 
 def _maybe_refit(scene: Scene, refit_accel: bool) -> Scene:
-    """Refit the packet accel to the current vertices (never differentiated):
-    keeps the accel valid while mesh.verts move."""
+    """Refit the packet accel's parts to the current vertices (never
+    differentiated): keeps the accel valid while mesh.verts move."""
     if not refit_accel or scene.packet is None:
         return scene
-    return scene.replace(packet=refit_packet_accel(scene.packet, scene.mesh.verts,
-                                                   scene.mesh.tris))
+    return scene.replace(packet=[refit_packet_accel(a, scene.mesh.verts, scene.mesh.tris)
+                                 for a in scene.packet])
 
 
 def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
@@ -60,11 +67,74 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     return step
 
 
+def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
+                          params: ParamDict, optimizer: torch.optim.Optimizer,
+                          group=None, grad_buckets: int = 4, scene_shards: bool = False,
+                          refit_accel: bool = False) -> Callable[[], float]:
+    """The data-parallel fit step over a process group (counterpart of the
+    reference's `make_sharded_fit_step`): step() -> the global loss.
+
+    Each rank renders and differentiates its own whole pixels
+    (dist.sharding.shard_sample_coords); its loss is sum(w * (px - t)**2) /
+    (n_px * 3), so the sum over ranks is the MSE of the spp-averaged image,
+    the objective of make_fit_step. After `backward` the parameter gradients
+    are summed over the group in buckets (psum_buckets, outside autograd),
+    the loss is all-reduced, and every rank takes the same optimizer step:
+    the parameters stay replicated. target: (H, W, 3), the full frame.
+
+    scene_shards partitions the accel around the ring: the geometry pass
+    walks the rotating shards, the differentiable re-solve reads the
+    replicated mesh, so vertex gradients stay exact. When `mesh.*` or
+    `poses.*` is trained (or refit_accel), each rank refits its shard to the
+    current posed vertices before the ring turns."""
+    n, r = world(group)
+    method = resolve_method(scene, cfg)
+    dev, dtype = scene.device, scene.camera.origin.dtype
+    ring = None
+    if scene_shards and scene.has_mesh:
+        ring = ring_scene(scene, group).ring  # built from the posed vertices
+        scene = scene.replace(packet=None)
+    flat_x, flat_y, n_px, perm = shard_sample_coords(cfg, n, dev, dtype)
+    per = flat_x.shape[0] // n
+    per_px = per // cfg.spp
+    xs, ys = flat_x[r * per:(r + 1) * per], flat_y[r * per:(r + 1) * per]
+    p = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    n_pad = flat_x.shape[0] // cfg.spp - n_px
+    tgt = torch.cat([target.reshape(-1, 3).T.to(dtype)[:, p],
+                     torch.zeros((3, n_pad), dtype=dtype, device=dev)], dim=1)
+    w = torch.cat([torch.ones(n_px, dtype=dtype, device=dev),
+                   torch.zeros(n_pad, dtype=dtype, device=dev)])
+    tgt, w = tgt[:, r * per_px:(r + 1) * per_px], w[r * per_px:(r + 1) * per_px]
+    moving = refit_accel or any(k.split(".")[0] in ("mesh", "poses") for k in params)
+
+    def step() -> float:
+        optimizer.zero_grad(set_to_none=True)
+        s = _maybe_refit(realize_scene(apply_params(scene, params)), refit_accel)
+        if ring is not None:
+            s = s.replace(ring=refit_ring_packet(ring, s.mesh.verts, s.mesh.tris)
+                          if moving else ring)
+        px = render_pixels_flat(s, cfg, xs, ys, method)  # (3, per_px)
+        loss = torch.sum(w[None, :] * (px - tgt) ** 2) / (n_px * 3)
+        loss.backward()
+        grads = psum_buckets({k: v.grad if v.grad is not None else torch.zeros_like(v)
+                              for k, v in params.items()}, group, grad_buckets)
+        for k, v in params.items():
+            v.grad = grads[k]
+        total = loss.detach().clone()
+        if n > 1:
+            dist.all_reduce(total, group=group)
+        optimizer.step()
+        return float(total)
+
+    return step
+
+
 def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         trainable: Sequence[str], fit_cfg: FitConfig = FitConfig(),
-        verbose: bool = True) -> Tuple[Scene, list]:
+        verbose: bool = True, group=None) -> Tuple[Scene, list]:
     """Optimize `trainable` scene leaves with Adam to match `target`.
-    Returns (fitted_scene, loss_history)."""
+    Returns (fitted_scene, loss_history). With a process group, every rank
+    calls it and takes the data-parallel step (make_sharded_fit_step)."""
     if fit_cfg.checkpoint_dir:
         raise NotImplementedError("fit checkpoints are not ported yet")
     if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
@@ -76,7 +146,11 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
 
     params = extract_params(scene, trainable)
     optimizer = torch.optim.Adam(params.values(), lr=fit_cfg.learning_rate)
-    step = make_fit_step(scene, cfg, target, params, optimizer, refit_accel)
+    if group is not None:
+        step = make_sharded_fit_step(scene, cfg, target, params, optimizer, group=group,
+                                     refit_accel=refit_accel)
+    else:
+        step = make_fit_step(scene, cfg, target, params, optimizer, refit_accel)
     history = []
     for i in range(fit_cfg.steps):
         history.append(step())

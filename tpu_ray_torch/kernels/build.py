@@ -52,8 +52,12 @@ _SIGNATURES = {
                        _F, _F, _I, _F, _F, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers,
     # perm, perm_len, any_hit, t, tri, hit, stream
-    "tr_intersect_packet": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
-                            _P, _I, _I, _P, _P, _P, _P],
+    "tr_intersect_packet_streamed": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
+                                     _P, _I, _I, _P, _P, _P, _P],
+    # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, super_order,
+    # n_supers, perm, perm_len, any_hit, t, tri, hit, stream
+    "tr_intersect_packet_resident": [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I,
+                                     _P, _I, _I, _P, _P, _P, _P],
     # o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh, n,
     # small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos,
     # use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil,

@@ -5,7 +5,9 @@ Counterpart of `tpu_ray/render/render.py`. The geometry pass
 (`geometry_residuals`) runs under `torch.no_grad()` and goes through the
 kernel wrappers: the primary SDF march (`cuda_sdf.march`), the mesh closest
 hit seeded with the SDF hit t, the mesh any-hit for shadow rays and the
-mesh term of the AO taps (`cuda_mt.intersect_packet`), and the hard or soft
+mesh term of the AO taps (`cuda_mt.intersect_packet_parts` over the accel's
+parts, or `dist.scene_shard.intersect_ring_packet` over the ring's
+shards when the scene is partitioned across processes), and the hard or soft
 SDF shadow march (`cuda_sdf.shadow_hard`; `cuda_sdf.shadow_soft` through
 `shading.sdf_soft_shadow_argmin`). It emits compact per-ray residuals; the
 shade rebuilds hit state from them (SDF hit t by the IFT attach, normal by
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from tpu_ray_torch.core.math3d import clamp01, dot, normalize
+from tpu_ray_torch.dist.scene_shard import intersect_ring_packet
 from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import moller_trumbore as mt
 from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
@@ -141,31 +144,45 @@ def _use_packet(scene: Scene, method: str) -> bool:
 def _mesh_intersect(scene: Scene, cfg: RenderConfig, o, d, method: str,
                     t_init=None):
     """Mesh closest hit -> (tri, hit). t_init: per-ray best-t seed (the SDF hit
-    t in mixed scenes: a mesh hit behind it loses the closest-select)."""
-    if _use_packet(scene, method):
-        res = cuda_mt.intersect_packet(scene.packet, o, d, t_max=cfg.t_far,
-                                       t_init=t_init)
+    t in mixed scenes: a mesh hit behind it loses the closest-select). The
+    ring's shards (which, as the reference's, take no seed) come first, then
+    the accel parts; primary rays share the camera origin, so the supers are
+    visited front to back from o[0]."""
+    if scene.ring is not None:
+        res = intersect_ring_packet(scene.ring, o, d, t_max=cfg.t_far, sort_origin=o[0])
+    elif _use_packet(scene, method):
+        res = cuda_mt.intersect_packet_parts(scene.packet, o, d, t_max=cfg.t_far,
+                                             sort_origin=o[0], t_init=t_init)
     else:
         res = mt.intersect_brute(scene.mesh, o, d, t_max=cfg.t_far)
     return res.tri, res.hit
 
 
-def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str,
+def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str, sort,
                   t_init=None):
     """Mesh occlusion of shadow rays. `d` may be unnormalized (point lights
-    pass the segment to the light with t_max = 1). t_init: 0 for rays whose
-    shadow is already decided, which skips their work."""
+    pass the segment to the light with t_max = 1). sort: ("dir", v) visits
+    the supers by ascending projection on v (a directional light), or
+    ("origin", pt) by distance from pt (a point light). t_init: 0 for rays
+    whose shadow is already decided, which skips their work (not on the
+    ring, as in the reference)."""
+    kind, v = sort
+    kw = {"sort_dir": v} if kind == "dir" else {"sort_origin": v}
+    if scene.ring is not None:
+        return intersect_ring_packet(scene.ring, p, d, t_max=t_max, any_hit=True, **kw).hit
     if _use_packet(scene, method):
-        return cuda_mt.intersect_packet(scene.packet, p, d, t_max=t_max,
-                                        any_hit=True, t_init=t_init).hit
+        return cuda_mt.intersect_packet_parts(scene.packet, p, d, t_max=t_max, any_hit=True,
+                                              t_init=t_init, **kw).hit
     return mt.any_hit_brute(scene.mesh, p, d, t_max=t_max)
 
 
 def _mesh_closest_t(scene: Scene, o, d, t_max: float):
     """Closest mesh hit distance along per-ray dirs within t_max (BIG on a
-    miss): the mesh term of the AO taps (make_ao)."""
+    miss): the mesh term of the AO taps (make_ao), with no sort hint."""
+    if scene.ring is not None:
+        return intersect_ring_packet(scene.ring, o, d, t_max=t_max).t
     if scene.packet is not None:
-        return cuda_mt.intersect_packet(scene.packet, o, d, t_max=t_max).t
+        return cuda_mt.intersect_packet_parts(scene.packet, o, d, t_max=t_max).t
     res = mt.intersect_brute(scene.mesh, o, d, t_max=t_max)
     return torch.where(res.hit, res.t, torch.full_like(res.t, BIG))
 
@@ -355,7 +372,7 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     soft = cfg.shadow == "soft"
     soft_diff = _soft_diff(scene, cfg, method)
 
-    def one_light(l_dir, t_far_rays, mesh_dir, mesh_tmax):
+    def one_light(l_dir, t_far_rays, mesh_dir, mesh_tmax, mesh_sort):
         vis = torch.ones_like(p_off[:, 0])
         ts = torch.full_like(vis, cfg.shadow_bias)
         if live is not None:
@@ -383,21 +400,23 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
             seed = (None if dead is None else
                     torch.where(dead, 0.0, mesh_tmax).to(p.dtype))
             blocked = _mesh_any_hit(scene, cfg, p_off, mesh_dir, mesh_tmax,
-                                    method, t_init=seed)
+                                    method, mesh_sort, t_init=seed)
             vis = vis * (1.0 - blocked.to(p.dtype))
         return vis, ts
 
     rows = []
     for li in range(scene.lights.direction.shape[0]):
         l_dir = normalize(scene.lights.direction[li]).expand_as(p_off).contiguous()
-        rows.append(one_light(l_dir, None, l_dir, cfg.t_far))
+        rows.append(one_light(l_dir, None, l_dir, cfg.t_far,
+                              ("dir", scene.lights.direction[li])))
     for pi in range(scene.lights.position.shape[0]):
         # point light: march clamped at the light distance; the mesh any-hit
         # takes the unnormalized segment with t_max = 1 (MT is scale-free)
-        lvec = scene.lights.position[pi] - p_off
+        lpos = scene.lights.position[pi]
+        lvec = lpos - p_off
         dist = torch.sqrt(torch.clamp_min(dot(lvec, lvec), 1e-12))
         rows.append(one_light((lvec / dist[..., None]).contiguous(), dist,
-                              lvec.contiguous(), 1.0))
+                              lvec.contiguous(), 1.0, ("origin", lpos)))
     res["sh_vis"] = torch.stack([v for v, _ in rows])
     if soft_diff:
         res["sh_ts"] = torch.stack([t for _, t in rows])

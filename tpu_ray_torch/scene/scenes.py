@@ -4,6 +4,8 @@
     triangles  config 2: 10 triangles + ground quad, brute MT, hard shadows
     bunny      config 3: the ~70k-triangle knot on a ground quad, hard
                shadows, through the packet accel
+    knot1m     a ~1.05M-triangle torus knot on a ground quad, 1024x1024,
+               hard shadows, 64k-ray blocks
     mandelbulb config 4: a power-8 Mandelbulb on a ground plane, 1024x1024
                at 4 spp, soft shadows and 5-tap distance-field AO,
                64k-ray blocks
@@ -13,9 +15,9 @@
                Mandelbulb and a sphere, 1920x1080 at 16 spp, hard shadows,
                32k-ray blocks; the mesh is walked through the packet accel
 
-Same parameters as the reference. The large meshes knot1m and knot8m wait
-for their slice. Scenes are built on the CUDA device unless the caller
-names another.
+Same parameters as the reference. knot8m waits for a native accel build
+(numpy takes minutes for its 8.4M triangles). Scenes are built on the CUDA
+device unless the caller names another.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from tpu_ray_torch.render.camera import Camera
-from tpu_ray_torch.scene.mesh import MeshScene, bunny_standin, concat_meshes, ground_plane_quad
+from tpu_ray_torch.scene.mesh import (MeshScene, bunny_standin, concat_meshes,
+                                      ground_plane_quad, torus_knot)
 from tpu_ray_torch.scene.types import Lights, Materials, Scene
 from tpu_ray_torch.sdf.primitives import SdfScene
 from tpu_ray_torch.utils.config import RenderConfig
@@ -124,6 +127,27 @@ def bunny_scene(device, dtype):
                   albedos=[[0.82, 0.71, 0.55], [0.7, 0.73, 0.72]]).with_packet()
     cfg = RenderConfig(width=512, height=512, spp=1, method="mesh_grid",
                        shadow="hard", t_far=40.0)
+    return scene, cfg
+
+
+@register("knot1m")
+def knot1m_scene(device, dtype):
+    """A ~1.05M-triangle torus knot on a ground quad, hard shadows: its
+    packet accel (72 MB) is 5.5x VMEM_BUDGET_BYTES, so it is one whole-mesh
+    part for the streamed kernel, or 6 parts for the resident kernel when
+    built with build_packet_parts(streamed=False)."""
+    kv, kf = torus_knot(2, 3, 724, 724)
+    kv = kv + np.array([0.0, 1.12, 0.0])  # rest on the ground plane
+    body = MeshScene.from_numpy(kv, kf, mat_id=0, device=device, dtype=dtype)
+    gv, gf = ground_plane_quad(0.0, 8.0)
+    mesh = concat_meshes(body, MeshScene.from_numpy(gv, gf, mat_id=1,
+                                                    device=device, dtype=dtype))
+    cam = Camera.make((0.0, 1.9, 3.4), (0.0, 1.0, 0.0), vfov_deg=45.0,
+                      device=device, dtype=dtype)
+    scene = _base(device, dtype, cam, mesh=mesh,
+                  albedos=[[0.62, 0.7, 0.82], [0.7, 0.73, 0.72]]).with_packet()
+    cfg = RenderConfig(width=1024, height=1024, spp=1, method="mesh_grid",
+                       shadow="hard", t_far=40.0, block_size=1 << 16)
     return scene, cfg
 
 

@@ -84,6 +84,6 @@ def realize_scene(scene):
     verts = apply_poses(scene.poses, scene.mesh.verts)
     scene = scene.replace(mesh=dataclasses.replace(scene.mesh, verts=verts), poses=None)
     if scene.packet is not None:
-        scene = scene.replace(packet=refit_packet_accel(scene.packet, verts,
-                                                        scene.mesh.tris))
+        scene = scene.replace(packet=[refit_packet_accel(a, verts, scene.mesh.tris)
+                                      for a in scene.packet])
     return scene

@@ -4,11 +4,11 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
-from tpu_ray_torch.accel.packet import PacketAccel, build_packet_accel
+from tpu_ray_torch.accel.packet import PacketAccel, build_packet_parts
 from tpu_ray_torch.render.camera import Camera
 from tpu_ray_torch.scene.mesh import MeshScene
 from tpu_ray_torch.sdf.primitives import SdfScene
@@ -61,12 +61,17 @@ class Scene:
     lights: Lights
     bg_top: torch.Tensor  # (3,) sky gradient top color
     bg_bottom: torch.Tensor  # (3,)
-    # Morton-chunked packet accel of the mesh (None until built); selection
-    # only, never differentiated
-    packet: Optional[PacketAccel] = None
+    # Morton-chunked packet accel of the mesh as a list of parts (None until
+    # built; one whole-mesh part unless built split); selection only, never
+    # differentiated
+    packet: Optional[List[PacketAccel]] = None
     # per-object differentiable transforms (scene/transform.MeshPoses),
     # folded into world-space vertices at render entry
     poses: Optional[object] = None
+    # this process's shard of the packet accel partitioned across a process
+    # group (dist/scene_shard.RingPacket); the geometry pass then walks the
+    # ring's shards in place of `packet`
+    ring: Optional[object] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
@@ -76,9 +81,10 @@ class Scene:
         return self.camera.origin.device
 
     def with_packet(self) -> "Scene":
-        """Build the packet accel on the host from the current vertices."""
+        """Build the packet accel on the host from the current vertices: one
+        whole-mesh part (build_packet_parts' default)."""
         tris = self.mesh.tris.cpu().numpy()
-        packet = (build_packet_accel(self.mesh.verts.detach().cpu().numpy(),
+        packet = (build_packet_parts(self.mesh.verts.detach().cpu().numpy(),
                                      tris, device=self.device)
                   if tris.shape[0] else None)
         return self.replace(packet=packet)
