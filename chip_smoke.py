@@ -66,12 +66,14 @@ accel parts walked in sequence. Phases, each with its seconds (any failure exits
      front to back) against its plain version on phase 3's rays: the
      closest hit with sort_origin and the SDF seed, the shadow any-hit with
      sort_dir and 0-seeds (hits equal on >= 99.99%, t rtol 1e-5), timed
-     beside kernel #3 on the same rays.
+     beside kernel #3 on the same rays; then both unseeded over the ring's
+     own shard, as phase 19 calls them (the `mixed_ring` entries).
  18. knot1m_parts: the 1.05M-triangle `knot1m` as one whole-mesh accel (#3)
      and as 6 parts of at most 12 MiB (#4, the running t threaded from part
      to part): #4 against its plain version part by part and the threaded
      parts against the whole mesh on 4,096 rays, #3 against its plain
-     version, and both 1024x1024x1 frames (p99 pixel difference < 1e-5)
+     version, and both 1024x1024x1 frames (p99 pixel difference < 1e-5,
+     at most 1e-4 of the pixels off by more than 1e-4)
      with their launches: 16 of each #3 kernel, 6 x 16 of each #4 kernel.
  19. ring_frame: `render_image_sharded(mixed, 1920x1080x16,
      scene_shards=True)` on a ring of one process (NCCL, world size 1):
@@ -1223,36 +1225,44 @@ def sil_fits(dev):
 
 def resident_parity(scene, cfg, results, rays):
     """Phase 17: TPU kernel #4 against its plain version on phase 3's rays:
-    the closest hit with sort_origin = o[0] and the SDF seed, the any-hit on
-    their shadow rays with sort_dir = the light's direction and the 0-seeds
-    of decided lanes; each also timed beside kernel #3 (slot order, the same
-    seeds) on the same rays."""
+    the closest hit with sort_origin = o[0], the any-hit on their shadow
+    rays with sort_dir = the light's direction. First seeded (the SDF seed,
+    the 0-seeds of decided lanes) over the scene's accel, timed beside
+    kernel #3 (slot order, the same seeds); then as the ring of phase 19
+    calls it, unseeded over the ring's own shard: that call gives the
+    `mixed_ring` entries."""
+    from tpu_ray_torch.dist.sharding import ring_scene
     from tpu_ray_torch.kernels import cuda_mt
 
     packet = scene.packet[0]
+    shard = ring_scene(scene).ring.accel()  # a ring of one: the whole posed mesh
     o, d = rays["o"], rays["d"]
     cases = (("resident_closest", (o, d), dict(t_init=rays["seed"]), dict(sort_origin=o[0])),
              ("resident_any_hit", (rays["p_off"], rays["l_dir"]),
               dict(any_hit=True, t_init=rays["aseed"]), dict(sort_dir=scene.lights.direction[0])))
     for key, (ro, rd), kw, hint in cases:
-        kw = dict(kw, t_max=cfg.t_far)
-        k = cuda_mt.intersect_packet(packet, ro, rd, **kw, **hint)
-        p = cuda_mt.intersect_packet_torch(packet, ro, rd, **kw, **hint)
-        err = hit_parity(f"resident_parity {key}", k, p, kw.get("any_hit", False))
-        ms3 = kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw))
-        # the ring's call: the reference's ring passes no seed
-        unseeded = dict(kw, t_init=None)
-        ms_ring = kernel_ms(lambda: cuda_mt.intersect_packet(packet, ro, rd, **unseeded, **hint))
+        any_hit = kw.get("any_hit", False)
+        kw = dict(kw, t_max=cfg.t_far, **hint)
+        hit_parity(f"resident_parity {key} seeded", cuda_mt.intersect_packet(packet, ro, rd, **kw),
+                   cuda_mt.intersect_packet_torch(packet, ro, rd, **kw), any_hit)
+        ms_seeded = kernel_ms(lambda: cuda_mt.intersect_packet(packet, ro, rd, **kw))
+        kw3 = {k: v for k, v in kw.items() if k not in hint}
+        ms3 = kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw3))
+        ring_kw = dict(kw, t_init=None)
+        err = hit_parity(f"resident_parity {key} as the ring calls it",
+                         cuda_mt.intersect_packet(shard, ro, rd, **ring_kw),
+                         cuda_mt.intersect_packet_torch(shard, ro, rd, **ring_kw), any_hit)
         results[key] = dict(
-            max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(packet, ro, rd, **kw,
-                                                                           **hint)),
-            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(packet, ro, rd, **kw, **hint)),
-            **packet_bound(packet, ro, kw["t_init"]))
+            max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(shard, ro, rd,
+                                                                           **ring_kw)),
+            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(shard, ro, rd, **ring_kw)),
+            **packet_bound(shard, ro, None))
         r = results[key]
-        log("resident_parity", f"{key} on {ro.shape[0]} rays, {list(hint)}: kernel #4 "
-            f"{r['ms']:.3f} ms, kernel #3 (slot order) {ms3:.3f} ms, #4 without the seed (as "
-            f"the ring calls it) {ms_ring:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log("resident_parity", f"{key} on {ro.shape[0]} rays, {list(hint)}: as the ring calls "
+            f"it (unseeded, the ring's shard) kernel #4 {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); seeded "
+            f"over the scene's accel kernel #4 {ms_seeded:.3f} ms, kernel #3 (slot order) "
+            f"{ms3:.3f} ms")
 
 
 # the knot1m frame's block that phase 18 takes (4,096 rays): the knot's
@@ -1372,9 +1382,11 @@ def knot_parts(dev, smi, results, counts):
           f"knot1m parts frame launches {cp}")
     err = (imgs["knot1m_parts"] - imgs["knot1m"]).abs().amax(-1)
     p99 = float(torch.quantile(err.flatten().double(), 0.99))
+    frac = float((err > 1e-4).float().mean())
     log("knot1m_parts", f"parts frame against whole-mesh frame: per-pixel p99 {p99:.3e}, max "
-        f"{float(err.max()):.3e}, pixels over 1e-5: {int((err > 1e-5).sum())} of {err.numel()}")
-    check(p99 < 1e-5, "knot1m parts frame against the whole-mesh frame")
+        f"{float(err.max()):.3e}, pixels over 1e-5: {int((err > 1e-5).sum())}, over 1e-4: "
+        f"{int((err > 1e-4).sum())} of {err.numel()} ({frac:.2e}, at most 1e-4)")
+    check(p99 < 1e-5 and frac <= 1e-4, "knot1m parts frame against the whole-mesh frame")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     write_png(os.path.join(REPO, "build", "chip_smoke_knot1m.png"), imgs["knot1m_parts"].cpu().numpy())
 

@@ -38,8 +38,8 @@ SUPER = 16  # chunks per super-chunk
 # sites; it says nothing about the H100's memory.
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 # the reference's limit of exact float32 triangle slots: streamed parts of a
-# larger mesh stay below it (the port's slots are int32, but the split is the
-# reference's)
+# larger mesh stay below it. The port's slots are int32 and need no limit; it
+# keeps this one only so that both packages build the same parts.
 TRI_SLOT_LIMIT = 2 ** 24
 
 

@@ -34,8 +34,3 @@ def psum_buckets(grads: dict, group=None, num_buckets: int = 4) -> dict:
             out[k] = part.reshape(grads[k].shape).to(grads[k].dtype)
     return {k: out[k] for k in keys}
 
-
-def pmean_tree(tree: dict, group=None) -> dict:
-    """{name: tensor} averaged over the group."""
-    n = world(group)[0]
-    return {k: v / n for k, v in psum_buckets(tree, group, num_buckets=len(tree)).items()}

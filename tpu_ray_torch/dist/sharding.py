@@ -9,8 +9,8 @@ around the ring (`scene_shards`, dist/scene_shard.py).
 
 The reference's `make_mesh` and `RAY_AXIS` have no counterpart: the process
 group (torch.distributed's default, or the one given) takes their place, one
-process per device. Not ported yet: `gather=False`, which keeps each
-process's slice for a per-process image write.
+process per device. Not ported yet: the reference's `gather=False`, which
+keeps each process's slice for a per-process image write.
 """
 
 from __future__ import annotations
@@ -73,14 +73,12 @@ def ring_scene(scene: Scene, group=None) -> Scene:
     return scene.replace(packet=None, ring=ring)
 
 
-def render_image_sharded(scene: Scene, cfg: RenderConfig, group=None, gather: bool = True,
+def render_image_sharded(scene: Scene, cfg: RenderConfig, group=None,
                          scene_shards: bool = False) -> torch.Tensor:
     """The full frame (H, W, 3) rendered by every process of the group,
     each its own whole-pixel slice, gathered to every process. With
     scene_shards the mesh's accel is partitioned around the ring: each
     process holds 1/N of it and the shards rotate past its rays."""
-    if not gather:
-        raise NotImplementedError("render_image_sharded: gather=False is not ported yet")
     n, r = world(group)
     scene = ring_scene(scene, group) if scene_shards else realize_scene(scene)
     method = resolve_method(scene, cfg)

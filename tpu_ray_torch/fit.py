@@ -69,7 +69,7 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
 
 def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
                           params: ParamDict, optimizer: torch.optim.Optimizer,
-                          group=None, grad_buckets: int = 4, scene_shards: bool = False,
+                          group=None, scene_shards: bool = False,
                           refit_accel: bool = False) -> Callable[[], float]:
     """The data-parallel fit step over a process group (counterpart of the
     reference's `make_sharded_fit_step`): step() -> the global loss.
@@ -117,7 +117,7 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         loss = torch.sum(w[None, :] * (px - tgt) ** 2) / (n_px * 3)
         loss.backward()
         grads = psum_buckets({k: v.grad if v.grad is not None else torch.zeros_like(v)
-                              for k, v in params.items()}, group, grad_buckets)
+                              for k, v in params.items()}, group)
         for k, v in params.items():
             v.grad = grads[k]
         total = loss.detach().clone()
