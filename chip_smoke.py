@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Five paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
+Six paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
 mesh), the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
 fit step with diff_vis), `mixed_sil`: `mixed` with the soft SDF
 silhouette and the mesh edge band (width 0.05 each), the silhouette-
 gradient path, with the README's two silhouette fits; `mixed_ring`:
 `mixed` with its accel partitioned around a ring of processes (of one,
-in this script); and `knot1m_parts`: the 1.05M-triangle knot split into
-accel parts walked in sequence. Phases, each with its seconds (any failure exits non-zero and prints no result):
+in this script); `knot1m_parts`: the 1.05M-triangle knot split into
+accel parts walked in sequence; and `mandelbulb_power`: `mandelbulb` with
+the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its seconds (any failure exits non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills.
@@ -22,7 +23,9 @@ accel parts walked in sequence. Phases, each with its seconds (any failure exits
      seeded cotangent: per parameter group, per ray, and bit equality of
      two runs; the backward again without shadows, which block every lane
      of the bulb's block, and both with the 5-tap AO (its Mandelbulb and
-     mesh terms).
+     mesh terms). The packet walks run once more with their counters
+     (chunks staged, MT tests, the share of a staged chunk's rays that
+     passed its box), logged beside their times.
   3b. content: the shade forward timed on all-sky, all-bulb and all-mesh
      sets of 32,768 rays from those blocks.
   4. small frame: `mixed` at 320x180, 1 spp, kernel path against plain path:
@@ -75,14 +78,28 @@ accel parts walked in sequence. Phases, each with its seconds (any failure exits
      version, and both 1024x1024x1 frames (p99 pixel difference < 1e-5,
      at most 1e-4 of the pixels off by more than 1e-4)
      with their launches: 16 of each #3 kernel, 6 x 16 of each #4 kernel.
- 19. ring_frame: `render_image_sharded(mixed, 1920x1080x16,
-     scene_shards=True)` on a ring of one process (NCCL, world size 1):
-     1013 launches of each #4 kernel, none of #3; the image against phase
-     5's (at most 1e-4 of the pixels off by more than 1e-4); then
-     render_image and the ring in turns at 480x272x16.
- 20. ring_fit_step: `make_sharded_fit_step` on the same ring, the six
-     trainables, the shard refit every step: loss (rel 1e-5) and gradients
-     (cosine > 0.999999) against phase 6's, 1013 `shade_bwd` launches.
+ 19. ring_frame: `render_image_sharded(mixed, 960x540x16,
+     scene_shards=True)` on a ring of one process (NCCL, world size 1), a
+     quarter of phase 5's pixels, to keep the script well inside its time:
+     254 launches of each #4 kernel, none of #3; the image against
+     render_image's of the same frame (at most 1e-4 of the pixels off by
+     more than 1e-4); then render_image and the ring in turns at 480x272x16.
+ 20. ring_fit_step: `make_sharded_fit_step` on the same ring at 960x540x16,
+     the six trainables, the shard refit every step: loss (rel 1e-5) and
+     gradients (cosine > 0.999999) against phase 6's computation on the same
+     frame, 254 `shade_bwd` launches.
+ 21. power_parity: phase 8's two `mandelbulb` blocks with the generic
+     field (mb_pow8=False) at mb_power 8.0 and 7.5: the march, the soft
+     march, the shade forward with AO (without and with the penumbra) and
+     the shade backward with AO and the diff_vis penumbra, the
+     `sdf.mb_power` group included, against their plain versions; timed at
+     8.0 (the `mandelbulb_power` entries).
+ 22. power_frame: the `mandelbulb_power` frame at 1024x1024x4 (64 launches
+     each of `march`, `shadow_soft` and `shade_fwd`), its diff_vis fit step
+     for the five bulb trainables and `sdf.mb_power` (64 `shade_bwd`), and
+     3 Adam steps of `fit()` from the registry's power-8 scene (which fit
+     switches to the generic field) at 256x256x4 toward the CLI demo target
+     of `sdf.mb_power`, the albedo and the light colour; the loss falls.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work), the card's name and power limit, and the result
@@ -131,7 +148,9 @@ PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_
                 # the packet walks of the 1.05M-triangle knot: one whole-mesh
                 # accel, and 6 parts under the budget
                 "knot1m": ("packet_closest", "packet_any_hit"),
-                "knot1m_parts": ("resident_closest", "resident_any_hit")}
+                "knot1m_parts": ("resident_closest", "resident_any_hit"),
+                # `mandelbulb` with the generic-power field (mb_pow8=False)
+                "mandelbulb_power": ("march", "shadow_soft", "shade_fwd", "shade_bwd")}
 # the kernels the ring path shares with `mixed`, measured on the same rays
 RING_SHARED = ("march", "shadow_hard", "shade_fwd", "shade_bwd")
 # the silhouette-gradient path: `mixed` with both silhouettes (the README's
@@ -144,6 +163,8 @@ TRAINABLES = ("sdf.sph_radius", "sdf.mb_scale", "camera.origin",
 # direction, which only the diff_vis penumbra moves
 BULB_TRAINABLES = ("sdf.mb_scale", "camera.origin", "materials.albedo",
                    "lights.color", "lights.direction")
+# the generic-power path's fit step: the bulb's and its power
+POWER_TRAINABLES = BULB_TRAINABLES + ("sdf.mb_power",)
 # the published peaks of one H100 SXM: HBM bytes/s, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -232,15 +253,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+# float operations of one live Mandelbulb iteration as csrc/sdf.cuh runs it:
+# the power-8 field's double-angle steps; the generic field's ~30 plus two
+# atan2f (~20 each), four sinf / cosf (~15 each) and a powf (~25)
+MB_ITER_OPS = {True: 62.0, False: 155.0}
+
+
 def de_ops(sdf, q) -> torch.Tensor:
     """The arithmetic operations one scene DE takes at each point (R,), as
     csrc/sdf.cuh counts them: a sphere 11, a plane 7, a box 26; a bulb 20
-    around its loop, 7 for each escape test its loop makes and 62 more for
-    each iteration it runs (the loop ends at the escape, as the point
-    needs)."""
+    around its loop, 7 for each escape test its loop makes and
+    MB_ITER_OPS more for each iteration it runs (the loop ends at the
+    escape, as the point needs)."""
     ops = torch.full(q.shape[:1], 11.0 * sdf.sph_center.shape[0] + 7.0 * sdf.pln_normal.shape[0]
                      + 26.0 * sdf.box_center.shape[0], device=q.device)
-    for c, s in zip(sdf.mb_center, sdf.mb_scale):
+    per_iter = MB_ITER_OPS[bool(sdf.mb_pow8)]
+    for c, s, pw in zip(sdf.mb_center, sdf.mb_scale, sdf.mb_power):
+        power = 8.0 if sdf.mb_pow8 else float(pw)
         loc = (q - c) / s
         z = loc
         live = torch.ones_like(ops, dtype=torch.bool)
@@ -249,12 +278,12 @@ def de_ops(sdf, q) -> torch.Tensor:
             r = z.norm(dim=-1)
             ops += 7.0 * live
             live = live & (r <= 4.0)
-            ops += 62.0 * live
-            th = torch.atan2(torch.sqrt(z[:, 0] ** 2 + z[:, 1] ** 2), z[:, 2]) * 8.0
-            ph = torch.atan2(z[:, 1], z[:, 0]) * 8.0
-            z8 = r.clamp(max=4.0)[:, None] ** 8 * torch.stack(
+            ops += per_iter * live
+            th = torch.atan2(torch.sqrt(z[:, 0] ** 2 + z[:, 1] ** 2), z[:, 2]) * power
+            ph = torch.atan2(z[:, 1], z[:, 0]) * power
+            zp = r.clamp(max=4.0)[:, None] ** power * torch.stack(
                 [torch.sin(th) * torch.cos(ph), torch.sin(th) * torch.sin(ph), torch.cos(th)], -1)
-            z = torch.where(live[:, None], z8 + loc, z)
+            z = torch.where(live[:, None], zp + loc, z)
     return ops
 
 
@@ -323,6 +352,35 @@ def packet_bound(packet, o, t_init) -> dict:
     operations) a ray, the least any ray needs."""
     return bound(nbytes(o, o, t_init, packet.corners, packet.chunk_aabb, packet.super_aabb,
                         packet.perm) + o.shape[0] * 9, o.shape[0] * 40.0)
+
+
+def walk_counts(tag, n_rays, launch) -> dict:
+    """One more launch of a packet walk, with the kernel's counters
+    (cuda_mt.COUNTERS): logged with what they say, and returned."""
+    from tpu_ray_torch.kernels import cuda_mt
+
+    buf = torch.zeros(len(cuda_mt.COUNTERS), dtype=torch.int64, device="cuda")
+    launch(buf)
+    torch.cuda.synchronize()
+    c = dict(zip(cuda_mt.COUNTERS, buf.tolist()))
+    c["pass_share"] = c["box_passes"] / max(c["box_slots"], 1)
+    log(tag, f"walk counters: {c['blocks']} blocks, supers visited a block "
+        f"{c['supers_visited'] / max(c['blocks'], 1):.2f}, chunks staged a block "
+        f"{c['chunks_staged'] / max(c['blocks'], 1):.2f}, share of a staged chunk's rays "
+        f"that passed its box {c['pass_share']:.4f}, MT tests a ray "
+        f"{c['mt_tests'] / max(n_rays, 1):.1f} ({c['mt_tests']} in all)")
+    return c
+
+
+def walk_rate(r) -> str:
+    """For a packet walk's entry: the operations of the MT tests its culls
+    left (~40 each, as packet_bound counts one) over its time, against the
+    float32 rate of the bound."""
+    if "counters" not in r:
+        return ""
+    ops = r["counters"]["mt_tests"] * 40.0 / (r["ms"] * 1e-3)
+    return (f"; the MT tests its culls left run {ops:.3e} operations/s, "
+            f"{ops / FP32_OPS_PER_S:.3f} of {FP32_OPS_PER_S:.0e}")
 
 
 def hit_parity(tag, k, p, any_hit: bool) -> float:
@@ -412,7 +470,9 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
                                                                t_init=seed)),
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, o, d, t_max=cfg.t_far, t_init=seed)),
-        **packet_bound(packet, o, seed))
+        **packet_bound(packet, o, seed),
+        counters=walk_counts("parity packet closest", n, lambda c: cuda_mt.intersect_packet_streamed(
+            packet, o, d, t_max=cfg.t_far, t_init=seed, counters=c)))
 
     # the geometry pass's shadow rays for the one directional light
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk, "mesh_tri": ck.tri,
@@ -461,12 +521,14 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
             packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
-        **packet_bound(packet, p_off, aseed))
+        **packet_bound(packet, p_off, aseed),
+        counters=walk_counts("parity packet any-hit", n, lambda c: cuda_mt.intersect_packet_streamed(
+            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed, counters=c)))
     if keep is not None:
         keep.update(o=o, d=d, seed=seed, p_off=p_off, l_dir=l_dir, aseed=aseed)
     for name, r in results.items():
         log("parity", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" + walk_rate(r))
     return o, d
 
 
@@ -649,7 +711,7 @@ SMOOTH = ("materials.albedo", "lights.color", "lights.ambient", "bg_top", "bg_bo
           "lights.position", "lights.pos_color", "sdf.sph_center", "sdf.sph_radius",
           "sdf.pln_normal", "sdf.pln_offset", "sdf.box_center", "sdf.box_half",
           "sdf.box_round")
-CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "lights.direction")
+CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "sdf.mb_power", "lights.direction")
 
 
 def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
@@ -665,10 +727,20 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     the rays may be such; both sides then run with their cotangent set to
     0, and every bound below holds on the rest. The log also counts the
     rays on which kernel and plain differ by more than the per-ray bound,
-    and how many of those lie outside the ill-conditioned set."""
+    and how many of those lie outside the ill-conditioned set.
+
+    With the generic-power field every DE the kernel takes is an ulp or so
+    from the plain version's (CUDA's atan2f, sinf, cosf and powf against
+    torch's kernels for them). Where an AO tap or the penumbra's point lies
+    as near the plane as the bulb, that ulp picks the other primitive, and
+    the ray's cotangent moves between their groups: there the SDF
+    primitives' groups are held to rel < 1e-3 and cosine > 0.999999 in
+    place of rel < 1e-4 (measured on phase 21's blocks: the plane's at
+    rel 1.2e-4, cosine 1.0)."""
     from tpu_ray_torch.kernels import cuda_shade
     from tpu_ray_torch.render import render as R
 
+    generic = bool(scene.sdf.mb_center.shape[0]) and not scene.sdf.mb_pow8
     tag = (f"shade_bwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
            f"lights {scene.lights.direction.shape[0]}+{scene.lights.position.shape[0]}")
     rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
@@ -742,12 +814,16 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
             continue
         rel, cos = rel_max(a, b), cosine(a, b)
         zero = not bool(a.any()) and not bool(b.any())  # no lane reaches it
-        good = rel < 1e-4 if path in SMOOTH else (zero or (cos > 0.999 and rel < 5e-2))
+        if path in CHAOTIC:
+            good, gate = zero or (cos > 0.999 and rel < 5e-2), "cos > 0.999, rel < 5e-2"
+        elif generic and path.startswith("sdf."):
+            good, gate = rel < 1e-3 and cos > 0.999999, "rel < 1e-3, cos > 0.999999"
+        else:
+            good, gate = rel < 1e-4, "rel < 1e-4"
         ok &= good
         worst = max(worst, float((k1[path] - ref[path]).abs().max()))
         log(tag, f"{path}: rel {rel:.3e}, cosine {cos:.9f}, |plain| {float(b.norm()):.4e}"
-            f"{', both exactly 0' if zero else ''} ({'ok' if good else 'FAIL'}, "
-            f"{'rel < 1e-4' if path in SMOOTH else 'cos > 0.999, rel < 5e-2'})"
+            f"{', both exactly 0' if zero else ''} ({'ok' if good else 'FAIL'}, {gate})"
             f"; on all rays rel {rel_max(k1[path], ref[path]):.3e}, cosine "
             f"{cosine(k1[path], ref[path]):.9f}")
     same = all(torch.equal(k1[p], k2[p]) for p in cuda_shade.SHADE_PATHS)
@@ -807,12 +883,17 @@ def sil_parity(scene, cfg, results):
     shade_bwd_parity(scene, cfg, o, d, "mixed", results)
 
 
-def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False) -> dict:
+def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False, exact=True) -> dict:
     """The soft-shadow march against shadow_soft_torch on shadow rays: vis
     within 1e-6 on >= 99.9% of them and ts the same wherever vis agrees.
-    timed: also the kernel's and the plain version's times and the bound
-    (bytes p, l, t_far_rays in and vis, ts out; the DEs of its steps +10 a
-    step)."""
+    exact=False, the generic-power field (sdf_parity): every DE it takes
+    is an ulp or so from the plain version's, and every later step's t with
+    it, so vis within 1e-6 + 1e-5 |vis| and ts within 1e-5 ts on >= 99% of
+    the rays, the bound tests/test_torch_shade_bwd.py holds the host build
+    of this march to where glibc's logf and torch's differ (the rest one
+    march step apart at the fractal's edge). timed: also the kernel's and
+    the plain version's times and the bound (bytes p, l, t_far_rays in and
+    vis, ts out; the DEs of its steps +10 a step)."""
     from tpu_ray_torch.kernels import cuda_sdf
 
     skw = dict(eps=cfg.eps, t_far=cfg.t_far, steps=cfg.shadow_steps, bias=cfg.shadow_bias,
@@ -823,11 +904,15 @@ def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False) -> dict:
     ts_bad = int((agree & (tk != tp)).sum())
     err = float((vk - vp).abs().max())
     frac = float(agree.float().mean())
+    close = float((((vk - vp).abs() <= 1e-6 + 1e-5 * vp.abs())
+                   & ((tk - tp).abs() <= 1e-5 * tp.abs())).float().mean())
     log(tag, f"shadow soft: {p_off.shape[0]} rays, vis agreement {frac:.6f} at |dvis| <= 1e-6 "
         f"({int((~agree).sum())} off), worst |dvis| {err:.3e}, ts differs on {ts_bad} agreeing "
-        f"rays; penumbra 0 < vis < 1 on {float(((vp > 0) & (vp < 1)).float().mean()):.4f}, "
-        f"vis 0 on {float((vp == 0).float().mean()):.4f}")
-    check(frac >= 0.999 and ts_bad == 0, f"{tag} shadow soft parity")
+        f"rays; vis within 1e-6 + 1e-5 |vis| and ts within rtol 1e-5 on {close:.6f}; penumbra "
+        f"0 < vis < 1 on {float(((vp > 0) & (vp < 1)).float().mean()):.4f}, vis 0 on "
+        f"{float((vp == 0).float().mean()):.4f}")
+    check(frac >= 0.999 and ts_bad == 0 if exact else close >= 0.99,
+          f"{tag} shadow soft parity")
     if not timed:
         return {}
     work = StepWork(sdf, 10.0)
@@ -845,19 +930,20 @@ def soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=False) -> dict:
 BULB_POINTS = ((1.15, 1.1, 0.0), (-1.3, 0.0, 0.3))
 
 
-def bulb_parity(scene, cfg, results):
-    """Phase 8: on 2 blocks of the `mandelbulb` frame, the march and the soft
-    march against their plain versions; the soft march on the `pointlight`
-    frame's shadow rays, each cut at its light's distance; the shade
-    backward with AO and the penumbra (diff_vis) on the blocks' rays, and
-    with the point light's penumbra on the `pointlight` frame's rays."""
-    from tpu_ray_torch.core.math3d import dot, normalize
+def sdf_parity(scene, cfg, o, d, results, tag, exact=True):
+    """The march and the soft march on a `mandelbulb` path's rays against
+    their plain versions, timed into results["march"] and
+    results["shadow_soft"] when results is given: hits equal on >= 99.9%
+    of the rays and t within rtol 1e-5 on every ray both hit (exact=False:
+    on all but 0.1% of them). The generic-power field (exact=False) calls
+    CUDA's atan2f, sinf, cosf and powf where its plain version runs torch's
+    kernels for them, which may round an ulp apart; the fractal carries one
+    such difference into another step at its edge, as the power-8 field's
+    one multiply-add order does not."""
+    from tpu_ray_torch.core.math3d import normalize
     from tpu_ray_torch.kernels import cuda_sdf
     from tpu_ray_torch.render import render as R
-    from tpu_ray_torch.render.camera import generate_rays
-    from tpu_ray_torch.scene.scenes import build_scene
 
-    o, d = block_rays(scene, cfg, BULB_POINTS, "bulb_parity")
     sdf = scene.sdf
     kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far)
     tk, hk, _, mk = cuda_sdf.march(sdf, o, d, **kw)
@@ -866,21 +952,112 @@ def bulb_parity(scene, cfg, results):
     rel_t = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))[both]
     agree = frac_equal(hk, hp)
     err = _max((tk - tp).abs()[both])
-    log("bulb_parity", f"march: {o.shape[0]} rays, hit agreement {agree:.6f}, hit rate "
-        f"{hk.float().mean().item():.4f}, worst |dt| {err:.3e}, "
-        f"{int((rel_t > 1e-5).sum())} over rtol 1e-5")
-    check(agree >= 0.999 and int((rel_t > 1e-5).sum()) == 0, "mandelbulb march parity")
-    results["march"] = march_entry(sdf, o, d, kw, err)
-    log("bulb_parity", f"march: kernel {results['march']['ms']:.3f} ms, plain "
-        f"{results['march']['plain_ms']:.3f} ms, bound {results['march']['bound_ms']:.4f} ms")
+    over = int((rel_t > 1e-5).sum())
+    log(tag, f"march: {o.shape[0]} rays, hit agreement {agree:.6f}, hit rate "
+        f"{hk.float().mean().item():.4f}, worst |dt| {err:.3e}, worst rel dt "
+        f"{_max(rel_t):.3e}, {over} over rtol 1e-5")
+    check(agree >= 0.999 and over <= (0 if exact else 1e-3 * int(both.sum())),
+          f"{tag} march parity")
+    if results is not None:
+        results["march"] = march_entry(sdf, o, d, kw, err)
+        log(tag, f"march: kernel {results['march']['ms']:.3f} ms, plain "
+            f"{results['march']['plain_ms']:.3f} ms, bound {results['march']['bound_ms']:.4f} "
+            f"ms ({results['march']['bound_by']})")
 
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk}
     with torch.no_grad():
         _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
     far = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
-    results["shadow_soft"] = soft_parity(sdf, cfg, p_off, l_dir, far, "bulb_parity",
-                                         timed=True)
+    soft = soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=results is not None,
+                       exact=exact)
+    if results is not None:
+        results["shadow_soft"] = soft
+
+
+def generic_field(scene, power=None):
+    """The scene with the generic-power Mandelbulb (mb_pow8=False), as a
+    `sdf.mb_power` fit runs it; power: every bulb's, when given."""
+    sdf = scene.sdf.replace(mb_pow8=False)
+    if power is not None:
+        sdf = sdf.replace(mb_power=torch.full_like(sdf.mb_power, power))
+    return scene.replace(sdf=sdf)
+
+
+def power_parity(scene, cfg, results):
+    """Phase 21: phase 8's blocks with the generic field at mb_power 8.0
+    (the `mandelbulb_power` path's, timed into results) and 7.5: the march
+    and the soft march (sdf_parity), the shade forward with AO, without and
+    with the penumbra, and the shade backward with AO and the diff_vis
+    penumbra, the `sdf.mb_power` group among the chaotic ones; the
+    ill-conditioned rays set apart as in phase 8."""
+    o, d = block_rays(scene, cfg, BULB_POINTS, "power_parity")
+    for power in (8.0, 7.5):
+        g = generic_field(scene, power)
+        timed = results if power == 8.0 else None
+        sdf_parity(g, cfg, o, d, timed, f"power_parity {power}", exact=False)
+        shade_fwd_parity(g, cfg, o, d, "sdf", timed)
+        shade_fwd_parity(g, cfg.replace(diff_vis=True), o, d, "sdf")
+        shade_bwd_parity(g, cfg.replace(diff_vis=True), o, d, "sdf", timed)
+
+
+def power_frame(scene, cfg, smi, warm, profile_cfg):
+    """Phase 22: the `mandelbulb_power` frame (64 launches each of march,
+    soft march and shade forward), its diff_vis fit step for
+    POWER_TRAINABLES (64 shade backward), then 3 Adam steps of fit() from
+    the registry's power-8 scene toward the CLI demo target at 256x256x4,
+    through the kernels. -> the frame's and the step's launch counts."""
+    from tpu_ray_torch.cli import demo_target
+    from tpu_ray_torch.fit import fit
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.utils.config import FitConfig
+
+    g = generic_field(scene)
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    counts = full_frame(g, cfg, smi, "mandelbulb_power", warm, "power_frame")
+    check(counts["shadow_soft"] == n_blocks, f"mandelbulb_power: {counts['shadow_soft']} "
+          f"shadow_soft launches for {n_blocks} blocks")
+    step = fit_step(g, cfg.replace(diff_vis=True), smi, "mandelbulb_power", POWER_TRAINABLES,
+                    warm.replace(diff_vis=True), profile_cfg.replace(diff_vis=True),
+                    "power_fit_step")
+    # the power's own IFT gradient need not lower the loss in 3 steps (the
+    # fractal moves chaotically with it): the albedo and light colour train
+    # beside it, as tests/test_torch_mandelbulb.py's CLI fit does
+    trainable = ("sdf.mb_power", "materials.albedo", "lights.color")
+    small = cfg.replace(width=256, height=256)
+    target = demo_target(scene, small, trainable)
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    t0 = time.perf_counter()
+    fitted, history = fit(scene, small, target, trainable,
+                          FitConfig(steps=3, learning_rate=1e-2), verbose=False)
+    torch.cuda.synchronize()
+    launched = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    log("power_fit", f"mandelbulb 256x256x4 from mb_pow8={scene.sdf.mb_pow8}, {list(trainable)}, "
+        f"Adam lr 1e-2: loss history {[f'{v:.8f}' for v in history]}, mb_power "
+        f"{float(scene.sdf.mb_power[0]):.4f} -> {float(fitted.sdf.mb_power[0]):.6f}, "
+        f"generic field {not fitted.sdf.mb_pow8}, launches {launched} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(not fitted.sdf.mb_pow8 and all(launched[k] > 0 for k in PATH_KERNELS["mandelbulb_power"]),
+          "the mb_power fit did not run the generic field through the kernels")
+    check(len(history) == 3 and all(map(torch.isfinite, torch.tensor(history)))
+          and history[-1] < history[0], "the mb_power fit's loss did not fall")
+    return dict(counts, shade_bwd=step["shade_bwd"])
+
+
+def bulb_parity(scene, cfg, results):
+    """Phase 8: on 2 blocks of the `mandelbulb` frame, the march and the soft
+    march against their plain versions; the soft march on the `pointlight`
+    frame's shadow rays, each cut at its light's distance; the shade
+    backward with AO and the penumbra (diff_vis) on the blocks' rays, and
+    with the point light's penumbra on the `pointlight` frame's rays."""
+    from tpu_ray_torch.core.math3d import dot
+    from tpu_ray_torch.kernels import cuda_sdf
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+    from tpu_ray_torch.scene.scenes import build_scene
+
+    o, d = block_rays(scene, cfg, BULB_POINTS, "bulb_parity")
+    sdf_parity(scene, cfg, o, d, results, "bulb_parity")
 
     pscene, pcfg = build_scene("pointlight", device=scene.device)
     sx, sy = R.pixel_sample_coords(pcfg, scene.device)
@@ -1068,9 +1245,9 @@ def check_counts(name, cfg, counts, kernels) -> None:
         check(counts[k] == n_blocks, f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
 
 
-def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
+def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
     """Phases 5 and 10: the whole frame through the kernels -> launch
-    counts. keep: a dict that receives the image."""
+    counts."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
@@ -1091,8 +1268,6 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     png = os.path.join(REPO, "build", f"chip_smoke_{name}.png")
     write_png(png, img.cpu().numpy())
-    if keep is not None:
-        keep["img"] = img
     log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} soft_sil={cfg.soft_silhouette} "
         f"mesh_sil={cfg.mesh_silhouette}: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
@@ -1128,10 +1303,10 @@ def profile_step(scene, cfg, trainables, tag):
 
 
 def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
-             tag="fit_step", keep=None):
+             tag="fit_step"):
     """Phases 6 and 11: one forward + backward of mean(img**2) over the full
     frame for the trainables -> launch counts, the shade backward's among
-    them. keep: a dict that receives the loss and the gradients."""
+    them."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     from tpu_ray_torch.fit import apply_params, extract_params
@@ -1150,8 +1325,6 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     grads = {p: v.grad for p, v in params.items()}
-    if keep is not None:
-        keep.update(loss=loss.detach(), grads=grads)
     dt = t2 - t0
     counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1256,13 +1429,16 @@ def resident_parity(scene, cfg, results, rays):
             max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(shard, ro, rd,
                                                                            **ring_kw)),
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(shard, ro, rd, **ring_kw)),
-            **packet_bound(shard, ro, None))
+            **packet_bound(shard, ro, None),
+            counters=walk_counts(f"resident_parity {key}", ro.shape[0],
+                                 lambda c: cuda_mt.intersect_packet(shard, ro, rd, **ring_kw,
+                                                                    counters=c)))
         r = results[key]
         log("resident_parity", f"{key} on {ro.shape[0]} rays, {list(hint)}: as the ring calls "
             f"it (unseeded, the ring's shard) kernel #4 {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); seeded "
             f"over the scene's accel kernel #4 {ms_seeded:.3f} ms, kernel #3 (slot order) "
-            f"{ms3:.3f} ms")
+            f"{ms3:.3f} ms" + walk_rate(r))
 
 
 # the knot1m frame's block that phase 18 takes (4,096 rays): the knot's
@@ -1313,7 +1489,10 @@ def knot_parts(dev, smi, results, counts):
             entries[key].append(dict(
                 max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet(part, ro, rd, **kw)),
                 plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(part, ro, rd, **kw)),
-                **packet_bound(part, ro, t_run)))
+                **packet_bound(part, ro, t_run),
+                counters=walk_counts(f"knot1m_parts part {i} {key}", ro.shape[0],
+                                     lambda c: cuda_mt.intersect_packet(part, ro, rd, **kw,
+                                                                        counters=c))))
             best = cuda_mt.fold_hits(best, k, any_hit)
             t_run = cuda_mt.running_t(best, kcfg.t_far, any_hit)
             if seed0 is not None:
@@ -1330,7 +1509,10 @@ def knot_parts(dev, smi, results, counts):
             max_abs_err=err, ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(whole, ro, rd,
                                                                                     **kw)),
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)),
-            **packet_bound(whole, ro, seed0))
+            **packet_bound(whole, ro, seed0),
+            counters=walk_counts(f"knot1m whole {key}", ro.shape[0],
+                                 lambda c: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw,
+                                                                             counters=c)))
         return k
 
     w = whole_walk(o, d, None, False, "packet_closest")
@@ -1346,14 +1528,17 @@ def knot_parts(dev, smi, results, counts):
     hit_parity("knot1m parts threaded against the whole mesh",
                walk(p_off, l_dir, aseed, True, dict(sort_dir=knot.lights.direction[0])), wa, True)
     for key, rows in entries.items():
+        summed = {c: sum(e["counters"][c] for e in rows) for c in cuda_mt.COUNTERS}
+        summed["pass_share"] = summed["box_passes"] / max(summed["box_slots"], 1)
         results["knot1m_parts"][key] = {
             "max_abs_err": max(e["max_abs_err"] for e in rows),
             **{f: sum(e[f] for e in rows) / len(rows) for f in ("ms", "plain_ms", "bound_ms")},
-            "bound_by": rows[0]["bound_by"]}
+            "bound_by": rows[0]["bound_by"], "counters": summed}
         log("knot1m_parts", f"{key} per part: kernel {[round(e['ms'], 4) for e in rows]} ms, "
             f"plain {[round(e['plain_ms'], 1) for e in rows]} ms, bound "
             f"{[round(e['bound_ms'], 5) for e in rows]} ms; #3 on the whole mesh "
-            f"{results['knot1m'][key.replace('resident', 'packet')]['ms']:.3f} ms")
+            f"{results['knot1m'][key.replace('resident', 'packet')]['ms']:.3f} ms"
+            + walk_rate(results["knot1m"][key.replace("resident", "packet")]))
 
     n_blocks = -(-kcfg.num_rays // kcfg.block_size)
     imgs = {}
@@ -1413,17 +1598,19 @@ def ring_group(dev):
             os.remove(store)
 
 
-def ring_frame(scene, cfg, smi, warm, ref_img, dev):
-    """Phase 19: render_image_sharded of `mixed` at full size with the accel
-    partitioned around a ring of one process: every block's closest hit and
-    shadow any-hit through kernel #4, none through #3; the image against
-    phase 5's (the same rays): at most 1e-4 of the pixels off by > 1e-4.
-    Then phase 5's path and the ring in turns on a smaller frame, so that
-    the two compare in one state of the host."""
+def ring_frame(scene, cfg, smi, warm, dev):
+    """Phase 19: render_image_sharded of `mixed` with the accel partitioned
+    around a ring of one process: every block's closest hit and shadow
+    any-hit through kernel #4, none through #3; the image against
+    render_image's of the same frame (the same rays): at most 1e-4 of the
+    pixels off by > 1e-4. Then render_image and the ring in turns on a
+    smaller frame, so that the two compare in one state of the host."""
     from tpu_ray_torch.dist.sharding import render_image_sharded
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
 
+    with torch.no_grad():
+        ref_img = render_image(scene, cfg)
     with ring_group(dev), torch.no_grad():
         render_image_sharded(scene, warm, scene_shards=True)
         reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
@@ -1445,9 +1632,9 @@ def ring_frame(scene, cfg, smi, warm, ref_img, dev):
     frac = float((err > 1e-4).float().mean())
     log("ring_frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, launches {counts}, peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; against phase 5's "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; against render_image's "
         f"frame: max {float(err.max()):.3e}, pixels over 1e-4 {frac:.2e} (at most 1e-4)")
-    check(frac <= 1e-4, "ring frame against phase 5's frame")
+    check(frac <= 1e-4, "ring frame against render_image's frame")
     # the ring against phase 5's path in the same state of the host, in turns
     # (plain, ring, ring, plain) on a smaller frame
     turns = cfg.replace(width=480, height=272)
@@ -1467,12 +1654,12 @@ def ring_frame(scene, cfg, smi, warm, ref_img, dev):
     return counts
 
 
-def ring_fit_step(scene, cfg, smi, warm, ref, dev):
-    """Phase 20: make_sharded_fit_step of `mixed` at full size for the six
-    trainables with the ring (each step refits its shard: mesh.verts is
-    trained), target 0 so that the loss is phase 6's mean(img**2), SGD at
-    lr 0: loss and gradients against phase 6's (rel 1e-5, cosine >
-    0.999999 per trainable)."""
+def ring_fit_step(scene, cfg, smi, warm, dev):
+    """Phase 20: make_sharded_fit_step of `mixed` for the six trainables
+    with the ring (each step refits its shard: mesh.verts is trained),
+    target 0 so that the loss is mean(img**2), SGD at lr 0: loss and
+    gradients against those of render_image on the same frame, phase 6's
+    computation (rel 1e-5, cosine > 0.999999 per trainable)."""
     from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
@@ -1483,6 +1670,8 @@ def ring_fit_step(scene, cfg, smi, warm, ref, dev):
                                              torch.optim.SGD(params.values(), lr=0.0),
                                              scene_shards=True)
 
+    ref_loss, ref_grads = grads_of(scene, cfg, TRAINABLES)
+    ref = {"loss": ref_loss, "grads": ref_grads}
     with ring_group(dev):
         step_of(warm)[1]()
         t0 = time.perf_counter()
@@ -1500,15 +1689,15 @@ def ring_fit_step(scene, cfg, smi, warm, ref, dev):
     rel = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
     log("ring_fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, six trainables: "
         f"{dt:.3f} s (step made in {t_make:.2f} s), {cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss "
-        f"{loss:.8f} (phase 6 {float(ref['loss']):.8f}, rel {rel:.2e}), launches {counts}, "
+        f"{loss:.8f} (render_image {float(ref['loss']):.8f}, rel {rel:.2e}), launches {counts}, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
     ok = rel < 1e-5
     for path, v in params.items():
         cos = cosine(v.grad, ref["grads"][path])
         ok &= cos > 0.999999 and bool(torch.isfinite(v.grad).all())
-        log("ring_fit_step", f"grad {path}: cosine {cos:.9f} against phase 6, rel "
+        log("ring_fit_step", f"grad {path}: cosine {cos:.9f} against render_image's, rel "
             f"{rel_max(v.grad, ref['grads'][path]):.3e}, norm {float(v.grad.norm()):.6e}")
-    check(ok, "ring fit step against phase 6")
+    check(ok, "ring fit step against render_image's step")
     check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"])
     check(counts["resident_closest"] == counts["resident_any_hit"] == counts["shade_bwd"]
           == n_blocks and counts["packet_closest"] == counts["packet_any_hit"] == 0,
@@ -1549,16 +1738,18 @@ def main() -> int:
     bsmall = bcfg.replace(width=256, height=256, spp=1)
     sil = cfg.replace(**SILHOUETTES)
     sil_cut = sil.replace(width=960, height=540)  # phases 14, 15
-    results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={})
-    parity_rays, kept, frame_keep, step_keep, knot_counts = [], {}, {}, {}, {}
+    ring_cut = cfg.replace(width=960, height=540)  # phases 19, 20
+    results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={},
+                   mandelbulb_power={})
+    parity_rays, kept, knot_counts = [], {}, {}
     phases = (
         ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"], kept))),
         ("content", lambda: content_classes(scene, cfg, *parity_rays)),
         ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
                                       "mixed", TRAINABLES)),
-        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm, keep=frame_keep)),
+        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm)),
         ("fit_step", lambda: fit_step(scene, cfg, smi, "mixed", TRAINABLES, warm,
-                                      cfg.replace(width=256, height=128), keep=step_keep)),
+                                      cfg.replace(width=256, height=128))),
         ("fit", lambda: fit_run(scene, cfg)),
         ("bulb_parity", lambda: bulb_parity(bulb, bcfg, results["mandelbulb"])),
         ("bulb_small", lambda: bulb_small(bulb, bsmall)),
@@ -1579,8 +1770,11 @@ def main() -> int:
         ("sil_fits", lambda: sil_fits(dev)),
         ("resident_parity", lambda: resident_parity(scene, cfg, results["mixed_ring"], kept)),
         ("knot1m_parts", lambda: knot_parts(dev, smi, results, knot_counts)),
-        ("ring_frame", lambda: ring_frame(scene, cfg, smi, warm, frame_keep.pop("img"), dev)),
-        ("ring_fit_step", lambda: ring_fit_step(scene, cfg, smi, warm, step_keep, dev)),
+        ("ring_frame", lambda: ring_frame(scene, ring_cut, smi, warm, dev)),
+        ("ring_fit_step", lambda: ring_fit_step(scene, ring_cut, smi, warm, dev)),
+        ("power_parity", lambda: power_parity(bulb, bcfg, results["mandelbulb_power"])),
+        ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
+                                            bcfg.replace(width=256, height=256))),
     )
     out = {}
     t_start = time.perf_counter()
@@ -1594,6 +1788,7 @@ def main() -> int:
               "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
               "mixed_ring": dict(out["ring_frame"],
                                  shade_bwd=out["ring_fit_step"]["shade_bwd"]),
+              "mandelbulb_power": out["power_frame"],
               **knot_counts}
     for key in RING_SHARED:
         results["mixed_ring"][key] = results["mixed"][key]
@@ -1606,7 +1801,8 @@ def main() -> int:
                             "source": f"{SRC}/{SOURCES[key]}", "replaces": REPLACES[key],
                             "launches": counts[path][key], "max_abs_err": r["max_abs_err"],
                             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                            "bound_by": r["bound_by"], "library_ms": None})
+                            "bound_by": r["bound_by"], "library_ms": None,
+                            **({"counters": r["counters"]} if "counters" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,7 +17,10 @@ Tolerances and why:
   * the host build of the walk against the plain versions: bit-identical t
     and ids. The same float32 operations in the same order without
     contraction; the kernels' slab culls drop only chunks that cannot hold
-    a closer hit.
+    a closer hit. The host build runs the kernels' block walk itself, each
+    block's 128 lanes (32 rays x 4 triangle slices) emulated in turn
+    between its barriers; with duplicated triangles the tie goes to the
+    first slot visited, as in the plain versions, bit for bit.
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ from tpu_ray.kernels import moller_trumbore as jmt
 from tpu_ray.kernels.pallas_mt import intersect_packet as j_intersect_packet
 from tpu_ray.scene.mesh import MeshScene as JMesh
 from tpu_ray_torch.accel import packet as tpacket
+from tpu_ray_torch.accel.packet import refit_packet_accel
 from tpu_ray_torch.kernels import cuda_mt
 from tpu_ray_torch.scene.mesh import torus_knot
 import torch_host_build
@@ -254,3 +258,80 @@ def test_kernel_walk_matches_plain_version(host_walk, case):
     assert torch.equal(hit, want.hit)
     assert torch.equal(t, want.t)
     assert torch.equal(tri, want.tri)
+
+
+def _tied_accel():
+    """The knot's accel with two triangles duplicated into other slots: the
+    triangle of slot (super 0, chunk 2, lane 70) also at (super 2, chunk 2,
+    lane 17), and that of (super 1, chunk 4, lane 90) also at lane 10 of the
+    same chunk, another slice. Returns (accel, [(first slot, copy slot)])."""
+    v, f = _knot()
+    accel = tpacket.build_packet_accel(v, f)
+    perm = accel.perm.long()
+    pairs = [(0 * 2048 + 2 * 128 + 70, 2 * 2048 + 2 * 128 + 17),
+             (1 * 2048 + 4 * 128 + 90, 1 * 2048 + 4 * 128 + 10)]
+    tris = torch.as_tensor(np.asarray(f, np.int64)).clone()
+    for a, b in pairs:
+        tris[perm[b]] = tris[perm[a]]
+    return refit_packet_accel(accel, torch.as_tensor(v, dtype=torch.float32), tris), pairs
+
+
+def _rays_onto(accel, slot, n, seed):
+    """n rays falling onto the triangle of a slot along its normal, from
+    1e-3 above interior points."""
+    rows = accel.corners.reshape(-1, 16, 128)[slot // 128, :9, slot % 128].double()
+    v0, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / nrm.norm()
+    uv = torch.as_tensor(np.random.default_rng(seed).dirichlet([2.0, 2.0, 2.0], n))
+    p = v0 + uv[:, 1:2] * e1 + uv[:, 2:3] * e2
+    return (p + 1e-3 * nrm).float(), (-nrm).expand(n, 3).float().contiguous()
+
+
+@pytest.mark.parametrize("case", ["slot_order", "sorted_order"])
+def test_kernel_walk_keeps_the_first_of_tied_triangles(host_walk, case):
+    """Exact ties, from the same triangle in two chunks of two supers and in
+    two slices of one chunk: the block walk (per-slice bests reduced by
+    (t, visit rank)) returns the first slot visited, equal to the plain
+    versions bit for bit; #3 in slot order, #4 in a super order that visits
+    super 2 before super 0."""
+    accel, pairs = _tied_accel()
+    perm = accel.perm.long()
+    o, d = zip(*(_rays_onto(accel, a, 96, i) for i, (a, _) in enumerate(pairs)))
+    o, d = torch.cat(o), torch.cat(d)
+    # in one chunk lane 10 comes first, whatever the super order
+    if case == "slot_order":
+        order = None
+        want = cuda_mt.intersect_packet_streamed_torch(accel, o, d)
+        first = [perm[pairs[0][0]], perm[pairs[1][1]]]
+    else:
+        hint = {"sort_origin": 0.5 * (accel.super_aabb[2, :3] + accel.super_aabb[2, 3:6])}
+        order = cuda_mt.super_order(accel, **hint)
+        assert order.tolist().index(2) < order.tolist().index(0)
+        want = cuda_mt.intersect_packet_torch(accel, o, d, **hint)
+        first = [perm[pairs[0][1]], perm[pairs[1][1]]]
+    t, tri, hit = torch_host_build.packet_walk(host_walk, accel, o, d, 1e10, False, order)
+    assert bool(want.hit.all())
+    assert torch.equal(hit, want.hit) and torch.equal(t, want.t) and torch.equal(tri, want.tri)
+    assert torch.equal(tri[:96], torch.full((96,), int(first[0]), dtype=torch.int32))
+    assert torch.equal(tri[96:], torch.full((96,), int(first[1]), dtype=torch.int32))
+
+
+def test_kernel_walk_counts_its_work(host_walk):
+    """The walk's counters on 1,000 rays (a ragged last block): one count
+    per block, every passing (ray, chunk) pair runs the chunk's 128 MT
+    tests, at most every ray passes a staged chunk's box, and the counts
+    do not change the result."""
+    v, f = _knot()
+    accel = tpacket.build_packet_accel(v, f)
+    o, d = _camera_rays(1000, 23)
+    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
+    counters = torch.zeros(len(cuda_mt.COUNTERS), dtype=torch.int64)
+    got = torch_host_build.packet_walk(host_walk, accel, ot, dt, 1e10, False, None,
+                                       None, counters)
+    want = cuda_mt.intersect_packet_streamed_torch(accel, ot, dt)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    c = dict(zip(cuda_mt.COUNTERS, counters.tolist()))
+    assert c["blocks"] == 32 and 0 < c["supers_visited"] <= 32 * 3
+    assert 0 < c["box_passes"] <= c["box_slots"] and c["chunks_staged"] > 0
+    assert c["mt_tests"] == 128 * c["box_passes"]

@@ -453,9 +453,8 @@ def test_render_hands_the_forward_kernel_what_it_takes(monkeypatch, grad):
 
 def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
     """The kernels take the silhouettes, the AO and the penumbra; on a CUDA
-    device they still refuse a Mandelbulb other than power 8, float64 and a
-    scene without lights, and on the CPU such a chain runs the plain
-    shade."""
+    device they refuse float64 and a scene without lights, and on the CPU
+    such a chain runs the plain shade."""
     scene, cfg = tscenes.build_scene("mixed", device="cpu")
     cfg = cfg.replace(width=8, height=8, spp=1)
     taken = {"ao": cfg.replace(ao="sdf5"),
@@ -466,12 +465,10 @@ def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
     assert spec["mixed"] and spec["n_dir"] == 1 and spec["n_pos"] == 0
     assert not any(spec[k] for k in ("ao_sdf", "ao_mesh", "soft_diff", "soft_sil",
                                      "mesh_sil"))
-    generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
     dark = scene.replace(lights=Lights.make(torch.zeros(0, 3), torch.zeros(0, 3)))
     wide = scene.replace(camera=dataclasses.replace(
         scene.camera, origin=scene.camera.origin.double()))
-    refused = {"power 8": (generic, cfg), "without lights": (dark, cfg),
-               "float64": (wide, cfg)}
+    refused = {"without lights": (dark, cfg), "float64": (wide, cfg)}
     for s, c in refused.values():  # on the CPU: the plain shade
         assert cuda_shade.kernel_spec(s, c, "mixed") is None
     monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
@@ -487,6 +484,30 @@ def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
     for what, (s, c) in refused.items():
         with pytest.raises(NotImplementedError, match=f"shade kernels do not take.*{what}"):
             cuda_shade.kernel_spec(s, c, "mixed")
+
+
+@pytest.mark.parametrize("iters", [12, 20], ids=["12-iterations", "20-iterations"])
+def test_kernel_spec_takes_the_generic_bulb_on_cuda(monkeypatch, iters):
+    """A generic-power Mandelbulb (`mb_pow8=False`, as a `sdf.mb_power`
+    fit makes it) at any iteration count is a chain the kernels take on a
+    CUDA device, with the AO and the penumbra; its wrappers pass the
+    generic field's flag and the bulb's power in the packed block."""
+    scene, cfg = tscenes.build_scene("mandelbulb", device="cpu")
+    generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False, mb_iters=iters,
+                                                  mb_power=torch.tensor([7.5])))
+    cfg = cfg.replace(width=8, height=8, spp=1, diff_vis=True)
+    monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
+    spec = cuda_shade.kernel_spec(generic, cfg, "sdf")
+    assert spec["use_sdf"] and spec["ao_sdf"] and spec["soft_diff"]
+    params, counts, _ = cuda_sdf._sdf_args(generic.sdf)
+    assert counts[-2:] == (iters, 0) and cuda_sdf._sdf_args(scene.sdf)[1][-1] == 1
+    assert float(params[-1]) == 7.5  # the bulb's row ends in its power
+    o = torch.zeros(4, 3)
+    res = {"sdf_t": torch.ones(4), "sdf_hit": torch.ones(4, dtype=torch.bool),
+           "sh_vis": torch.ones(1, 4), "sh_ts": torch.ones(1, 4)}
+    statics = cuda_shade.kernel_args(generic, cfg, o, o, res, {"mat": torch.zeros(4)}, None,
+                                     "sdf")[3]
+    assert statics[6:8] == [iters, 0]  # mb_iters, mb_pow8
 
 
 def test_silhouette_gradient_on_cpu_runs_plain_autograd():
@@ -508,10 +529,8 @@ def test_pack_small_round_trips():
                                              positions=[[0.5, 2.5, 1.0]],
                                              pos_colors=[[2.0, 1.5, 1.0]]))
     back = cuda_shade.unpack_small(cuda_shade.pack_small(scene), scene)
-    for p in cuda_shade.SHADE_PATHS:
-        want = (torch.zeros_like(scene.sdf.mb_power) if p == "sdf.mb_power"
-                else cuda_shade.get_param(scene, p))
-        assert torch.equal(back[p], want), p
+    for p in cuda_shade.SHADE_PATHS:  # sdf.mb_power included: a bulb packs its power
+        assert torch.equal(back[p], cuda_shade.get_param(scene, p)), p
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ plane's leaves among the smooth ones):
   * smooth groups (albedo, light colour and direction, ambient, sky
     colours, plane, sphere, box, point light): max|a - b| / max|b| < 1e-4,
     f32 summation order.
-  * the Mandelbulb leaves and the camera's o and d: cosine > 0.999 and
+  * the Mandelbulb leaves (the generic field's power too, in
+    tests/test_torch_mandelbulb.py) and the camera's o and d: cosine > 0.999 and
     max|a - b| / max|b| < 5e-2, as the reference's own kernel-vs-XLA test
     (tests/test_pallas_shade.py): the fractal's second-order chain
     amplifies f32 reassociation.
@@ -42,7 +43,7 @@ SMOOTH = ("materials.albedo", "lights.color", "lights.direction", "lights.ambien
           "bg_top", "bg_bottom", "sdf.pln_normal", "sdf.pln_offset", "sdf.sph_center",
           "sdf.sph_radius", "sdf.box_center", "sdf.box_half", "sdf.box_round",
           "lights.position", "lights.pos_color")
-CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "o", "d")
+CHAOTIC = ("sdf.mb_center", "sdf.mb_scale", "sdf.mb_power", "o", "d")
 _INT = {"sph_mat", "pln_mat", "box_mat", "mb_mat"}
 
 

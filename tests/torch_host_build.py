@@ -1,8 +1,8 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
-port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py):
-the shade forward, the shade backward, the soft march and the packet walk,
-called with the arguments their CUDA wrappers
-pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
+port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py,
+test_torch_mandelbulb.py): the shade forward, the shade backward, the soft
+march, the Mandelbulb fields and their adjoint, and the packet walk, called
+with the arguments their CUDA wrappers pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
 
@@ -30,12 +30,13 @@ HOST_MAIN = r"""
     const float *ao_tmesh
 #define SHADE_STATICS                                                         \
     int n, const float *small, int n_sph, int n_pln, int n_box, int n_mb,     \
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh, \
-    int ao_sdf, int ao_mesh, int soft_diff, float soft_sil, float mesh_sil,   \
-    double ao_step, float ao_strength, float soft_k, float bias
+    int mb_iters, int mb_pow8, int n_mat, int n_dir, int n_pos, int use_sdf,  \
+    int use_mesh, int ao_sdf, int ao_mesh, int soft_diff, float soft_sil,     \
+    float mesh_sil, double ao_step, float ao_strength, float soft_k,          \
+    float bias
 #define MAKE_PARAMS                                                           \
-  tr::make_params(small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir,   \
-                  n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff,       \
+  tr::make_params(small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, \
+                  n_dir, n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, \
                   soft_sil, mesh_sil, ao_step, ao_strength, soft_k, bias)
 extern "C" void host_shade_bwd(SHADE_ARGS, const float* ct, SHADE_STATICS,
                                float* d_o, float* d_d, float* d_corners,
@@ -46,7 +47,10 @@ extern "C" void host_shade_bwd(SHADE_ARGS, const float* ct, SHADE_STATICS,
     for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, ct);
-    tr::shade_bwd_ray(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+    if (mb_pow8)
+      tr::shade_bwd_ray<true>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+    else
+      tr::shade_bwd_ray<false>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
     for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
   }
   delete[] one;
@@ -56,25 +60,53 @@ extern "C" void host_shade_fwd(SHADE_ARGS, SHADE_STATICS, float* out) {
   for (int i = 0; i < n; ++i) {
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, nullptr);
-    tr::shade_fwd_ray(s, r, out + 3 * i);
+    if (mb_pow8)
+      tr::shade_fwd_ray<true>(s, r, out + 3 * i);
+    else
+      tr::shade_fwd_ray<false>(s, r, out + 3 * i);
   }
 }
 extern "C" void host_shadow_soft(
     const float* p, const float* l, const float* t_far_rays, int n,
     const float* params, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, float eps, float t_far, int steps, float bias, float soft_k,
-    float* vis, float* ts) {
-  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
-  for (int i = 0; i < n; ++i)
-    tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
-                        l[3 * i + 1], l[3 * i + 2],
-                        t_far_rays ? t_far_rays[i] : t_far, eps, steps, bias,
-                        soft_k, vis + i, ts + i);
+    int mb_iters, int mb_pow8, float eps, float t_far, int steps, float bias,
+    float soft_k, float* vis, float* ts) {
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  for (int i = 0; i < n; ++i) {
+    const float tf = t_far_rays ? t_far_rays[i] : t_far;
+    if (mb_pow8)
+      tr::shadow_soft_ray<true>(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+                                l[3 * i + 1], l[3 * i + 2], tf, eps, steps, bias,
+                                soft_k, vis + i, ts + i);
+    else
+      tr::shadow_soft_ray<false>(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+                                 l[3 * i + 1], l[3 * i + 2], tf, eps, steps, bias,
+                                 soft_k, vis + i, ts + i);
+  }
+}
+// The Mandelbulb field of the local points p (n, 3): the DE as the marches
+// evaluate it (de), and as its adjoint evaluates it (de_adj) with the
+// gradient g (n, 3) and d/d power (n).
+extern "C" void host_mandelbulb(const float* p, int n, float power, int iters,
+                                int pow8, float* de, float* de_adj, float* g,
+                                float* d_power) {
+  for (int i = 0; i < n; ++i) {
+    const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
+    float dp = 0.0f;
+    if (pow8) {
+      de[i] = tr::mandelbulb_pow8(x, y, z, iters);
+      de_adj[i] = tr::mandelbulb_adj<float, true>(x, y, z, power, iters, g + 3 * i, &dp);
+    } else {
+      de[i] = tr::mandelbulb_generic(x, y, z, power, iters);
+      de_adj[i] = tr::mandelbulb_adj<float, false>(x, y, z, power, iters, g + 3 * i, &dp);
+    }
+    d_power[i] = dp;
+  }
 }
 """
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-_STATICS = [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
+_STATICS = [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
 
 
 def build(tmp_dir):
@@ -91,22 +123,31 @@ def build(tmp_dir):
     so = ctypes.CDLL(str(lib))
     so.host_shade_bwd.argtypes = [_P] * 13 + _STATICS + [_P] * 4
     so.host_shade_fwd.argtypes = [_P] * 12 + _STATICS + [_P]
-    so.host_shadow_soft.argtypes = [_P, _P, _P, _I, _P] + [_I] * 5 + [_F, _F, _I, _F, _F, _P, _P]
-    for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft):
+    so.host_shadow_soft.argtypes = [_P, _P, _P, _I, _P] + [_I] * 6 + [_F, _F, _I, _F, _F, _P, _P]
+    so.host_mandelbulb.argtypes = [_P, _I, _F, _I, _I, _P, _P, _P, _P]
+    for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft, so.host_mandelbulb):
         fn.restype = None
     return so
 
 
 PACKET_MAIN = r"""
 #include "packet_mt.cu"
+// The kernels' block walk, each block's kThreads lanes emulated in turn.
 extern "C" void host_packet_walk(
     const float* o, const float* d, const float* t_init, int n, float t_far,
     const float* corners, const float* chunk_aabb, const float* super_aabb,
     const int* order, int n_supers, const int* perm, int perm_len, int any_hit,
-    float* t, int* tri, uint8_t* hit) {
-  for (int i = 0; i < n; ++i)
-    trmt::walk_ray(i, o, d, t_init, t_far, corners, chunk_aabb, super_aabb,
-                   order, n_supers, perm, perm_len, any_hit, t, tri, hit);
+    float* t, int* tri, uint8_t* hit, unsigned long long* counters) {
+  trmt::Shared* sh = new trmt::Shared;
+  trmt::Lane* lanes = new trmt::Lane[trmt::kThreads];
+  for (int b = 0; b * trmt::kRays < n; ++b) {
+    for (int k = 0; k < trmt::kThreads; ++k) lanes[k].tid = k;
+    trmt::walk_block(b, o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb,
+                     order, n_supers, perm, perm_len, any_hit, t, tri, hit,
+                     counters, *sh, lanes);
+  }
+  delete[] lanes;
+  delete sh;
 }
 """
 
@@ -125,14 +166,15 @@ def build_packet(tmp_dir):
                    capture_output=True, timeout=180)
     so = ctypes.CDLL(str(lib))
     so.host_packet_walk.argtypes = [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P, _I, _I,
-                                    _P, _P, _P]
+                                    _P, _P, _P, _P]
     so.host_packet_walk.restype = None
     return so
 
 
-def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None):
-    """The host build of the walk on CPU tensors, with the arguments the
-    CUDA wrappers pass (order None: slot order, kernel #3) -> (t, tri, hit)."""
+def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None, counters=None):
+    """The host build of the block walk on CPU tensors, with the arguments
+    the CUDA wrappers pass (order None: slot order, kernel #3) -> (t, tri,
+    hit). counters: an int64 tensor of len(cuda_mt.COUNTERS), added to."""
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()  # as the wrappers require
     t = torch.empty(n)
@@ -145,7 +187,7 @@ def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None):
                         None if order is None else order.data_ptr(),
                         accel.super_aabb.shape[0], accel.perm.data_ptr(),
                         accel.perm.shape[0], int(any_hit), t.data_ptr(), tri.data_ptr(),
-                        hit.data_ptr())
+                        hit.data_ptr(), None if counters is None else counters.data_ptr())
     return t, tri, hit
 
 
@@ -184,9 +226,9 @@ def shade_fwd(so, scene, cfg, o, d, res, corners, method):
     return out
 
 
-# (scene, an added point light, config overrides): the hard-shadow cases hold
-# the static chains, the others add the AO taps, the penumbra and the
-# silhouettes
+# (scene, an added point light, config overrides, with the SdfScene's under
+# "sdf"): the hard-shadow cases hold the static chains, the others add the AO
+# taps, the penumbra, the silhouettes and the generic-power Mandelbulb
 HOST_CASES = [
     pytest.param("mixed", False, dict(shadow="hard"), id="mixed-False"),
     pytest.param("mixed", True, dict(shadow="hard"), id="mixed-True"),
@@ -194,6 +236,8 @@ HOST_CASES = [
     pytest.param("triangles", True, dict(shadow="hard"), id="triangles-True"),
     pytest.param("mandelbulb", False, dict(diff_vis=True), id="mandelbulb-ao-diffvis"),
     pytest.param("pointlight", False, dict(diff_vis=True), id="pointlight-diffvis"),
+    pytest.param("mandelbulb", False, dict(diff_vis=True, sdf=dict(mb_pow8=False, mb_power=[7.5])),
+                 id="mandelbulb-generic"),
     pytest.param("mixed", False, dict(shadow="hard", ao="sdf5"), id="mixed-ao"),
     pytest.param("sphere", True, dict(shadow="hard", soft_silhouette=0.05),
                  id="sphere-soft-silhouette"),
@@ -208,6 +252,10 @@ def case(name, point_light, over, mixed_size=(48, 27)):
     """A HOST_CASES frame (mixed_size for `mixed`, else 24x24, 1 spp):
     (scene, cfg, method, o, d, residuals, corners or None)."""
     scene, cfg = tscenes.build_scene(name, device="cpu")
+    over = dict(over)
+    sdf_over = {k: torch.tensor(v) if isinstance(v, list) else v
+                for k, v in over.pop("sdf", {}).items()}
+    scene = scene.replace(sdf=scene.sdf.replace(**sdf_over))
     if point_light:
         lt = scene.lights
         scene = scene.replace(lights=Lights(lt.direction, lt.color, lt.ambient,

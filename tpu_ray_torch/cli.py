@@ -96,6 +96,10 @@ def demo_target(scene, cfg, trainable):
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.scene.types import get_param
 
+    if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
+        # as fit does: the power-8 field would render the target without
+        # the perturbed power
+        scene = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
     perturbed = {p: get_param(scene, p) * 1.15 + 0.02 for p in trainable}
     moved = _maybe_refit(apply_params(scene, perturbed),
                          any(p.split(".")[0] == "mesh" for p in trainable))

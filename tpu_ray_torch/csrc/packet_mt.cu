@@ -1,5 +1,5 @@
 // Closest-hit and any-hit Möller–Trumbore over the packet accel: two kernels
-// over one per-ray walk.
+// over one block-cooperative walk.
 //
 // `packet_kernel` replaces the Pallas kernel `intersect_packet_streamed`
 // (tpu_ray/kernels/pallas_mt.py:347); `packet_resident_kernel` replaces
@@ -12,32 +12,62 @@
 // intersect_packet_torch in tpu_ray_torch/kernels/cuda_mt.py. Layout of the
 // accel: tpu_ray_torch/accel/packet.py.
 //
-// What bounds them on an H100: memory latency on the corner rows. Each
-// surviving chunk costs 9 dependent loads per triangle before ~40 flops of
-// MT; a 70k-triangle accel (4.9 MB) or one 12 MiB part sits in the 50 MB L2
-// cache, and the rays of one warp are neighbouring samples that mostly walk
-// the same chunks, so most loads are warp-wide broadcasts from L1. Visiting
-// the supers front to back shrinks a lane's best t early, so the slab tests
-// cull more of what lies behind it.
+// What bounds them on an H100: latency, of the loads of the corner rows and
+// of the walk's dependent tests. A surviving chunk costs 9 loads a triangle
+// before ~40 flops of MT; a 70k-triangle accel (4.9 MB) or one 12 MiB part
+// sits in the 50 MB L2 cache, knot1m's 68 MiB whole-mesh accel does not.
+// The least work a ray needs is one MT test, which puts the bound far below
+// any walk that culls by boxes: the walk, not the arithmetic, is the cost.
 //
-// The simple design: one thread per ray walks the supers, in slot order
-// (#3) or in the order the wrapper gives (#4). It slab-tests the super's
-// box against its own best t, then each chunk's box, then runs MT on the
-// chunk's 128 triangles. It keeps the TPU kernels' rules: best t starts at
-// min(t_init, t_far); a triangle is valid only with t in (T_MIN, t_far) for
-// the static t_far; a hit is recorded only when strictly better, so a tie
-// keeps the first slot visited; in any-hit mode a lane stops at its first
-// hit. The TPU kernels branch per (16,128) ray tile; the per-tile candidate
-// lists, early stop and double buffering of #3 are later work.
+// The design: a block owns kRays = 32 neighbouring rays (the renderer's
+// blocks are in Morton order, so they walk much the same chunks) and splits
+// each chunk's 128 triangles into kSlices = 4 slices of 32, one warp each;
+// thread (ray r, slice k) is lane r of warp k. A 32,768-ray launch is 1,024
+// blocks of 4 warps, four times the warps of one thread per ray.
+//   * Supers, in slot order (#3) or in the wrapper's sorted order (#4). Per
+//     super every thread slab-tests the super's box for its ray against the
+//     ray's best t, then the chunk boxes of its slice (c = k, k + 4, ...);
+//     the block ORs the passing chunks into a 16-bit mask in shared memory
+//     and counts the rays still undecided. The block leaves when none is
+//     (a 0-seed, an any-hit ray with a hit, a lane past n); a super that no
+//     ray reaches costs that one barrier.
+//   * Chunks of the mask, in order: each one's 9 corner rows (4.6 KB) are
+//     copied into shared memory with cp.async, double buffered: the next
+//     chunk's copy is issued before the current one is tested. A thread
+//     tests its ray's box against the chunk again with the refreshed best t
+//     (the culls are then those of one thread walking the ray), and runs MT
+//     on its slice of 32 triangles from shared memory: every lane of a warp
+//     reads the same triangle, a broadcast.
+//   * Each ray's best t lives in shared memory as the min over its slices'
+//     private bests, refreshed after every chunk, so that culls tighten.
+//   * The tie rule stays exact. A thread records a hit only when strictly
+//     below the ray's best t at the chunk's start, and keeps (t, visit rank),
+//     rank = k * 2048 + c * 128 + j for visit position k; the slices' bests
+//     are reduced lexicographically at the end. That is the first minimum in
+//     visit order, what one thread's strict-min walk keeps.
+// Nothing bounds the number of supers. It keeps the TPU kernels' rules:
+// best t starts at min(t_init, t_far); a triangle is valid only with t in
+// (T_MIN, t_far) for the static t_far; in any-hit mode a ray is decided at
+// its first hit (its best t becomes 0).
 //
-// The per-ray walk is plain C++ above the __CUDACC__ guard, so the CPU tests
-// build it with g++ and hold it against the plain versions.
+// An optional counter buffer (null on the main path) receives, per launch,
+// the chunks staged, the MT tests run, the (ray, staged chunk) pairs whose
+// box test passed and all such pairs, the supers visited and the blocks:
+// what says whether the time goes to staging, to divergence or to culling.
+//
+// The walk is written once for the card and for a host emulation of the
+// block: TRMT_LANES runs a stretch between barriers for this thread on the
+// card and for every lane of the block in turn on the host, where
+// TRMT_SYNC is nothing and cp.async a copy. Shared state is written and
+// read in different stretches, so the emulation is the block's own result:
+// the CPU tests build it with g++ and hold it against the plain versions.
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#else  // a host build of the per-ray walk, for the CPU tests
+#else  // a host build of the walk, for the CPU tests
 #include <math.h>
 #define __host__
 #define __device__
@@ -52,6 +82,16 @@ constexpr int kSuper = 16;
 constexpr float kDetEps = 1e-10f;
 constexpr float kTMin = 1e-5f;
 constexpr float kBig = 1e10f;
+
+constexpr int kRays = 32;                    // rays a block (a warp's lanes)
+constexpr int kSlices = 4;                   // slices of a chunk (warps)
+constexpr int kThreads = kRays * kSlices;
+constexpr int kSliceTris = kChunk / kSlices;
+constexpr int kStageFloats = 9 * kChunk;     // a chunk's v0, e1, e2 rows
+constexpr int kSuperRank = kSuper * kChunk;  // visit ranks a super
+
+// the optional counter buffer's entries (cuda_mt.COUNTERS)
+enum Counter { kChunksStaged, kMtTests, kBoxPasses, kBoxSlots, kSupersVisited, kBlocks };
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -83,13 +123,45 @@ __host__ __device__ __forceinline__ bool slab(const float* ab, const Ray& r,
   return (tf >= tn) && (tn < best);
 }
 
-// MT against the 128 triangles of chunk ci; a strictly closer valid hit
-// replaces (best, slot).
-__host__ __device__ __forceinline__ void chunk_mt(const float* corners, int ci,
-                                                  const Ray& r, float t_far,
-                                                  float& best, int& slot) {
-  const float* rows = corners + (size_t)ci * kRowsPerChunk * kChunk;
-  for (int j = 0; j < kChunk; ++j) {
+// The block's shared state. rows first: cp.async writes 16-byte pieces.
+struct Shared {
+  alignas(16) float rows[2][kStageFloats];  // the staged chunk, double buffered
+  float best[kSlices][kRays];   // each slice's best t of each ray
+  int rank[kSlices][kRays];     // their visit ranks (the final reduction)
+  uint32_t mask[3];             // the block's chunk mask of a super, rotating
+  int undecided[3];             // its undecided rays, rotating
+};
+
+// One thread's state: its ray and slice, and its slice's best hit.
+struct Lane {
+  int tid, r, k, i;
+  bool valid;          // i < n
+  Ray ray;
+  float bt;            // best t (0 once an any-hit ray is decided)
+  int brank;           // its visit rank, -1 without a hit
+  unsigned mt_tests, passes;
+};
+
+// The ray's best t: the min over its slices'.
+__host__ __device__ __forceinline__ float block_best(const Shared& sh, int r) {
+  float b = sh.best[0][r];
+  for (int k = 1; k < kSlices; ++k) b = fminf(b, sh.best[k][r]);
+  return b;
+}
+
+// MT of the thread's slice of the staged chunk `rows` against its ray; a
+// valid hit strictly below thr replaces the lane's best (t, rank).
+__host__ __device__ __forceinline__ void slice_mt(const float* rows, Lane& L,
+                                                  float thr, float t_far,
+                                                  int rank0, int any_hit) {
+  const Ray& r = L.ray;
+  const int j0 = L.k * kSliceTris;
+  int tested = kSliceTris;
+#ifdef __CUDACC__
+#pragma unroll 4
+#endif
+  for (int jj = 0; jj < kSliceTris; ++jj) {
+    const int j = j0 + jj;
     const float v0x = rows[0 * kChunk + j], v0y = rows[1 * kChunk + j],
                 v0z = rows[2 * kChunk + j];
     const float e1x = rows[3 * kChunk + j], e1y = rows[4 * kChunk + j],
@@ -111,46 +183,196 @@ __host__ __device__ __forceinline__ void chunk_mt(const float* corners, int ci,
     const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
     const bool valid = ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
                        (t > kTMin) && (t < t_far);
-    if (valid && t < best) {
-      best = t;
-      slot = ci * kChunk + j;
+    if (valid && t < thr) {
+      thr = t;
+      L.bt = t;
+      L.brank = rank0 + j;
+      if (any_hit) {  // decided: best t 0 for every later cull
+        L.bt = 0.0f;
+        tested = jj + 1;
+        break;
+      }
     }
   }
+  L.mt_tests += tested;
 }
 
-// One ray's walk over the supers, visited as order[0..n_supers) (slot order
-// without one), then its outputs: t and the original triangle id on a
-// closest hit; t BIG and tri 0 on an any-hit lane that hit; BIG and -1 on a
-// miss.
-__host__ __device__ __forceinline__ void walk_ray(
-    int i, const float* o, const float* d, const float* t_init, float t_far,
-    const float* corners, const float* chunk_aabb, const float* super_aabb,
-    const int* order, int n_supers, const int* perm, int perm_len, int any_hit,
-    float* t_out, int* tri_out, uint8_t* hit_out) {
-  const Ray r = load_ray(o, d, i);
-  float best = t_init ? fminf(t_init[i], t_far) : t_far;
-  int slot = -1;
-  for (int k = 0; k < n_supers && !(any_hit && slot >= 0); ++k) {
-    const int s = order ? order[k] : k;
-    if (!slab(super_aabb + (size_t)s * 128, r, best)) continue;
-    for (int c = 0; c < kSuper; ++c) {
-      const int ci = s * kSuper + c;
-      if (!slab(chunk_aabb + (size_t)ci * 128, r, best)) continue;
-      chunk_mt(corners, ci, r, t_far, best, slot);
-      // any-hit: a lane with a hit has best t 0 for every later cull
-      if (any_hit && slot >= 0) break;
+#ifdef __CUDACC__
+#define TRMT_LANES(...) { Lane& L = *lanes; (void)L; __VA_ARGS__ }
+#define TRMT_SYNC() __syncthreads()
+
+__device__ __forceinline__ void shared_or(uint32_t* w, uint32_t v) { atomicOr(w, v); }
+__device__ __forceinline__ void shared_add(int* w, int v) { atomicAdd(w, v); }
+__device__ __forceinline__ void counter_add(unsigned long long* c, unsigned long long v) {
+  atomicAdd(c, v);
+}
+__device__ __forceinline__ int lowest_bit(uint32_t m) { return __ffs(m) - 1; }
+
+// This thread's 16-byte pieces of a chunk's 9 rows into dst, one cp.async
+// group.
+__device__ __forceinline__ void stage_part(float* dst, const float* src, int tid) {
+  for (int q = tid; q < kStageFloats / 4; q += kThreads) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + 4 * q));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's copies of the chunk before the newest group (all of
+// them when `newer` is false).
+__device__ __forceinline__ void stage_wait(bool newer) {
+  if (newer)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+#else
+#define TRMT_LANES(...) \
+  for (int lane_ = 0; lane_ < kThreads; ++lane_) { Lane& L = lanes[lane_]; (void)L; __VA_ARGS__ }
+#define TRMT_SYNC() ((void)0)
+
+inline void shared_or(uint32_t* w, uint32_t v) { *w |= v; }
+inline void shared_add(int* w, int v) { *w += v; }
+inline void counter_add(unsigned long long* c, unsigned long long v) { *c += v; }
+inline int lowest_bit(uint32_t m) { return __builtin_ctz(m); }
+inline void stage_part(float* dst, const float* src, int tid) {
+  for (int q = tid; q < kStageFloats / 4; q += kThreads)
+    memcpy(dst + 4 * q, src + 4 * q, 16);
+}
+inline void stage_wait(bool) {}
+#endif
+
+// The block walk of block `block` (see the note at the top): the supers in
+// `order` (slot order when null), then each ray's outputs: t and the
+// original triangle id on a closest hit; t BIG and tri 0 on an any-hit ray
+// that hit; BIG and -1 on a miss. `lanes`: this thread's lane on the card,
+// the block's kThreads lanes (tid set) in the host emulation.
+__device__ __forceinline__ void walk_block(
+    int block, const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_init, int n, float t_far,
+    const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
+    const float* __restrict__ super_aabb, const int* __restrict__ order,
+    int n_supers, const int* __restrict__ perm, int perm_len, int any_hit,
+    float* __restrict__ t_out, int* __restrict__ tri_out,
+    uint8_t* __restrict__ hit_out, unsigned long long* counters, Shared& sh,
+    Lane* lanes) {
+  TRMT_LANES(
+    L.r = L.tid % kRays;
+    L.k = L.tid / kRays;
+    L.i = block * kRays + L.r;
+    L.valid = L.i < n;
+    float best0 = 0.0f;  // a lane past n is decided
+    if (L.valid) {
+      L.ray = load_ray(o, d, L.i);
+      best0 = t_init ? fminf(t_init[L.i], t_far) : t_far;
     }
+    L.bt = best0;
+    L.brank = -1;
+    L.mt_tests = 0;
+    L.passes = 0;
+    sh.best[L.k][L.r] = best0;
+    if (L.tid < 3) {
+      sh.mask[L.tid] = 0;
+      sh.undecided[L.tid] = 0;
+    }
+  )
+  TRMT_SYNC();
+  unsigned staged = 0, visited = 0;
+  for (int kpos = 0; kpos < n_supers; ++kpos) {
+    const int s = order ? order[kpos] : kpos;
+    const int slot = kpos % 3;
+    TRMT_LANES(
+      const float cur = block_best(sh, L.r);
+      uint32_t bits = 0;
+      if (cur > 0.0f && slab(super_aabb + (size_t)s * 128, L.ray, cur)) {
+        for (int c = L.k; c < kSuper; c += kSlices)
+          if (slab(chunk_aabb + ((size_t)s * kSuper + c) * 128, L.ray, cur))
+            bits |= 1u << c;
+      }
+      if (bits) shared_or(&sh.mask[slot], bits);
+      if (cur > 0.0f && L.k == 0) shared_add(&sh.undecided[slot], 1);
+    )
+    TRMT_SYNC();
+    uint32_t mask = sh.mask[slot];
+    const int undecided = sh.undecided[slot];
+    // the slot read before the last barrier is free again
+    TRMT_LANES(if (L.tid == 0) {
+      sh.mask[(kpos + 2) % 3] = 0;
+      sh.undecided[(kpos + 2) % 3] = 0;
+    })
+    ++visited;
+    if (undecided == 0) break;
+    if (mask == 0) continue;
+    int c = lowest_bit(mask);
+    const float* base = corners + (size_t)s * kSuper * kRowsPerChunk * kChunk;
+    TRMT_LANES(stage_part(sh.rows[0], base + (size_t)c * kRowsPerChunk * kChunk, L.tid);)
+    for (int b = 0;; b ^= 1) {
+      mask &= mask - 1;
+      const int nxt = mask ? lowest_bit(mask) : -1;
+      if (nxt >= 0)
+        TRMT_LANES(stage_part(sh.rows[b ^ 1], base + (size_t)nxt * kRowsPerChunk * kChunk,
+                              L.tid);)
+      TRMT_LANES(stage_wait(nxt >= 0);)
+      TRMT_SYNC();
+      ++staged;
+      const float* box = chunk_aabb + ((size_t)s * kSuper + c) * 128;
+      const int rank0 = kpos * kSuperRank + c * kChunk;
+      TRMT_LANES(
+        const float cur = block_best(sh, L.r);
+        if (cur > 0.0f && slab(box, L.ray, cur)) {
+          if (L.k == 0) ++L.passes;
+          slice_mt(sh.rows[b], L, cur, t_far, rank0, any_hit);
+        }
+      )
+      TRMT_SYNC();  // every slice has read rows[b] and the bests
+      TRMT_LANES(sh.best[L.k][L.r] = L.bt;)
+      if (nxt < 0) break;
+      c = nxt;
+    }
+    TRMT_SYNC();
   }
-  const bool hit = slot >= 0;
-  hit_out[i] = hit ? 1 : 0;
-  if (any_hit) {
-    t_out[i] = kBig;
-    tri_out[i] = hit ? 0 : -1;
-  } else {
-    t_out[i] = hit ? best : kBig;
-    const int clipped = slot < 0 ? 0 : (slot < perm_len ? slot : perm_len - 1);
-    tri_out[i] = hit ? perm[clipped] : -1;
-  }
+  TRMT_LANES(sh.rank[L.k][L.r] = L.brank;)
+  TRMT_SYNC();
+  TRMT_LANES(
+    if (L.k == 0 && L.valid) {
+      // the first minimum in visit order: the least (t, rank) over slices
+      float bt = kBig;
+      int rank = -1;
+      for (int k = 0; k < kSlices; ++k) {
+        const int rk = sh.rank[k][L.r];
+        if (rk < 0) continue;
+        const float tk = sh.best[k][L.r];
+        if (rank < 0 || tk < bt || (tk == bt && rk < rank)) {
+          bt = tk;
+          rank = rk;
+        }
+      }
+      const bool hit = rank >= 0;
+      hit_out[L.i] = hit ? 1 : 0;
+      if (any_hit) {
+        t_out[L.i] = kBig;
+        tri_out[L.i] = hit ? 0 : -1;
+      } else {
+        const int kp = hit ? rank / kSuperRank : 0;
+        const int sup = order ? order[kp] : kp;
+        const int slot = sup * kSuperRank + (hit ? rank % kSuperRank : 0);
+        const int clipped = slot < perm_len ? slot : perm_len - 1;
+        t_out[L.i] = hit ? bt : kBig;
+        tri_out[L.i] = hit ? perm[clipped] : -1;
+      }
+    }
+    if (counters) {
+      counter_add(counters + kMtTests, L.mt_tests);
+      counter_add(counters + kBoxPasses, L.passes);
+      if (L.tid == 0) {
+        const int rays = n - block * kRays < kRays ? n - block * kRays : kRays;
+        counter_add(counters + kChunksStaged, staged);
+        counter_add(counters + kBoxSlots, (unsigned long long)staged * rays);
+        counter_add(counters + kSupersVisited, visited);
+        counter_add(counters + kBlocks, 1);
+      }
+    }
+  )
 }
 
 }  // namespace trmt
@@ -159,55 +381,54 @@ __host__ __device__ __forceinline__ void walk_ray(
 
 namespace {
 
-constexpr int kThreads = 128;
-
 // TPU kernel #3: every super in slot order.
-__global__ void packet_kernel(const float* __restrict__ o,
-                              const float* __restrict__ d,
-                              const float* __restrict__ t_init, int n,
-                              float t_far, const float* __restrict__ corners,
-                              const float* __restrict__ chunk_aabb,
-                              const float* __restrict__ super_aabb,
-                              int n_supers, const int* __restrict__ perm,
-                              int perm_len, int any_hit,
-                              float* __restrict__ t_out,
-                              int* __restrict__ tri_out,
-                              uint8_t* __restrict__ hit_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  trmt::walk_ray(i, o, d, t_init, t_far, corners, chunk_aabb, super_aabb,
-                 nullptr, n_supers, perm, perm_len, any_hit, t_out, tri_out,
-                 hit_out);
+__global__ void __launch_bounds__(trmt::kThreads) packet_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_init, int n, float t_far,
+    const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
+    const float* __restrict__ super_aabb, int n_supers,
+    const int* __restrict__ perm, int perm_len, int any_hit,
+    float* __restrict__ t_out, int* __restrict__ tri_out,
+    uint8_t* __restrict__ hit_out, unsigned long long* counters) {
+  __shared__ trmt::Shared sh;
+  trmt::Lane lane;
+  lane.tid = threadIdx.x;
+  trmt::walk_block(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
+                   super_aabb, nullptr, n_supers, perm, perm_len, any_hit,
+                   t_out, tri_out, hit_out, counters, sh, &lane);
 }
 
 // TPU kernel #4: every super in `super_order` (the wrapper's sort).
-__global__ void packet_resident_kernel(
+__global__ void __launch_bounds__(trmt::kThreads) packet_resident_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_init, int n, float t_far,
     const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
     const float* __restrict__ super_aabb, const int* __restrict__ super_order,
     int n_supers, const int* __restrict__ perm, int perm_len, int any_hit,
     float* __restrict__ t_out, int* __restrict__ tri_out,
-    uint8_t* __restrict__ hit_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  trmt::walk_ray(i, o, d, t_init, t_far, corners, chunk_aabb, super_aabb,
-                 super_order, n_supers, perm, perm_len, any_hit, t_out,
-                 tri_out, hit_out);
+    uint8_t* __restrict__ hit_out, unsigned long long* counters) {
+  __shared__ trmt::Shared sh;
+  trmt::Lane lane;
+  lane.tid = threadIdx.x;
+  trmt::walk_block(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
+                   super_aabb, super_order, n_supers, perm, perm_len, any_hit,
+                   t_out, tri_out, hit_out, counters, sh, &lane);
 }
 
 }  // namespace
 
+// The corners must be 16-byte aligned (cp.async); chunk rows then are too.
 extern "C" int tr_intersect_packet_streamed(
     const float* o, const float* d, const float* t_init, int n, float t_far,
     const float* corners, const float* chunk_aabb, const float* super_aabb,
     int n_supers, const int* perm, int perm_len, int any_hit, float* t,
-    int* tri, uint8_t* hit, void* stream) {
+    int* tri, uint8_t* hit, unsigned long long* counters, void* stream) {
   if (n <= 0) return 0;
-  packet_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  if (reinterpret_cast<uintptr_t>(corners) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  packet_kernel<<<(n + trmt::kRays - 1) / trmt::kRays, trmt::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers, perm,
-      perm_len, any_hit, t, tri, hit);
+      perm_len, any_hit, t, tri, hit, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,12 +436,14 @@ extern "C" int tr_intersect_packet_resident(
     const float* o, const float* d, const float* t_init, int n, float t_far,
     const float* corners, const float* chunk_aabb, const float* super_aabb,
     const int* super_order, int n_supers, const int* perm, int perm_len,
-    int any_hit, float* t, int* tri, uint8_t* hit, void* stream) {
+    int any_hit, float* t, int* tri, uint8_t* hit, unsigned long long* counters,
+    void* stream) {
   if (n <= 0) return 0;
-  packet_resident_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  if (reinterpret_cast<uintptr_t>(corners) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  packet_resident_kernel<<<(n + trmt::kRays - 1) / trmt::kRays, trmt::kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, super_order,
-      n_supers, perm, perm_len, any_hit, t, tri, hit);
+      n_supers, perm, perm_len, any_hit, t, tri, hit, counters);
   return static_cast<int>(cudaGetLastError());
 }
 

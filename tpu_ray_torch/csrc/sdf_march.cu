@@ -8,9 +8,13 @@
 // tpu_ray_torch/kernels/cuda_sdf.py.
 //
 // What bounds them on an H100: compute and divergence. Each step evaluates
-// the distance field (twelve Mandelbulb iterations of ~70 flops) and rays of
-// one warp converge after different step counts. Memory traffic is a few
-// dozen bytes per ray.
+// the distance field (twelve Mandelbulb iterations of ~70 flops; the generic
+// field's also take two atan2f, three sinf/cosf and a powf) and rays of one
+// warp converge after different step counts. Memory traffic is a few dozen
+// bytes per ray. Every kernel is built twice, for the power-8 field and for
+// the generic one (sdf.cuh), and the entry points launch the one the
+// mb_pow8 argument names, so the power-8 paths carry none of the generic
+// field's code.
 //
 // The simple design: one thread per ray, running the reference's step rule
 // until it hits, leaves, or spends its step budget. The TPU kernel's
@@ -39,6 +43,7 @@ namespace tr {
 // soft_k * DE / max(t, bias) from 1, the step DE clipped to [eps/2, 0.4],
 // until t >= tf or the step budget is spent. Writes clip(s, 0, 1) and the t
 // of the first step that attained the min (bias when none went below 1).
+template <bool kPow8>
 __device__ __forceinline__ void shadow_soft_ray(
     const SdfParams& sdf, float px, float py, float pz, float lx, float ly,
     float lz, float tf, float eps, int max_steps, float bias, float soft_k,
@@ -46,7 +51,7 @@ __device__ __forceinline__ void shadow_soft_ray(
   float t = bias, s = 1.0f, ts = bias;
   for (int k = 0; k < max_steps; ++k) {
     if (!(t < tf)) break;
-    const float dd = scene_de(sdf, px + t * lx, py + t * ly, pz + t * lz);
+    const float dd = scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
     const float s_new = soft_k * dd / fmaxf(t, bias);
     if (s_new < s) {
       ts = t;
@@ -66,6 +71,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool kPow8>
 __global__ void march_kernel(const float* __restrict__ o,
                              const float* __restrict__ d, int n,
                              tr::SdfParams sdf, const float* __restrict__ bounds,
@@ -97,7 +103,7 @@ __global__ void march_kernel(const float* __restrict__ o,
   int steps = 0;
   for (int s = 0; s < max_steps; ++s) {
     if (!(t < t_far)) break;
-    const float dist = tr::scene_de(sdf, ox + t * dx, oy + t * dy, oz + t * dz);
+    const float dist = tr::scene_de<kPow8>(sdf, ox + t * dx, oy + t * dy, oz + t * dz);
     if (dist < dmin) {
       dmin = dist;
       tmin = t;
@@ -115,6 +121,7 @@ __global__ void march_kernel(const float* __restrict__ o,
   tmin_out[i] = tmin;
 }
 
+template <bool kPow8>
 __global__ void shadow_hard_kernel(const float* __restrict__ p,
                                    const float* __restrict__ l,
                                    const float* __restrict__ t_far_rays, int n,
@@ -149,7 +156,7 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
   bool blocked = false;
   for (int s = 0; s < max_steps; ++s) {
     if (!(t < tf)) break;
-    const float dd = tr::scene_de(sdf, px + t * lx, py + t * ly, pz + t * lz);
+    const float dd = tr::scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
     if (dd < eps) {
       blocked = true;
       break;
@@ -160,6 +167,7 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
   ts_out[i] = bias;
 }
 
+template <bool kPow8>
 __global__ void shadow_soft_kernel(const float* __restrict__ p,
                                    const float* __restrict__ l,
                                    const float* __restrict__ t_far_rays, int n,
@@ -169,7 +177,7 @@ __global__ void shadow_soft_kernel(const float* __restrict__ p,
                                    float* __restrict__ ts_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  tr::shadow_soft_ray(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
+  tr::shadow_soft_ray<kPow8>(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
                       l[3 * i + 1], l[3 * i + 2],
                       t_far_rays ? t_far_rays[i] : t_far, eps, max_steps, bias,
                       soft_k, vis_out + i, ts_out + i);
@@ -177,48 +185,57 @@ __global__ void shadow_soft_kernel(const float* __restrict__ p,
 
 }  // namespace
 
+// Launches kernel<true> (the power-8 field) or kernel<false> (the generic
+// one), as sdf.mb_pow8 says, and returns cudaGetLastError().
+#define TR_LAUNCH_SDF(kernel, n, stream, ...)                                 \
+  do {                                                                        \
+    const unsigned blocks = (n + kThreads - 1) / kThreads;                    \
+    if (sdf.mb_pow8)                                                          \
+      kernel<true><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>( \
+          __VA_ARGS__);                                                       \
+    else                                                                      \
+      kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>( \
+          __VA_ARGS__);                                                       \
+  } while (0)
+
 extern "C" int tr_march(const float* o, const float* d, int n,
                         const float* params, int n_sph, int n_pln, int n_box,
-                        int n_mb, int mb_iters, const float* bounds,
-                        int n_bounds, float t0, int max_steps, float eps,
-                        float t_far, float* t, uint8_t* hit, int* steps,
-                        float* tmin, void* stream) {
+                        int n_mb, int mb_iters, int mb_pow8,
+                        const float* bounds, int n_bounds, float t0,
+                        int max_steps, float eps, float t_far, float* t,
+                        uint8_t* hit, int* steps, float* tmin, void* stream) {
   if (n <= 0) return 0;
-  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
-  march_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      o, d, n, sdf, bounds, n_bounds, t0, max_steps, eps, t_far, t, hit, steps,
-      tmin);
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  TR_LAUNCH_SDF(march_kernel, n, stream, o, d, n, sdf, bounds, n_bounds, t0,
+                max_steps, eps, t_far, t, hit, steps, tmin);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tr_shadow_hard(const float* p, const float* l,
                               const float* t_far_rays, int n,
                               const float* params, int n_sph, int n_pln,
-                              int n_box, int n_mb, int mb_iters,
+                              int n_box, int n_mb, int mb_iters, int mb_pow8,
                               const float* bounds, int n_bounds, float eps,
                               float t_far, int steps, float bias, float* vis,
                               float* ts, void* stream) {
   if (n <= 0) return 0;
-  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
-  shadow_hard_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, l, t_far_rays, n, sdf, bounds, n_bounds, eps, t_far, steps, bias, vis,
-      ts);
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  TR_LAUNCH_SDF(shadow_hard_kernel, n, stream, p, l, t_far_rays, n, sdf,
+                bounds, n_bounds, eps, t_far, steps, bias, vis, ts);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tr_shadow_soft(const float* p, const float* l,
                               const float* t_far_rays, int n,
                               const float* params, int n_sph, int n_pln,
-                              int n_box, int n_mb, int mb_iters, float eps,
-                              float t_far, int steps, float bias, float soft_k,
-                              float* vis, float* ts, void* stream) {
+                              int n_box, int n_mb, int mb_iters, int mb_pow8,
+                              float eps, float t_far, int steps, float bias,
+                              float soft_k, float* vis, float* ts,
+                              void* stream) {
   if (n <= 0) return 0;
-  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters};
-  shadow_soft_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, l, t_far_rays, n, sdf, eps, t_far, steps, bias, soft_k, vis, ts);
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  TR_LAUNCH_SDF(shadow_soft_kernel, n, stream, p, l, t_far_rays, n, sdf, eps,
+                t_far, steps, bias, soft_k, vis, ts);
   return static_cast<int>(cudaGetLastError());
 }
 

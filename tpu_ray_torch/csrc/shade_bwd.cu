@@ -23,7 +23,10 @@
 // stored iterations; with AO, five tap DEs and their first-order adjoints;
 // with the penumbra, one DE and its adjoint per light. With soft
 // silhouettes every lane that misses runs that chain at its closest
-// approach. Memory traffic is ~100 bytes per ray.
+// approach. Memory traffic is ~100 bytes per ray. The kernel is built for the
+// power-8 field and for the generic one (sdf.cuh; the generic adjoint also
+// gives d/d mb_power, the bulb row's fifth cotangent); the entry point
+// launches the one mb_pow8 names.
 //
 // The simple design: one thread per ray, and a per-ray branch in place of
 // the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438): a
@@ -75,14 +78,15 @@ __device__ __forceinline__ void min_adj(float x, float y, float d_a, float* d_x,
 // The cotangent w of DE(q) pulled back to first order: the parameters of the
 // primitive that attains the DE at q (first on a tie) gain w * dDE/dtheta in
 // acc, and d_q gains w * grad_q DE.
+template <bool kPow8>
 __device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
                            float* acc, int stride, float* d_q) {
   if (w == 0.0f) return;
   int kind = 0;
-  const int prim = scene_argmin(s.sdf, q[0], q[1], q[2], &kind);
+  const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind);
   if (prim < 0) return;
   float g[3], gth[7];
-  prim_adj<float>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth);
+  prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth);
   for (int k = 0; k < prim_stride(kind); ++k) acc[(prim + k) * stride] += w * gth[k];
   for (int k = 0; k < 3; ++k) d_q[k] += w * g[k];
 }
@@ -166,6 +170,7 @@ __device__ void mesh_bwd(const RayIn& r, const float* d_p, const float* d_n,
 
 // Adds ray r's parameter cotangents into acc (parameter j at acc[j * stride])
 // and writes its cotangents of o, d (3 each) and of the corners (9).
+template <bool kPow8>
 __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
                               int stride, float* d_o, float* d_d, float* d_c) {
   for (int k = 0; k < 3; ++k) d_o[k] = d_d[k] = 0.0f;
@@ -173,7 +178,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
   const float* P = s.sdf.p;
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  const bool surf = shade_surface(s, r, &f);
+  const bool surf = shade_surface<kPow8>(s, r, &f);
 
   // --- reverse: out = bg + cov * (colour - bg), colour = albedo[mat] * rad
   float d_bg[3], d_color[3], d_cov = 0.0f;
@@ -221,7 +226,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     bool pen_pass = false;
     if (s.soft_diff) {
       ts = r.ts[li * r.vis_stride];
-      vis = vs * penumbra(s, p_off, l, ts, q, &pen_pass);
+      vis = vs * penumbra<kPow8>(s, p_off, l, ts, q, &pen_pass);
     }
     float d_term = 0.0f;
     for (int c = 0; c < 3; ++c) {
@@ -239,7 +244,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     if (pen_pass) {  // vis = vs * clip(soft_k * DE(p_off + ts l) / max(ts, bias))
       const float d_pen = d_term * ndotl * vs;
       float d_q[3] = {0.0f, 0.0f, 0.0f};
-      de_adj_add(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
       for (int k = 0; k < 3; ++k) {
         d_poff[k] += d_q[k];
         d_l[k] += ts * d_q[k];
@@ -267,7 +272,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
       const float dist_o = sqrtf(fmaxf(dot3(lvo, lvo), 1e-12f));
       for (int k = 0; k < 3; ++k) lo[k] = lvo[k] / dist_o;
       ts = r.ts[(s.n_dir + pi) * r.vis_stride];
-      vis = vs * penumbra(s, p_off, lo, ts, q, &pen_pass);
+      vis = vs * penumbra<kPow8>(s, p_off, lo, ts, q, &pen_pass);
     }
     const float den = fmaxf(dist2, 1e-8f);
     const float falloff = ndotl * vis / den;
@@ -295,7 +300,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     if (pen_pass) {  // the penumbra along lo = normalize(lpos - p_off)
       const float d_pen = d_f / den * ndotl * vs;
       float d_q[3] = {0.0f, 0.0f, 0.0f}, d_lo[3], d_lvo[3];
-      de_adj_add(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
       for (int k = 0; k < 3; ++k) {
         d_poff[k] += d_q[k];
         d_lo[k] = ts * d_q[k];
@@ -319,7 +324,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
         const float h = static_cast<float>(s.ao_step * (i + 1));
         const float q[3] = {p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]};
         float d_q[3] = {0.0f, 0.0f, 0.0f};
-        de_adj_add(s, q, -(static_cast<float>(w) * d_occ), acc, stride, d_q);
+        de_adj_add<kPow8>(s, q, -(static_cast<float>(w) * d_occ), acc, stride, d_q);
         for (int k = 0; k < 3; ++k) {
           d_p[k] += d_q[k];
           d_n[k] += h * d_q[k];
@@ -359,7 +364,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     float u[3];
     for (int k = 0; k < 3; ++k) u[k] = (d_n[k] - (n_ok ? f.n[k] * nd : 0.0f)) / f.glen;
     Dual hp[3], hth[7];
-    prim_adj<Dual>(P + f.prim, f.kind, s.sdf.mb_iters, Dual(p[0], u[0]),
+    prim_adj<Dual, kPow8>(P + f.prim, f.kind, s.sdf.mb_iters, Dual(p[0], u[0]),
                    Dual(p[1], u[1]), Dual(p[2], u[2]), hp, hth);
     const int np = prim_stride(f.kind);
     float d_ps[3];
@@ -403,6 +408,7 @@ constexpr int kThreads = 128;
 constexpr int kStride = kThreads + 1;  // shared columns, padded: no bank conflicts
 constexpr int kMaxSmem = 227 * 1024;
 
+template <bool kPow8>
 __global__ void shade_bwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ corners, const float* __restrict__ t_bar,
@@ -421,7 +427,7 @@ __global__ void shade_bwd_kernel(
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, ct);
     float go[3], gd[3], gc[9];
-    tr::shade_bwd_ray(s, r, acc + tid, kStride, go, gd, gc);
+    tr::shade_bwd_ray<kPow8>(s, r, acc + tid, kStride, go, gd, gc);
     for (int k = 0; k < 3; ++k) {
       d_o[3 * i + k] = go[k];
       d_d[3 * i + k] = gd[k];
@@ -458,31 +464,32 @@ extern "C" int tr_shade_bwd(
     const float* tmin, const uint8_t* hs, const uint8_t* hm,
     const uint8_t* closer, const int* mat, const float* vis, const float* ts,
     const float* ao_tmesh, const float* ct, int n, const float* small,
-    int n_sph, int n_pln, int n_box, int n_mb, int mb_iters, int n_mat,
+    int n_sph, int n_pln, int n_box, int n_mb, int mb_iters, int mb_pow8, int n_mat,
     int n_dir, int n_pos, int use_sdf, int use_mesh, int ao_sdf, int ao_mesh,
     int soft_diff, float soft_sil, float mesh_sil, double ao_step,
     float ao_strength, float soft_k, float bias, float* d_o, float* d_d,
     float* d_corners, float* partials, int n_partial_rows, float* d_small,
     void* stream) {
   const tr::ShadeParams s = tr::make_params(
-      small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf,
+      small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, n_dir, n_pos, use_sdf,
       use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil, ao_step,
       ao_strength, soft_k, bias);
   const int n_blocks = n > 0 ? (n + kThreads - 1) / kThreads : 0;
   const size_t smem = static_cast<size_t>(s.n_par) * kStride * sizeof(float);
-  if (mb_iters > tr::kMaxMbIters || n_mat < 1 || smem > kMaxSmem ||
+  if (n_mat < 1 || smem > kMaxSmem ||
       n_partial_rows != n_blocks || (soft_diff && !ts) || (ao_mesh && !ao_tmesh) ||
       (soft_sil > 0.0f && !tmin))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_blocks > 0) {
+    auto kernel = mb_pow8 ? shade_bwd_kernel<true> : shade_bwd_kernel<false>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    shade_bwd_kernel<<<n_blocks, kThreads, smem, st>>>(
+    kernel<<<n_blocks, kThreads, smem, st>>>(
         s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
         ct, n, d_o, d_d, d_corners, partials);
     const cudaError_t e = cudaGetLastError();

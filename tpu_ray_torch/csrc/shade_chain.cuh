@@ -15,7 +15,8 @@
 //
 // Everything here is plain C++ apart from the qualifiers, so that it also
 // builds as host code (the CPU tests hold that build against the plain
-// version).
+// version). The functions that read the distance field are templates on its
+// Mandelbulb (kPow8: sdf.cuh), as are the kernels over them.
 #pragma once
 
 #include <stdint.h>
@@ -49,18 +50,18 @@ struct ShadeParams {
 
 __host__ __device__ __forceinline__ ShadeParams make_params(
     const float* small, int n_sph, int n_pln, int n_box, int n_mb,
-    int mb_iters, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
+    int mb_iters, int mb_pow8, int n_mat, int n_dir, int n_pos, int use_sdf, int use_mesh,
     int ao_sdf, int ao_mesh, int soft_diff, float soft_sil, float mesh_sil,
     double ao_step, float ao_strength, float soft_k, float bias) {
   ShadeParams s;
-  s.sdf = SdfParams{small, n_sph, n_pln, n_box, n_mb, mb_iters};
+  s.sdf = SdfParams{small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
   s.n_mat = n_mat; s.n_dir = n_dir; s.n_pos = n_pos;
   s.use_sdf = use_sdf; s.use_mesh = use_mesh;
   s.ao_sdf = ao_sdf; s.ao_mesh = ao_mesh; s.soft_diff = soft_diff;
   s.soft_sil = soft_sil; s.mesh_sil = mesh_sil;
   s.ao_step = ao_step; s.ao_strength = ao_strength;
   s.soft_k = soft_k; s.bias = bias;
-  s.off_alb = 4 * n_sph + 4 * n_pln + 7 * n_box + 4 * n_mb;
+  s.off_alb = 4 * n_sph + 4 * n_pln + 7 * n_box + kBulbStride * n_mb;
   s.off_ldir = s.off_alb + 3 * n_mat;
   s.off_lcol = s.off_ldir + 3 * n_dir;
   s.off_amb = s.off_lcol + 3 * n_dir;
@@ -128,10 +129,11 @@ __device__ __forceinline__ void cross3(const float* a, const float* b, float* c)
 // The soft-shadow penumbra recomputed at the march's argmin t:
 // clip(soft_k * DE(q) / max(ts, bias), 0, 1) at q = p_off + ts * l. Writes q
 // and whether the clip passes a gradient.
+template <bool kPow8>
 __device__ inline float penumbra(const ShadeParams& s, const float* p_off,
                                  const float* l, float ts, float* q, bool* pass) {
   for (int k = 0; k < 3; ++k) q[k] = p_off[k] + ts * l[k];
-  const float dd = scene_de(s.sdf, q[0], q[1], q[2]);
+  const float dd = scene_de<kPow8>(s.sdf, q[0], q[1], q[2]);
   const float raw = s.soft_k * dd / fmaxf(ts, s.bias);
   *pass = raw >= 0.0f && raw <= 1.0f;
   return fminf(fmaxf(raw, 0.0f), 1.0f);
@@ -212,6 +214,7 @@ struct SurfFwd {
 // that hits nothing `closer` is true (BIG <= BIG), so with soft silhouettes
 // the SDF branch at tmin carries it. cov = (hm && !closer) ? cm :
 // max(cov_s, cm); an SDF-only chain has cov_s, a mesh-only one cm.
+template <bool kPow8>
 __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
                                      SurfFwd* f) {
   const float* P = s.sdf.p;
@@ -253,9 +256,9 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
     f->t_eff = (r.hs || !soft_sil) ? r.t_bar : r.tmin;
     for (int k = 0; k < 3; ++k) f->p[k] = r.o[k] + f->t_eff * r.d[k];
     float dmin;
-    f->prim = scene_argmin(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
+    f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
     if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
-    prim_adj<float>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
+    prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
                     f->p[2], f->g, f->gth);
     f->glen = sqrtf(fmaxf(dot3(f->g, f->g), 1e-12f));
     for (int k = 0; k < 3; ++k) f->n[k] = f->g[k] / f->glen;
@@ -284,7 +287,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
       float dd = 0.0f;
       f->tap_sdf[i] = s.ao_sdf != 0;
       if (s.ao_sdf)
-        dd = scene_de(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
+        dd = scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
                       f->p[2] + h * f->nf[2]);
       if (s.ao_mesh) {
         const float dm = fabsf(r.t_mesh - h);
@@ -313,7 +316,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
     if (s.soft_diff) {
       float q[3];
       bool pass;
-      vis = vis * penumbra(s, f->p_off, l, r.ts[li * r.vis_stride], q, &pass);
+      vis = vis * penumbra<kPow8>(s, f->p_off, l, r.ts[li * r.vis_stride], q, &pass);
     }
     for (int c = 0; c < 3; ++c) f->rad[c] += P[s.off_lcol + 3 * li + c] * (ndotl * vis);
   }
@@ -331,7 +334,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
       const float lo[3] = {lvo[0] / dist_o, lvo[1] / dist_o, lvo[2] / dist_o};
       float q[3];
       bool pass;
-      vis = vis * penumbra(s, f->p_off, lo, r.ts[(s.n_dir + pi) * r.vis_stride], q, &pass);
+      vis = vis * penumbra<kPow8>(s, f->p_off, lo, r.ts[(s.n_dir + pi) * r.vis_stride], q, &pass);
     }
     const float falloff = ndotl * vis / fmaxf(dist2, 1e-8f);
     for (int c = 0; c < 3; ++c) f->rad[c] += P[s.off_lpcol + 3 * pi + c] * falloff;

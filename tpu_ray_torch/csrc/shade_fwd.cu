@@ -15,7 +15,9 @@
 // Mandelbulb. Such a ray runs the field's first-order adjoint at the hit for
 // the normal (twelve stored iterations), the argmin DE, and with AO five tap
 // DEs, with the penumbra one DE per light. A sky ray reads ~40 bytes and
-// writes 12. Memory traffic is ~70-130 bytes per ray.
+// writes 12. Memory traffic is ~70-130 bytes per ray. The kernel is built
+// for the power-8 field and for the generic one (sdf.cuh); the entry point
+// launches the one mb_pow8 names.
 //
 // The simple design: one thread per ray, and a per-ray branch in place of
 // the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438):
@@ -31,11 +33,12 @@ namespace tr {
 
 // Ray r's colour: the sky where it selects no surface, else the surface
 // colour blended over the sky by its coverage, bg + cov * (colour - bg).
+template <bool kPow8>
 __device__ inline void shade_fwd_ray(const ShadeParams& s, const RayIn& r,
                                      float* rgb) {
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  if (!shade_surface(s, r, &f)) {
+  if (!shade_surface<kPow8>(s, r, &f)) {
     for (int c = 0; c < 3; ++c) rgb[c] = sky(s, c, sb);
     return;
   }
@@ -54,6 +57,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
+template <bool kPow8>
 __global__ void shade_fwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ corners, const float* __restrict__ t_bar,
@@ -67,7 +71,7 @@ __global__ void shade_fwd_kernel(
   const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                    closer, mat, vis, ts, ao_tmesh, nullptr);
   float rgb[3];
-  tr::shade_fwd_ray(s, r, rgb);
+  tr::shade_fwd_ray<kPow8>(s, r, rgb);
   for (int c = 0; c < 3; ++c) out[3 * i + c] = rgb[c];
 }
 
@@ -78,20 +82,21 @@ extern "C" int tr_shade_fwd(
     const float* tmin, const uint8_t* hs, const uint8_t* hm,
     const uint8_t* closer, const int* mat, const float* vis, const float* ts,
     const float* ao_tmesh, int n, const float* small, int n_sph, int n_pln,
-    int n_box, int n_mb, int mb_iters, int n_mat, int n_dir, int n_pos,
+    int n_box, int n_mb, int mb_iters, int mb_pow8, int n_mat, int n_dir, int n_pos,
     int use_sdf, int use_mesh, int ao_sdf, int ao_mesh, int soft_diff,
     float soft_sil, float mesh_sil, double ao_step, float ao_strength,
     float soft_k, float bias, float* out, void* stream) {
   const tr::ShadeParams s = tr::make_params(
-      small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos, use_sdf,
+      small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, n_dir, n_pos, use_sdf,
       use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil, ao_step,
       ao_strength, soft_k, bias);
-  if (mb_iters > tr::kMaxMbIters || n_mat < 1 || (soft_diff && !ts) ||
+  if (n_mat < 1 || (soft_diff && !ts) ||
       (ao_mesh && !ao_tmesh) || (soft_sil > 0.0f && !tmin))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    shade_fwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = mb_pow8 ? shade_fwd_kernel<true> : shade_fwd_kernel<false>;
+    kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
         n, out);
   }

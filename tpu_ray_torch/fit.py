@@ -139,7 +139,7 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         raise NotImplementedError("fit checkpoints are not ported yet")
     if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
         # the power-8 field ignores mb_power: use the generic DE, whose
-        # power has a gradient (the CUDA kernels take power 8 only)
+        # power has a gradient (the CUDA kernels have both fields)
         scene = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
     # moving vertices: the packet accel is refit every step
     refit_accel = any(p.split(".")[0] == "mesh" for p in trainable)

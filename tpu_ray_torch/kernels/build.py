@@ -38,35 +38,35 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 # C entry points (csrc/*.cu): each returns cudaGetLastError() after its launch
 _SIGNATURES = {
-    # o, d, n, params, n_sph, n_pln, n_box, n_mb, mb_iters, bounds, n_bounds,
-    # t0, max_steps, eps, t_far, t, hit, steps, tmin, stream
-    "tr_march": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
+    # o, d, n, params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, bounds,
+    # n_bounds, t0, max_steps, eps, t_far, t, hit, steps, tmin, stream
+    "tr_march": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                  _F, _I, _F, _F, _P, _P, _P, _P, _P],
     # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
-    # bounds, n_bounds, eps, t_far, steps, bias, vis, ts, stream
-    "tr_shadow_hard": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I,
+    # mb_pow8, bounds, n_bounds, eps, t_far, steps, bias, vis, ts, stream
+    "tr_shadow_hard": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                        _F, _F, _I, _F, _P, _P, _P],
     # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
-    # eps, t_far, steps, bias, soft_k, vis, ts, stream
-    "tr_shadow_soft": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+    # mb_pow8, eps, t_far, steps, bias, soft_k, vis, ts, stream
+    "tr_shadow_soft": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _F, _F, _I, _F, _F, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers,
-    # perm, perm_len, any_hit, t, tri, hit, stream
+    # perm, perm_len, any_hit, t, tri, hit, counters, stream
     "tr_intersect_packet_streamed": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
-                                     _P, _I, _I, _P, _P, _P, _P],
+                                     _P, _I, _I, _P, _P, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, super_order,
-    # n_supers, perm, perm_len, any_hit, t, tri, hit, stream
+    # n_supers, perm, perm_len, any_hit, t, tri, hit, counters, stream
     "tr_intersect_packet_resident": [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I,
-                                     _P, _I, _I, _P, _P, _P, _P],
+                                     _P, _I, _I, _P, _P, _P, _P, _P],
     # o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh, n,
-    # small, n_sph, n_pln, n_box, n_mb, mb_iters, n_mat, n_dir, n_pos,
-    # use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil,
-    # ao_step, ao_strength, soft_k, bias, out, stream
-    "tr_shade_fwd": ([_P] * 12 + [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
+    # small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, n_dir,
+    # n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil,
+    # mesh_sil, ao_step, ao_strength, soft_k, bias, out, stream
+    "tr_shade_fwd": ([_P] * 12 + [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
                      + [_P, _P]),
     # as tr_shade_fwd with ct after ao_tmesh, then d_o, d_d, d_corners,
     # partials, n_partial_rows, d_small, stream after bias
-    "tr_shade_bwd": ([_P] * 13 + [_I, _P] + [_I] * 13 + [_F, _F, _D, _F, _F, _F]
+    "tr_shade_bwd": ([_P] * 13 + [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
                      + [_P] * 4 + [_I, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],

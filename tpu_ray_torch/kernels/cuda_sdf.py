@@ -7,8 +7,10 @@ the device distance field `csrc/sdf.cuh`.
 Dispatch follows the device: `march` / `shadow_hard` / `shadow_soft` run
 `march_torch` / `shadow_hard_torch` / `shadow_soft_torch` on CPU tensors and
 launch the kernel on CUDA tensors, raising on what the kernel does not take
-(non-float32 or non-contiguous input, a generic-power Mandelbulb, an input
-that requires grad). Each kernel launch adds one to `LAUNCHES`.
+(non-float32 or non-contiguous input, an input that requires grad). The
+kernels come in two builds, for the power-8 Mandelbulb field and for the
+generic-power one (`SdfScene.mb_pow8`); the wrappers pass the flag. Each
+kernel launch adds one to `LAUNCHES`.
 
 The plain versions take an optional `visit(points, active)`, called once per
 march step with the step's sample points (R, 3) and the lanes that evaluate
@@ -154,22 +156,26 @@ def pack_sdf(sdf: SdfScene) -> torch.Tensor:
         torch.cat([sdf.sph_center, sdf.sph_radius[:, None]], 1),
         torch.cat([sdf.pln_normal, sdf.pln_offset[:, None]], 1),
         torch.cat([sdf.box_center, sdf.box_half, sdf.box_round[:, None]], 1),
-        torch.cat([sdf.mb_center, sdf.mb_scale[:, None]], 1),
+        torch.cat([sdf.mb_center, sdf.mb_scale[:, None], sdf.mb_power[:, None]], 1),
     ]
     return torch.cat([q.reshape(-1) for q in parts]).to(torch.float32).contiguous()
 
 
+def field_flag(sdf: SdfScene) -> int:
+    """The kernels' mb_pow8 argument: 1 runs the power-8 build (also for a
+    scene without a bulb, which either build marches alike), 0 the
+    generic-power field."""
+    return int(bool(sdf.mb_pow8) or sdf.mb_center.shape[0] == 0)
+
+
 def _sdf_args(sdf: SdfScene):
-    if sdf.mb_center.shape[0] and not sdf.mb_pow8:
-        raise NotImplementedError(
-            "the CUDA distance field implements the power-8 Mandelbulb only "
-            "(SdfScene.mb_pow8=True)")
     params = pack_sdf(sdf)
     bounds = sdf_bounding_spheres(sdf)
     if bounds is not None:
         bounds = bounds.to(torch.float32).contiguous()
     counts = (sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
-              sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters))
+              sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
+              field_flag(sdf))
     return params, counts, bounds
 
 

@@ -22,7 +22,8 @@ to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`. The chains the
 kernels take: methods sdf, mesh_* and mixed, directional and point lights,
 static shadow visibility (hard, soft or none), the soft-shadow penumbra
 with `diff_vis`, the 5-tap AO, the soft SDF silhouette and the mesh edge
-band, a power-8 Mandelbulb of at most 16 iterations, float32.
+band, the power-8 and the generic-power Mandelbulb (the latter with its
+`sdf.mb_power` cotangent) at any iteration count, float32.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
-from tpu_ray_torch.kernels.cuda_sdf import pack_sdf
+from tpu_ray_torch.kernels.cuda_sdf import field_flag, pack_sdf
 from tpu_ray_torch.scene.types import apply_params, get_param
 from tpu_ray_torch.sdf.primitives import FLOAT_FIELDS
 
@@ -48,7 +49,6 @@ _SMALL_PATHS = SHADE_PATHS[len(FLOAT_FIELDS):]
 # the residuals the backward keeps (the geometry pass's hit state is not)
 _SAVED_RES = ("sdf_t", "sdf_hit", "sdf_tmin", "mesh_tri", "mesh_hit", "sh_vis",
               "sh_ts", "ao_tmesh")
-_MAX_MB_ITERS = 16  # kMaxMbIters in csrc/sdf_adj.cuh
 
 
 def wants_grad(scene, o, d, mesh_rows=None) -> bool:
@@ -78,7 +78,6 @@ def kernel_spec(scene, cfg, method: str):
             # the soft SDF silhouette and the mesh edge band
             "soft_sil": cfg.soft_silhouette > 0.0 and use_sdf,
             "mesh_sil": cfg.mesh_silhouette > 0.0 and use_mesh}
-    sdf = scene.sdf
     why = None
     if not (use_sdf or use_mesh):
         why = f"method {method!r} on a scene without its geometry"
@@ -86,9 +85,6 @@ def kernel_spec(scene, cfg, method: str):
         why = "method 'mixed' without both an SDF and a mesh"
     elif spec["n_dir"] + spec["n_pos"] == 0:
         why = "a scene without lights"
-    elif (use_sdf or spec["ao_sdf"]) and sdf.mb_center.shape[0] and not (
-            sdf.mb_pow8 and sdf.mb_iters <= _MAX_MB_ITERS):
-        why = f"a Mandelbulb other than power 8 with <= {_MAX_MB_ITERS} iterations"
     elif scene.camera.origin.dtype != torch.float32:
         why = f"dtype {scene.camera.origin.dtype}"
     if why is None:
@@ -265,8 +261,8 @@ def pack_small(scene) -> torch.Tensor:
 
 
 def unpack_small(vec: torch.Tensor, scene) -> dict:
-    """Cotangents by path from a vector in pack_small's layout (zero for
-    mb_power, which the power-8 field does not read)."""
+    """Cotangents by path from a vector in pack_small's layout (mb_power's
+    is 0 where the power-8 field runs: it does not read the power)."""
     sdf = scene.sdf
     out, off = {}, 0
 
@@ -283,9 +279,9 @@ def unpack_small(vec: torch.Tensor, scene) -> dict:
     blk = take(sdf.box_center.shape[0], 7)
     out["sdf.box_center"], out["sdf.box_half"] = blk[:, :3], blk[:, 3:6]
     out["sdf.box_round"] = blk[:, 6]
-    blk = take(sdf.mb_center.shape[0], 4)
+    blk = take(sdf.mb_center.shape[0], 5)
     out["sdf.mb_center"], out["sdf.mb_scale"] = blk[:, :3], blk[:, 3]
-    out["sdf.mb_power"] = torch.zeros_like(vec[:sdf.mb_power.shape[0]])
+    out["sdf.mb_power"] = blk[:, 4]
     for path in _SMALL_PATHS:
         ref = get_param(scene, path)
         out[path] = vec[off:off + ref.numel()].reshape(ref.shape)
@@ -325,7 +321,7 @@ def kernel_args(scene, cfg, o, d, res, aux, corners, method: str):
     sdf = scene.sdf
     statics = [o.shape[0], small, sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
                sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
-               scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
+               field_flag(sdf), scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
                *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
                                         "soft_diff")),
                float(cfg.soft_silhouette) if spec["soft_sil"] else 0.0,
