@@ -354,15 +354,21 @@ def packet_bound(packet, o, t_init) -> dict:
                         packet.perm) + o.shape[0] * 9, o.shape[0] * 40.0)
 
 
+def counted(launch, names) -> dict:
+    """One more launch of a kernel, given a zeroed counters tensor of
+    len(names): its counters by name."""
+    buf = torch.zeros(len(names), dtype=torch.int64, device="cuda")
+    launch(buf)
+    torch.cuda.synchronize()
+    return dict(zip(names, buf.tolist()))
+
+
 def walk_counts(tag, n_rays, launch) -> dict:
     """One more launch of a packet walk, with the kernel's counters
     (cuda_mt.COUNTERS): logged with what they say, and returned."""
     from tpu_ray_torch.kernels import cuda_mt
 
-    buf = torch.zeros(len(cuda_mt.COUNTERS), dtype=torch.int64, device="cuda")
-    launch(buf)
-    torch.cuda.synchronize()
-    c = dict(zip(cuda_mt.COUNTERS, buf.tolist()))
+    c = counted(launch, cuda_mt.COUNTERS)
     c["pass_share"] = c["box_passes"] / max(c["box_slots"], 1)
     log(tag, f"walk counters: {c['blocks']} blocks, supers visited a block "
         f"{c['supers_visited'] / max(c['blocks'], 1):.2f}, chunks staged a block "
@@ -602,6 +608,41 @@ def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float
     return ops + (60.0 if backward else 40.0) * o.shape[0]
 
 
+def shade_inputs(scene, cfg, o, d, method):
+    """The shade kernels' inputs on rays o, d: (res, aux, corners, spec),
+    the geometry pass's residuals as the frame makes them."""
+    from tpu_ray_torch.kernels import cuda_shade
+    from tpu_ray_torch.render import render as R
+
+    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
+    with torch.no_grad():
+        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
+    corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
+               if rows is not None else None)
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
+    return res, aux, corners, cuda_shade.kernel_spec(scene, cfg, method)
+
+
+def shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, full, backward) -> dict:
+    """The shade kernels' bound on these rays: shade_bytes with the small
+    block read (and, backward, its cotangent written) and the tensors `full`
+    read or written whole, and shade_ops."""
+    from tpu_ray_torch.kernels import cuda_shade
+
+    _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
+    smalls = [small, small] if backward else [small]
+    return bound(shade_bytes(spec, rays, sel_sdf, sel_mesh, smalls + list(full)),
+                 shade_ops(scene, cfg, o, d, res, aux, spec, method, backward))
+
+
+def seeded_cotangent(o):
+    """The shade backward's cotangent for the parity and timing runs:
+    uniform in [-1, 1] from a seeded generator on the card."""
+    gen = torch.Generator(device=o.device).manual_seed(0)
+    return torch.rand(o.shape, generator=gen, device=o.device) * 2.0 - 1.0
+
+
 def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
     """Phases 3 and 8 (and the silhouette path's parity), shade forward: the
     kernel against shade_fwd_torch on the parity rays and their geometry
@@ -613,17 +654,10 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
     ILL_SHARE_MAX of them, are set apart. With results, also the times and
     the bound (shade_bytes with the colours out; shade_ops)."""
     from tpu_ray_torch.kernels import cuda_shade
-    from tpu_ray_torch.render import render as R
 
     tag = (f"shade_fwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
            f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette}")
-    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
-    with torch.no_grad():
-        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
-    corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
-               if rows is not None else None)
-    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
-    spec = cuda_shade.kernel_spec(scene, cfg, method)
+    res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
 
     def kernel():
         return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
@@ -660,11 +694,9 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
         f"bit-identical {torch.equal(k1, k2)}")
     check(ok and torch.equal(k1, k2), f"{tag} parity")
     if results is not None:
-        _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
-        n_bytes = shade_bytes(spec, rays, sel_sdf, sel_mesh, [small, k1])
         results[key] = dict(max_abs_err=_max(err), ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **bound(n_bytes, shade_ops(scene, cfg, o, d, res, aux, spec, method,
-                                                       False)))
+                            **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method,
+                                          [k1], False))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain {results[key]['plain_ms']:.3f} ms, "
             f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
     return res, aux, corners, (sel_sdf, sel_mesh)
@@ -738,20 +770,12 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     place of rel < 1e-4 (measured on phase 21's blocks: the plane's at
     rel 1.2e-4, cosine 1.0)."""
     from tpu_ray_torch.kernels import cuda_shade
-    from tpu_ray_torch.render import render as R
 
     generic = bool(scene.sdf.mb_center.shape[0]) and not scene.sdf.mb_pow8
     tag = (f"shade_bwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
            f"lights {scene.lights.direction.shape[0]}+{scene.lights.position.shape[0]}")
-    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
-    with torch.no_grad():
-        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
-    corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
-               if rows is not None else None)
-    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
-    spec = cuda_shade.kernel_spec(scene, cfg, method)
-    gen = torch.Generator(device=o.device).manual_seed(0)
-    ct = torch.rand(o.shape, generator=gen, device=o.device) * 2.0 - 1.0
+    res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
+    ct = seeded_cotangent(o)
     args = (scene, cfg, o, d, res)
 
     def kernel(c=ct):
@@ -834,13 +858,10 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     check(ok, f"{tag} parity")
     check(same, f"{tag}: parameter cotangents differ between two runs")
     if results is not None:
-        _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
-        sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
-        # the small block is read and its cotangent written
-        full = [small, small, ct, k1["o"], k1["d"], k1["corners"]]
+        # the small block's cotangent written, ct read, the rays' written
         results[key] = dict(max_abs_err=worst, ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **bound(shade_bytes(spec, rays, sel_sdf, sel_mesh, full),
-                                    shade_ops(scene, cfg, o, d, res, aux, spec, method, True)))
+                            **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method,
+                                          [ct, k1["o"], k1["d"], k1["corners"]], True))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain "
             f"{results[key]['plain_ms']:.3f} ms, bound {results[key]['bound_ms']:.4f} ms "
             f"({results[key]['bound_by']})")
@@ -1705,7 +1726,199 @@ def ring_fit_step(scene, cfg, smi, warm, dev):
     return counts
 
 
+@contextlib.contextmanager
+def recorded(module, name, calls):
+    """module.name patched to record each call's (args, kwargs) in calls."""
+    real = getattr(module, name)
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(module, name, rec):
+        yield
+
+
+def device_split(fn, names, reps: int = 10) -> dict:
+    """Device time a call of a kernel wrapper spends in its kernels (the
+    functions whose names contain one of `names`) and in the tensor ops the
+    wrapper launches around them (the parameter packing, the cotangents'
+    unpacking), in ms a call, from torch.profiler over reps calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = other = 0.0
+    n_other = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        if any(n in e.key for n in names):
+            own += e.self_device_time_total
+        else:
+            other += e.self_device_time_total
+            n_other += e.count
+    return dict(kernel_ms=own / reps / 1e3, wrapper_ms=other / reps / 1e3,
+                wrapper_ops=n_other / reps)
+
+
+def shadow_summary(c) -> str:
+    """What a shadow march's counters (cuda_sdf.SHADOW_COUNTERS) say."""
+    return (f"live {c['live']}, marching after the cull {c['marching']}, DE steps "
+            f"{c['steps']} ({c['steps'] / max(c['marching'], 1):.2f} a marching ray, at most "
+            f"{c['steps_max']}), lane efficiency {c['steps'] / max(32 * c['warp_steps'], 1):.4f}, "
+            f"warp cycles mean {c['warp_cycles'] / max(c['warps'], 1):.0f} max "
+            f"{c['warp_cycles_max']} over {c['warps']} warps")
+
+
+def shade_summary(c) -> str:
+    """What the shade backward's counters (cuda_shade.SHADE_BWD_COUNTERS)
+    say: rays by class, mixed warps, cycles a warp by its costliest class,
+    the reduction's cycles."""
+    from tpu_ray_torch.kernels.cuda_shade import RAY_CLASSES
+
+    by = ", ".join(f"{k} {c[f'warps_{k}']} warps mean {c[f'cycles_{k}'] / max(c[f'warps_{k}'], 1):.0f} "
+                   f"max {c[f'cycles_max_{k}']}" for k in RAY_CLASSES)
+    return (f"rays sky {c['rays_sky']} mesh {c['rays_mesh']} sdf {c['rays_sdf']} bulb "
+            f"{c['rays_bulb']} (with AO or penumbra {c['rays_bulb_ao']}); warps {c['warps']}, "
+            f"mixing classes as run {c['warps_mixed']}, as loaded {c['warps_mixed_loaded']}; "
+            f"cycles a warp by its costliest class: {by}; block reduction cycles mean "
+            f"{c['epilogue_cycles'] / max(c['blocks'], 1):.0f} max {c['epilogue_cycles_max']} over "
+            f"{c['blocks']} blocks; second pass at most {c['sum_cycles_max']} cycles a thread")
+
+
+def launch_sizes(paths, results):
+    """Phase `launch`: #2, #5 and #6 timed as render_pixels_flat launches
+    them, once per block of the path (32,768 rays for `mixed` and
+    `mixed_sil`, 65,536 for the bulb paths), on each of the path's parity
+    blocks: the shadow march with the very arguments the geometry pass
+    passes it (recorded), the shade forward with the frame's config and the
+    backward with the fit step's. Each with the bound of that block's work
+    and, for #2 and #6, the kernel's counters. paths: {path: (scene, frame
+    config, fit-step config, world points of its blocks, method)}."""
+    from tpu_ray_torch.kernels import cuda_sdf, cuda_shade
+    from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
+
+    for path, (scene, cfg, fit_cfg, points, method) in paths.items():
+        o_all, d_all = block_rays(scene, cfg, points, f"launch {path}")
+        bs, sdf = cfg.block_size, scene.sdf
+        soft = cfg.shadow == "soft"
+        shadow = "shadow_soft" if soft else "shadow_hard"
+        kernel, plain = getattr(cuda_sdf, shadow), getattr(cuda_sdf, f"{shadow}_torch")
+        bounds = sdf_bounding_spheres(sdf)
+        n_bounds = 0 if soft or bounds is None else bounds.shape[0]
+        rows = {shadow: [], "shade_fwd": [], "shade_bwd": []}
+        for b in range(o_all.shape[0] // bs):
+            o, d = o_all[b * bs:(b + 1) * bs], d_all[b * bs:(b + 1) * bs]
+            calls = []
+            with recorded(cuda_sdf, shadow, calls):
+                res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
+            check(len(calls) == 1, f"launch {path}: {len(calls)} {shadow} calls for a block")
+            args, kw = calls[0]
+            work = StepWork(sdf, 10.0 if soft else 8.0)
+            plain(*args, **kw, visit=work)
+            rows[shadow].append(dict(
+                ms=kernel_ms(lambda: kernel(*args, **kw)),
+                **device_split(lambda: kernel(*args, **kw), (f"{shadow}_kernel",)),
+                **bound(nbytes(args[1], args[2], kw.get("t_far_rays")) + 8 * bs,
+                        work.ops + 20.0 * n_bounds * bs),
+                counters=counted(lambda c: kernel(*args, **kw, counters=c),
+                                 cuda_sdf.SHADOW_COUNTERS)))
+            out = cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
+            rows["shade_fwd"].append(dict(
+                ms=kernel_ms(lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
+                                                          corners=corners, aux=aux)),
+                **device_split(lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
+                                                            corners=corners, aux=aux),
+                               ("shade_fwd_kernel",)),
+                **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [out], False)))
+            if fit_cfg != cfg:
+                res, aux, corners, spec = shade_inputs(scene, fit_cfg, o, d, method)
+            ct = seeded_cotangent(o)
+            bwd = (scene, fit_cfg, o, d, res, aux, corners, ct, method)
+            g = cuda_shade.shade_bwd(*bwd)
+            rows["shade_bwd"].append(dict(
+                ms=kernel_ms(lambda: cuda_shade.shade_bwd(*bwd)),
+                **device_split(lambda: cuda_shade.shade_bwd(*bwd),
+                               ("shade_bwd_kernel", "sum_partials_kernel")),
+                **shade_bound(scene, fit_cfg, o, d, res, aux, corners, spec, method,
+                              [ct, g["o"], g["d"], g["corners"]], True),
+                counters=counted(lambda c: cuda_shade.shade_bwd(*bwd, counters=c),
+                                 cuda_shade.SHADE_BWD_COUNTERS)))
+        for key, blocks in rows.items():
+            entry = {"rays": bs, "block_ms": [e["ms"] for e in blocks],
+                     "block_bound_ms": [e["bound_ms"] for e in blocks],
+                     "block_kernel_ms": [e["kernel_ms"] for e in blocks],
+                     "block_wrapper_ms": [e["wrapper_ms"] for e in blocks],
+                     "wrapper_ops": blocks[0]["wrapper_ops"],
+                     "ms": sum(e["ms"] for e in blocks) / len(blocks),
+                     "bound_ms": sum(e["bound_ms"] for e in blocks) / len(blocks),
+                     "bound_by": blocks[0]["bound_by"]}
+            if "counters" in blocks[0]:
+                entry["counters"] = {k: sum(e["counters"][k] for e in blocks)
+                                     for k in blocks[0]["counters"]}
+                for k in ("steps_max", "warp_cycles_max", "epilogue_cycles_max",
+                          "sum_cycles_max") + tuple(f"cycles_max_{c}" for c in
+                                                    cuda_shade.RAY_CLASSES):
+                    if k in entry["counters"]:
+                        entry["counters"][k] = max(e["counters"][k] for e in blocks)
+            results[path].setdefault(key, {})["launch"] = entry
+            log("launch", f"{path} {key} at {bs} rays a launch: mean {entry['ms']:.4f} ms "
+                f"(blocks {[round(x, 4) for x in entry['block_ms']]}), bound "
+                f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}; blocks "
+                f"{[round(x, 5) for x in entry['block_bound_ms']]}); profiled device time a "
+                f"call in the kernel {[round(x, 4) for x in entry['block_kernel_ms']]} ms, in "
+                f"the wrapper's {entry['wrapper_ops']:.0f} tensor ops "
+                f"{[round(x, 4) for x in entry['block_wrapper_ms']]} ms")
+            for b, e in enumerate(blocks):
+                if "counters" in e:
+                    log("launch", f"{path} {key} block {b} counters: "
+                        + (shade_summary(e["counters"]) if key == "shade_bwd"
+                           else shadow_summary(e["counters"])))
+
+
+def ptxas_summary(log_text: str) -> str:
+    """Registers, stack and spills of every build of the shadow marches and
+    the shade kernels, from ptxas' -v output."""
+    names = ("shadow_hard_kernel", "shadow_soft_kernel", "shade_fwd_kernel",
+             "shade_bwd_kernel", "sum_partials_kernel")
+    out, cur, props = [], None, {}
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            cur = next((n for n in names if n in mangled), None)
+            if cur and "ILb" in mangled:
+                cur += "<true>" if "ILb1E" in mangled else "<false>"
+            props = {}
+        elif cur and "bytes stack frame" in ln and "stack" not in props:  # the entry's own
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            props.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            props["registers"] = int(words[words.index("Used") + 1])
+            smem = [words[k - 2] for k, w in enumerate(words) if w == "smem"]
+            out.append(f"{cur} {props.get('registers')} registers, {props.get('stack', 0)} B "
+                       f"stack, {props.get('spill_stores', 0)} B spill stores, "
+                       f"{props.get('spill_loads', 0)} B spill loads"
+                       + (f", {smem[0]} B static smem" if smem else ""))
+            cur = None
+    return "; ".join(out)
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases to run alone (after device and "
+                             "build), e.g. `launch`; then the per-launch table is the "
+                             "last line and no result line is printed")
+    only = set(filter(None, parser.parse_args().only.split(",")))
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this "
                          "script runs only on a CUDA device")
@@ -1728,6 +1941,7 @@ def main() -> int:
         f"built={build.BUILD_LOG['built']}) -> {build.BUILD_LOG['path']}")
     for ln in regs:
         log("build", ln)
+    log("build", f"ptxas of #2, #5, #6: {ptxas_summary(build.BUILD_LOG['ptxas'])}")
 
     dev = torch.device("cuda", 0)
     scene, cfg = build_scene("mixed", device=dev)
@@ -1775,14 +1989,32 @@ def main() -> int:
         ("power_parity", lambda: power_parity(bulb, bcfg, results["mandelbulb_power"])),
         ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
                                             bcfg.replace(width=256, height=256))),
+        ("launch", lambda: launch_sizes(launch_paths, results)),
     )
+    # #2, #5 and #6 at their launch size: the frame's config, the fit step's
+    launch_paths = {
+        "mixed": (scene, cfg, cfg, PARITY_POINTS, "mixed"),
+        "mixed_sil": (scene, sil, sil, SIL_POINTS, "mixed"),
+        "mandelbulb": (bulb, bcfg, bcfg.replace(diff_vis=True), BULB_POINTS, "sdf"),
+        "mandelbulb_power": (generic_field(bulb), bcfg, bcfg.replace(diff_vis=True),
+                             BULB_POINTS, "sdf")}
+    unknown = only - {name for name, _ in phases}
+    check(not unknown, f"--only: no such phase {sorted(unknown)}")
     out = {}
     t_start = time.perf_counter()
     for phase, run in phases:
+        if only and phase not in only:
+            continue
         t0 = time.perf_counter()
         out[phase] = run()
         log(phase, f"phase seconds {time.perf_counter() - t0:.2f}")
     log("done", f"all phases {time.perf_counter() - t_start:.2f} s")
+    launch_table = {path: {key: r["launch"] for key, r in table.items() if "launch" in r}
+                    for path, table in results.items()}
+    if only:
+        print(smi)
+        print(json.dumps({"launch": launch_table}))
+        return 0
     counts = {"mixed": dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"]),
               "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"]),
               "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
@@ -1797,12 +2029,16 @@ def main() -> int:
     for path, names in PATH_KERNELS.items():
         for key in names:
             r = results[path][key]
-            kernels.append({"name": key, "path": path, "route": "cuda",
-                            "source": f"{SRC}/{SOURCES[key]}", "replaces": REPLACES[key],
-                            "launches": counts[path][key], "max_abs_err": r["max_abs_err"],
-                            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                            "bound_by": r["bound_by"], "library_ms": None,
-                            **({"counters": r["counters"]} if "counters" in r else {})})
+            entry = {"name": key, "path": path, "route": "cuda",
+                     "source": f"{SRC}/{SOURCES[key]}", "replaces": REPLACES[key],
+                     "launches": counts[path][key], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None}
+            if "counters" in r:
+                entry["counters"] = r["counters"]
+            if "launch" in r:  # one launch of the path's size (phase `launch`)
+                entry.update({f"launch_{k}": v for k, v in r["launch"].items()})
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

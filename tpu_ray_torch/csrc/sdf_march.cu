@@ -42,14 +42,16 @@ namespace tr {
 // One soft-shadow ray: the penumbra s = min over the march of
 // soft_k * DE / max(t, bias) from 1, the step DE clipped to [eps/2, 0.4],
 // until t >= tf or the step budget is spent. Writes clip(s, 0, 1) and the t
-// of the first step that attained the min (bias when none went below 1).
+// of the first step that attained the min (bias when none went below 1);
+// returns the DE steps taken.
 template <bool kPow8>
-__device__ __forceinline__ void shadow_soft_ray(
+__device__ __forceinline__ int shadow_soft_ray(
     const SdfParams& sdf, float px, float py, float pz, float lx, float ly,
     float lz, float tf, float eps, int max_steps, float bias, float soft_k,
     float* vis, float* ts_out) {
   float t = bias, s = 1.0f, ts = bias;
-  for (int k = 0; k < max_steps; ++k) {
+  int k = 0;
+  for (; k < max_steps; ++k) {
     if (!(t < tf)) break;
     const float dd = scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
     const float s_new = soft_k * dd / fmaxf(t, bias);
@@ -61,6 +63,7 @@ __device__ __forceinline__ void shadow_soft_ray(
   }
   *vis = fminf(fmaxf(s, 0.0f), 1.0f);
   *ts_out = ts;
+  return k;
 }
 
 }  // namespace tr
@@ -70,6 +73,40 @@ __device__ __forceinline__ void shadow_soft_ray(
 namespace {
 
 constexpr int kThreads = 128;
+
+// The shadow marches' optional counters (cuda_sdf.SHADOW_COUNTERS), added
+// to by a launch given a counters pointer: rays whose cutoff lets them
+// march (live), rays left to march after the bound cull, their DE steps (sum
+// and max), warp-steps (the DE steps each warp issues, so that lane
+// efficiency is steps / (32 warp-steps)), and clock64() cycles a warp
+// takes (sum and max) over the warps counted.
+enum ShadowCounter { kLive, kMarching, kSteps, kStepsMax, kWarpSteps, kWarpCycles,
+                     kWarpCyclesMax, kWarps, kNumShadowCounters };
+
+// One lane's share of the counters: its ray's live / marching flags and
+// steps; the warp's first lane adds the warp's sums, its warp-steps (its
+// lanes' most steps) and its cycles since c0.
+__device__ __forceinline__ void shadow_count(unsigned long long* counters, unsigned mask,
+                                             bool live, bool marching, int steps,
+                                             long long c0) {
+  const unsigned n_live = __popc(__ballot_sync(mask, live));
+  const unsigned n_march = __popc(__ballot_sync(mask, marching));
+  const unsigned sum = __reduce_add_sync(mask, static_cast<unsigned>(steps));
+  const unsigned most = __reduce_max_sync(mask, static_cast<unsigned>(steps));
+  __syncwarp(mask);
+  const long long cycles = clock64() - c0;
+  if ((threadIdx.x & 31) == __ffs(mask) - 1) {
+    using u64 = unsigned long long;
+    atomicAdd(counters + kLive, static_cast<u64>(n_live));
+    atomicAdd(counters + kMarching, static_cast<u64>(n_march));
+    atomicAdd(counters + kSteps, static_cast<u64>(sum));
+    atomicMax(counters + kStepsMax, static_cast<u64>(most));
+    atomicAdd(counters + kWarpSteps, static_cast<u64>(most));
+    atomicAdd(counters + kWarpCycles, static_cast<unsigned long long>(cycles));
+    atomicMax(counters + kWarpCyclesMax, static_cast<unsigned long long>(cycles));
+    atomicAdd(counters + kWarps, 1ull);
+  }
+}
 
 template <bool kPow8>
 __global__ void march_kernel(const float* __restrict__ o,
@@ -130,12 +167,16 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
                                    int n_bounds, float eps, float t_far,
                                    int max_steps, float bias,
                                    float* __restrict__ vis_out,
-                                   float* __restrict__ ts_out) {
+                                   float* __restrict__ ts_out,
+                                   unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned mask = __ballot_sync(0xffffffffu, i < n);
   if (i >= n) return;
+  const long long c0 = clock64();
   const float px = p[3 * i], py = p[3 * i + 1], pz = p[3 * i + 2];
   const float lx = l[3 * i], ly = l[3 * i + 1], lz = l[3 * i + 2];
   float tf = t_far_rays ? t_far_rays[i] : t_far;
+  const bool live = bias < tf;
   if (n_bounds > 0) {
     // a blocker needs DE < eps, so only inside a bound inflated by eps:
     // clamp the march at the last bound exit (0 when every bound is missed)
@@ -154,9 +195,11 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
   }
   float t = bias;
   bool blocked = false;
+  int steps = 0;
   for (int s = 0; s < max_steps; ++s) {
     if (!(t < tf)) break;
     const float dd = tr::scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
+    ++steps;
     if (dd < eps) {
       blocked = true;
       break;
@@ -165,6 +208,7 @@ __global__ void shadow_hard_kernel(const float* __restrict__ p,
   }
   vis_out[i] = blocked ? 0.0f : 1.0f;
   ts_out[i] = bias;
+  if (counters) shadow_count(counters, mask, live, bias < tf, steps, c0);
 }
 
 template <bool kPow8>
@@ -174,13 +218,17 @@ __global__ void shadow_soft_kernel(const float* __restrict__ p,
                                    tr::SdfParams sdf, float eps, float t_far,
                                    int max_steps, float bias, float soft_k,
                                    float* __restrict__ vis_out,
-                                   float* __restrict__ ts_out) {
+                                   float* __restrict__ ts_out,
+                                   unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned mask = __ballot_sync(0xffffffffu, i < n);
   if (i >= n) return;
-  tr::shadow_soft_ray<kPow8>(sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i],
-                      l[3 * i + 1], l[3 * i + 2],
-                      t_far_rays ? t_far_rays[i] : t_far, eps, max_steps, bias,
-                      soft_k, vis_out + i, ts_out + i);
+  const long long c0 = clock64();
+  const float tf = t_far_rays ? t_far_rays[i] : t_far;
+  const int steps = tr::shadow_soft_ray<kPow8>(
+      sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i], l[3 * i + 1], l[3 * i + 2], tf,
+      eps, max_steps, bias, soft_k, vis_out + i, ts_out + i);
+  if (counters) shadow_count(counters, mask, bias < tf, bias < tf, steps, c0);
 }
 
 }  // namespace
@@ -217,11 +265,12 @@ extern "C" int tr_shadow_hard(const float* p, const float* l,
                               int n_box, int n_mb, int mb_iters, int mb_pow8,
                               const float* bounds, int n_bounds, float eps,
                               float t_far, int steps, float bias, float* vis,
-                              float* ts, void* stream) {
+                              float* ts, unsigned long long* counters,
+                              void* stream) {
   if (n <= 0) return 0;
   const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
   TR_LAUNCH_SDF(shadow_hard_kernel, n, stream, p, l, t_far_rays, n, sdf,
-                bounds, n_bounds, eps, t_far, steps, bias, vis, ts);
+                bounds, n_bounds, eps, t_far, steps, bias, vis, ts, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,11 +280,11 @@ extern "C" int tr_shadow_soft(const float* p, const float* l,
                               int n_box, int n_mb, int mb_iters, int mb_pow8,
                               float eps, float t_far, int steps, float bias,
                               float soft_k, float* vis, float* ts,
-                              void* stream) {
+                              unsigned long long* counters, void* stream) {
   if (n <= 0) return 0;
   const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
   TR_LAUNCH_SDF(shadow_soft_kernel, n, stream, p, l, t_far_rays, n, sdf, eps,
-                t_far, steps, bias, soft_k, vis, ts);
+                t_far, steps, bias, soft_k, vis, ts, counters);
   return static_cast<int>(cudaGetLastError());
 }
 

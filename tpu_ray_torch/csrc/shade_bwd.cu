@@ -408,6 +408,50 @@ constexpr int kThreads = 128;
 constexpr int kStride = kThreads + 1;  // shared columns, padded: no bank conflicts
 constexpr int kMaxSmem = 227 * 1024;
 
+// The optional counters (cuda_shade.SHADE_BWD_COUNTERS), added to by a
+// launch given a counters pointer: its rays by class (tr::RayClass) and the
+// Mandelbulb rays that also run the AO taps or the penumbra; its warps,
+// those whose 32 rays mix classes as they run and as they were loaded;
+// by each warp's costliest class, its warps and their clock64() cycles
+// (sum and max) from the chain's start to its last lane's end; the block
+// reduction's cycles (sum and max over blocks), the blocks, and the most
+// cycles a thread of the second kernel spent on its sums.
+enum ShadeCounter {
+  kRays = 0, kRaysBulbAo = 4, kWarps = 5, kWarpsMixed = 6, kWarpsMixedLoaded = 7,
+  kClassWarps = 8, kClassCycles = 12, kClassCyclesMax = 16, kEpilogueCycles = 20,
+  kEpilogueCyclesMax = 21, kBlocks = 22, kSumCyclesMax = 23, kNumShadeCounters = 24};
+
+// One warp's share of the counters: lane k's ray has class cls (run) and
+// the ray lane k loaded has class cls_loaded; valid: lane k has a ray.
+__device__ void shade_count_warp(unsigned long long* counters, bool valid, int cls,
+                                 int cls_loaded, bool bulb_ao, long long c0) {
+  using u64 = unsigned long long;
+  const unsigned full = 0xffffffffu;
+  __syncwarp(full);
+  const long long cycles = clock64() - c0;
+  const unsigned lane = threadIdx.x & 31;
+  for (int c = 0; c < tr::kNumClasses; ++c) {
+    const unsigned n_c = __popc(__ballot_sync(full, valid && cls == c));
+    if (lane == 0 && n_c) atomicAdd(counters + kRays + c, static_cast<u64>(n_c));
+  }
+  const unsigned n_ao = __popc(__ballot_sync(full, valid && bulb_ao && cls == tr::kClassBulb));
+  const unsigned any = __ballot_sync(full, valid);
+  const int none = tr::kNumClasses;
+  const int top = __reduce_max_sync(full, valid ? cls : 0);
+  const bool mixed = __reduce_min_sync(full, valid ? cls : none) < top;
+  const bool mixed_loaded = __reduce_min_sync(full, valid ? cls_loaded : none) <
+                            __reduce_max_sync(full, valid ? cls_loaded : 0);
+  if (lane == 0 && any) {
+    atomicAdd(counters + kRaysBulbAo, static_cast<u64>(n_ao));
+    atomicAdd(counters + kWarps, 1ull);
+    atomicAdd(counters + kWarpsMixed, static_cast<u64>(mixed));
+    atomicAdd(counters + kWarpsMixedLoaded, static_cast<u64>(mixed_loaded));
+    atomicAdd(counters + kClassWarps + top, 1ull);
+    atomicAdd(counters + kClassCycles + top, static_cast<u64>(cycles));
+    atomicMax(counters + kClassCyclesMax + top, static_cast<u64>(cycles));
+  }
+}
+
 template <bool kPow8>
 __global__ void shade_bwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
@@ -418,14 +462,24 @@ __global__ void shade_bwd_kernel(
     const float* __restrict__ ts, const float* __restrict__ ao_tmesh,
     const float* __restrict__ ct, int n, float* __restrict__ d_o,
     float* __restrict__ d_d, float* __restrict__ d_corners,
-    float* __restrict__ partials) {
+    float* __restrict__ partials, unsigned long long* __restrict__ counters) {
   extern __shared__ float acc[];  // [n_par][kStride]: column tid is ray tid's
   const int tid = threadIdx.x;
   for (int j = 0; j < s.n_par; ++j) acc[j * kStride + tid] = 0.0f;
   const int i = blockIdx.x * kThreads + tid;
-  if (i < n) {
-    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
-                                     closer, mat, vis, ts, ao_tmesh, ct);
+  const bool valid = i < n;
+  tr::RayIn r;
+  if (valid)
+    r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts,
+                     ao_tmesh, ct);
+  int cls = 0;
+  long long c0 = 0;
+  if (counters) {
+    if (valid) cls = tr::ray_class<kPow8>(s, r);
+    __syncwarp();
+    c0 = clock64();
+  }
+  if (valid) {
     float go[3], gd[3], gc[9];
     tr::shade_bwd_ray<kPow8>(s, r, acc + tid, kStride, go, gd, gc);
     for (int k = 0; k < 3; ++k) {
@@ -435,24 +489,39 @@ __global__ void shade_bwd_kernel(
     if (d_corners)
       for (int k = 0; k < 9; ++k) d_corners[9 * i + k] = gc[k];
   }
+  if (counters) shade_count_warp(counters, valid, cls, cls, s.ao_sdf || s.soft_diff, c0);
   __syncthreads();
+  const long long e0 = clock64();
   // the block's partial row: each parameter's column sum, in ray order
   for (int j = tid; j < s.n_par; j += kThreads) {
     float sum = 0.0f;
     for (int k = 0; k < kThreads; ++k) sum += acc[j * kStride + k];
     partials[blockIdx.x * s.n_par + j] = sum;
   }
+  if (counters) {
+    __syncthreads();
+    if (tid == 0) {
+      const unsigned long long e = static_cast<unsigned long long>(clock64() - e0);
+      atomicAdd(counters + kEpilogueCycles, e);
+      atomicMax(counters + kEpilogueCyclesMax, e);
+      atomicAdd(counters + kBlocks, 1ull);
+    }
+  }
 }
 
 // d_small[j] = sum of the partial rows' column j, in block order.
 __global__ void sum_partials_kernel(const float* __restrict__ partials,
                                     int n_rows, int n_par,
-                                    float* __restrict__ out) {
+                                    float* __restrict__ out,
+                                    unsigned long long* __restrict__ counters) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_par) return;
+  const long long c0 = clock64();
   float sum = 0.0f;
   for (int b = 0; b < n_rows; ++b) sum += partials[b * n_par + j];
   out[j] = sum;
+  if (counters)
+    atomicMax(counters + kSumCyclesMax, static_cast<unsigned long long>(clock64() - c0));
 }
 
 }  // namespace
@@ -469,7 +538,7 @@ extern "C" int tr_shade_bwd(
     int soft_diff, float soft_sil, float mesh_sil, double ao_step,
     float ao_strength, float soft_k, float bias, float* d_o, float* d_d,
     float* d_corners, float* partials, int n_partial_rows, float* d_small,
-    void* stream) {
+    unsigned long long* counters, void* stream) {
   const tr::ShadeParams s = tr::make_params(
       small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, n_dir, n_pos, use_sdf,
       use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil, ao_step,
@@ -491,12 +560,12 @@ extern "C" int tr_shade_bwd(
     }
     kernel<<<n_blocks, kThreads, smem, st>>>(
         s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
-        ct, n, d_o, d_d, d_corners, partials);
+        ct, n, d_o, d_d, d_corners, partials, counters);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   sum_partials_kernel<<<(s.n_par + 127) / 128, 128, 0, st>>>(
-      partials, n_blocks, s.n_par, d_small);
+      partials, n_blocks, s.n_par, d_small, counters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -206,14 +206,32 @@ struct SurfFwd {
   float rad[3];
 };
 
+// The hit ray r's chain takes, as reconstruct_hits selects it: with an SDF
+// and a mesh (mixed) the closest-select mask `closer` picks the SDF branch;
+// on a lane that hits nothing `closer` is true (BIG <= BIG), so with soft
+// silhouettes the SDF branch at tmin carries it.
+__device__ __forceinline__ void select_hit(const ShadeParams& s, const RayIn& r,
+                                           bool* sel_sdf, bool* sel_mesh) {
+  const bool soft_sil = s.soft_sil > 0.0f;
+  if (s.use_sdf && s.use_mesh) {
+    *sel_sdf = r.closer && (r.hs || soft_sil);
+    *sel_mesh = !r.closer && r.hm;
+  } else {
+    *sel_sdf = s.use_sdf && (r.hs || soft_sil);
+    *sel_mesh = s.use_mesh && r.hm;
+  }
+}
+
+// The ray parameter of an SDF-selected lane's point: the march t, or the
+// closest approach tmin on a soft silhouette's miss.
+__device__ __forceinline__ float sdf_t_eff(const ShadeParams& s, const RayIn& r) {
+  return (r.hs || !(s.soft_sil > 0.0f)) ? r.t_bar : r.tmin;
+}
+
 // The ray's selected surface and its radiance, or false for a lane that
-// selects no surface (its output is the sky and its coverage 0).
-//
-// Selection and coverage, as reconstruct_hits: with an SDF and a mesh
-// (mixed) the closest-select mask `closer` picks the SDF branch; on a lane
-// that hits nothing `closer` is true (BIG <= BIG), so with soft silhouettes
-// the SDF branch at tmin carries it. cov = (hm && !closer) ? cm :
-// max(cov_s, cm); an SDF-only chain has cov_s, a mesh-only one cm.
+// selects no surface (its output is the sky and its coverage 0). Coverage,
+// as reconstruct_hits: cov = (hm && !closer) ? cm : max(cov_s, cm); an
+// SDF-only chain has cov_s, a mesh-only one cm.
 template <bool kPow8>
 __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
                                      SurfFwd* f) {
@@ -221,13 +239,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
   const bool soft_sil = s.soft_sil > 0.0f;
   const bool mixed = s.use_sdf && s.use_mesh;
   bool sel_sdf, sel_mesh;
-  if (mixed) {
-    sel_sdf = r.closer && (r.hs || soft_sil);
-    sel_mesh = !r.closer && r.hm;
-  } else {
-    sel_sdf = s.use_sdf && (r.hs || soft_sil);
-    sel_mesh = s.use_mesh && r.hm;
-  }
+  select_hit(s, r, &sel_sdf, &sel_mesh);
   if (!sel_sdf && !sel_mesh) return false;
   f->sel_sdf = sel_sdf;
 
@@ -253,7 +265,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
   f->cov_s = r.hs ? 1.0f : 0.0f;
   f->prim = -1;
   if (sel_sdf) {
-    f->t_eff = (r.hs || !soft_sil) ? r.t_bar : r.tmin;
+    f->t_eff = sdf_t_eff(s, r);
     for (int k = 0; k < 3; ++k) f->p[k] = r.o[k] + f->t_eff * r.d[k];
     float dmin;
     f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
@@ -340,6 +352,26 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
     for (int c = 0; c < 3; ++c) f->rad[c] += P[s.off_lpcol + 3 * pi + c] * falloff;
   }
   return true;
+}
+
+// The cost class of ray r's chain in the shade kernels, cheapest first:
+// no surface (the sky), a selected mesh hit, a selected SDF hit whose point
+// a sphere, plane or box attains, and one the Mandelbulb attains (its
+// adjoint's iterations). One scene_argmin on SDF-selected lanes, at the
+// point shade_surface takes.
+enum RayClass { kClassSky = 0, kClassMesh, kClassSdf, kClassBulb, kNumClasses };
+
+template <bool kPow8>
+__device__ __forceinline__ int ray_class(const ShadeParams& s, const RayIn& r) {
+  bool sel_sdf, sel_mesh;
+  select_hit(s, r, &sel_sdf, &sel_mesh);
+  if (!sel_sdf) return sel_mesh ? kClassMesh : kClassSky;
+  const float t = sdf_t_eff(s, r);
+  float p[3];
+  for (int k = 0; k < 3; ++k) p[k] = r.o[k] + t * r.d[k];
+  int kind = 0;
+  if (scene_argmin<kPow8>(s.sdf, p[0], p[1], p[2], &kind) < 0) return kClassSky;
+  return kind == kBulb ? kClassBulb : kClassSdf;
 }
 
 // The sky gradient by d.y: bg_bottom + (bg_top - bg_bottom) * s.

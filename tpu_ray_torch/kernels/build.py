@@ -43,13 +43,14 @@ _SIGNATURES = {
     "tr_march": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                  _F, _I, _F, _F, _P, _P, _P, _P, _P],
     # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
-    # mb_pow8, bounds, n_bounds, eps, t_far, steps, bias, vis, ts, stream
+    # mb_pow8, bounds, n_bounds, eps, t_far, steps, bias, vis, ts, counters,
+    # stream
     "tr_shadow_hard": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                       _F, _F, _I, _F, _P, _P, _P],
+                       _F, _F, _I, _F, _P, _P, _P, _P],
     # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
-    # mb_pow8, eps, t_far, steps, bias, soft_k, vis, ts, stream
+    # mb_pow8, eps, t_far, steps, bias, soft_k, vis, ts, counters, stream
     "tr_shadow_soft": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _I, _F, _F, _P, _P, _P],
+                       _F, _F, _I, _F, _F, _P, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers,
     # perm, perm_len, any_hit, t, tri, hit, counters, stream
     "tr_intersect_packet_streamed": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
@@ -65,9 +66,9 @@ _SIGNATURES = {
     "tr_shade_fwd": ([_P] * 12 + [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
                      + [_P, _P]),
     # as tr_shade_fwd with ct after ao_tmesh, then d_o, d_d, d_corners,
-    # partials, n_partial_rows, d_small, stream after bias
+    # partials, n_partial_rows, d_small, counters, stream after bias
     "tr_shade_bwd": ([_P] * 13 + [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
-                     + [_P] * 4 + [_I, _P, _P]),
+                     + [_P] * 4 + [_I, _P, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],
 }
@@ -169,3 +170,13 @@ def check_cuda_inputs(name: str, *tensors) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.requires_grad:
             raise ValueError(f"{name}: the kernel takes no gradient")
+
+
+def check_counters(name: str, counters, device, names) -> None:
+    """Raise unless counters is None or a contiguous int64 tensor of at least
+    len(names) on device (a kernel's optional counters)."""
+    if counters is not None and (counters.device != device or counters.dtype != torch.int64
+                                 or counters.numel() < len(names)
+                                 or not counters.is_contiguous()):
+        raise ValueError(f"{name}: counters must be a contiguous int64 tensor of "
+                         f"{len(names)} on the rays' device")

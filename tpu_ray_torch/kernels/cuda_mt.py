@@ -27,7 +27,8 @@ import torch
 
 from tpu_ray_torch.accel.packet import (CHUNK, ROWS_PER_CHUNK, SUPER, VMEM_BUDGET_BYTES,
                                         PacketAccel)
-from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
+from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
+                                         kernel_lib)
 from tpu_ray_torch.kernels.moller_trumbore import BIG, TriHit, _DET_EPS, _T_MIN
 
 LAUNCHES = {"closest": 0, "any_hit": 0, "resident_closest": 0, "resident_any_hit": 0}
@@ -256,11 +257,7 @@ def _check(accel: PacketAccel, o, d, t_init, counters, name: str) -> None:
         raise ValueError(f"{name}: perm must be int32 on the rays' device")
     if accel.corners.data_ptr() % 16:
         raise ValueError(f"{name}: the corners must be 16-byte aligned (cp.async)")
-    if counters is not None and (counters.device != o.device or counters.dtype != torch.int64
-                                 or counters.numel() < len(COUNTERS)
-                                 or not counters.is_contiguous()):
-        raise ValueError(f"{name}: counters must be a contiguous int64 tensor of "
-                         f"{len(COUNTERS)} on the rays' device")
+    check_counters(name, counters, o.device, COUNTERS)
 
 
 def _outputs(o):

@@ -10,7 +10,9 @@ launch the kernel on CUDA tensors, raising on what the kernel does not take
 (non-float32 or non-contiguous input, an input that requires grad). The
 kernels come in two builds, for the power-8 Mandelbulb field and for the
 generic-power one (`SdfScene.mb_pow8`); the wrappers pass the flag. Each
-kernel launch adds one to `LAUNCHES`.
+kernel launch adds one to `LAUNCHES`. The shadow marches take an optional
+`counters` tensor (int64, len(SHADOW_COUNTERS), on the rays' device) to
+which a launch adds what its march did; the main path passes none.
 
 The plain versions take an optional `visit(points, active)`, called once per
 march step with the step's sample points (R, 3) and the lanes that evaluate
@@ -21,10 +23,17 @@ from __future__ import annotations
 
 import torch
 
-from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
+from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
+                                         kernel_lib)
 from tpu_ray_torch.sdf.primitives import SdfScene, sdf_bounding_spheres, sdf_distance
 
 LAUNCHES = {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
+# the shadow marches' optional counters (csrc/sdf_march.cu `ShadowCounter`):
+# rays whose cutoff lets them march, rays left after the bound cull, their DE
+# steps (sum, max), the DE steps the warps issue (lane efficiency is steps
+# over 32 of them), and a warp's clock64() cycles (sum, max) over the warps
+SHADOW_COUNTERS = ("live", "marching", "steps", "steps_max", "warp_steps", "warp_cycles",
+                   "warp_cycles_max", "warps")
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +226,14 @@ def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
 
 
 def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
-                steps: int, bias: float, t_far_rays=None):
+                steps: int, bias: float, t_far_rays=None, counters=None):
     """Hard-shadow visibility -> (vis, ts); see shadow_hard_torch."""
     if p.device.type == "cpu":
         return shadow_hard_torch(sdf, p, l_dir, eps=eps, t_far=t_far,
                                  steps=steps, bias=bias, t_far_rays=t_far_rays)
     params, counts, bounds = _sdf_args(sdf)
     check_cuda_inputs("shadow_hard", p, l_dir, t_far_rays, params, bounds)
+    check_counters("shadow_hard", counters, p.device, SHADOW_COUNTERS)
     R = p.shape[0]
     dev = p.device
     vis = torch.empty(R, dtype=torch.float32, device=dev)
@@ -235,14 +245,14 @@ def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
             params.data_ptr(), *counts,
             _ptr(bounds), 0 if bounds is None else bounds.shape[0],
             float(eps), float(t_far), int(steps), float(bias),
-            vis.data_ptr(), ts.data_ptr(), _stream(dev))
+            vis.data_ptr(), ts.data_ptr(), _ptr(counters), _stream(dev))
     check_launch("shadow_hard", rc)
     LAUNCHES["shadow_hard"] += 1
     return vis, ts
 
 
 def shadow_soft(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
-                steps: int, bias: float, soft_k: float, t_far_rays=None):
+                steps: int, bias: float, soft_k: float, t_far_rays=None, counters=None):
     """Soft-shadow visibility and its argmin t -> (vis, ts); see
     shadow_soft_torch."""
     if p.device.type == "cpu":
@@ -250,6 +260,7 @@ def shadow_soft(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
                                  bias=bias, soft_k=soft_k, t_far_rays=t_far_rays)
     params, counts, _ = _sdf_args(sdf)
     check_cuda_inputs("shadow_soft", p, l_dir, t_far_rays, params)
+    check_counters("shadow_soft", counters, p.device, SHADOW_COUNTERS)
     R = p.shape[0]
     dev = p.device
     vis = torch.empty(R, dtype=torch.float32, device=dev)
@@ -260,7 +271,7 @@ def shadow_soft(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
             p.data_ptr(), l_dir.data_ptr(), _ptr(t_far_rays), R,
             params.data_ptr(), *counts, float(eps), float(t_far), int(steps),
             float(bias), float(soft_k), vis.data_ptr(), ts.data_ptr(),
-            _stream(dev))
+            _ptr(counters), _stream(dev))
     check_launch("shadow_soft", rc)
     LAUNCHES["shadow_soft"] += 1
     return vis, ts

@@ -18,7 +18,10 @@ Dispatch follows the device: `shade_fwd` and `shade_bwd` run their plain
 versions (`shade_fwd_torch`, the plain shade without gradient;
 `shade_bwd_torch`, its autograd) on CPU tensors and launch their kernel on
 CUDA tensors, raising on what the kernels do not take. Each launch adds one
-to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`. The chains the
+to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`; `shade_bwd` takes
+an optional `counters` tensor (int64, len(SHADE_BWD_COUNTERS), on the rays'
+device) to which a launch adds what it did, and the main path passes none.
+The chains the
 kernels take: methods sdf, mesh_* and mixed, directional and point lights,
 static shadow visibility (hard, soft or none), the soft-shadow penumbra
 with `diff_vis`, the 5-tap AO, the soft SDF silhouette and the mesh edge
@@ -33,12 +36,26 @@ import dataclasses
 import torch
 from torch.autograd.function import once_differentiable
 
-from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
+from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
+                                         kernel_lib)
 from tpu_ray_torch.kernels.cuda_sdf import field_flag, pack_sdf
 from tpu_ray_torch.scene.types import apply_params, get_param
 from tpu_ray_torch.sdf.primitives import FLOAT_FIELDS
 
 LAUNCHES = {"shade_fwd": 0, "shade_bwd": 0}
+# the shade backward's optional counters (csrc/shade_bwd.cu `ShadeCounter`):
+# rays by the class of their chain (csrc/shade_chain.cuh `RayClass`), the
+# Mandelbulb's with the AO taps or the penumbra, the warps and those whose
+# rays mix classes as run and as loaded; by a warp's costliest class its
+# warps and clock64() cycles (sum, max); the block reduction's cycles (sum,
+# max), the blocks, and the most cycles a thread of the second pass spent
+RAY_CLASSES = ("sky", "mesh", "sdf", "bulb")
+SHADE_BWD_COUNTERS = (tuple(f"rays_{c}" for c in RAY_CLASSES)
+                      + ("rays_bulb_ao", "warps", "warps_mixed", "warps_mixed_loaded")
+                      + tuple(f"warps_{c}" for c in RAY_CLASSES)
+                      + tuple(f"cycles_{c}" for c in RAY_CLASSES)
+                      + tuple(f"cycles_max_{c}" for c in RAY_CLASSES)
+                      + ("epilogue_cycles", "epilogue_cycles_max", "blocks", "sum_cycles_max"))
 
 # the differentiable scene leaves of the shade chain, in the kernel's packed
 # order after the SDF block; the vertices' gradient flows through the corners
@@ -373,13 +390,15 @@ def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
     return out
 
 
-def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str) -> dict:
+def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str,
+              counters=None) -> dict:
     """Cotangents of the shade of one ray block; see shade_bwd_torch."""
     if o.device.type == "cpu":
         return shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
     spec, small, pointers, statics = _checked_args("shade_bwd", scene, cfg, o, d, res,
                                                    aux, corners, method)
     check_cuda_inputs("shade_bwd", o, ct)
+    check_counters("shade_bwd", counters, o.device, SHADE_BWD_COUNTERS)
     R, dev = o.shape[0], o.device
     lib = kernel_lib()
     n_rows = -(-R // lib.tr_shade_bwd_threads())
@@ -392,7 +411,7 @@ def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str) -> dict:
     with torch.cuda.device(dev):
         rc = lib.tr_shade_bwd(
             *pointers, ct.data_ptr(), *statics, d_o.data_ptr(), d_d.data_ptr(),
-            _ptr(d_c), partials.data_ptr(), n_rows, d_small.data_ptr(),
+            _ptr(d_c), partials.data_ptr(), n_rows, d_small.data_ptr(), _ptr(counters),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("shade_bwd", rc)
     LAUNCHES["shade_bwd"] += 1
