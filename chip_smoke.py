@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, the result line last
+    python3 chip_smoke.py --only launch   # device, build and the named phases
 
 Six paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
 mesh), the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
@@ -13,7 +14,9 @@ accel parts walked in sequence; and `mandelbulb_power`: `mandelbulb` with
 the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its seconds (any failure exits non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
-     nvcc per source in parallel; ptxas' registers and spills.
+     nvcc per source in parallel; ptxas' registers and spills, and one line
+     (`ptxas of #2, #5, #6`) with each build's registers, stack frame and
+     spill stores and loads for the shadow marches and the shade kernels.
   3. kernel parity on real rays: 4 blocks of the `mixed` frame in Morton
      order (those holding the bulb, the sphere, the knot and the ground in
      front) and the shadow rays the geometry pass makes from them; each
@@ -100,10 +103,22 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      3 Adam steps of `fit()` from the registry's power-8 scene (which fit
      switches to the generic field) at 256x256x4 toward the CLI demo target
      of `sdf.mb_power`, the albedo and the light colour; the loss falls.
+ 23. launch: #2, #5 and #6 as render_pixels_flat launches them, once per
+     block of the path's size (32,768 rays for `mixed` and `mixed_sil`,
+     65,536 for `mandelbulb` and `mandelbulb_power`), on each block of the
+     path's parity points: the shadow march with the arguments the geometry
+     pass gives it (recorded), the shade forward with the frame's config,
+     the backward with the fit step's. Per block: CUDA-event time of the
+     wrapper's launch, the profiler's device time in the kernel and in the
+     wrapper's tensor ops, the bound of that block's work, and the counters
+     of #2 (live and marching rays, DE steps, lane efficiency, cycles a
+     warp) and #6 (rays by chain class, warps that mix classes, cycles a
+     warp by its costliest class, the reduction's cycles).
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
-beat for the same work), the card's name and power limit, and the result
-as the last line.
+beat for the same work; #2, #5 and #6 also with their `launch_*` numbers),
+the card's name and power limit, and the result as the last line. With
+--only, the per-launch table is the last line and no result is printed.
 """
 
 from __future__ import annotations
@@ -1748,21 +1763,24 @@ def device_split(fn, names, reps: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(2):  # a window that recorded no device event is taken again
         torch.cuda.synchronize()
-    own = other = 0.0
-    n_other = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        if any(n in e.key for n in names):
-            own += e.self_device_time_total
-        else:
-            other += e.self_device_time_total
-            n_other += e.count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        own = other = 0.0
+        n_other = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+                continue
+            if any(n in e.key for n in names):
+                own += e.self_device_time_total
+            else:
+                other += e.self_device_time_total
+                n_other += e.count
+        if own > 0:
+            break
     return dict(kernel_ms=own / reps / 1e3, wrapper_ms=other / reps / 1e3,
                 wrapper_ops=n_other / reps)
 
@@ -1824,7 +1842,7 @@ def launch_sizes(paths, results):
             plain(*args, **kw, visit=work)
             rows[shadow].append(dict(
                 ms=kernel_ms(lambda: kernel(*args, **kw)),
-                **device_split(lambda: kernel(*args, **kw), (f"{shadow}_kernel",)),
+                **device_split(lambda: kernel(*args, **kw), ("shadow_kernel",)),
                 **bound(nbytes(args[1], args[2], kw.get("t_far_rays")) + 8 * bs,
                         work.ops + 20.0 * n_bounds * bs),
                 counters=counted(lambda c: kernel(*args, **kw, counters=c),
@@ -1885,15 +1903,19 @@ def launch_sizes(paths, results):
 def ptxas_summary(log_text: str) -> str:
     """Registers, stack and spills of every build of the shadow marches and
     the shade kernels, from ptxas' -v output."""
-    names = ("shadow_hard_kernel", "shadow_soft_kernel", "shade_fwd_kernel",
-             "shade_bwd_kernel", "sum_partials_kernel")
+    import re
+
+    names = ("shadow_kernel", "shade_fwd_kernel", "shade_bwd_kernel", "sum_partials_kernel")
     out, cur, props = [], None, {}
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             cur = next((n for n in names if n in mangled), None)
-            if cur and "ILb" in mangled:
-                cur += "<true>" if "ILb1E" in mangled else "<false>"
+            flags = re.match(r"I((?:Lb[01]E)+)E", mangled[mangled.find(cur) + len(cur):]
+                             if cur else "")
+            if cur and flags:  # the template's bools: <kPow8> or <kPow8, kSoft>
+                cur += "<" + ", ".join("true" if b == "1" else "false"
+                                       for b in re.findall(r"Lb([01])E", flags.group(1))) + ">"
             props = {}
         elif cur and "bytes stack frame" in ln and "stack" not in props:  # the entry's own
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]

@@ -4,7 +4,9 @@ against the Pallas kernel in interpret mode and against `jax.grad` of the
 XLA shade, with and without the soft SDF silhouette and the mesh edge
 band, `ShadeFn` against autograd of the plain shade, the chains the CUDA
 kernels refuse, and a host build of the CUDA kernel's per-ray arithmetic
-against the plain version.
+against the plain version; the host builds of the soft and the hard shadow
+march against theirs; the backward kernel's class-sorted block against its
+load order, and its fixed-order sums against float64.
 
 Tolerances and why:
   * smooth parameter groups (albedo, light colour and direction, ambient,
@@ -644,3 +646,104 @@ def test_shadow_soft_host_build_matches_plain_version(host_kernel, name):
         ok = (((vis - want_vis).abs() <= 1e-6 + 1e-5 * want_vis.abs())
               & ((ts - want_ts).abs() <= 1e-5 * want_ts.abs()))
         assert float(ok.float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("name", ["mixed", "sphere"])
+def test_shadow_hard_host_build_matches_plain_version(host_kernel, name):
+    """The CUDA hard march's per-ray pieces (csrc/sdf_march.cu: the bound
+    cull, the start, the steps; shadow_hard_ray), built as host C++, against
+    shadow_hard_torch on a frame's shadow rays: bit-equal, the rays that take
+    no step (no surface, or culled by the bounds) included."""
+    scene, cfg, method, o, d, res, _ = torch_host_build.case(name, False, dict(shadow="hard"))
+    rows = trender.mesh_table(scene.mesh) if scene.has_mesh else None
+    _, p_off, _, live = trender.shadow_ray_origins(scene, cfg, o, d, res, method,
+                                                   mesh_rows=rows)
+    p_off = p_off.contiguous()
+    l_dir = torch.nn.functional.normalize(scene.lights.direction, dim=1)
+    l_dir = l_dir[0].expand_as(p_off).contiguous()
+    far = torch.where(live, cfg.t_far, 0.0).contiguous()
+    kw = dict(eps=cfg.eps, t_far=cfg.t_far, steps=cfg.shadow_steps, bias=cfg.shadow_bias)
+    stepped = torch.zeros_like(live)
+
+    def visit(_q, active):
+        stepped.logical_or_(active)
+
+    want_vis, want_ts = cuda_sdf.shadow_hard_torch(scene.sdf, p_off, l_dir, t_far_rays=far,
+                                                   visit=visit, **kw)
+    params, counts, bounds = cuda_sdf._sdf_args(scene.sdf)
+    n = p_off.shape[0]
+    vis, ts = torch.empty(n), torch.empty(n)
+    host_kernel.host_shadow_hard(p_off.data_ptr(), l_dir.data_ptr(), far.data_ptr(), n,
+                                 params.data_ptr(), *counts, bounds.data_ptr(),
+                                 bounds.shape[0], *kw.values(), vis.data_ptr(), ts.data_ptr())
+    # every kind of ray: without a surface, culled by the bounds, marching,
+    # lit, blocked
+    assert bool((~live).any()) and bool((live & ~stepped).any()) and bool(stepped.any())
+    assert bool((live & (want_vis == 1)).any()) and bool((want_vis == 0).any())
+    assert torch.equal(vis, want_vis) and torch.equal(ts, want_ts)
+
+
+@pytest.mark.parametrize("pow8", [False, True])
+def test_class_sorted_block_matches_load_order(host_kernel, pow8):
+    """The backward kernel's blocks emulated lane by lane on the host: run
+    in the order the kernel sorts them to (a stable order by the class of
+    their chain; the generic field's build sorts), each ray adding into its
+    own column, they give the per-ray cotangents and the block partials of
+    the load order bit for bit, and the per-ray cotangents of the one-ray
+    host build. The `mixed` frame's rays are shuffled so that every block of
+    128 mixes the Mandelbulb, the sphere, the mesh and the sky."""
+    scene, cfg, method, o, d, res, corners = torch_host_build.case(
+        "mixed", False, dict(shadow="hard", sdf=dict(mb_pow8=pow8)))
+    idx = torch.from_numpy(np.random.default_rng(0).permutation(o.shape[0]))
+    o, d, corners = o[idx].contiguous(), d[idx].contiguous(), corners[idx].contiguous()
+    res = {k: (v[:, idx] if v.dim() == 2 else v[idx]).contiguous()
+           for k, v in res.items() if k != "hits"}
+    ct = torch.rand(o.shape, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res)
+    sdf_sel = aux["closer"] & res["sdf_hit"]
+    bulb = sdf_sel & (aux["mat"] == int(scene.sdf.mb_mat[0]))
+    mesh, sky = ~aux["closer"] & res["mesh_hit"], ~(sdf_sel | (~aux["closer"] & res["mesh_hit"]))
+    first = slice(0, 128)
+    assert all(bool(m[first].any()) for m in (bulb, sdf_sel & ~bulb, mesh, sky))
+    sorted_ = torch_host_build.shade_bwd_blocks(host_kernel, scene, cfg, o, d, res, corners,
+                                                ct, method, True)
+    loaded = torch_host_build.shade_bwd_blocks(host_kernel, scene, cfg, o, d, res, corners,
+                                               ct, method, False)
+    one = torch_host_build.shade_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+    assert o.shape[0] % 128  # a ragged last block too
+    for a, b in zip(sorted_, loaded):
+        assert torch.equal(a, b)
+    for a, key in zip(sorted_, ("o", "d", "corners")):
+        assert torch.equal(a, one[key])
+
+
+@pytest.mark.parametrize("n", [1, 31, 128, 256, 1013])
+def test_lane_tree_sum_matches_float64(host_kernel, n):
+    """The kernels' fixed-order sum (a column of the block's cotangents, a
+    parameter's partial rows) against a float64 sum: rel 1e-6 of the sum of
+    the values' magnitudes, on positive and on mixed-sign values."""
+    rng = np.random.default_rng(n)
+    for low in (0.0, -1.0):
+        v = torch.from_numpy(rng.uniform(low, 1.0, 3 * n).astype(np.float32))
+        got = host_kernel.host_lane_tree_sum(v.data_ptr(), n, 3)
+        want = float(v[::3].double().sum())
+        assert abs(got - want) <= 1e-6 * float(v[::3].double().abs().sum())
+
+
+@pytest.mark.parametrize("bad", ["float", "short", "strided", "device"])
+def test_check_counters_refuses_what_the_kernels_cannot_take(bad):
+    """The kernels' optional counters (shadow marches, shade backward,
+    packet walks) must be a contiguous int64 tensor of at least as many
+    entries as the kernel adds to, on the rays' device; anything else raises
+    before a launch."""
+    from tpu_ray_torch.kernels.build import check_counters
+
+    names = cuda_shade.SHADE_BWD_COUNTERS
+    good = torch.zeros(len(names), dtype=torch.int64)
+    check_counters("shade_bwd", None, good.device, names)
+    check_counters("shade_bwd", good, good.device, names)
+    given = {"float": good.float(), "short": good[:-1],
+             "strided": torch.zeros(2 * len(names), dtype=torch.int64)[::2],
+             "device": good.to("meta")}[bad]
+    with pytest.raises(ValueError, match="counters must be"):
+        check_counters("shade_bwd", given, good.device, names)

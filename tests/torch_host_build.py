@@ -1,7 +1,8 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
 port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py,
-test_torch_mandelbulb.py): the shade forward, the shade backward, the soft
-march, the Mandelbulb fields and their adjoint, and the packet walk, called
+test_torch_mandelbulb.py): the shade forward, the shade backward, the hard
+and the soft march, the Mandelbulb fields and their adjoint, and the packet
+walk, called
 with the arguments their CUDA wrappers pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
@@ -38,32 +39,92 @@ HOST_MAIN = r"""
   tr::make_params(small, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, n_mat, \
                   n_dir, n_pos, use_sdf, use_mesh, ao_sdf, ao_mesh, soft_diff, \
                   soft_sil, mesh_sil, ao_step, ao_strength, soft_k, bias)
+// A thread's MbStore, as a local array.
+struct HostStore {
+  float buf[2 * 4 * tr::kMaxMbIters];
+  tr::MbStore st{buf, 1, 4 * tr::kMaxMbIters};
+};
 extern "C" void host_shade_bwd(SHADE_ARGS, const float* ct, SHADE_STATICS,
                                float* d_o, float* d_d, float* d_corners,
                                double* d_small) {
   const tr::ShadeParams s = MAKE_PARAMS;
   float* one = new float[s.n_par];
+  HostStore hs_;
   for (int i = 0; i < n; ++i) {
     for (int j = 0; j < s.n_par; ++j) one[j] = 0.0f;
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, ct);
     if (mb_pow8)
-      tr::shade_bwd_ray<true>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+      tr::shade_bwd_ray<true>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i,
+                              hs_.st);
     else
-      tr::shade_bwd_ray<false>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i);
+      tr::shade_bwd_ray<false>(s, r, one, 1, d_o + 3 * i, d_d + 3 * i, d_corners + 9 * i,
+                               hs_.st);
     for (int j = 0; j < s.n_par; ++j) d_small[j] += one[j];
   }
   delete[] one;
 }
+// The backward kernel's blocks of `block` rays, lane by lane as the kernel
+// runs them: the block's rays in a stable order by class (tr::ray_class,
+// rays past n last) when `sorted`, else in load order; each ray adds into
+// its own column of acc[n_par][block]; then each column's sum, in the
+// kernels' lane_tree_sum order, into the block's row of partials.
+extern "C" void host_shade_bwd_blocks(SHADE_ARGS, const float* ct, SHADE_STATICS,
+                                      int block, int sorted, float* d_o, float* d_d,
+                                      float* d_corners, float* partials) {
+  const tr::ShadeParams s = MAKE_PARAMS;
+  float* acc = new float[s.n_par * block];
+  int* order = new int[block];
+  int* cls = new int[block];
+  HostStore hs_;
+  for (int b = 0; b * block < n; ++b) {
+    for (int j = 0; j < s.n_par * block; ++j) acc[j] = 0.0f;
+    for (int k = 0; k < block; ++k) {
+      const int i = b * block + k;
+      cls[k] = tr::kNumClasses;
+      if (i < n) {
+        const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm, closer,
+                                         mat, vis, ts, ao_tmesh, ct);
+        cls[k] = mb_pow8 ? tr::ray_class<true>(s, r) : tr::ray_class<false>(s, r);
+      }
+    }
+    int pos = 0;
+    for (int c = 0; c <= tr::kNumClasses; ++c)
+      for (int k = 0; k < block; ++k)
+        if (!sorted ? c == 0 : cls[k] == c) order[pos++] = k;
+    for (int lane = 0; lane < block; ++lane) {
+      const int j = order[lane], i = b * block + j;
+      if (i >= n) continue;
+      const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm, closer, mat,
+                                       vis, ts, ao_tmesh, ct);
+      if (mb_pow8)
+        tr::shade_bwd_ray<true>(s, r, acc + j, block, d_o + 3 * i, d_d + 3 * i,
+                                d_corners + 9 * i, hs_.st);
+      else
+        tr::shade_bwd_ray<false>(s, r, acc + j, block, d_o + 3 * i, d_d + 3 * i,
+                                 d_corners + 9 * i, hs_.st);
+    }
+    for (int j = 0; j < s.n_par; ++j)
+      partials[b * s.n_par + j] = tr::lane_tree_sum(acc + j * block, block, 1);
+  }
+  delete[] cls;
+  delete[] order;
+  delete[] acc;
+}
+// The kernels' fixed-order sum of n values at stride.
+extern "C" float host_lane_tree_sum(const float* v, int n, int stride) {
+  return tr::lane_tree_sum(v, n, stride);
+}
 extern "C" void host_shade_fwd(SHADE_ARGS, SHADE_STATICS, float* out) {
   const tr::ShadeParams s = MAKE_PARAMS;
+  HostStore hs_;
   for (int i = 0; i < n; ++i) {
     const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                      closer, mat, vis, ts, ao_tmesh, nullptr);
     if (mb_pow8)
-      tr::shade_fwd_ray<true>(s, r, out + 3 * i);
+      tr::shade_fwd_ray<true>(s, r, out + 3 * i, hs_.st);
     else
-      tr::shade_fwd_ray<false>(s, r, out + 3 * i);
+      tr::shade_fwd_ray<false>(s, r, out + 3 * i, hs_.st);
   }
 }
 extern "C" void host_shadow_soft(
@@ -84,21 +145,42 @@ extern "C" void host_shadow_soft(
                                  soft_k, vis + i, ts + i);
   }
 }
+extern "C" void host_shadow_hard(
+    const float* p, const float* l, const float* t_far_rays, int n,
+    const float* params, int n_sph, int n_pln, int n_box, int n_mb,
+    int mb_iters, int mb_pow8, const float* bounds, int n_bounds, float eps,
+    float t_far, int steps, float bias, float* vis, float* ts) {
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  for (int i = 0; i < n; ++i) {
+    const float tf = t_far_rays ? t_far_rays[i] : t_far;
+    if (mb_pow8)
+      tr::shadow_hard_ray<true>(sdf, bounds, n_bounds, p[3 * i], p[3 * i + 1], p[3 * i + 2],
+                                l[3 * i], l[3 * i + 1], l[3 * i + 2], tf, eps, steps, bias,
+                                vis + i, ts + i);
+    else
+      tr::shadow_hard_ray<false>(sdf, bounds, n_bounds, p[3 * i], p[3 * i + 1], p[3 * i + 2],
+                                 l[3 * i], l[3 * i + 1], l[3 * i + 2], tf, eps, steps, bias,
+                                 vis + i, ts + i);
+  }
+}
 // The Mandelbulb field of the local points p (n, 3): the DE as the marches
 // evaluate it (de), and as its adjoint evaluates it (de_adj) with the
 // gradient g (n, 3) and d/d power (n).
 extern "C" void host_mandelbulb(const float* p, int n, float power, int iters,
                                 int pow8, float* de, float* de_adj, float* g,
                                 float* d_power) {
+  HostStore hs_;
   for (int i = 0; i < n; ++i) {
     const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
     float dp = 0.0f;
     if (pow8) {
       de[i] = tr::mandelbulb_pow8(x, y, z, iters);
-      de_adj[i] = tr::mandelbulb_adj<float, true>(x, y, z, power, iters, g + 3 * i, &dp);
+      de_adj[i] = tr::mandelbulb_adj<float, true>(x, y, z, power, iters, g + 3 * i, &dp,
+                                                  hs_.st);
     } else {
       de[i] = tr::mandelbulb_generic(x, y, z, power, iters);
-      de_adj[i] = tr::mandelbulb_adj<float, false>(x, y, z, power, iters, g + 3 * i, &dp);
+      de_adj[i] = tr::mandelbulb_adj<float, false>(x, y, z, power, iters, g + 3 * i, &dp,
+                                                   hs_.st);
     }
     d_power[i] = dp;
   }
@@ -123,9 +205,16 @@ def build(tmp_dir):
     so = ctypes.CDLL(str(lib))
     so.host_shade_bwd.argtypes = [_P] * 13 + _STATICS + [_P] * 4
     so.host_shade_fwd.argtypes = [_P] * 12 + _STATICS + [_P]
+    so.host_shade_bwd_blocks.argtypes = [_P] * 13 + _STATICS + [_I, _I] + [_P] * 4
+    so.host_shade_bwd_blocks.restype = None
+    so.host_lane_tree_sum.argtypes = [_P, _I, _I]
+    so.host_lane_tree_sum.restype = ctypes.c_float
     so.host_shadow_soft.argtypes = [_P, _P, _P, _I, _P] + [_I] * 6 + [_F, _F, _I, _F, _F, _P, _P]
+    so.host_shadow_hard.argtypes = ([_P, _P, _P, _I, _P] + [_I] * 6 + [_P, _I, _F, _F, _I, _F]
+                                    + [_P, _P])
     so.host_mandelbulb.argtypes = [_P, _I, _F, _I, _I, _P, _P, _P, _P]
-    for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft, so.host_mandelbulb):
+    for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft, so.host_shadow_hard,
+               so.host_mandelbulb):
         fn.restype = None
     return so
 
@@ -216,6 +305,20 @@ def shade_bwd(so, scene, cfg, o, d, res, corners, ct, method):
     got = cuda_shade.unpack_small(d_small.float(), scene)
     got.update(o=out[0], d=out[1], corners=out[2])
     return got
+
+
+def shade_bwd_blocks(so, scene, cfg, o, d, res, corners, ct, method, sorted_: bool,
+                     block: int = 128):
+    """The host build of the backward kernel's blocks (host_shade_bwd_blocks)
+    -> (d_o, d_d, d_corners, partials (n_blocks, n_par))."""
+    pointers, statics, small = _args(scene, cfg, o, d, res, corners, method)
+    n = o.shape[0]
+    out = [torch.zeros(n, 3), torch.zeros(n, 3), torch.zeros(n, 9)]
+    partials = torch.zeros(-(-n // block), small.numel())
+    ct = ct.contiguous()
+    so.host_shade_bwd_blocks(*pointers, ct.data_ptr(), *statics, block, int(sorted_),
+                             *(x.data_ptr() for x in out), partials.data_ptr())
+    return (*out, partials)
 
 
 def shade_fwd(so, scene, cfg, o, d, res, corners, method):

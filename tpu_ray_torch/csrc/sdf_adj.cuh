@@ -17,10 +17,14 @@
 //     is derived by hand, the generic field's d2DE/dp dpower included.
 // Branches (escape, clamps, the min over primitives) read the value part
 // only, as autograd's masks do. The Mandelbulb keeps sdf.cuh's escape-freeze
-// and clamps. The reverse pass keeps each iteration's z and dr in a local
-// array of kMaxMbIters entries; an iteration past those is recomputed
+// and clamps. The reverse pass keeps each iteration's z and dr, up to
+// kMaxMbIters of them, in an MbStore; an iteration past those is recomputed
 // forward from the last stored one, so any mb_iters works and a field of at
-// most kMaxMbIters iterations recomputes nothing.
+// most kMaxMbIters iterations recomputes nothing. The store is the caller's:
+// the kernels give each thread a column of shared memory (a local array
+// indexed by the loop's runtime iteration lived in local memory, ~800 B a
+// thread, read back through the L1 and L2 caches), the host build a local
+// array.
 //
 // The gradient of the min over primitives goes to the first primitive that
 // attains it (torch.amin splits a tie evenly; ties have measure zero). Only
@@ -52,6 +56,33 @@ __device__ __forceinline__ Dual operator/(Dual a, Dual b) {
 }
 __device__ __forceinline__ Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
 __device__ __forceinline__ Dual& operator-=(Dual& a, Dual b) { a = a - b; return a; }
+
+// Where the reverse pass keeps the stored iterations: slot 4 it + c holds
+// iteration it's z (c = 0, 1, 2) and dr (c = 3), its value at
+// p[slot * stride] and, for a Dual, its tangent tan_off floats further.
+struct MbStore {
+  float* p;
+  int stride, tan_off;
+};
+
+// Slots a Mandelbulb of `iters` iterations stores (a Dual takes two floats
+// a slot, a float one).
+__host__ __device__ __forceinline__ int mb_store_slots(int iters) {
+  return 4 * (iters < kMaxMbIters ? iters : kMaxMbIters);
+}
+__device__ __forceinline__ void mb_put(const MbStore& st, int slot, float x) {
+  st.p[slot * st.stride] = x;
+}
+__device__ __forceinline__ void mb_put(const MbStore& st, int slot, Dual x) {
+  st.p[slot * st.stride] = x.v;
+  st.p[slot * st.stride + st.tan_off] = x.e;
+}
+__device__ __forceinline__ void mb_get(const MbStore& st, int slot, float& x) {
+  x = st.p[slot * st.stride];
+}
+__device__ __forceinline__ void mb_get(const MbStore& st, int slot, Dual& x) {
+  x = Dual(st.p[slot * st.stride], st.p[slot * st.stride + st.tan_off]);
+}
 
 __device__ __forceinline__ float val(Dual x) { return x.v; }
 __device__ __forceinline__ float tan_(Dual x) { return x.e; }
@@ -275,9 +306,8 @@ __device__ __forceinline__ void mb_generic_step_adj(T zx0, T zy0, T zz0, T dr0, 
 // with respect to the local point; the generic field also adds d/d power
 // to *d_pow (the power-8 field does not read it). Returns the DE.
 template <typename T, bool kPow8>
-__device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_pow) {
-  T zs[kMaxMbIters][3];
-  T drs[kMaxMbIters];
+__device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_pow,
+                            const MbStore& st) {
   T zx = px, zy = py, zz = pz, dr = T(1.0f);
   T r = sqrt_(max_c(px * px + py * py + pz * pz, kRmin2));
   int n_upd = 0;   // z updates made
@@ -288,8 +318,10 @@ __device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_p
     last = it;
     if (!(val(r_new) <= kBailout)) break;
     if (it < kMaxMbIters) {
-      zs[it][0] = zx; zs[it][1] = zy; zs[it][2] = zz;
-      drs[it] = dr;
+      mb_put(st, 4 * it, zx);
+      mb_put(st, 4 * it + 1, zy);
+      mb_put(st, 4 * it + 2, zz);
+      mb_put(st, 4 * it + 3, dr);
     }
     if (kPow8)
       mb_pow8_step(zx, zy, zz, dr, r_new, px, py, pz);
@@ -325,13 +357,12 @@ __device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_p
     // z_{it+1} = f(z_it) + p
     gx += dz[0]; gy += dz[1]; gz += dz[2];
     T zx0, zy0, zz0, dr0;
-    if (it < kMaxMbIters) {
-      zx0 = zs[it][0]; zy0 = zs[it][1]; zz0 = zs[it][2];
-      dr0 = drs[it];
-    } else {  // past the stored iterations: forward from the last stored one
-      zx0 = zs[kMaxMbIters - 1][0]; zy0 = zs[kMaxMbIters - 1][1];
-      zz0 = zs[kMaxMbIters - 1][2];
-      dr0 = drs[kMaxMbIters - 1];
+    const int row = 4 * (it < kMaxMbIters ? it : kMaxMbIters - 1);
+    mb_get(st, row, zx0);
+    mb_get(st, row + 1, zy0);
+    mb_get(st, row + 2, zz0);
+    mb_get(st, row + 3, dr0);
+    if (it >= kMaxMbIters) {  // past the stored iterations: forward from the last stored one
       for (int j = kMaxMbIters - 1; j < it; ++j)
         mb_step<kPow8>(zx0, zy0, zz0, dr0, px, py, pz, power);
     }
@@ -362,8 +393,8 @@ __device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_p
 // Gradient of one primitive's distance at p: dp (3) and dth (its packed
 // parameters, prim_stride(kind) of them, in layout order).
 template <typename T, bool kPow8>
-__device__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
-                         T pz, T dp[3], T dth[7]) {
+__device__ __forceinline__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
+                                         T pz, T dp[3], T dth[7], const MbStore& st) {
   for (int k = 0; k < 7; ++k) dth[k] = T(0.0f);
   if (kind == kSphere) {  // |p - c| - r
     const T ax = px - T(q[0]), ay = py - T(q[1]), az = pz - T(q[2]);
@@ -390,11 +421,14 @@ __device__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
     T dq[3];
     const T w = val(s) >= 1e-12f ? T(1.0f) / outside : T(0.0f);
     for (int k = 0; k < 3; ++k) dq[k] = val(qq[k]) >= 0.0f ? o[k] * w : T(0.0f);
-    // inside = min(max(qx, qy, qz), 0): the first largest component
+    // inside = min(max(qx, qy, qz), 0): the first largest component (the
+    // selects keep dq in registers, where a runtime index would not)
     int kmax = 0;
-    if (val(qq[1]) > val(qq[kmax])) kmax = 1;
-    if (val(qq[2]) > val(qq[kmax])) kmax = 2;
-    if (val(qq[kmax]) <= 0.0f) dq[kmax] += T(1.0f);
+    if (val(qq[1]) > val(qq[0])) kmax = 1;
+    if (val(qq[2]) > (kmax == 1 ? val(qq[1]) : val(qq[0]))) kmax = 2;
+    const float qmax = kmax == 0 ? val(qq[0]) : (kmax == 1 ? val(qq[1]) : val(qq[2]));
+    for (int k = 0; k < 3; ++k)
+      if (k == kmax && qmax <= 0.0f) dq[k] += T(1.0f);
     for (int k = 0; k < 3; ++k) {
       const float sg = val(a[k]) > 0.0f ? 1.0f : (val(a[k]) < 0.0f ? -1.0f : 0.0f);
       dp[k] = dq[k] * T(sg);
@@ -407,7 +441,7 @@ __device__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
     const T lx = (px - T(q[0])) / sc, ly = (py - T(q[1])) / sc,
             lz = (pz - T(q[2])) / sc;
     T gl[3], d_pow = T(0.0f);
-    const T m = mandelbulb_adj<T, kPow8>(lx, ly, lz, T(q[4]), mb_iters, gl, &d_pow);
+    const T m = mandelbulb_adj<T, kPow8>(lx, ly, lz, T(q[4]), mb_iters, gl, &d_pow, st);
     dp[0] = gl[0]; dp[1] = gl[1]; dp[2] = gl[2];
     dth[0] = -gl[0]; dth[1] = -gl[1]; dth[2] = -gl[2];
     dth[3] = m - (gl[0] * lx + gl[1] * ly + gl[2] * lz);

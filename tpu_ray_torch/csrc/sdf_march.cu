@@ -16,28 +16,88 @@
 // mb_pow8 argument names, so the power-8 paths carry none of the generic
 // field's code.
 //
-// The simple design: one thread per ray, running the reference's step rule
-// until it hits, leaves, or spends its step budget. The TPU kernel's
-// per-tile early exit becomes this per-thread loop exit, so a ray's result
-// does not depend on its neighbours. The packed scene parameters are a few
-// hundred bytes, read through the L1 cache. Rays keep the reference's
-// bounding-sphere culls: a primary ray that misses every bound starts at
-// t_far, a hard-shadow ray marches only up to its last bound exit. The soft
-// march has no cull (its penumbra darkens rays that pass near a bound
+// The design: one thread per ray, running the reference's step rule until
+// it hits, leaves, or spends its step budget. The TPU kernel's per-tile
+// early exit becomes this per-thread loop exit, so a ray's result does not
+// depend on its neighbours. Rays keep the reference's bounding-sphere
+// culls, taken first: a primary ray that misses every bound starts at
+// t_far, a hard-shadow ray marches only up to its last bound exit, and a
+// shadow ray whose cutoff leaves it no step writes (1, bias) at once. The
+// soft march has no cull (its penumbra darkens rays that pass near a bound
 // without entering it), so its bound is compute: one DE per step, every
-// step up to the ray's own cutoff or the step budget. It is as chaotic near
-// the Mandelbulb as the primary march: the argmin t flips on one rounding
-// difference, so it keeps the reference's op order (and the library builds
-// with --fmad=false).
+// step up to the ray's own cutoff or the step budget. It is as chaotic
+// near the Mandelbulb as the primary march: the argmin t flips on one
+// rounding difference, so it keeps the reference's op order (and the
+// library builds with --fmad=false). The packed scene parameters are a few
+// hundred bytes, read through the L1 cache.
 //
-// The soft march's per-ray loop is plain C++ above the __CUDACC__ guard, so
-// that it also builds as host code (tests/test_torch_shade_bwd.py holds
-// that build against shadow_soft_torch on the CPU).
+// What was measured at the main path's launch size (32,768 or 65,536
+// rays; chip_smoke.py phase `launch`, with the optional counters): lane
+// efficiency is 0.97-1.0 on every block but one (every soft ray takes all
+// its steps), and a launch lasts as long as its slowest warp's chain. A
+// grid whose warps refill from a ray counter cannot shorten that chain, and
+// at this size every ray already has a thread, so the kernel keeps one
+// thread a ray. A copy of the parameters in shared memory moved the soft
+// march by -1.0% (generic field) and +1.6% (power 8) in one run: not kept.
+//
+// The per-ray shadow marches (the hard one with its cull, the soft one) are
+// plain C++ above the __CUDACC__ guard, so that they also build as host
+// code (tests/test_torch_shade_bwd.py holds that build against
+// shadow_hard_torch and shadow_soft_torch on the CPU).
 #include <stdint.h>
 
 #include "sdf.cuh"
 
 namespace tr {
+
+// A hard-shadow ray's march end: its cutoff tf clamped at the last exit
+// from the bounding spheres grown by eps (a blocker needs DE < eps, so only
+// inside one), or at 0 when it misses them all; tf without bounds.
+__device__ __forceinline__ float shadow_hard_cut(const float* bounds, int n_bounds, float eps,
+                                                 float px, float py, float pz, float lx,
+                                                 float ly, float lz, float tf) {
+  if (n_bounds <= 0) return tf;
+  float t_cut = 0.0f;
+  for (int k = 0; k < n_bounds; ++k) {
+    const float* b = bounds + 4 * k;
+    const float r = b[3] + eps;
+    const float ocx = px - b[0], ocy = py - b[1], ocz = pz - b[2];
+    const float bb = ocx * lx + ocy * ly + ocz * lz;
+    const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+    const float disc = bb * bb - c2;
+    const float texit = sqrtf(fmaxf(disc, 0.0f)) - bb;
+    t_cut = fmaxf(t_cut, disc >= 0.0f ? texit : 0.0f);
+  }
+  return fminf(tf, t_cut);
+}
+
+// One hard-shadow ray: the cull, then steps of max(DE, eps/2) until a DE
+// below eps blocks it, t reaches the cut-off tf or the step budget is
+// spent. Writes the visibility (0 or 1) and ts = bias; returns the DE steps
+// taken (0 for a ray that the cull or its cutoff leaves no step).
+template <bool kPow8>
+__device__ __forceinline__ int shadow_hard_ray(const SdfParams& sdf, const float* bounds,
+                                               int n_bounds, float px, float py, float pz,
+                                               float lx, float ly, float lz, float tf,
+                                               float eps, int max_steps, float bias,
+                                               float* vis, float* ts) {
+  tf = shadow_hard_cut(bounds, n_bounds, eps, px, py, pz, lx, ly, lz, tf);
+  float t = bias, v = 1.0f;
+  int k = 0;
+  for (; k < max_steps; ++k) {
+    if (!(t < tf)) break;
+    const float dd = scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
+    if (dd < eps) {
+      v = 0.0f;
+      ++k;
+      break;
+    }
+    t = t + fmaxf(dd, eps * 0.5f);
+  }
+  *vis = v;
+  *ts = bias;
+  return k;
+}
 
 // One soft-shadow ray: the penumbra s = min over the march of
 // soft_k * DE / max(t, bias) from 1, the step DE clipped to [eps/2, 0.4],
@@ -158,77 +218,28 @@ __global__ void march_kernel(const float* __restrict__ o,
   tmin_out[i] = tmin;
 }
 
-template <bool kPow8>
-__global__ void shadow_hard_kernel(const float* __restrict__ p,
-                                   const float* __restrict__ l,
-                                   const float* __restrict__ t_far_rays, int n,
-                                   tr::SdfParams sdf,
-                                   const float* __restrict__ bounds,
-                                   int n_bounds, float eps, float t_far,
-                                   int max_steps, float bias,
-                                   float* __restrict__ vis_out,
-                                   float* __restrict__ ts_out,
-                                   unsigned long long* __restrict__ counters) {
+// One thread a shadow ray, its cull first: a ray whose cutoff (with the
+// hard march's bound cull) leaves it no step writes (1, bias) at once.
+template <bool kPow8, bool kSoft>
+__global__ void shadow_kernel(
+    const float* __restrict__ p, const float* __restrict__ l,
+    const float* __restrict__ t_far_rays, int n, tr::SdfParams sdf,
+    const float* __restrict__ bounds, int n_bounds, float eps, float t_far, int max_steps,
+    float bias, float soft_k, float* __restrict__ vis_out, float* __restrict__ ts_out,
+    unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned mask = __ballot_sync(0xffffffffu, i < n);
   if (i >= n) return;
   const long long c0 = clock64();
   const float px = p[3 * i], py = p[3 * i + 1], pz = p[3 * i + 2];
   const float lx = l[3 * i], ly = l[3 * i + 1], lz = l[3 * i + 2];
-  float tf = t_far_rays ? t_far_rays[i] : t_far;
-  const bool live = bias < tf;
-  if (n_bounds > 0) {
-    // a blocker needs DE < eps, so only inside a bound inflated by eps:
-    // clamp the march at the last bound exit (0 when every bound is missed)
-    float t_cut = 0.0f;
-    for (int k = 0; k < n_bounds; ++k) {
-      const float* b = bounds + 4 * k;
-      const float r = b[3] + eps;
-      const float ocx = px - b[0], ocy = py - b[1], ocz = pz - b[2];
-      const float bb = ocx * lx + ocy * ly + ocz * lz;
-      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-      const float disc = bb * bb - c2;
-      const float texit = sqrtf(fmaxf(disc, 0.0f)) - bb;
-      t_cut = fmaxf(t_cut, disc >= 0.0f ? texit : 0.0f);
-    }
-    tf = fminf(tf, t_cut);
-  }
-  float t = bias;
-  bool blocked = false;
-  int steps = 0;
-  for (int s = 0; s < max_steps; ++s) {
-    if (!(t < tf)) break;
-    const float dd = tr::scene_de<kPow8>(sdf, px + t * lx, py + t * ly, pz + t * lz);
-    ++steps;
-    if (dd < eps) {
-      blocked = true;
-      break;
-    }
-    t = t + fmaxf(dd, eps * 0.5f);
-  }
-  vis_out[i] = blocked ? 0.0f : 1.0f;
-  ts_out[i] = bias;
-  if (counters) shadow_count(counters, mask, live, bias < tf, steps, c0);
-}
-
-template <bool kPow8>
-__global__ void shadow_soft_kernel(const float* __restrict__ p,
-                                   const float* __restrict__ l,
-                                   const float* __restrict__ t_far_rays, int n,
-                                   tr::SdfParams sdf, float eps, float t_far,
-                                   int max_steps, float bias, float soft_k,
-                                   float* __restrict__ vis_out,
-                                   float* __restrict__ ts_out,
-                                   unsigned long long* __restrict__ counters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned mask = __ballot_sync(0xffffffffu, i < n);
-  if (i >= n) return;
-  const long long c0 = clock64();
   const float tf = t_far_rays ? t_far_rays[i] : t_far;
-  const int steps = tr::shadow_soft_ray<kPow8>(
-      sdf, p[3 * i], p[3 * i + 1], p[3 * i + 2], l[3 * i], l[3 * i + 1], l[3 * i + 2], tf,
-      eps, max_steps, bias, soft_k, vis_out + i, ts_out + i);
-  if (counters) shadow_count(counters, mask, bias < tf, bias < tf, steps, c0);
+  const int steps =
+      kSoft ? tr::shadow_soft_ray<kPow8>(sdf, px, py, pz, lx, ly, lz, tf, eps, max_steps, bias,
+                                         soft_k, vis_out + i, ts_out + i)
+            : tr::shadow_hard_ray<kPow8>(sdf, bounds, n_bounds, px, py, pz, lx, ly, lz, tf, eps,
+                                         max_steps, bias, vis_out + i, ts_out + i);
+  if (counters) shadow_count(counters, mask, bias < tf, steps > 0, steps, c0);
 }
 
 }  // namespace
@@ -245,6 +256,20 @@ __global__ void shadow_soft_kernel(const float* __restrict__ p,
       kernel<false><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>( \
           __VA_ARGS__);                                                       \
   } while (0)
+
+// Launches the shadow march of the field sdf.mb_pow8 names, hard or soft.
+template <bool kSoft>
+int launch_shadow(const float* p, const float* l, const float* t_far_rays, int n,
+                  const tr::SdfParams& sdf, const float* bounds, int n_bounds, float eps,
+                  float t_far, int steps, float bias, float soft_k, float* vis, float* ts,
+                  unsigned long long* counters, void* stream) {
+  if (n <= 0) return 0;
+  auto kernel = sdf.mb_pow8 ? shadow_kernel<true, kSoft> : shadow_kernel<false, kSoft>;
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, l, t_far_rays, n, sdf, bounds, n_bounds, eps, t_far, steps, bias, soft_k, vis, ts,
+      counters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int tr_march(const float* o, const float* d, int n,
                         const float* params, int n_sph, int n_pln, int n_box,
@@ -267,11 +292,9 @@ extern "C" int tr_shadow_hard(const float* p, const float* l,
                               float t_far, int steps, float bias, float* vis,
                               float* ts, unsigned long long* counters,
                               void* stream) {
-  if (n <= 0) return 0;
   const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
-  TR_LAUNCH_SDF(shadow_hard_kernel, n, stream, p, l, t_far_rays, n, sdf,
-                bounds, n_bounds, eps, t_far, steps, bias, vis, ts, counters);
-  return static_cast<int>(cudaGetLastError());
+  return launch_shadow<false>(p, l, t_far_rays, n, sdf, bounds, n_bounds, eps, t_far, steps,
+                              bias, 0.0f, vis, ts, counters, stream);
 }
 
 extern "C" int tr_shadow_soft(const float* p, const float* l,
@@ -281,11 +304,9 @@ extern "C" int tr_shadow_soft(const float* p, const float* l,
                               float eps, float t_far, int steps, float bias,
                               float soft_k, float* vis, float* ts,
                               unsigned long long* counters, void* stream) {
-  if (n <= 0) return 0;
   const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
-  TR_LAUNCH_SDF(shadow_soft_kernel, n, stream, p, l, t_far_rays, n, sdf, eps,
-                t_far, steps, bias, soft_k, vis, ts, counters);
-  return static_cast<int>(cudaGetLastError());
+  return launch_shadow<true>(p, l, t_far_rays, n, sdf, nullptr, 0, eps, t_far, steps, bias,
+                             soft_k, vis, ts, counters, stream);
 }
 
 #endif  // __CUDACC__

@@ -28,18 +28,22 @@
 // gives d/d mb_power, the bulb row's fifth cotangent); the entry point
 // launches the one mb_pow8 names.
 //
-// The simple design: one thread per ray, and a per-ray branch in place of
-// the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438): a
-// lane that selects no surface runs the sky's pullback, a selected mesh hit
-// the Moller-Trumbore re-solve of its triangle, a selected SDF hit the IFT
+// The design: one thread per ray, and a per-ray branch in place of the
+// Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438): a lane
+// that selects no surface runs the sky's pullback, a selected mesh hit the
+// Moller-Trumbore re-solve of its triangle, a selected SDF hit the IFT
 // attach and the normal. The branch is exact: the unselected branches'
 // cotangents are zero in the reference too. Ties of the coverage's max and
 // min split the cotangent in halves and clips pass it at their bounds, as
-// torch's autograd does. The parameter cotangents are reduced without
-// atomics: each thread writes its ray's into its own column of shared
-// memory, each block sums its columns in a fixed order into one partial row,
-// and a second kernel sums the rows in a fixed order, so two runs give
-// bit-identical parameter gradients.
+// torch's autograd does. With the generic field a block first sorts its
+// rays by the class of their chain, so that a warp runs one chain. The
+// Mandelbulb adjoint keeps its stored iterations in the thread's column of
+// shared memory (sdf_adj.cuh's MbStore), not in local memory. The
+// parameter cotangents are reduced without atomics: each thread writes its
+// ray's into the ray's own column of shared memory, each block sums its
+// columns (a warp a column, in a fixed order) into one partial row, and a
+// second kernel sums the rows (a warp a parameter, the same order), so two
+// runs give bit-identical parameter gradients.
 //
 // Everything above the kernels is plain C++, so that the per-ray arithmetic
 // also builds as host code (tests/test_torch_shade_bwd.py holds that build
@@ -80,22 +84,25 @@ __device__ __forceinline__ void min_adj(float x, float y, float d_a, float* d_x,
 // acc, and d_q gains w * grad_q DE.
 template <bool kPow8>
 __device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
-                           float* acc, int stride, float* d_q) {
+                           float* acc, int stride, float* d_q, const MbStore& st) {
   if (w == 0.0f) return;
   int kind = 0;
   const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind);
   if (prim < 0) return;
   float g[3], gth[7];
-  prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth);
-  for (int k = 0; k < prim_stride(kind); ++k) acc[(prim + k) * stride] += w * gth[k];
+  prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth, st);
+  const int np = prim_stride(kind);
+#pragma unroll
+  for (int k = 0; k < 7; ++k)  // a constant index: gth stays in registers
+    if (k < np) acc[(prim + k) * stride] += w * gth[k];
   for (int k = 0; k < 3; ++k) d_q[k] += w * g[k];
 }
 
 // The mesh chain's pullback into o, d and the corners: p = o + tm d and
 // n = normalize(e1 x e2) with cotangents d_p and d_n (where the mesh hit is
 // selected), and the edge band's margin with cotangent d_margin.
-__device__ void mesh_bwd(const RayIn& r, const float* d_p, const float* d_n,
-                         float d_margin, float* d_o, float* d_d, float* d_c) {
+__device__ __forceinline__ void mesh_bwd(const RayIn& r, const float* d_p, const float* d_n,
+                                         float d_margin, float* d_o, float* d_d, float* d_c) {
   MtSolve m;
   mt_solve(r, &m);
   for (int k = 0; k < 3; ++k) {
@@ -171,14 +178,15 @@ __device__ void mesh_bwd(const RayIn& r, const float* d_p, const float* d_n,
 // Adds ray r's parameter cotangents into acc (parameter j at acc[j * stride])
 // and writes its cotangents of o, d (3 each) and of the corners (9).
 template <bool kPow8>
-__device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
-                              int stride, float* d_o, float* d_d, float* d_c) {
+__device__ __forceinline__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r,
+                                              float* acc, int stride, float* d_o, float* d_d,
+                                              float* d_c, const MbStore& st) {
   for (int k = 0; k < 3; ++k) d_o[k] = d_d[k] = 0.0f;
   for (int k = 0; k < 9; ++k) d_c[k] = 0.0f;
   const float* P = s.sdf.p;
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  const bool surf = shade_surface<kPow8>(s, r, &f);
+  const bool surf = shade_surface<kPow8>(s, r, &f, st);
 
   // --- reverse: out = bg + cov * (colour - bg), colour = albedo[mat] * rad
   float d_bg[3], d_color[3], d_cov = 0.0f;
@@ -244,7 +252,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     if (pen_pass) {  // vis = vs * clip(soft_k * DE(p_off + ts l) / max(ts, bias))
       const float d_pen = d_term * ndotl * vs;
       float d_q[3] = {0.0f, 0.0f, 0.0f};
-      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q, st);
       for (int k = 0; k < 3; ++k) {
         d_poff[k] += d_q[k];
         d_l[k] += ts * d_q[k];
@@ -300,7 +308,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     if (pen_pass) {  // the penumbra along lo = normalize(lpos - p_off)
       const float d_pen = d_f / den * ndotl * vs;
       float d_q[3] = {0.0f, 0.0f, 0.0f}, d_lo[3], d_lvo[3];
-      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q);
+      de_adj_add<kPow8>(s, q, s.soft_k * (d_pen / fmaxf(ts, s.bias)), acc, stride, d_q, st);
       for (int k = 0; k < 3; ++k) {
         d_poff[k] += d_q[k];
         d_lo[k] = ts * d_q[k];
@@ -320,11 +328,11 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     const float d_occ = -(s.ao_strength * d_ao);
     double w = 1.0;
     for (int i = 0; i < kAoTaps; ++i) {
-      if (f.tap_sdf[i]) {
+      if ((f.tap_sdf >> i) & 1u) {
         const float h = static_cast<float>(s.ao_step * (i + 1));
         const float q[3] = {p[0] + h * nf[0], p[1] + h * nf[1], p[2] + h * nf[2]};
         float d_q[3] = {0.0f, 0.0f, 0.0f};
-        de_adj_add<kPow8>(s, q, -(static_cast<float>(w) * d_occ), acc, stride, d_q);
+        de_adj_add<kPow8>(s, q, -(static_cast<float>(w) * d_occ), acc, stride, d_q, st);
         for (int k = 0; k < 3; ++k) {
           d_p[k] += d_q[k];
           d_n[k] += h * d_q[k];
@@ -365,7 +373,7 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
     for (int k = 0; k < 3; ++k) u[k] = (d_n[k] - (n_ok ? f.n[k] * nd : 0.0f)) / f.glen;
     Dual hp[3], hth[7];
     prim_adj<Dual, kPow8>(P + f.prim, f.kind, s.sdf.mb_iters, Dual(p[0], u[0]),
-                   Dual(p[1], u[1]), Dual(p[2], u[2]), hp, hth);
+                          Dual(p[1], u[1]), Dual(p[2], u[2]), hp, hth, st);
     const int np = prim_stride(f.kind);
     float d_ps[3];
     for (int k = 0; k < 3; ++k) d_ps[k] = d_p[k] + tan_(hp[k]) + d_dmin * f.g[k];
@@ -389,13 +397,41 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
       }
     }
     // on a hit the IFT's scale, on a miss the silhouette's d_dmin: one is 0
-    for (int k = 0; k < np; ++k)
-      acc[(f.prim + k) * stride] += tan_(hth[k]) + (scale + d_dmin) * f.gth[k];
+#pragma unroll
+    for (int k = 0; k < 7; ++k)  // a constant index: hth and gth stay in registers
+      if (k < np) acc[(f.prim + k) * stride] += tan_(hth[k]) + (scale + d_dmin) * f.gth[k];
   }
   if (s.use_mesh && r.hm && (!f.sel_sdf || d_margin != 0.0f)) {
-    const float zero[3] = {0.0f, 0.0f, 0.0f};
-    mesh_bwd(r, f.sel_sdf ? zero : d_p, f.sel_sdf ? zero : d_n, d_margin, d_o, d_d, d_c);
+    // the point's and the normal's cotangents where the mesh hit is selected
+    // (selected per element: a pointer chosen at run time would put both
+    // arrays in local memory)
+    float dp_m[3], dn_m[3];
+    for (int k = 0; k < 3; ++k) {
+      dp_m[k] = f.sel_sdf ? 0.0f : d_p[k];
+      dn_m[k] = f.sel_sdf ? 0.0f : d_n[k];
+    }
+    mesh_bwd(r, dp_m, dn_m, d_margin, d_o, d_d, d_c);
   }
+}
+
+// The order in which the kernels sum n values v[0], v[stride], ... (a
+// column of the block's cotangents, or a parameter's partial rows): lane l
+// of a warp adds v[l], v[l + 32], ... in turn, then the 32 lane sums meet in
+// a butterfly, each lane adding the sum of lane l ^ 16, then l ^ 8, l ^ 4,
+// l ^ 2 and l ^ 1 to its own. The kernels run it with warp shuffles
+// (warp_sum); this is its host build, lane by lane.
+__device__ __forceinline__ float lane_tree_sum(const float* v, int n, int stride) {
+  float lanes[32], next[32];
+  for (int l = 0; l < 32; ++l) {
+    float sum = 0.0f;
+    for (int k = l; k < n; k += 32) sum += v[k * stride];
+    lanes[l] = sum;
+  }
+  for (int off = 16; off; off >>= 1) {
+    for (int l = 0; l < 32; ++l) next[l] = lanes[l] + lanes[l ^ off];
+    for (int l = 0; l < 32; ++l) lanes[l] = next[l];
+  }
+  return lanes[0];
 }
 
 }  // namespace tr
@@ -405,8 +441,10 @@ __device__ void shade_bwd_ray(const ShadeParams& s, const RayIn& r, float* acc,
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kBlockWarps = kThreads / 32;
 constexpr int kStride = kThreads + 1;  // shared columns, padded: no bank conflicts
-constexpr int kMaxSmem = 227 * 1024;
+// the dynamic shared memory a block may take beside its static arrays
+constexpr int kMaxSmem = 227 * 1024 - (2 * kThreads + (tr::kNumClasses + 1) * kBlockWarps) * 4;
 
 // The optional counters (cuda_shade.SHADE_BWD_COUNTERS), added to by a
 // launch given a counters pointer: its rays by class (tr::RayClass) and the
@@ -421,8 +459,8 @@ enum ShadeCounter {
   kClassWarps = 8, kClassCycles = 12, kClassCyclesMax = 16, kEpilogueCycles = 20,
   kEpilogueCyclesMax = 21, kBlocks = 22, kSumCyclesMax = 23, kNumShadeCounters = 24};
 
-// One warp's share of the counters: lane k's ray has class cls (run) and
-// the ray lane k loaded has class cls_loaded; valid: lane k has a ray.
+// One warp's share of the counters: lane k's ray has class cls (as run)
+// and the ray lane k loaded class cls_loaded; valid: lane k has a ray.
 __device__ void shade_count_warp(unsigned long long* counters, bool valid, int cls,
                                  int cls_loaded, bool bulb_ao, long long c0) {
   using u64 = unsigned long long;
@@ -452,36 +490,82 @@ __device__ void shade_count_warp(unsigned long long* counters, bool valid, int c
   }
 }
 
+// The fixed-order sum of lane_tree_sum with warp shuffles (the second
+// pass; the block's column sums run the same order four columns at a
+// time): every lane of the warp returns the total.
+__device__ __forceinline__ float warp_sum(const float* v, int n, int stride) {
+  float sum = 0.0f;
+  for (int k = threadIdx.x & 31; k < n; k += 32) sum += v[k * stride];
+  for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
+// One block of kThreads rays. Dynamic shared memory: acc[n_par][kStride]
+// (column j is ray j's parameter cotangents), then each thread's MbStore
+// column (2 * slots floats a thread: the Mandelbulb adjoint's stored
+// iterations, values then Dual tangents). The launch bounds name one block
+// an SM: with the thread count alone ptxas held the generic build at 128
+// registers and spilled.
 template <bool kPow8>
-__global__ void shade_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, 1) shade_bwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ corners, const float* __restrict__ t_bar,
     const float* __restrict__ tmin, const uint8_t* __restrict__ hs,
     const uint8_t* __restrict__ hm, const uint8_t* __restrict__ closer,
     const int* __restrict__ mat, const float* __restrict__ vis,
     const float* __restrict__ ts, const float* __restrict__ ao_tmesh,
-    const float* __restrict__ ct, int n, float* __restrict__ d_o,
+    const float* __restrict__ ct, int n, int slots, float* __restrict__ d_o,
     float* __restrict__ d_d, float* __restrict__ d_corners,
     float* __restrict__ partials, unsigned long long* __restrict__ counters) {
-  extern __shared__ float acc[];  // [n_par][kStride]: column tid is ray tid's
-  const int tid = threadIdx.x;
+  extern __shared__ float acc[];
+  __shared__ int cls_of[kThreads], perm[kThreads];
+  __shared__ int class_count[tr::kNumClasses + 1][kBlockWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = 0; j < s.n_par; ++j) acc[j * kStride + tid] = 0.0f;
-  const int i = blockIdx.x * kThreads + tid;
+  const tr::MbStore st{acc + s.n_par * kStride + tid, kThreads, slots * kThreads};
+
+  // With the generic field, the block's rays in a stable order by class
+  // (lanes past n last), so that a warp's 32 rays run one chain: its bulb
+  // lanes take ~13x an SDF lane's cycles, and the sort made the silhouette
+  // block 11% faster. With the power-8 field (~4.5x) the class's scene_argmin
+  // cost more than the sort saved (3-5% slower), and the rays keep their
+  // load order.
+  const int i_loaded = blockIdx.x * kThreads + tid;
+  int cls = tr::kNumClasses;
+  if (i_loaded < n && (!kPow8 || counters))
+    cls = tr::ray_class<kPow8>(s, tr::load_ray(i_loaded, n, o, d, corners, t_bar, tmin, hs,
+                                               hm, closer, mat, vis, ts, ao_tmesh, ct));
+  cls_of[tid] = cls;
+  int pos = tid;
+  if (!kPow8) {
+    for (int c = 0; c <= tr::kNumClasses; ++c) {
+      const unsigned m = __ballot_sync(0xffffffffu, cls == c);
+      if (cls == c) pos = __popc(m & ((1u << lane) - 1u));
+      if (lane == 0) class_count[c][warp] = __popc(m);
+    }
+    __syncthreads();
+    for (int c = 0; c <= cls; ++c)
+      for (int w = 0; w < kBlockWarps; ++w)
+        if (c < cls || w < warp) pos += class_count[c][w];
+  }
+  perm[pos] = tid;
+  __syncthreads();
+
+  // thread tid runs ray j and adds into its column j: the column sums below
+  // take the same values in the same order as without the sort
+  const int j = perm[tid];
+  const int i = blockIdx.x * kThreads + j;
   const bool valid = i < n;
-  tr::RayIn r;
-  if (valid)
-    r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts,
-                     ao_tmesh, ct);
-  int cls = 0;
   long long c0 = 0;
   if (counters) {
-    if (valid) cls = tr::ray_class<kPow8>(s, r);
     __syncwarp();
     c0 = clock64();
   }
   if (valid) {
+    const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm, closer, mat,
+                                     vis, ts, ao_tmesh, ct);
     float go[3], gd[3], gc[9];
-    tr::shade_bwd_ray<kPow8>(s, r, acc + tid, kStride, go, gd, gc);
+    tr::shade_bwd_ray<kPow8>(s, r, acc + j, kStride, go, gd, gc, st);
     for (int k = 0; k < 3; ++k) {
       d_o[3 * i + k] = go[k];
       d_d[3 * i + k] = gd[k];
@@ -489,14 +573,29 @@ __global__ void shade_bwd_kernel(
     if (d_corners)
       for (int k = 0; k < 9; ++k) d_corners[9 * i + k] = gc[k];
   }
-  if (counters) shade_count_warp(counters, valid, cls, cls, s.ao_sdf || s.soft_diff, c0);
+  if (counters)
+    shade_count_warp(counters, valid, cls_of[j], cls, s.ao_sdf || s.soft_diff, c0);
   __syncthreads();
   const long long e0 = clock64();
-  // the block's partial row: each parameter's column sum, in ray order
-  for (int j = tid; j < s.n_par; j += kThreads) {
-    float sum = 0.0f;
-    for (int k = 0; k < kThreads; ++k) sum += acc[j * kStride + k];
-    partials[blockIdx.x * s.n_par + j] = sum;
+  // the block's partial row: a warp a column, each column in warp_sum's
+  // order, four columns of a warp at a time (their shuffles overlap)
+  for (int col0 = warp; col0 < s.n_par; col0 += 4 * kBlockWarps) {
+    float sum[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + c * kBlockWarps;
+      sum[c] = 0.0f;
+      if (col < s.n_par)
+        for (int k = lane; k < kThreads; k += 32) sum[c] += acc[col * kStride + k];
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], off);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (lane == 0 && col0 + c * kBlockWarps < s.n_par)
+        partials[blockIdx.x * s.n_par + col0 + c * kBlockWarps] = sum[c];
   }
   if (counters) {
     __syncthreads();
@@ -509,19 +608,21 @@ __global__ void shade_bwd_kernel(
   }
 }
 
-// d_small[j] = sum of the partial rows' column j, in block order.
+// d_small[j] = the sum of the partial rows' column j: a warp a parameter,
+// in warp_sum's order.
 __global__ void sum_partials_kernel(const float* __restrict__ partials,
                                     int n_rows, int n_par,
                                     float* __restrict__ out,
                                     unsigned long long* __restrict__ counters) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_par) return;
+  const int j = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (j >= n_par) return;  // the whole warp
   const long long c0 = clock64();
-  float sum = 0.0f;
-  for (int b = 0; b < n_rows; ++b) sum += partials[b * n_par + j];
-  out[j] = sum;
-  if (counters)
-    atomicMax(counters + kSumCyclesMax, static_cast<unsigned long long>(clock64() - c0));
+  const float sum = warp_sum(partials + j, n_rows, n_par);
+  if ((threadIdx.x & 31) == 0) {
+    out[j] = sum;
+    if (counters)
+      atomicMax(counters + kSumCyclesMax, static_cast<unsigned long long>(clock64() - c0));
+  }
 }
 
 }  // namespace
@@ -544,7 +645,9 @@ extern "C" int tr_shade_bwd(
       use_mesh, ao_sdf, ao_mesh, soft_diff, soft_sil, mesh_sil, ao_step,
       ao_strength, soft_k, bias);
   const int n_blocks = n > 0 ? (n + kThreads - 1) / kThreads : 0;
-  const size_t smem = static_cast<size_t>(s.n_par) * kStride * sizeof(float);
+  const int slots = n_mb > 0 ? tr::mb_store_slots(mb_iters) : 0;
+  const size_t smem =
+      (static_cast<size_t>(s.n_par) * kStride + 2 * slots * kThreads) * sizeof(float);
   if (n_mat < 1 || smem > kMaxSmem ||
       n_partial_rows != n_blocks || (soft_diff && !ts) || (ao_mesh && !ao_tmesh) ||
       (soft_sil > 0.0f && !tmin))
@@ -560,11 +663,11 @@ extern "C" int tr_shade_bwd(
     }
     kernel<<<n_blocks, kThreads, smem, st>>>(
         s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
-        ct, n, d_o, d_d, d_corners, partials, counters);
+        ct, n, slots, d_o, d_d, d_corners, partials, counters);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sum_partials_kernel<<<(s.n_par + 127) / 128, 128, 0, st>>>(
+  sum_partials_kernel<<<(32 * s.n_par + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       partials, n_blocks, s.n_par, d_small, counters);
   return static_cast<int>(cudaGetLastError());
 }

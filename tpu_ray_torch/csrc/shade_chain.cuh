@@ -16,7 +16,10 @@
 // Everything here is plain C++ apart from the qualifiers, so that it also
 // builds as host code (the CPU tests hold that build against the plain
 // version). The functions that read the distance field are templates on its
-// Mandelbulb (kPow8: sdf.cuh), as are the kernels over them.
+// Mandelbulb (kPow8: sdf.cuh), as are the kernels over them; those that run
+// its adjoint take the thread's MbStore (sdf_adj.cuh). The functions a
+// kernel calls once are forced inline, so that the arrays they fill stay in
+// registers.
 #pragma once
 
 #include <stdint.h>
@@ -130,7 +133,7 @@ __device__ __forceinline__ void cross3(const float* a, const float* b, float* c)
 // clip(soft_k * DE(q) / max(ts, bias), 0, 1) at q = p_off + ts * l. Writes q
 // and whether the clip passes a gradient.
 template <bool kPow8>
-__device__ inline float penumbra(const ShadeParams& s, const float* p_off,
+__device__ __forceinline__ float penumbra(const ShadeParams& s, const float* p_off,
                                  const float* l, float ts, float* q, bool* pass) {
   for (int k = 0; k < 3; ++k) q[k] = p_off[k] + ts * l[k];
   const float dd = scene_de<kPow8>(s.sdf, q[0], q[1], q[2]);
@@ -201,7 +204,9 @@ struct SurfFwd {
   float cov_s, cm, ratio, cov;  // coverages; ratio = margin / mesh_sil
   int mat;
   float ao;
-  bool ao_pass, tap_sdf[kAoTaps];  // the AO clip passes; a tap's occluder is its DE
+  bool ao_pass;          // the AO clip passes
+  unsigned tap_sdf;      // bit i: tap i's occluder is its DE (a mask, not an
+                         // array: a runtime index would put f in local memory)
   float p_off[3];        // the shadow rays' origin
   float rad[3];
 };
@@ -233,8 +238,8 @@ __device__ __forceinline__ float sdf_t_eff(const ShadeParams& s, const RayIn& r)
 // as reconstruct_hits: cov = (hm && !closer) ? cm : max(cov_s, cm); an
 // SDF-only chain has cov_s, a mesh-only one cm.
 template <bool kPow8>
-__device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
-                                     SurfFwd* f) {
+__device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn& r,
+                                              SurfFwd* f, const MbStore& st) {
   const float* P = s.sdf.p;
   const bool soft_sil = s.soft_sil > 0.0f;
   const bool mixed = s.use_sdf && s.use_mesh;
@@ -271,7 +276,7 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
     f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
     if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
     prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
-                    f->p[2], f->g, f->gth);
+                           f->p[2], f->g, f->gth, st);
     f->glen = sqrtf(fmaxf(dot3(f->g, f->g), 1e-12f));
     for (int k = 0; k < 3; ++k) f->n[k] = f->g[k] / f->glen;
     // on a miss the closest-approach point o + tmin d is p itself
@@ -291,13 +296,14 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
   // over h_i = ao_step * i, ao = clip(1 - ao_strength * occ, 0, 1)
   f->ao = 1.0f;
   f->ao_pass = false;
+  f->tap_sdf = 0u;
   if (s.ao_sdf || s.ao_mesh) {
     float occ = 0.0f;
     double w = 1.0;
     for (int i = 0; i < kAoTaps; ++i) {
       const float h = static_cast<float>(s.ao_step * (i + 1));
       float dd = 0.0f;
-      f->tap_sdf[i] = s.ao_sdf != 0;
+      bool tap_sdf = s.ao_sdf != 0;
       if (s.ao_sdf)
         dd = scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
                       f->p[2] + h * f->nf[2]);
@@ -305,9 +311,10 @@ __device__ inline bool shade_surface(const ShadeParams& s, const RayIn& r,
         const float dm = fabsf(r.t_mesh - h);
         if (!s.ao_sdf || dm < dd) {
           dd = dm;
-          f->tap_sdf[i] = false;
+          tap_sdf = false;
         }
       }
+      if (tap_sdf) f->tap_sdf |= 1u << i;
       occ = occ + static_cast<float>(w) * (h - dd);
       w *= 0.7;
     }

@@ -34,11 +34,11 @@ namespace tr {
 // Ray r's colour: the sky where it selects no surface, else the surface
 // colour blended over the sky by its coverage, bg + cov * (colour - bg).
 template <bool kPow8>
-__device__ inline void shade_fwd_ray(const ShadeParams& s, const RayIn& r,
-                                     float* rgb) {
+__device__ __forceinline__ void shade_fwd_ray(const ShadeParams& s, const RayIn& r,
+                                              float* rgb, const MbStore& st) {
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  if (!shade_surface<kPow8>(s, r, &f)) {
+  if (!shade_surface<kPow8>(s, r, &f, st)) {
     for (int c = 0; c < 3; ++c) rgb[c] = sky(s, c, sb);
     return;
   }
@@ -57,8 +57,12 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// Dynamic shared memory: each thread's MbStore column (slots floats: the
+// normal's Mandelbulb adjoint's stored iterations). The launch bounds name
+// one block an SM, as shade_bwd.cu's do (with the thread count alone ptxas
+// spilled).
 template <bool kPow8>
-__global__ void shade_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 1) shade_fwd_kernel(
     tr::ShadeParams s, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ corners, const float* __restrict__ t_bar,
     const float* __restrict__ tmin, const uint8_t* __restrict__ hs,
@@ -66,12 +70,13 @@ __global__ void shade_fwd_kernel(
     const int* __restrict__ mat, const float* __restrict__ vis,
     const float* __restrict__ ts, const float* __restrict__ ao_tmesh, int n,
     float* __restrict__ out) {
+  extern __shared__ float store[];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const tr::RayIn r = tr::load_ray(i, n, o, d, corners, t_bar, tmin, hs, hm,
                                    closer, mat, vis, ts, ao_tmesh, nullptr);
   float rgb[3];
-  tr::shade_fwd_ray<kPow8>(s, r, rgb);
+  tr::shade_fwd_ray<kPow8>(s, r, rgb, tr::MbStore{store + threadIdx.x, kThreads, 0});
   for (int c = 0; c < 3; ++c) out[3 * i + c] = rgb[c];
 }
 
@@ -95,7 +100,14 @@ extern "C" int tr_shade_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     auto kernel = mb_pow8 ? shade_fwd_kernel<true> : shade_fwd_kernel<false>;
-    kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+    const size_t smem =
+        static_cast<size_t>(n_mb > 0 ? tr::mb_store_slots(mb_iters) : 0) * kThreads * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         s, o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, ao_tmesh,
         n, out);

@@ -21,12 +21,11 @@ CUDA tensors, raising on what the kernels do not take. Each launch adds one
 to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`; `shade_bwd` takes
 an optional `counters` tensor (int64, len(SHADE_BWD_COUNTERS), on the rays'
 device) to which a launch adds what it did, and the main path passes none.
-The chains the
-kernels take: methods sdf, mesh_* and mixed, directional and point lights,
-static shadow visibility (hard, soft or none), the soft-shadow penumbra
-with `diff_vis`, the 5-tap AO, the soft SDF silhouette and the mesh edge
-band, the power-8 and the generic-power Mandelbulb (the latter with its
-`sdf.mb_power` cotangent) at any iteration count, float32.
+The chains the kernels take: methods sdf, mesh_* and mixed, directional and
+point lights, static shadow visibility (hard, soft or none), the
+soft-shadow penumbra with `diff_vis`, the 5-tap AO, the soft SDF silhouette
+and the mesh edge band, the power-8 and the generic-power Mandelbulb (the
+latter with its `sdf.mb_power` cotangent) at any iteration count, float32.
 """
 
 from __future__ import annotations
