@@ -15,8 +15,8 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills, and one line
-     (`ptxas of #2, #5, #6`) with each build's registers, stack frame and
-     spill stores and loads for the shadow marches and the shade kernels.
+     (`ptxas of #1, #2, #5, #6`) with each build's registers, stack frame and
+     spill stores and loads for the marches and the shade kernels.
   3. kernel parity on real rays: 4 blocks of the `mixed` frame in Morton
      order (those holding the bulb, the sphere, the knot and the ground in
      front) and the shadow rays the geometry pass makes from them; each
@@ -80,7 +80,8 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      parts against the whole mesh on 4,096 rays, #3 against its plain
      version, and both 1024x1024x1 frames (p99 pixel difference < 1e-5,
      at most 1e-4 of the pixels off by more than 1e-4)
-     with their launches: 16 of each #3 kernel, 6 x 16 of each #4 kernel.
+     with their launches: 16 of each #3 kernel, 6 x 16 of each #4 kernel;
+     #3 and #4 also timed on one block of the frame's launch size.
  19. ring_frame: `render_image_sharded(mixed, 960x540x16,
      scene_shards=True)` on a ring of one process (NCCL, world size 1), a
      quarter of phase 5's pixels, to keep the script well inside its time:
@@ -103,20 +104,22 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      3 Adam steps of `fit()` from the registry's power-8 scene (which fit
      switches to the generic field) at 256x256x4 toward the CLI demo target
      of `sdf.mb_power`, the albedo and the light colour; the loss falls.
- 23. launch: #2, #5 and #6 as render_pixels_flat launches them, once per
-     block of the path's size (32,768 rays for `mixed` and `mixed_sil`,
-     65,536 for `mandelbulb` and `mandelbulb_power`), on each block of the
-     path's parity points: the shadow march with the arguments the geometry
-     pass gives it (recorded), the shade forward with the frame's config,
-     the backward with the fit step's. Per block: CUDA-event time of the
-     wrapper's launch, the profiler's device time in the kernel and in the
-     wrapper's tensor ops, the bound of that block's work, and the counters
-     of #2 (live and marching rays, DE steps, lane efficiency, cycles a
-     warp) and #6 (rays by chain class, warps that mix classes, cycles a
-     warp by its costliest class, the reduction's cycles).
+ 23. launch: #1, #2, #3, #5 and #6 as render_pixels_flat launches them,
+     once per block of the path's size (32,768 rays for `mixed` and
+     `mixed_sil`, 65,536 for `mandelbulb` and `mandelbulb_power`), on each
+     block of the path's parity points, and #4 as the ring calls it on the
+     `mixed` blocks: the marches and the walks with the arguments the
+     geometry pass gives them (recorded), the shade forward with the
+     frame's config, the backward with the fit step's. Per block:
+     CUDA-event time of the wrapper's launch, the profiler's device time in
+     the kernel and in the wrapper's tensor ops, the bound of that block's
+     work, and the counters of #1 and #2 (live and marching rays, DE steps,
+     lane efficiency, cycles a warp) and #6 (rays by chain class, warps
+     that mix classes, cycles a warp by its costliest class, the
+     reduction's cycles).
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
-beat for the same work; #2, #5 and #6 also with their `launch_*` numbers),
+beat for the same work, and its `launch_*` numbers),
 the card's name and power limit, and the result as the last line. With
 --only, the per-launch table is the last line and no result is printed.
 """
@@ -1576,6 +1579,8 @@ def knot_parts(dev, smi, results, counts):
             f"{results['knot1m'][key.replace('resident', 'packet')]['ms']:.3f} ms"
             + walk_rate(results["knot1m"][key.replace("resident", "packet")]))
 
+    knot_launches(knot, kcfg, parts, results)
+
     n_blocks = -(-kcfg.num_rays // kcfg.block_size)
     imgs = {}
     with torch.no_grad():
@@ -1610,6 +1615,36 @@ def knot_parts(dev, smi, results, counts):
     check(p99 < 1e-5 and frac <= 1e-4, "knot1m parts frame against the whole-mesh frame")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     write_png(os.path.join(REPO, "build", "chip_smoke_knot1m.png"), imgs["knot1m_parts"].cpu().numpy())
+
+
+def knot_launches(knot, kcfg, parts, results):
+    """#3 and #4 on `knot1m` at its launch size (one block of
+    kcfg.block_size rays, the one that holds KNOT_POINTS), with the very
+    arguments the geometry pass gives them (recorded): #3 over the
+    whole-mesh accel, #4 over each part with the running t (the mean over
+    the parts)."""
+    from tpu_ray_torch.kernels import cuda_mt
+
+    o, d = block_rays(knot, kcfg, KNOT_POINTS, "knot1m_parts launch")
+    for name, scene, fn, kernel in (
+            ("knot1m", knot, "intersect_packet_streamed", "packet_kernel"),
+            ("knot1m_parts", knot.replace(packet=parts), "intersect_packet",
+             "packet_resident_kernel")):
+        calls = []
+        with recorded(cuda_mt, fn, calls):
+            shade_inputs(scene, kcfg, o, d, "mesh_grid")
+        per = len(calls) // 2
+        check(per == len(scene.packet) and len(calls) == 2 * per,
+              f"{name}: {len(calls)} {fn} calls for a block of {len(scene.packet)} parts")
+        keys = (("packet" if name == "knot1m" else "resident") + s for s in ("_closest",
+                                                                            "_any_hit"))
+        for key, part_calls in zip(keys, (calls[:per], calls[per:])):
+            rows = [dict(rays=o.shape[0], **timed_launch(
+                lambda: getattr(cuda_mt, fn)(*a, **k), (kernel,),
+                packet_bound(a[0], a[1], k.get("t_init")))) for a, k in part_calls]
+            entry = launch_entry(rows)
+            results[name][key]["launch"] = entry
+            log_launch(name, key, entry, rows)
 
 
 @contextlib.contextmanager
@@ -1810,16 +1845,70 @@ def shade_summary(c) -> str:
             f"{c['blocks']} blocks; second pass at most {c['sum_cycles_max']} cycles a thread")
 
 
+def launch_entry(blocks) -> dict:
+    """A kernel's per-launch entry from its blocks' rows (ms, kernel_ms,
+    wrapper_ms, wrapper_ops, bound_ms, bound_by, optional counters): the
+    means over the blocks, each block's numbers, the counters summed (their
+    maxima as maxima)."""
+    from tpu_ray_torch.kernels import cuda_shade
+
+    entry = {"rays": blocks[0]["rays"], "block_ms": [e["ms"] for e in blocks],
+             "block_bound_ms": [e["bound_ms"] for e in blocks],
+             "block_kernel_ms": [e["kernel_ms"] for e in blocks],
+             "block_wrapper_ms": [e["wrapper_ms"] for e in blocks],
+             "wrapper_ops": blocks[0]["wrapper_ops"],
+             "ms": sum(e["ms"] for e in blocks) / len(blocks),
+             "bound_ms": sum(e["bound_ms"] for e in blocks) / len(blocks),
+             "bound_by": blocks[0]["bound_by"]}
+    if "counters" in blocks[0]:
+        entry["counters"] = {k: sum(e["counters"][k] for e in blocks)
+                             for k in blocks[0]["counters"]}
+        for k in ("steps_max", "warp_cycles_max", "epilogue_cycles_max",
+                  "sum_cycles_max") + tuple(f"cycles_max_{c}" for c in cuda_shade.RAY_CLASSES):
+            if k in entry["counters"]:
+                entry["counters"][k] = max(e["counters"][k] for e in blocks)
+    return entry
+
+
+def log_launch(path, key, entry, blocks) -> None:
+    log("launch", f"{path} {key} at {entry['rays']} rays a launch: mean {entry['ms']:.4f} ms "
+        f"(blocks {[round(x, 4) for x in entry['block_ms']]}), bound "
+        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}; blocks "
+        f"{[round(x, 5) for x in entry['block_bound_ms']]}); profiled device time a "
+        f"call in the kernel {[round(x, 4) for x in entry['block_kernel_ms']]} ms, in "
+        f"the wrapper's {entry['wrapper_ops']:.0f} tensor ops "
+        f"{[round(x, 4) for x in entry['block_wrapper_ms']]} ms")
+    for b, e in enumerate(blocks):
+        if "counters" in e:
+            log("launch", f"{path} {key} block {b} counters: "
+                + (shade_summary(e["counters"]) if key == "shade_bwd"
+                   else shadow_summary(e["counters"])))
+
+
+def timed_launch(fn, names, bound_of, counters=None) -> dict:
+    """One kernel launch of the path's size: its CUDA-event time, the
+    profiler's split (kernel / wrapper's tensor ops), its bound and, given
+    (launch taking counters, counter names), its counters."""
+    row = dict(ms=kernel_ms(fn), **device_split(fn, names), **bound_of)
+    if counters is not None:
+        row["counters"] = counted(*counters)
+    return row
+
+
 def launch_sizes(paths, results):
-    """Phase `launch`: #2, #5 and #6 timed as render_pixels_flat launches
-    them, once per block of the path (32,768 rays for `mixed` and
-    `mixed_sil`, 65,536 for the bulb paths), on each of the path's parity
-    blocks: the shadow march with the very arguments the geometry pass
-    passes it (recorded), the shade forward with the frame's config and the
-    backward with the fit step's. Each with the bound of that block's work
-    and, for #2 and #6, the kernel's counters. paths: {path: (scene, frame
-    config, fit-step config, world points of its blocks, method)}."""
-    from tpu_ray_torch.kernels import cuda_sdf, cuda_shade
+    """Phase `launch`: #1, #2, #3, #4, #5 and #6 timed as
+    render_pixels_flat launches them, once per block of the path (32,768
+    rays for `mixed` and `mixed_sil`, 65,536 for the bulb paths), on each of
+    the path's parity blocks: the primary march, the shadow march and the
+    packet walks with the very arguments the geometry pass passes them
+    (recorded), #4 as the ring calls it on the `mixed` blocks (unseeded,
+    over the ring's shard: the `mixed_ring` entries), the shade forward with
+    the frame's config and the backward with the fit step's. Each with the
+    bound of that block's work and, for #1, #2 and #6, the kernel's
+    counters. paths: {path: (scene, frame config, fit-step config, world
+    points of its blocks, method)}."""
+    from tpu_ray_torch.dist.sharding import ring_scene
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
 
     for path, (scene, cfg, fit_cfg, points, method) in paths.items():
@@ -1830,82 +1919,76 @@ def launch_sizes(paths, results):
         kernel, plain = getattr(cuda_sdf, shadow), getattr(cuda_sdf, f"{shadow}_torch")
         bounds = sdf_bounding_spheres(sdf)
         n_bounds = 0 if soft or bounds is None else bounds.shape[0]
-        rows = {shadow: [], "shade_fwd": [], "shade_bwd": []}
+        walks = ("packet_closest", "packet_any_hit") if scene.has_mesh else ()
+        ring = ("resident_closest", "resident_any_hit") if path == "mixed" else ()
+        shard = ring_scene(scene).ring.accel() if ring else None
+        rows = {k: [] for k in ("march", shadow, *walks, *ring, "shade_fwd", "shade_bwd")}
         for b in range(o_all.shape[0] // bs):
             o, d = o_all[b * bs:(b + 1) * bs], d_all[b * bs:(b + 1) * bs]
-            calls = []
-            with recorded(cuda_sdf, shadow, calls):
+            calls = {"march": [], shadow: [], "walks": []}
+            with recorded(cuda_sdf, "march", calls["march"]), \
+                    recorded(cuda_sdf, shadow, calls[shadow]), \
+                    recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]):
                 res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
-            check(len(calls) == 1, f"launch {path}: {len(calls)} {shadow} calls for a block")
-            args, kw = calls[0]
+            check(len(calls["march"]) == 1 and len(calls[shadow]) == 1
+                  and len(calls["walks"]) == len(walks),
+                  f"launch {path}: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
+            args, kw = calls["march"][0]
+            work = StepWork(sdf, 8.0)
+            cuda_sdf.march_torch(*args, **kw, visit=work)
+            rows["march"].append(dict(rays=bs, **timed_launch(
+                lambda: cuda_sdf.march(*args, **kw), ("march_kernel",),
+                bound(nbytes(args[1], args[2]) + 13 * bs, work.ops),
+                (lambda c: cuda_sdf.march(*args, **kw, counters=c), cuda_sdf.SHADOW_COUNTERS))))
+            args, kw = calls[shadow][0]
             work = StepWork(sdf, 10.0 if soft else 8.0)
             plain(*args, **kw, visit=work)
-            rows[shadow].append(dict(
-                ms=kernel_ms(lambda: kernel(*args, **kw)),
-                **device_split(lambda: kernel(*args, **kw), ("shadow_kernel",)),
-                **bound(nbytes(args[1], args[2], kw.get("t_far_rays")) + 8 * bs,
-                        work.ops + 20.0 * n_bounds * bs),
-                counters=counted(lambda c: kernel(*args, **kw, counters=c),
-                                 cuda_sdf.SHADOW_COUNTERS)))
+            rows[shadow].append(dict(rays=bs, **timed_launch(
+                lambda: kernel(*args, **kw), ("shadow_kernel",),
+                bound(nbytes(args[1], args[2], kw.get("t_far_rays")) + 8 * bs,
+                      work.ops + 20.0 * n_bounds * bs),
+                (lambda c: kernel(*args, **kw, counters=c), cuda_sdf.SHADOW_COUNTERS))))
+            for key, (args, kw) in zip(walks, calls["walks"]):
+                rows[key].append(dict(rays=bs, **timed_launch(
+                    lambda: cuda_mt.intersect_packet_streamed(*args, **kw), ("packet_kernel",),
+                    packet_bound(args[0], args[1], kw.get("t_init")))))
+            ring_kw = (dict(sort_origin=o[0]),
+                       dict(any_hit=True, sort_dir=scene.lights.direction[0]))
+            for key, (wargs, _), kw in zip(ring, calls["walks"], ring_kw):
+                ro, rd = wargs[1], wargs[2]
+                rows[key].append(dict(rays=bs, **timed_launch(
+                    lambda: cuda_mt.intersect_packet(shard, ro, rd, t_max=cfg.t_far, **kw),
+                    ("packet_resident_kernel",), packet_bound(shard, ro, None))))
             out = cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
-            rows["shade_fwd"].append(dict(
-                ms=kernel_ms(lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
-                                                          corners=corners, aux=aux)),
-                **device_split(lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
-                                                            corners=corners, aux=aux),
-                               ("shade_fwd_kernel",)),
-                **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [out], False)))
+            fwd = lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
+                                               aux=aux)
+            rows["shade_fwd"].append(dict(rays=bs, **timed_launch(
+                fwd, ("shade_fwd_kernel",),
+                shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [out], False))))
             if fit_cfg != cfg:
                 res, aux, corners, spec = shade_inputs(scene, fit_cfg, o, d, method)
             ct = seeded_cotangent(o)
             bwd = (scene, fit_cfg, o, d, res, aux, corners, ct, method)
             g = cuda_shade.shade_bwd(*bwd)
-            rows["shade_bwd"].append(dict(
-                ms=kernel_ms(lambda: cuda_shade.shade_bwd(*bwd)),
-                **device_split(lambda: cuda_shade.shade_bwd(*bwd),
-                               ("shade_bwd_kernel", "sum_partials_kernel")),
-                **shade_bound(scene, fit_cfg, o, d, res, aux, corners, spec, method,
-                              [ct, g["o"], g["d"], g["corners"]], True),
-                counters=counted(lambda c: cuda_shade.shade_bwd(*bwd, counters=c),
-                                 cuda_shade.SHADE_BWD_COUNTERS)))
+            rows["shade_bwd"].append(dict(rays=bs, **timed_launch(
+                lambda: cuda_shade.shade_bwd(*bwd), ("shade_bwd_kernel", "sum_partials_kernel"),
+                shade_bound(scene, fit_cfg, o, d, res, aux, corners, spec, method,
+                            [ct, g["o"], g["d"], g["corners"]], True),
+                (lambda c: cuda_shade.shade_bwd(*bwd, counters=c),
+                 cuda_shade.SHADE_BWD_COUNTERS))))
         for key, blocks in rows.items():
-            entry = {"rays": bs, "block_ms": [e["ms"] for e in blocks],
-                     "block_bound_ms": [e["bound_ms"] for e in blocks],
-                     "block_kernel_ms": [e["kernel_ms"] for e in blocks],
-                     "block_wrapper_ms": [e["wrapper_ms"] for e in blocks],
-                     "wrapper_ops": blocks[0]["wrapper_ops"],
-                     "ms": sum(e["ms"] for e in blocks) / len(blocks),
-                     "bound_ms": sum(e["bound_ms"] for e in blocks) / len(blocks),
-                     "bound_by": blocks[0]["bound_by"]}
-            if "counters" in blocks[0]:
-                entry["counters"] = {k: sum(e["counters"][k] for e in blocks)
-                                     for k in blocks[0]["counters"]}
-                for k in ("steps_max", "warp_cycles_max", "epilogue_cycles_max",
-                          "sum_cycles_max") + tuple(f"cycles_max_{c}" for c in
-                                                    cuda_shade.RAY_CLASSES):
-                    if k in entry["counters"]:
-                        entry["counters"][k] = max(e["counters"][k] for e in blocks)
-            results[path].setdefault(key, {})["launch"] = entry
-            log("launch", f"{path} {key} at {bs} rays a launch: mean {entry['ms']:.4f} ms "
-                f"(blocks {[round(x, 4) for x in entry['block_ms']]}), bound "
-                f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}; blocks "
-                f"{[round(x, 5) for x in entry['block_bound_ms']]}); profiled device time a "
-                f"call in the kernel {[round(x, 4) for x in entry['block_kernel_ms']]} ms, in "
-                f"the wrapper's {entry['wrapper_ops']:.0f} tensor ops "
-                f"{[round(x, 4) for x in entry['block_wrapper_ms']]} ms")
-            for b, e in enumerate(blocks):
-                if "counters" in e:
-                    log("launch", f"{path} {key} block {b} counters: "
-                        + (shade_summary(e["counters"]) if key == "shade_bwd"
-                           else shadow_summary(e["counters"])))
+            entry = launch_entry(blocks)
+            results["mixed_ring" if key in ring else path].setdefault(key, {})["launch"] = entry
+            log_launch("mixed_ring" if key in ring else path, key, entry, blocks)
 
 
 def ptxas_summary(log_text: str) -> str:
-    """Registers, stack and spills of every build of the shadow marches and
-    the shade kernels, from ptxas' -v output."""
+    """Registers, stack and spills of every build of the marches and the
+    shade kernels, from ptxas' -v output."""
     import re
 
-    names = ("shadow_kernel", "shade_fwd_kernel", "shade_bwd_kernel", "sum_partials_kernel")
+    names = ("march_kernel", "shadow_kernel", "shade_fwd_kernel", "shade_bwd_kernel",
+             "sum_partials_kernel")
     out, cur, props = [], None, {}
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
@@ -1963,7 +2046,7 @@ def main() -> int:
         f"built={build.BUILD_LOG['built']}) -> {build.BUILD_LOG['path']}")
     for ln in regs:
         log("build", ln)
-    log("build", f"ptxas of #2, #5, #6: {ptxas_summary(build.BUILD_LOG['ptxas'])}")
+    log("build", f"ptxas of #1, #2, #5, #6: {ptxas_summary(build.BUILD_LOG['ptxas'])}")
 
     dev = torch.device("cuda", 0)
     scene, cfg = build_scene("mixed", device=dev)

@@ -15,6 +15,14 @@ Tolerances and why:
     >= 99% of the rays where both hit, the rest within one step of the march
     (10 * eps). The residue is the XLA-vs-torch rounding deciding a
     `DE < eps` test at the threshold: such a ray stops one step apart.
+  * the CUDA march's per-ray loop built as host C++ (csrc/sdf_march.cu
+    `march_ray`) against march_torch on a frame's camera rays: hit and
+    steps equal on every ray, t and tmin bit-equal on >= 97% of them and
+    within 1e-4 relative on all. Both run the same ops in the same order,
+    but the DE's final `log` (and the generic field's atan2/sin/cos/pow)
+    come from libm there and from torch's vectorized kernels here, an ulp
+    apart, and the march adds up those DEs. On the card both sides call
+    CUDA's functions, and chip_smoke.py holds the power-8 march bit-equal.
 """
 
 import numpy as np
@@ -29,8 +37,12 @@ from tpu_ray.sdf import mandelbulb as jmb
 from tpu_ray.sdf import primitives as jprim
 from tpu_ray_torch.kernels import cuda_sdf
 from tpu_ray_torch.kernels import sphere_trace as tst
+from tpu_ray_torch.render import render as trender
+from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.scene import scenes as tscenes
 from tpu_ray_torch.sdf import mandelbulb as tmb
 from tpu_ray_torch.sdf import primitives as tprim
+import torch_host_build
 
 torch.set_num_threads(1)
 
@@ -202,3 +214,41 @@ def test_cpu_wrappers_use_plain_versions():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert cuda_sdf.LAUNCHES == before == {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    so = torch_host_build.build(tmp_path_factory.mktemp("host_march"))
+    if so is None:
+        pytest.skip("no g++ to build the kernel arithmetic as host code")
+    return so
+
+
+@pytest.mark.parametrize("name,power,bound_pad", [
+    ("mixed", None, 0.0), ("mixed", None, 24 * 0.05), ("mandelbulb", 7.5, 0.0),
+    ("mixed", 7.5, 0.0)], ids=["mixed", "mixed-padded-cull", "generic-bulb", "mixed-generic"])
+def test_march_host_build_matches_plain_version(host_kernel, name, power, bound_pad):
+    """The CUDA primary march's per-ray loop (the bound cull, the steps,
+    the closest approach), built as host C++, against march_torch on a
+    48x27 frame of the scene's camera; power: the generic-power field at
+    that power (None: the scene's power-8 field). The padded cull is the
+    soft silhouettes' (render.SIL_REACH widths of 0.05)."""
+    scene, cfg = tscenes.build_scene(name, device="cpu")
+    sdf = scene.sdf
+    if power is not None:
+        sdf = sdf.replace(mb_pow8=False, mb_power=torch.tensor([power]))
+    small = cfg.replace(width=48, height=27, spp=1)
+    sx, sy = trender.pixel_sample_coords(small)
+    o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), 48, 27)
+    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
+              bound_pad=bound_pad)
+    tw, hw, sw, mw = cuda_sdf.march_torch(sdf, o, d, **kw)
+    t, hit, steps, tmin = torch_host_build.march(host_kernel, sdf, o, d, **kw)
+    assert torch.equal(hit, hw) and torch.equal(steps, sw)
+    for got, want in ((t, tw), (tmin, mw)):
+        assert float((got == want).float().mean()) >= 0.97
+        assert bool(((got - want).abs() <= 1e-4 * want.abs()).all())
+    # hits, misses that march, and rays the bound cull starts at t_far
+    assert bool(hw.any()) and bool((~hw & (sw > 0)).any())
+    if name == "mixed":
+        assert bool((sw == 0).any())

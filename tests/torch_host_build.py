@@ -1,8 +1,8 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
 port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py,
-test_torch_mandelbulb.py): the shade forward, the shade backward, the hard
-and the soft march, the Mandelbulb fields and their adjoint, and the packet
-walk, called
+test_torch_mandelbulb.py, test_torch_sdf.py): the shade forward, the shade
+backward, the primary, hard and soft marches, the Mandelbulb fields and
+their adjoint, and the packet walk, called
 with the arguments their CUDA wrappers pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
@@ -145,6 +145,24 @@ extern "C" void host_shadow_soft(
                                  soft_k, vis + i, ts + i);
   }
 }
+extern "C" void host_march(
+    const float* o, const float* d, int n, const float* params, int n_sph, int n_pln,
+    int n_box, int n_mb, int mb_iters, int mb_pow8, const float* bounds, int n_bounds,
+    float t0, int max_steps, float eps, float t_far, float* t, uint8_t* hit, int* steps,
+    float* tmin) {
+  const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
+  for (int i = 0; i < n; ++i) {
+    bool h, reach;
+    steps[i] = mb_pow8
+        ? tr::march_ray<true>(sdf, bounds, n_bounds, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                              d[3 * i], d[3 * i + 1], d[3 * i + 2], t0, max_steps, eps, t_far,
+                              t + i, &h, tmin + i, &reach)
+        : tr::march_ray<false>(sdf, bounds, n_bounds, o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                               d[3 * i], d[3 * i + 1], d[3 * i + 2], t0, max_steps, eps, t_far,
+                               t + i, &h, tmin + i, &reach);
+    hit[i] = h ? 1 : 0;
+  }
+}
 extern "C" void host_shadow_hard(
     const float* p, const float* l, const float* t_far_rays, int n,
     const float* params, int n_sph, int n_pln, int n_box, int n_mb,
@@ -213,8 +231,10 @@ def build(tmp_dir):
     so.host_shadow_hard.argtypes = ([_P, _P, _P, _I, _P] + [_I] * 6 + [_P, _I, _F, _F, _I, _F]
                                     + [_P, _P])
     so.host_mandelbulb.argtypes = [_P, _I, _F, _I, _I, _P, _P, _P, _P]
+    so.host_march.argtypes = ([_P, _P, _I, _P] + [_I] * 6 + [_P, _I, _F, _I, _F, _F]
+                              + [_P] * 4)
     for fn in (so.host_shade_bwd, so.host_shade_fwd, so.host_shadow_soft, so.host_shadow_hard,
-               so.host_mandelbulb):
+               so.host_mandelbulb, so.host_march):
         fn.restype = None
     return so
 
@@ -258,6 +278,28 @@ def build_packet(tmp_dir):
                                     _P, _P, _P, _P]
     so.host_packet_walk.restype = None
     return so
+
+
+def march(so, sdf, o, d, *, t0, max_steps, eps, t_far, bound_pad=0.0):
+    """The host build of the primary march on CPU tensors, with the
+    arguments cuda_sdf.march passes (the bounds grown by bound_pad) -> (t,
+    hit, steps, tmin) as march_torch returns them."""
+    from tpu_ray_torch.kernels import cuda_sdf
+
+    params, counts, bounds = cuda_sdf._sdf_args(sdf)
+    if bounds is not None and bound_pad:
+        bounds = torch.cat([bounds[:, :3], bounds[:, 3:] + bound_pad], 1).contiguous()
+    n = o.shape[0]
+    o, d = o.contiguous(), d.contiguous()
+    t, tmin = torch.empty(n), torch.empty(n)
+    hit = torch.empty(n, dtype=torch.bool)
+    steps = torch.empty(n, dtype=torch.int32)
+    so.host_march(o.data_ptr(), d.data_ptr(), n, params.data_ptr(), *counts,
+                  None if bounds is None else bounds.data_ptr(),
+                  0 if bounds is None else bounds.shape[0], float(t0), int(max_steps),
+                  float(eps), float(t_far), t.data_ptr(), hit.data_ptr(), steps.data_ptr(),
+                  tmin.data_ptr())
+    return t, hit, steps, tmin
 
 
 def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None, counters=None):

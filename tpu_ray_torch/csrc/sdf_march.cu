@@ -40,15 +40,66 @@
 // thread a ray. A copy of the parameters in shared memory moved the soft
 // march by -1.0% (generic field) and +1.6% (power 8) in one run: not kept.
 //
-// The per-ray shadow marches (the hard one with its cull, the soft one) are
-// plain C++ above the __CUDACC__ guard, so that they also build as host
-// code (tests/test_torch_shade_bwd.py holds that build against
+// The per-ray marches (the primary one and the hard one with their culls,
+// the soft one) are plain C++ above the __CUDACC__ guard, so that they also
+// build as host code (tests/test_torch_shade_bwd.py and
+// tests/test_torch_sdf.py hold that build against march_torch,
 // shadow_hard_torch and shadow_soft_torch on the CPU).
 #include <stdint.h>
 
 #include "sdf.cuh"
 
 namespace tr {
+
+// One primary ray: the bound cull (a ray that misses every bounding sphere
+// starts dead at t_far), then steps of t += DE until a DE below eps hits, t
+// reaches t_far or the step budget is spent. Writes t, hit and the t of the
+// smallest DE seen (tmin, t0 when none was below 1e10); sets *reach to
+// whether the ray reached a bound (true without bounds); returns the DE steps
+// taken.
+template <bool kPow8>
+__device__ __forceinline__ int march_ray(const SdfParams& sdf, const float* bounds,
+                                         int n_bounds, float ox, float oy, float oz, float dx,
+                                         float dy, float dz, float t0, int max_steps,
+                                         float eps, float t_far, float* t_out, bool* hit_out,
+                                         float* tmin_out, bool* reach_out) {
+  float t = t0;
+  bool reach = true;
+  if (n_bounds > 0) {
+    reach = false;
+    for (int k = 0; k < n_bounds; ++k) {
+      const float* b = bounds + 4 * k;
+      const float ocx = ox - b[0], ocy = oy - b[1], ocz = oz - b[2];
+      const float bb = ocx * dx + ocy * dy + ocz * dz;
+      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - b[3] * b[3];
+      const float disc = bb * bb - c2;
+      reach = reach || ((disc >= 0.0f) && (sqrtf(fmaxf(disc, 0.0f)) - bb > 0.0f));
+    }
+    if (!reach) t = t_far;
+  }
+  float tmin = t0, dmin = 1e10f;
+  bool hit = false;
+  int steps = 0;
+  for (int s = 0; s < max_steps; ++s) {
+    if (!(t < t_far)) break;
+    const float dist = scene_de<kPow8>(sdf, ox + t * dx, oy + t * dy, oz + t * dz);
+    if (dist < dmin) {
+      dmin = dist;
+      tmin = t;
+    }
+    ++steps;
+    if (dist < eps) {
+      hit = true;
+      break;
+    }
+    t = t + dist;
+  }
+  *t_out = t;
+  *hit_out = hit;
+  *tmin_out = tmin;
+  *reach_out = reach;
+  return steps;
+}
 
 // A hard-shadow ray's march end: its cutoff tf clamped at the last exit
 // from the bounding spheres grown by eps (a blocker needs DE < eps, so only
@@ -134,8 +185,8 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// The shadow marches' optional counters (cuda_sdf.SHADOW_COUNTERS), added
-// to by a launch given a counters pointer: rays whose cutoff lets them
+// The marches' optional counters (cuda_sdf.SHADOW_COUNTERS), added to by a
+// launch given a counters pointer: rays whose cutoff lets them
 // march (live), rays left to march after the bound cull, their DE steps (sum
 // and max), warp-steps (the DE steps each warp issues, so that lane
 // efficiency is steps / (32 warp-steps)), and clock64() cycles a warp
@@ -168,6 +219,8 @@ __device__ __forceinline__ void shadow_count(unsigned long long* counters, unsig
   }
 }
 
+// One thread a ray; the optional counters (the shadow marches' layout, with
+// live the rays that reach a bound and marching those that take a step).
 template <bool kPow8>
 __global__ void march_kernel(const float* __restrict__ o,
                              const float* __restrict__ d, int n,
@@ -176,46 +229,20 @@ __global__ void march_kernel(const float* __restrict__ o,
                              float t_far, float* __restrict__ t_out,
                              uint8_t* __restrict__ hit_out,
                              int* __restrict__ steps_out,
-                             float* __restrict__ tmin_out) {
+                             float* __restrict__ tmin_out,
+                             unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned mask = __ballot_sync(0xffffffffu, i < n);
   if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  float t = t0;
-  if (n_bounds > 0) {
-    // lanes whose ray misses every bound start dead at t_far
-    bool reach = false;
-    for (int k = 0; k < n_bounds; ++k) {
-      const float* b = bounds + 4 * k;
-      const float ocx = ox - b[0], ocy = oy - b[1], ocz = oz - b[2];
-      const float bb = ocx * dx + ocy * dy + ocz * dz;
-      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - b[3] * b[3];
-      const float disc = bb * bb - c2;
-      reach = reach || ((disc >= 0.0f) && (sqrtf(fmaxf(disc, 0.0f)) - bb > 0.0f));
-    }
-    if (!reach) t = t_far;
-  }
-  float tmin = t0, dmin = 1e10f;
-  bool hit = false;
-  int steps = 0;
-  for (int s = 0; s < max_steps; ++s) {
-    if (!(t < t_far)) break;
-    const float dist = tr::scene_de<kPow8>(sdf, ox + t * dx, oy + t * dy, oz + t * dz);
-    if (dist < dmin) {
-      dmin = dist;
-      tmin = t;
-    }
-    ++steps;
-    if (dist < eps) {
-      hit = true;
-      break;
-    }
-    t = t + dist;
-  }
-  t_out[i] = t;
+  const long long c0 = clock64();
+  bool hit, reach;
+  const int steps = tr::march_ray<kPow8>(sdf, bounds, n_bounds, o[3 * i], o[3 * i + 1],
+                                         o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2],
+                                         t0, max_steps, eps, t_far, t_out + i, &hit,
+                                         tmin_out + i, &reach);
   hit_out[i] = hit ? 1 : 0;
   steps_out[i] = steps;
-  tmin_out[i] = tmin;
+  if (counters) shadow_count(counters, mask, reach, steps > 0, steps, c0);
 }
 
 // One thread a shadow ray, its cull first: a ray whose cutoff (with the
@@ -276,11 +303,12 @@ extern "C" int tr_march(const float* o, const float* d, int n,
                         int n_mb, int mb_iters, int mb_pow8,
                         const float* bounds, int n_bounds, float t0,
                         int max_steps, float eps, float t_far, float* t,
-                        uint8_t* hit, int* steps, float* tmin, void* stream) {
+                        uint8_t* hit, int* steps, float* tmin,
+                        unsigned long long* counters, void* stream) {
   if (n <= 0) return 0;
   const tr::SdfParams sdf{params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8};
   TR_LAUNCH_SDF(march_kernel, n, stream, o, d, n, sdf, bounds, n_bounds, t0,
-                max_steps, eps, t_far, t, hit, steps, tmin);
+                max_steps, eps, t_far, t, hit, steps, tmin, counters);
   return static_cast<int>(cudaGetLastError());
 }
 

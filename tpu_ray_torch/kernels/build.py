@@ -39,9 +39,10 @@ _D = ctypes.c_double
 # C entry points (csrc/*.cu): each returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # o, d, n, params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, bounds,
-    # n_bounds, t0, max_steps, eps, t_far, t, hit, steps, tmin, stream
+    # n_bounds, t0, max_steps, eps, t_far, t, hit, steps, tmin, counters,
+    # stream
     "tr_march": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                 _F, _I, _F, _F, _P, _P, _P, _P, _P],
+                 _F, _I, _F, _F, _P, _P, _P, _P, _P, _P],
     # p, l, t_far_rays, n, params, n_sph, n_pln, n_box, n_mb, mb_iters,
     # mb_pow8, bounds, n_bounds, eps, t_far, steps, bias, vis, ts, counters,
     # stream

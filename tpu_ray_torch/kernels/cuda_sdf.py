@@ -10,7 +10,7 @@ launch the kernel on CUDA tensors, raising on what the kernel does not take
 (non-float32 or non-contiguous input, an input that requires grad). The
 kernels come in two builds, for the power-8 Mandelbulb field and for the
 generic-power one (`SdfScene.mb_pow8`); the wrappers pass the flag. Each
-kernel launch adds one to `LAUNCHES`. The shadow marches take an optional
+kernel launch adds one to `LAUNCHES`. The three marches take an optional
 `counters` tensor (int64, len(SHADOW_COUNTERS), on the rays' device) to
 which a launch adds what its march did; the main path passes none.
 
@@ -28,10 +28,11 @@ from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, chec
 from tpu_ray_torch.sdf.primitives import SdfScene, sdf_bounding_spheres, sdf_distance
 
 LAUNCHES = {"march": 0, "shadow_hard": 0, "shadow_soft": 0}
-# the shadow marches' optional counters (csrc/sdf_march.cu `ShadowCounter`):
-# rays whose cutoff lets them march, rays left after the bound cull, their DE
-# steps (sum, max), the DE steps the warps issue (lane efficiency is steps
-# over 32 of them), and a warp's clock64() cycles (sum, max) over the warps
+# the marches' optional counters (csrc/sdf_march.cu `ShadowCounter`): rays
+# whose cutoff lets them march (the primary march: that reach a bound), rays
+# left after the bound cull (that take a step), their DE steps (sum, max),
+# the DE steps the warps issue (lane efficiency is steps over 32 of them),
+# and a warp's clock64() cycles (sum, max) over the warps
 SHADOW_COUNTERS = ("live", "marching", "steps", "steps_max", "warp_steps", "warp_cycles",
                    "warp_cycles_max", "warps")
 
@@ -197,8 +198,10 @@ def _stream(device):
 
 
 def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
-          t_far: float, bound_pad: float = 0.0):
-    """Primary sphere trace -> (t, hit, steps, tmin); see march_torch."""
+          t_far: float, bound_pad: float = 0.0, counters=None):
+    """Primary sphere trace -> (t, hit, steps, tmin); see march_torch.
+    counters: as the shadow marches' (SHADOW_COUNTERS; live counts the rays
+    that reach a bound, marching those that take a step)."""
     if o.device.type == "cpu":
         return march_torch(sdf, o, d, t0=t0, max_steps=max_steps, eps=eps,
                            t_far=t_far, bound_pad=bound_pad)
@@ -206,6 +209,7 @@ def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
     if bounds is not None and bound_pad:
         bounds = torch.cat([bounds[:, :3], bounds[:, 3:] + bound_pad], 1).contiguous()
     check_cuda_inputs("march", o, d, params, bounds)
+    check_counters("march", counters, o.device, SHADOW_COUNTERS)
     R = o.shape[0]
     dev = o.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
@@ -219,7 +223,7 @@ def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
             _ptr(bounds), 0 if bounds is None else bounds.shape[0],
             float(t0), int(max_steps), float(eps), float(t_far),
             t.data_ptr(), hit.data_ptr(), steps.data_ptr(), tmin.data_ptr(),
-            _stream(dev))
+            _ptr(counters), _stream(dev))
     check_launch("march", rc)
     LAUNCHES["march"] += 1
     return t, hit, steps, tmin
