@@ -626,15 +626,17 @@ def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float
     return ops + (60.0 if backward else 40.0) * o.shape[0]
 
 
-def shade_inputs(scene, cfg, o, d, method):
+def shade_inputs(scene, cfg, o, d, method, packed=None):
     """The shade kernels' inputs on rays o, d: (res, aux, corners, spec),
-    the geometry pass's residuals as the frame makes them."""
+    the geometry pass's residuals as the frame makes them (packed: the
+    parameters as render_pixels_flat packs them; None: each wrapper packs
+    its own)."""
     from tpu_ray_torch.kernels import cuda_shade
     from tpu_ray_torch.render import render as R
 
     rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
     with torch.no_grad():
-        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows)
+        res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows, packed=packed)
     corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
                if rows is not None else None)
     aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
@@ -889,7 +891,9 @@ def parity(scene, cfg, results, keep=None):
     """Phase 3: the forward kernels, then the shade backward on the same
     rays, with the frame's hard shadows, without them (so that the lit
     Mandelbulb's Hessian chain runs: hard shadows block the bulb's lanes),
-    and with the 5-tap AO. keep: see kernel_parity."""
+    and with the 5-tap AO; the grouped march and the packed parameters
+    against the per-block march and the per-call packing. keep: see
+    kernel_parity."""
     o, d = kernel_parity(scene, cfg, results, keep=keep)
     shade_fwd_parity(scene, cfg, o, d, "mixed", results)
     shade_bwd_parity(scene, cfg, o, d, "mixed", results)
@@ -897,7 +901,87 @@ def parity(scene, cfg, results, keep=None):
     # the AO's taps, the Mandelbulb's and the mesh's (`mixed --ao sdf5`)
     shade_fwd_parity(scene, cfg.replace(ao="sdf5"), o, d, "mixed")
     shade_bwd_parity(scene, cfg.replace(ao="sdf5"), o, d, "mixed")
+    group_parity(scene, cfg, PARITY_POINTS, "parity")
+    packed_parity(scene, cfg, o, d, "mixed", "parity")
     return o, d
+
+
+def group_parity(scene, cfg, points, tag):
+    """The primary march as render_pixels_flat runs it, once per group of
+    render.MARCH_GROUP blocks (render.march_group, the parameters packed
+    once), against the march of each block of the points alone (the
+    wrapper packing its own): the group's rays equal the block's own, and
+    the group's t, hit, steps and tmin equal the block's, bit for bit."""
+    from tpu_ray_torch.kernels import cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+
+    fx, fy, _, _ = frame_rays(scene, cfg)
+    perm = R._block_order_perm(cfg).to(scene.device)
+    bs, n = cfg.block_size, R.MARCH_GROUP * cfg.block_size
+    packed = cuda_shade.pack(scene, R._bound_pad(cfg))
+    for b in parity_blocks(scene, cfg, perm, points):
+        g0 = b * bs // n * n
+        gx, gy = fx[g0:g0 + n], fy[g0:g0 + n]
+        grouped = R.march_group(scene, cfg, gx, gy, packed)
+        off = b * bs - g0
+        with torch.no_grad():
+            og, dg = generate_rays(scene.camera, gx, gy, cfg.width, cfg.height)
+        o, d = generate_rays(scene.camera, fx[b * bs:(b + 1) * bs], fy[b * bs:(b + 1) * bs],
+                             cfg.width, cfg.height)  # inside autograd, as each block's
+        same_rays = torch.equal(og[off:off + bs], o) and torch.equal(dg[off:off + bs], d)
+        own = cuda_sdf.march(scene.sdf, o.detach(), d.detach(), t0=0.0,
+                             max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
+                             bound_pad=R._bound_pad(cfg))
+        same = [torch.equal(v[off:off + bs], w) for v, w in zip(grouped, own)]
+        log(tag, f"grouped march: block {b} in the group of blocks {g0 // bs}.."
+            f"{(g0 + gx.shape[0]) // bs - 1}: rays bit-identical {same_rays}; t, hit, steps, "
+            f"tmin bit-identical {same} to the block's own march (hit rate "
+            f"{own[1].float().mean().item():.4f})")
+        check(same_rays and all(same), f"{tag} grouped march against the block's own")
+
+
+def packed_parity(scene, cfg, o, d, method, tag):
+    """The wrappers given the parameters packed once (cuda_shade.pack, as
+    render_pixels_flat hands them down) against the same calls packing
+    their own: every output bit-identical, one launch of the same kernel
+    each."""
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
+
+    packed = cuda_shade.pack(scene, R._bound_pad(cfg))
+    soft = cfg.shadow == "soft"
+    shadow = "shadow_soft" if soft else "shadow_hard"
+    calls = []
+    with recorded(cuda_sdf, shadow, calls):
+        res, aux, corners, _ = shade_inputs(scene, cfg, o, d, method)
+    args, kw = calls[0]
+    kw = {k: v for k, v in kw.items() if k != "packed"}
+    ct = seeded_cotangent(o)
+    mkw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
+               bound_pad=R._bound_pad(cfg))
+    cases = {
+        "march": lambda p: cuda_sdf.march(scene.sdf, o, d, **mkw, packed=p),
+        shadow: lambda p: getattr(cuda_sdf, shadow)(*args, **kw, packed=p),
+        "shade_fwd": lambda p: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
+                                                    corners=corners, aux=aux, packed=p),
+        "shade_bwd": lambda p: cuda_shade.shade_bwd(scene, cfg, o, d, res, aux, corners, ct,
+                                                    method, packed=p)}
+    for name, call in cases.items():
+        outs = []
+        for p in (packed, None):
+            reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+            out = call(p)
+            torch.cuda.synchronize()
+            launched = {**cuda_sdf.LAUNCHES, **cuda_shade.LAUNCHES}
+            out = out.values() if isinstance(out, dict) else (
+                out if isinstance(out, tuple) else (out,))
+            outs.append(([v for v in out if v is not None], launched))
+        same = all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
+        one = outs[0][1] == outs[1][1] and outs[0][1][name] == 1
+        log(tag, f"{name} with the parameters packed once against packing its own: outputs "
+            f"bit-identical {same}, launches {outs[0][1]}")
+        check(same and one, f"{tag} {name}: packed= against per-call packing")
 
 
 def sil_parity(scene, cfg, results):
@@ -1097,6 +1181,8 @@ def bulb_parity(scene, cfg, results):
 
     o, d = block_rays(scene, cfg, BULB_POINTS, "bulb_parity")
     sdf_parity(scene, cfg, o, d, results, "bulb_parity")
+    group_parity(scene, cfg, BULB_POINTS, "bulb_parity")
+    packed_parity(scene, cfg.replace(diff_vis=True), o, d, "sdf", "bulb_parity")
 
     pscene, pcfg = build_scene("pointlight", device=scene.device)
     sx, sy = R.pixel_sample_coords(pcfg, scene.device)
@@ -1276,12 +1362,19 @@ def forward_counts():
 
 
 def check_counts(name, cfg, counts, kernels) -> None:
-    """Every kernel of the path launched; the march and the shade forward
-    once per block."""
+    """Every kernel of the path launched; the march once per group of
+    render.MARCH_GROUP blocks, the shade forward (and the backward, where it
+    ran) once per block."""
+    from tpu_ray_torch.render.render import MARCH_GROUP
+
     n_blocks = -(-cfg.num_rays // cfg.block_size)
+    n_groups = -(-n_blocks // MARCH_GROUP)
     check(all(counts[k] > 0 for k in kernels), f"{name}: a kernel never launched: {counts}")
-    for k in ("march", "shade_fwd"):
-        check(counts[k] == n_blocks, f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
+    check(counts["march"] == n_groups, f"{name}: {counts['march']} march launches for "
+          f"{n_blocks} blocks in groups of {MARCH_GROUP}")
+    for k in ("shade_fwd", "shade_bwd"):
+        check(counts.get(k, n_blocks) == n_blocks,
+              f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
 
 
 def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
@@ -1378,9 +1471,6 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
             f"nonzero {int((g != 0).sum())} of {g.numel()}")
         check(fin and bool((g != 0).any()), f"gradient of {path} not finite and nonzero")
     check_counts(name, cfg, counts, PATH_KERNELS[name])
-    check(counts["shade_bwd"] == counts["shade_fwd"] == counts["march"],
-          f"{name}: {counts['shade_fwd']} shade_fwd and {counts['shade_bwd']} shade_bwd "
-          f"launches for {counts['march']} blocks")
     # after the timed step: the profiler slows the launches that follow it
     profile_step(scene, profile_cfg, trainables, tag)
     return counts
@@ -1895,23 +1985,131 @@ def timed_launch(fn, names, bound_of, counters=None) -> dict:
     return row
 
 
+def frame_rays(scene, cfg):
+    """Every primary ray of the frame in Morton block order, padded to whole
+    blocks as render_pixels_flat pads them: (xs, ys, o, d)."""
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+
+    dev = scene.device
+    sx, sy = R.pixel_sample_coords(cfg, dev)
+    perm = R._block_order_perm(cfg).to(dev)
+    fx = sx.reshape(-1, cfg.spp)[perm].reshape(-1)
+    fy = sy.reshape(-1, cfg.spp)[perm].reshape(-1)
+    pad = (-fx.shape[0]) % cfg.block_size
+    fx = torch.cat([fx, fx[-1:].expand(pad)])
+    fy = torch.cat([fy, fy[-1:].expand(pad)])
+    with torch.no_grad():
+        o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
+    return fx, fy, o, d
+
+
+def group_sweep(path, scene, cfg, packed, groups) -> dict:
+    """The primary march of the whole frame as render_pixels_flat runs it,
+    one launch per group of G blocks, for each G in groups: device time of
+    the frame's launches (CUDA events over 3 frames after a warm-up, a spin
+    kernel queued first), its launches, ms a launch and ns a ray. -> {G:
+    row}, and the smallest G within 10% of the best time a ray."""
+    from tpu_ray_torch.kernels import cuda_sdf
+    from tpu_ray_torch.render import render as R
+
+    _, _, o, d = frame_rays(scene, cfg)
+    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
+              bound_pad=R._bound_pad(cfg), packed=packed)
+    rows = {}
+    for g in groups:
+        n = g * cfg.block_size
+        chunks = [(o[s:s + n], d[s:s + n]) for s in range(0, o.shape[0], n)]
+
+        def frame():
+            for oc, dc in chunks:
+                cuda_sdf.march(scene.sdf, oc, dc, **kw)
+
+        frame()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s, longer than the host's enqueue
+        start.record()
+        for _ in range(3):
+            frame()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        rows[g] = dict(launches=len(chunks), ms=ms, ms_a_launch=ms / len(chunks),
+                       ns_a_ray=ms * 1e6 / o.shape[0])
+        log("launch", f"{path} march over the frame ({o.shape[0]} rays, "
+            f"{o.shape[0] // cfg.block_size} blocks) in groups of {g} blocks: {len(chunks)} "
+            f"launches, {ms:.4f} ms a frame, {ms / len(chunks):.4f} ms a launch, "
+            f"{rows[g]['ns_a_ray']:.5f} ns a ray")
+    best = min(r["ns_a_ray"] for r in rows.values())
+    chosen = min(g for g, r in rows.items() if r["ns_a_ray"] <= 1.1 * best)
+    log("launch", f"{path} group sweep: the smallest group within 10% of the best time a ray "
+        f"is {chosen} blocks; render.MARCH_GROUP = {R.MARCH_GROUP}")
+    return {"groups": {str(g): r for g, r in rows.items()}, "chosen": chosen}
+
+
+def group_launch(path, scene, cfg, packed, points) -> dict:
+    """One launch of the primary march as render_pixels_flat makes it: the
+    group of render.MARCH_GROUP blocks that holds the path's first parity
+    block, with the arguments march_group passes (recorded): its time, the
+    profiler's split, its counters and the bound of the group's work."""
+    from tpu_ray_torch.kernels import cuda_sdf
+    from tpu_ray_torch.render import render as R
+
+    fx, fy, _, _ = frame_rays(scene, cfg)
+    perm = R._block_order_perm(cfg).to(scene.device)
+    b = parity_blocks(scene, cfg, perm, points[:1])[0]
+    n = R.MARCH_GROUP * cfg.block_size
+    g0 = b * cfg.block_size // n * n
+    calls = []
+    with recorded(cuda_sdf, "march", calls):
+        R.march_group(scene, cfg, fx[g0:g0 + n], fy[g0:g0 + n], packed)
+    (args, kw), = calls
+    plain_kw = {k: v for k, v in kw.items() if k != "packed"}
+    work = StepWork(scene.sdf, 8.0)
+    for s in range(0, args[1].shape[0], cfg.block_size):  # a block at a time: its memory
+        cuda_sdf.march_torch(args[0], args[1][s:s + cfg.block_size],
+                             args[2][s:s + cfg.block_size], **plain_kw, visit=work)
+    rays = args[1].shape[0]
+    row = dict(rays=rays, **timed_launch(
+        lambda: cuda_sdf.march(*args, **kw), ("march_kernel",),
+        bound(nbytes(args[1], args[2]) + 13 * rays, work.ops),
+        (lambda c: cuda_sdf.march(*args, **kw, counters=c), cuda_sdf.SHADOW_COUNTERS)))
+    entry = launch_entry([row])
+    log("launch", f"{path} march: the group of blocks {g0 // cfg.block_size}.."
+        f"{(g0 + rays) // cfg.block_size - 1} (holding block {b}) in one launch")
+    log_launch(path, "march", entry, [row])
+    return entry
+
+
 def launch_sizes(paths, results):
-    """Phase `launch`: #1, #2, #3, #4, #5 and #6 timed as
-    render_pixels_flat launches them, once per block of the path (32,768
+    """Phase `launch`: the kernels timed as render_pixels_flat launches
+    them, with the parameters packed once (cuda_shade.pack, as the frame
+    packs them). #1: one launch over its group of render.MARCH_GROUP blocks
+    (the group that holds the first parity block), and the whole frame's
+    march in groups of 1, 4, 16 and 32 blocks (`mixed`, `mandelbulb`; 1
+    and MARCH_GROUP on the other two paths). Per block of the path (32,768
     rays for `mixed` and `mixed_sil`, 65,536 for the bulb paths), on each of
-    the path's parity blocks: the primary march, the shadow march and the
-    packet walks with the very arguments the geometry pass passes them
-    (recorded), #4 as the ring calls it on the `mixed` blocks (unseeded,
-    over the ring's shard: the `mixed_ring` entries), the shade forward with
-    the frame's config and the backward with the fit step's. Each with the
-    bound of that block's work and, for #1, #2 and #6, the kernel's
-    counters. paths: {path: (scene, frame config, fit-step config, world
-    points of its blocks, method)}."""
+    the path's parity blocks: the primary march of that block alone, the
+    shadow march and the packet walks with the very arguments the geometry
+    pass passes them (recorded), #4 as the ring calls it on the `mixed`
+    blocks (unseeded, over the ring's shard: the `mixed_ring` entries), the
+    shade forward with the frame's config and the backward with the fit
+    step's. Each with the bound of that launch's work and, for #1, #2 and
+    #6, the kernel's counters. paths: {path: (scene, frame config, fit-step
+    config, world points of its blocks, method)}."""
     from tpu_ray_torch.dist.sharding import ring_scene
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
     from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
 
     for path, (scene, cfg, fit_cfg, points, method) in paths.items():
+        packed = cuda_shade.pack(scene, R._bound_pad(cfg))
+        fit_packed = cuda_shade.pack(scene, R._bound_pad(fit_cfg))
+        groups = (1, 4, 16, 32) if path in ("mixed", "mandelbulb") else (1, R.MARCH_GROUP)
+        results[path].setdefault("march", {})["sweep"] = group_sweep(path, scene, cfg, packed,
+                                                                     groups)
+        results[path]["march"]["launch"] = group_launch(path, scene, cfg, packed, points)
         o_all, d_all = block_rays(scene, cfg, points, f"launch {path}")
         bs, sdf = cfg.block_size, scene.sdf
         soft = cfg.shadow == "soft"
@@ -1929,20 +2127,22 @@ def launch_sizes(paths, results):
             with recorded(cuda_sdf, "march", calls["march"]), \
                     recorded(cuda_sdf, shadow, calls[shadow]), \
                     recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]):
-                res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
+                res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method, packed)
             check(len(calls["march"]) == 1 and len(calls[shadow]) == 1
                   and len(calls["walks"]) == len(walks),
                   f"launch {path}: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
             args, kw = calls["march"][0]
+            plain_kw = {k: v for k, v in kw.items() if k != "packed"}
             work = StepWork(sdf, 8.0)
-            cuda_sdf.march_torch(*args, **kw, visit=work)
+            cuda_sdf.march_torch(*args, **plain_kw, visit=work)
             rows["march"].append(dict(rays=bs, **timed_launch(
                 lambda: cuda_sdf.march(*args, **kw), ("march_kernel",),
                 bound(nbytes(args[1], args[2]) + 13 * bs, work.ops),
                 (lambda c: cuda_sdf.march(*args, **kw, counters=c), cuda_sdf.SHADOW_COUNTERS))))
             args, kw = calls[shadow][0]
+            plain_kw = {k: v for k, v in kw.items() if k != "packed"}
             work = StepWork(sdf, 10.0 if soft else 8.0)
-            plain(*args, **kw, visit=work)
+            plain(*args, **plain_kw, visit=work)
             rows[shadow].append(dict(rays=bs, **timed_launch(
                 lambda: kernel(*args, **kw), ("shadow_kernel",),
                 bound(nbytes(args[1], args[2], kw.get("t_far_rays")) + 8 * bs,
@@ -1959,27 +2159,30 @@ def launch_sizes(paths, results):
                 rows[key].append(dict(rays=bs, **timed_launch(
                     lambda: cuda_mt.intersect_packet(shard, ro, rd, t_max=cfg.t_far, **kw),
                     ("packet_resident_kernel",), packet_bound(shard, ro, None))))
-            out = cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
             fwd = lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
-                                               aux=aux)
+                                               aux=aux, packed=packed)
             rows["shade_fwd"].append(dict(rays=bs, **timed_launch(
                 fwd, ("shade_fwd_kernel",),
-                shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [out], False))))
+                shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [fwd()], False))))
             if fit_cfg != cfg:
-                res, aux, corners, spec = shade_inputs(scene, fit_cfg, o, d, method)
+                res, aux, corners, spec = shade_inputs(scene, fit_cfg, o, d, method, fit_packed)
             ct = seeded_cotangent(o)
             bwd = (scene, fit_cfg, o, d, res, aux, corners, ct, method)
-            g = cuda_shade.shade_bwd(*bwd)
+            g = cuda_shade.shade_bwd(*bwd, packed=fit_packed)
             rows["shade_bwd"].append(dict(rays=bs, **timed_launch(
-                lambda: cuda_shade.shade_bwd(*bwd), ("shade_bwd_kernel", "sum_partials_kernel"),
+                lambda: cuda_shade.shade_bwd(*bwd, packed=fit_packed),
+                ("shade_bwd_kernel", "sum_partials_kernel"),
                 shade_bound(scene, fit_cfg, o, d, res, aux, corners, spec, method,
                             [ct, g["o"], g["d"], g["corners"]], True),
-                (lambda c: cuda_shade.shade_bwd(*bwd, counters=c),
+                (lambda c: cuda_shade.shade_bwd(*bwd, counters=c, packed=fit_packed),
                  cuda_shade.SHADE_BWD_COUNTERS))))
         for key, blocks in rows.items():
             entry = launch_entry(blocks)
-            results["mixed_ring" if key in ring else path].setdefault(key, {})["launch"] = entry
-            log_launch("mixed_ring" if key in ring else path, key, entry, blocks)
+            table = results["mixed_ring" if key in ring else path].setdefault(key, {})
+            # the march's block entry: one block alone (the main path's launch is the group's)
+            table["launch_block" if key == "march" else "launch"] = entry
+            log_launch("mixed_ring" if key in ring else path,
+                       "march (one block a launch)" if key == "march" else key, entry, blocks)
 
 
 def ptxas_summary(log_text: str) -> str:
@@ -2096,7 +2299,7 @@ def main() -> int:
                                             bcfg.replace(width=256, height=256))),
         ("launch", lambda: launch_sizes(launch_paths, results)),
     )
-    # #2, #5 and #6 at their launch size: the frame's config, the fit step's
+    # the kernels at their launch size: the frame's config, the fit step's
     launch_paths = {
         "mixed": (scene, cfg, cfg, PARITY_POINTS, "mixed"),
         "mixed_sil": (scene, sil, sil, SIL_POINTS, "mixed"),
@@ -2114,7 +2317,8 @@ def main() -> int:
         out[phase] = run()
         log(phase, f"phase seconds {time.perf_counter() - t0:.2f}")
     log("done", f"all phases {time.perf_counter() - t_start:.2f} s")
-    launch_table = {path: {key: r["launch"] for key, r in table.items() if "launch" in r}
+    launch_table = {path: {key: {k: r[k] for k in ("launch", "launch_block", "sweep") if k in r}
+                           for key, r in table.items() if "launch" in r}
                     for path, table in results.items()}
     if only:
         print(smi)
@@ -2143,6 +2347,8 @@ def main() -> int:
                 entry["counters"] = r["counters"]
             if "launch" in r:  # one launch of the path's size (phase `launch`)
                 entry.update({f"launch_{k}": v for k, v in r["launch"].items()})
+            if "launch_block" in r:  # the march: one block a launch, and the group sweep
+                entry.update(launch_block_ms=r["launch_block"]["ms"], sweep=r["sweep"])
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,6 +11,9 @@ Tolerances and why:
     chaotic: an ulp of difference can move a silhouette pixel.
   * the `sphere`, `triangles` and `bunny` frames: max error < 1e-4 (no
     fractal).
+  * the primary march over a group of blocks (render.march_group) against
+    one block a group: rays, image and gradients bit-equal (the same
+    elementwise ops on the same samples).
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ from tpu_ray.render import camera as jcam
 from tpu_ray.render import render as jrender
 from tpu_ray.scene import scenes as jscenes
 from tpu_ray.utils.config import RenderConfig as JConfig
+from tpu_ray_torch.fit import apply_params, extract_params
 from tpu_ray_torch.kernels import build, cuda_mt, cuda_sdf
 from tpu_ray_torch.render import camera as tcam
 from tpu_ray_torch.render import render as trender
@@ -198,6 +202,68 @@ def test_soft_silhouette_cull_matches_jax_on_grazing_rays(mixed):
         got = cuda_shade.shade_fwd_torch(tscene, tcfg.replace(**sil), ot, dt, tres,
                                          "mixed").numpy()
     np.testing.assert_allclose(got[culled], want[culled], atol=1e-6, rtol=0)
+
+
+def test_group_rays_equal_block_rays(mixed):
+    """The grouped march's rays (generate_rays over a group of blocks'
+    samples, without autograd) are each block's own rays (made inside
+    autograd, with a camera that takes a gradient) bit for bit."""
+    _, tscene, tcfg, _ = mixed
+    cfg = tcfg.replace(width=64, height=48, spp=4)
+    sx, sy = trender.pixel_sample_coords(cfg)
+    perm = trender._block_order_perm(cfg)
+    fx = sx.reshape(-1, cfg.spp)[perm].reshape(-1)
+    fy = sy.reshape(-1, cfg.spp)[perm].reshape(-1)
+    cam = dataclasses.replace(tscene.camera,
+                              origin=tscene.camera.origin.clone().requires_grad_(True))
+    with torch.no_grad():
+        og, dg = tcam.generate_rays(cam, fx, fy, cfg.width, cfg.height)
+    for s in range(0, fx.shape[0], 1000):
+        o, d = tcam.generate_rays(cam, fx[s:s + 1000], fy[s:s + 1000], cfg.width, cfg.height)
+        assert o.requires_grad and d.requires_grad
+        assert torch.equal(o.detach(), og[s:s + 1000]) and torch.equal(d.detach(), dg[s:s + 1000])
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["frame", "fit-step"])
+def test_grouped_march_equals_one_block_a_group(mixed, monkeypatch, grad):
+    """render_pixels_flat marches its blocks' primary rays once per group
+    of MARCH_GROUP blocks. At 64 samples a block the 24x24 frame (16x16 for
+    the step) is 9 blocks (4): groups of 4 (4, 4 and a ragged 1) or of 3
+    (3 and a ragged 1) against groups of 1 give the same image, and the
+    same gradients, bit for bit, with one march call a group over its
+    blocks' rays; the grouped frame still matches the JAX frame."""
+    _, tscene, tcfg, ref = mixed
+    cfg = tcfg.replace(block_size=64, **({"width": 16, "height": 16} if grad else {}))
+    sizes = []
+    real = cuda_sdf.march
+
+    def spy(sdf, o, d, **kw):
+        sizes.append(o.shape[0])
+        return real(sdf, o, d, **kw)
+
+    monkeypatch.setattr(cuda_sdf, "march", spy)
+    out = {}
+    for group in (1, 3 if grad else 4):
+        monkeypatch.setattr(trender, "MARCH_GROUP", group)
+        sizes.clear()
+        if grad:
+            params = extract_params(tscene, ("sdf.mb_scale", "camera.origin", "mesh.verts"))
+            loss = torch.mean(trender.render_image(apply_params(tscene, params), cfg) ** 2)
+            loss.backward()
+            out[group] = [loss.detach()] + [v.grad for v in params.values()]
+        else:
+            with torch.no_grad():
+                out[group] = [trender.render_image(tscene, cfg)]
+        out[group].append(list(sizes))
+    if grad:
+        assert out[1][-1] == [64] * 4 and out[3][-1] == [192, 64]
+    else:
+        assert out[1][-1] == [64] * 9 and out[4][-1] == [256, 256, 64]
+    one, grouped = out[1][:-1], out[3 if grad else 4][:-1]
+    assert all(torch.equal(a, b) for a, b in zip(one, grouped))
+    if not grad:
+        p95, mx, mean = _frame_errors(grouped[0].numpy(), ref)
+        assert p95 < 5e-3 and mx < 1.0 and mean < 1e-3, (p95, mx, mean)
 
 
 def test_sphere_frame_matches_jax():

@@ -26,6 +26,11 @@ Tolerances and why:
     rays may be such (measured: 14% at 24x24 on `mandelbulb` with
     diff_vis), and with their cotangent set to 0 every bound above holds
     on the rest.
+  * the host build of the kernels' chain order (the bulb's forward at an
+    argmin run once, the AO taps in lock-step) against the host build of
+    the serial chain (TR_SHADE_SERIAL): every cotangent bit-equal.
+  * the kernels' arguments packed once (cuda_shade.pack) against packed
+    per call: bit-equal.
 """
 
 import dataclasses
@@ -404,16 +409,18 @@ def test_shade_fn_hands_the_kernel_what_it_takes(monkeypatch):
     calls = []
     plain = cuda_shade.shade_bwd
 
-    def spy(s, c, o, d, res, aux, corners, ct, method):
+    def spy(s, c, o, d, res, aux, corners, ct, method, packed=None):
         n = o.shape[0]
-        floats = (o, d, corners, ct, res["sdf_t"], res["sh_vis"], cuda_shade.pack_small(s))
+        floats = (o, d, corners, ct, res["sdf_t"], res["sh_vis"], cuda_shade.pack_small(s),
+                  packed.small)
         for t in floats:
             assert t.dtype == torch.float32 and t.is_contiguous() and not t.requires_grad
+        assert torch.equal(packed.small, cuda_shade.pack_small(s))  # the frame's, packed once
         for t in (res["sdf_hit"], res["mesh_hit"], aux["closer"], aux["mat"]):
             assert t.dtype in (torch.bool, torch.int32) and t.is_contiguous()
         assert corners.shape == (n, 9) and ct.shape == (n, 3) and res["sh_vis"].shape == (1, n)
         calls.append(n)
-        return plain(s, c, o, d, res, aux, corners, ct, method)
+        return plain(s, c, o, d, res, aux, corners, ct, method, packed=packed)
 
     monkeypatch.setattr(cuda_shade, "shade_bwd", spy)
     params = extract_params(scene, ("sdf.mb_scale", "camera.origin", "mesh.verts"))
@@ -433,13 +440,16 @@ def test_render_hands_the_forward_kernel_what_it_takes(monkeypatch, grad):
     calls = []
     plain = cuda_shade.shade_fwd
 
-    def spy(s, c, o, d, res, method, corners=None, aux=None, mesh_rows=None):
+    def spy(s, c, o, d, res, method, corners=None, aux=None, mesh_rows=None, packed=None):
         small = cuda_shade.pack_small(s)
-        for t in (o, d, corners, res["sdf_t"], res["sdf_tmin"], res["sh_vis"], small):
+        for t in (o, d, corners, res["sdf_t"], res["sdf_tmin"], res["sh_vis"], small,
+                  packed.small):
             assert t.dtype == torch.float32 and t.is_contiguous() and not t.requires_grad
+        assert torch.equal(packed.small, small)  # the frame's, packed once
         assert corners.shape == (o.shape[0], 9)
         calls.append((o.shape[0], aux is not None))
-        return plain(s, c, o, d, res, method, corners=corners, aux=aux, mesh_rows=mesh_rows)
+        return plain(s, c, o, d, res, method, corners=corners, aux=aux, mesh_rows=mesh_rows,
+                     packed=packed)
 
     monkeypatch.setattr(cuda_shade, "shade_fwd", spy)
     params = extract_params(scene, ("sdf.mb_scale", "camera.origin", "mesh.verts"))
@@ -585,6 +595,78 @@ def test_kernel_arithmetic_matches_plain_version(host_kernel, name, point_light,
         nz = want[k].norm(dim=1) > 0
         per = _per_ray_rel(got, want, (k,))[nz]
         assert per.numel() == 0 or float(torch.quantile(per, 0.99)) < 1e-3, k
+
+
+@pytest.fixture(scope="module")
+def host_serial(tmp_path_factory):
+    so = torch_host_build.build(tmp_path_factory.mktemp("host_serial"), serial=True)
+    if so is None:
+        pytest.skip("no g++ to build the kernel arithmetic as host code")
+    return so
+
+
+@pytest.mark.parametrize("name,point_light,over", torch_host_build.HOST_CASES)
+def test_kernel_backward_order_matches_serial_chain(host_kernel, host_serial, name,
+                                                    point_light, over):
+    """The backward kernel's recompute of the chain and its DE pullbacks,
+    with the bulb's forward at each argmin run once (stored for the
+    adjoint) and the five AO taps in lock-step, against the serial chain
+    it replaced, built as host C++: every cotangent bit-equal."""
+    scene, cfg, method, o, d, res, corners = torch_host_build.case(name, point_light, over)
+    ct = torch.rand(o.shape, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    got = torch_host_build.shade_bwd(host_kernel, scene, cfg, o, d, res, corners, ct, method)
+    want = torch_host_build.shade_bwd(host_serial, scene, cfg, o, d, res, corners, ct, method)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert (got[k] is None and want[k] is None) or torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("name,over", [
+    ("mixed", dict(shadow="hard")), ("mandelbulb", dict(diff_vis=True)),
+    ("mixed", dict(shadow="hard", soft_silhouette=0.05, mesh_silhouette=0.05))],
+    ids=["mixed", "mandelbulb-diffvis", "mixed-silhouettes"])
+def test_packed_arguments_equal_per_call_packing(host_kernel, name, over):
+    """What render_pixels_flat packs once (cuda_shade.pack) is what each
+    wrapper packs for itself: the SDF block, its counts, the bounds and the
+    march's padded bounds, the shade kernels' block; the host build of both
+    shade kernels given either gives the same output, and the wrappers
+    given packed= return what they return without it."""
+    scene, cfg, method, o, d, res, corners = torch_host_build.case(name, False, over)
+    packed = cuda_shade.pack(scene, trender._bound_pad(cfg))
+    own = cuda_sdf.pack(scene.sdf, trender._bound_pad(cfg))
+    assert torch.equal(packed.params, cuda_sdf.pack_sdf(scene.sdf))
+    assert torch.equal(packed.params, own.params) and packed.counts == own.counts
+    for x, y in ((packed.bounds, own.bounds), (packed.march_bounds, own.march_bounds)):
+        assert (x is None and y is None) or torch.equal(x, y)
+    pad = trender._bound_pad(cfg)
+    if packed.bounds is not None:  # the march's cull, grown by the silhouettes' reach
+        assert torch.equal(packed.march_bounds[:, 3], packed.bounds[:, 3] + pad)
+    assert torch.equal(packed.small, cuda_shade.pack_small(scene))
+    aux = cuda_shade._make_aux(scene, cfg, method, o, d, res)
+    a = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method, packed)
+    b = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
+    assert torch.equal(a[1], b[1]) and a[2] == b[2] and a[3][2:] == b[3][2:]
+    ct = torch.rand(o.shape, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    outs = []
+    for small in (a[1], b[1]):  # the host build given either block
+        statics = list(a[3])
+        statics[1] = small.data_ptr()
+        outs.append(torch.zeros(o.shape[0], 3))
+        host_kernel.host_shade_fwd(*[None if t is None else t.data_ptr() for t in a[2]],
+                                   *statics, outs[-1].data_ptr())
+    assert torch.equal(*outs)
+    # the wrappers (their plain versions on CPU tensors) with and without packed=
+    kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far, bound_pad=pad)
+    for x, y in zip(cuda_sdf.march(scene.sdf, o, d, **kw, packed=packed),
+                    cuda_sdf.march(scene.sdf, o, d, **kw)):
+        assert torch.equal(x, y)
+    assert torch.equal(cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
+                                            packed=packed),
+                       cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners))
+    with_p = cuda_shade.shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method, packed=packed)
+    without = cuda_shade.shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method)
+    for k in with_p:
+        assert (with_p[k] is None and without[k] is None) or torch.equal(with_p[k], without[k])
 
 
 @pytest.mark.parametrize("name,over,share", [

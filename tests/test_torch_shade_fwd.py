@@ -13,6 +13,10 @@ Tolerances and why:
     fractal): >= 99% of the pixels within 1e-4. The JAX side runs op by op
     (`jax.disable_jit`), since XLA contracts multiply-adds under jit; the
     rest differ by rounding the fractal amplifies near its surface.
+  * the host build of the kernels' chain order (the bulb's forward at the
+    hit run once, the AO taps in lock-step) against the host build of the
+    serial chain (TR_SHADE_SERIAL): bit-equal; each value takes the same
+    ops in the same order in both.
   * the host build against the plain version, per ray (the largest channel
     difference): the 99th percentile < 1e-4 and at most 0.1% of the rays
     over 1e-3, the on-card gates of chip_smoke.py. Where the AO taps or the
@@ -134,3 +138,25 @@ def test_kernel_forward_matches_plain_version(host_kernel, name, point_light, ov
     if cfg.soft_silhouette or cfg.mesh_silhouette:  # some rays blend sky and surface
         cov = trender.reconstruct_hits(scene, cfg, o, d, res, method, corners=corners)[5]
         assert bool(((cov > 0.0) & (cov < 1.0)).any())
+
+
+@pytest.fixture(scope="module")
+def host_serial(tmp_path_factory):
+    so = torch_host_build.build(tmp_path_factory.mktemp("host_fwd_serial"), serial=True)
+    if so is None:
+        pytest.skip("no g++ to build the kernel arithmetic as host code")
+    return so
+
+
+@pytest.mark.parametrize("name,point_light,over", torch_host_build.HOST_CASES)
+def test_kernel_forward_order_matches_serial_chain(host_kernel, host_serial, name,
+                                                   point_light, over):
+    """The forward kernel's chain, with the bulb's forward at the hit run
+    once (the argmin's, stored for the normal) and the five AO taps in
+    lock-step, against the serial chain it replaced, built as host C++:
+    every colour bit-equal."""
+    scene, cfg, method, o, d, res, corners = torch_host_build.case(
+        name, point_light, over, mixed_size=(32, 18))
+    got = torch_host_build.shade_fwd(host_kernel, scene, cfg, o, d, res, corners, method)
+    want = torch_host_build.shade_fwd(host_serial, scene, cfg, o, d, res, corners, method)
+    assert torch.equal(got, want)

@@ -209,15 +209,18 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _STATICS = [_I, _P] + [_I] * 14 + [_F, _F, _D, _F, _F, _F]
 
 
-def build(tmp_dir):
-    """The host library built into tmp_dir, or None without g++."""
+def build(tmp_dir, serial: bool = False):
+    """The host library built into tmp_dir, or None without g++. serial:
+    the shade chain in its plain order (csrc/shade_chain.cuh,
+    TR_SHADE_SERIAL), against which the tests hold the kernels' order."""
     gxx = shutil.which("g++")
     if gxx is None:
         return None
     (tmp_dir / "main.cpp").write_text(HOST_MAIN)
-    lib = tmp_dir / "libshade_host.so"
+    lib = tmp_dir / ("libshade_host_serial.so" if serial else "libshade_host.so")
     csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
     subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    *(["-DTR_SHADE_SERIAL"] if serial else []),
                     "-I", csrc, "-o", str(lib), str(tmp_dir / "main.cpp")], check=True,
                    capture_output=True, timeout=180)
     so = ctypes.CDLL(str(lib))
@@ -286,9 +289,8 @@ def march(so, sdf, o, d, *, t0, max_steps, eps, t_far, bound_pad=0.0):
     hit, steps, tmin) as march_torch returns them."""
     from tpu_ray_torch.kernels import cuda_sdf
 
-    params, counts, bounds = cuda_sdf._sdf_args(sdf)
-    if bounds is not None and bound_pad:
-        bounds = torch.cat([bounds[:, :3], bounds[:, 3:] + bound_pad], 1).contiguous()
+    packed = cuda_sdf.pack(sdf, bound_pad)
+    params, counts, bounds = packed.params, packed.counts, packed.march_bounds
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()
     t, tmin = torch.empty(n), torch.empty(n)
@@ -393,9 +395,20 @@ HOST_CASES = [
 ]
 
 
+_CASES = {}
+
+
 def case(name, point_light, over, mixed_size=(48, 27)):
     """A HOST_CASES frame (mixed_size for `mixed`, else 24x24, 1 spp):
-    (scene, cfg, method, o, d, residuals, corners or None)."""
+    (scene, cfg, method, o, d, residuals, corners or None), made once per
+    process (the tests only read it)."""
+    key = (name, point_light, repr(over), mixed_size)
+    if key not in _CASES:
+        _CASES[key] = _case(name, point_light, over, mixed_size)
+    return _CASES[key]
+
+
+def _case(name, point_light, over, mixed_size):
     scene, cfg = tscenes.build_scene(name, device="cpu")
     over = dict(over)
     sdf_over = {k: torch.tensor(v) if isinstance(v, list) else v

@@ -159,27 +159,32 @@ __device__ __forceinline__ float bulb_de(const float* q, float px, float py,
                 : mandelbulb_generic(lx, ly, lz, q[4], iters)) * sc;
 }
 
+// The three closed-form primitives' distances at p, from their packed rows.
+__device__ __forceinline__ float sphere_de(const float* q, float px, float py, float pz) {
+  const float qx = px - q[0], qy = py - q[1], qz = pz - q[2];
+  return sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-12f)) - q[3];
+}
+__device__ __forceinline__ float plane_de(const float* q, float px, float py, float pz) {
+  return px * q[0] + py * q[1] + pz * q[2] - q[3];
+}
+__device__ __forceinline__ float box_de(const float* q, float px, float py, float pz) {
+  const float qx = fabsf(px - q[0]) - q[3];
+  const float qy = fabsf(py - q[1]) - q[4];
+  const float qz = fabsf(pz - q[2]) - q[5];
+  const float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
+  const float outside = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-12f));
+  const float inside = fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f);
+  return outside + inside - q[6];
+}
+
 template <bool kPow8>
 __device__ __forceinline__ float scene_de(const SdfParams& s, float px,
                                           float py, float pz) {
   float d = kBig;
   const float* q = s.p;
-  for (int i = 0; i < s.n_sph; ++i, q += 4) {
-    const float qx = px - q[0], qy = py - q[1], qz = pz - q[2];
-    d = fminf(d, sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-12f)) - q[3]);
-  }
-  for (int i = 0; i < s.n_pln; ++i, q += 4) {
-    d = fminf(d, px * q[0] + py * q[1] + pz * q[2] - q[3]);
-  }
-  for (int i = 0; i < s.n_box; ++i, q += 7) {
-    const float qx = fabsf(px - q[0]) - q[3];
-    const float qy = fabsf(py - q[1]) - q[4];
-    const float qz = fabsf(pz - q[2]) - q[5];
-    const float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
-    const float outside = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-12f));
-    const float inside = fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f);
-    d = fminf(d, outside + inside - q[6]);
-  }
+  for (int i = 0; i < s.n_sph; ++i, q += 4) d = fminf(d, sphere_de(q, px, py, pz));
+  for (int i = 0; i < s.n_pln; ++i, q += 4) d = fminf(d, plane_de(q, px, py, pz));
+  for (int i = 0; i < s.n_box; ++i, q += 7) d = fminf(d, box_de(q, px, py, pz));
   for (int i = 0; i < s.n_mb; ++i, q += kBulbStride) {
     d = fminf(d, bulb_de<kPow8>(q, px, py, pz, s.mb_iters));
   }

@@ -17,10 +17,11 @@
 //     is derived by hand, the generic field's d2DE/dp dpower included.
 // Branches (escape, clamps, the min over primitives) read the value part
 // only, as autograd's masks do. The Mandelbulb keeps sdf.cuh's escape-freeze
-// and clamps. The reverse pass keeps each iteration's z and dr, up to
-// kMaxMbIters of them, in an MbStore; an iteration past those is recomputed
-// forward from the last stored one, so any mb_iters works and a field of at
-// most kMaxMbIters iterations recomputes nothing. The store is the caller's:
+// and clamps. The forward keeps each iteration's z and dr, up to
+// kMaxMbIters of them, in an MbStore, and the reverse pass reads them back;
+// an iteration past those is recomputed forward from the last stored one,
+// so any mb_iters works and a field of at most kMaxMbIters iterations
+// recomputes nothing. The store is the caller's:
 // the kernels give each thread a column of shared memory (a local array
 // indexed by the loop's runtime iteration lived in local memory, ~800 B a
 // thread, read back through the L1 and L2 caches), the host build a local
@@ -28,7 +29,9 @@
 //
 // The gradient of the min over primitives goes to the first primitive that
 // attains it (torch.amin splits a tie evenly; ties have measure zero). Only
-// that primitive's adjoint runs.
+// that primitive's adjoint runs. In a scene of one bulb the argmin can run
+// the bulb's DE as the adjoint's forward, so that a caller who takes the
+// bulb's gradient at the same point runs the iterations once, not twice.
 #pragma once
 
 #include "sdf.cuh"
@@ -106,44 +109,6 @@ __device__ __forceinline__ Dual pow_(Dual b, Dual e) {
 enum PrimKind { kSphere = 0, kPlane = 1, kBox = 2, kBulb = 3 };
 __device__ __forceinline__ int prim_stride(int kind) {
   return kind == kBox ? 7 : (kind == kBulb ? kBulbStride : 4);
-}
-
-// The primitive that attains the scene DE at p (first on a tie), by the
-// float forward of sdf.cuh in its op order. Returns its packed offset and
-// kind, or -1 when the scene has no primitive; dmin, when given, receives
-// the DE itself.
-template <bool kPow8>
-__device__ __forceinline__ int scene_argmin(const SdfParams& s, float px,
-                                            float py, float pz, int* kind,
-                                            float* dmin = nullptr) {
-  float d = kBig;
-  int best = -1;
-  const float* q = s.p;
-  for (int i = 0; i < s.n_sph; ++i, q += 4) {
-    const float qx = px - q[0], qy = py - q[1], qz = pz - q[2];
-    const float di = sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-12f)) - q[3];
-    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kSphere; }
-  }
-  for (int i = 0; i < s.n_pln; ++i, q += 4) {
-    const float di = px * q[0] + py * q[1] + pz * q[2] - q[3];
-    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kPlane; }
-  }
-  for (int i = 0; i < s.n_box; ++i, q += 7) {
-    const float qx = fabsf(px - q[0]) - q[3];
-    const float qy = fabsf(py - q[1]) - q[4];
-    const float qz = fabsf(pz - q[2]) - q[5];
-    const float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
-    const float outside = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-12f));
-    const float inside = fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f);
-    const float di = outside + inside - q[6];
-    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBox; }
-  }
-  for (int i = 0; i < s.n_mb; ++i, q += kBulbStride) {
-    const float di = bulb_de<kPow8>(q, px, py, pz, s.mb_iters);
-    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBulb; }
-  }
-  if (dmin) *dmin = d;
-  return best;
 }
 
 // One live power-8 iteration (sdf.cuh's mandelbulb_pow8 loop body).
@@ -302,12 +267,25 @@ __device__ __forceinline__ void mb_generic_step_adj(T zx0, T zy0, T zz0, T dr0, 
   dz[0] = nzx; dz[1] = nzy; dz[2] = nzz;
 }
 
-// The Mandelbulb DE of the field kPow8 picks (sdf.cuh) and its gradient g
-// with respect to the local point; the generic field also adds d/d power
-// to *d_pow (the power-8 field does not read it). Returns the DE.
+// The Mandelbulb forward as its adjoint runs it: from z_0 = p, each live
+// iteration's z and dr stored in st (up to kMaxMbIters of them) before its
+// update. What the reverse pass starts from besides the store: the last z
+// and dr, the final r (|z| at the escape or the last iteration; |p| when no
+// iteration ran), the updates made and the iteration whose |z| is r (-1:
+// none). `valid` marks a forward that a caller kept for prim_adj.
+template <typename T>
+struct MbFwd {
+  T zx, zy, zz, dr, r;
+  int n_upd, last;
+  bool valid;
+};
+
+// The forward of the field kPow8 picks at the local point p (z_0 = p),
+// filling f and st; returns the DE, op for op as mandelbulb_pow8 and
+// mandelbulb_generic (sdf.cuh) compute it.
 template <typename T, bool kPow8>
-__device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_pow,
-                            const MbStore& st) {
+__device__ __forceinline__ T mandelbulb_fwd(T px, T py, T pz, T power, int iters,
+                                            MbFwd<T>* f, const MbStore& st) {
   T zx = px, zy = py, zz = pz, dr = T(1.0f);
   T r = sqrt_(max_c(px * px + py * py + pz * pz, kRmin2));
   int n_upd = 0;   // z updates made
@@ -329,6 +307,22 @@ __device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_p
       mb_generic_step(zx, zy, zz, dr, r_new, px, py, pz, power);
     n_upd = it + 1;
   }
+  f->zx = zx; f->zy = zy; f->zz = zz; f->dr = dr; f->r = r;
+  f->n_upd = n_upd; f->last = last;
+  const T rr = max_c(r, kRmin);
+  const T a = T(0.5f) * log_(rr);
+  return a * rr / dr;
+}
+
+// The reverse pass from mandelbulb_fwd's f (and its store) at the same
+// local point p: the gradient g with respect to p; the generic field also
+// adds d/d power to *d_pow (the power-8 field does not read it). Returns
+// the DE.
+template <typename T, bool kPow8>
+__device__ T mandelbulb_rev(T px, T py, T pz, T power, MbFwd<T> f, T g[3], T* d_pow,
+                            const MbStore& st) {
+  const T zx = f.zx, zy = f.zy, zz = f.zz, dr = f.dr, r = f.r;
+  const int n_upd = f.n_upd, last = f.last;
   const T rr = max_c(r, kRmin);
   const T a = T(0.5f) * log_(rr);
   const T b = a * rr;
@@ -390,11 +384,75 @@ __device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_p
   return de;
 }
 
+// The Mandelbulb DE of the field kPow8 picks (sdf.cuh) and its gradient g
+// with respect to the local point (the forward, then the reverse pass).
+template <typename T, bool kPow8>
+__device__ T mandelbulb_adj(T px, T py, T pz, T power, int iters, T g[3], T* d_pow,
+                            const MbStore& st) {
+  MbFwd<T> f;
+  mandelbulb_fwd<T, kPow8>(px, py, pz, power, iters, &f, st);
+  return mandelbulb_rev<T, kPow8>(px, py, pz, power, f, g, d_pow, st);
+}
+
+// The primitive that attains the scene DE at p (first on a tie), by the
+// float forward of sdf.cuh in its op order. Returns its packed offset and
+// kind, or -1 when the scene has no primitive; dmin, when given, receives
+// the DE itself. Given fwd and st in a scene of one bulb, the bulb's DE
+// runs as its adjoint's forward (mandelbulb_fwd, the same ops): its
+// iterations go to st and its end state to fwd, marked valid, so that
+// prim_adj at p need not run them again.
+template <bool kPow8>
+__device__ __forceinline__ int scene_argmin(const SdfParams& s, float px,
+                                            float py, float pz, int* kind,
+                                            float* dmin = nullptr,
+                                            MbFwd<float>* fwd = nullptr,
+                                            const MbStore* st = nullptr) {
+  float d = kBig;
+  int best = -1;
+  const float* q = s.p;
+  for (int i = 0; i < s.n_sph; ++i, q += 4) {
+    const float qx = px - q[0], qy = py - q[1], qz = pz - q[2];
+    const float di = sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-12f)) - q[3];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kSphere; }
+  }
+  for (int i = 0; i < s.n_pln; ++i, q += 4) {
+    const float di = px * q[0] + py * q[1] + pz * q[2] - q[3];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kPlane; }
+  }
+  for (int i = 0; i < s.n_box; ++i, q += 7) {
+    const float qx = fabsf(px - q[0]) - q[3];
+    const float qy = fabsf(py - q[1]) - q[4];
+    const float qz = fabsf(pz - q[2]) - q[5];
+    const float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
+    const float outside = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-12f));
+    const float inside = fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f);
+    const float di = outside + inside - q[6];
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBox; }
+  }
+  if (fwd) fwd->valid = st != nullptr && s.n_mb == 1;
+  for (int i = 0; i < s.n_mb; ++i, q += kBulbStride) {
+    float di;
+    if (fwd && fwd->valid) {  // bulb_de's local point and scale, its field's forward
+      const float sc = q[3];
+      const float lx = (px - q[0]) / sc, ly = (py - q[1]) / sc, lz = (pz - q[2]) / sc;
+      di = mandelbulb_fwd<float, kPow8>(lx, ly, lz, q[4], s.mb_iters, fwd, *st) * sc;
+    } else {
+      di = bulb_de<kPow8>(q, px, py, pz, s.mb_iters);
+    }
+    if (di < d) { d = di; best = static_cast<int>(q - s.p); *kind = kBulb; }
+  }
+  if (dmin) *dmin = d;
+  return best;
+}
+
 // Gradient of one primitive's distance at p: dp (3) and dth (its packed
-// parameters, prim_stride(kind) of them, in layout order).
+// parameters, prim_stride(kind) of them, in layout order). fwd: a valid
+// forward of this bulb at p (scene_argmin's), whose store the reverse pass
+// reads instead of running the iterations again.
 template <typename T, bool kPow8>
 __device__ __forceinline__ void prim_adj(const float* q, int kind, int mb_iters, T px, T py,
-                                         T pz, T dp[3], T dth[7], const MbStore& st) {
+                                         T pz, T dp[3], T dth[7], const MbStore& st,
+                                         const MbFwd<T>* fwd = nullptr) {
   for (int k = 0; k < 7; ++k) dth[k] = T(0.0f);
   if (kind == kSphere) {  // |p - c| - r
     const T ax = px - T(q[0]), ay = py - T(q[1]), az = pz - T(q[2]);
@@ -441,7 +499,12 @@ __device__ __forceinline__ void prim_adj(const float* q, int kind, int mb_iters,
     const T lx = (px - T(q[0])) / sc, ly = (py - T(q[1])) / sc,
             lz = (pz - T(q[2])) / sc;
     T gl[3], d_pow = T(0.0f);
-    const T m = mandelbulb_adj<T, kPow8>(lx, ly, lz, T(q[4]), mb_iters, gl, &d_pow, st);
+    MbFwd<T> f;
+    if (fwd && fwd->valid)
+      f = *fwd;
+    else
+      mandelbulb_fwd<T, kPow8>(lx, ly, lz, T(q[4]), mb_iters, &f, st);
+    const T m = mandelbulb_rev<T, kPow8>(lx, ly, lz, T(q[4]), f, gl, &d_pow, st);
     dp[0] = gl[0]; dp[1] = gl[1]; dp[2] = gl[2];
     dth[0] = -gl[0]; dth[1] = -gl[1]; dth[2] = -gl[2];
     dth[3] = m - (gl[0] * lx + gl[1] * ly + gl[2] * lz);

@@ -81,16 +81,25 @@ __device__ __forceinline__ void min_adj(float x, float y, float d_a, float* d_x,
 
 // The cotangent w of DE(q) pulled back to first order: the parameters of the
 // primitive that attains the DE at q (first on a tie) gain w * dDE/dtheta in
-// acc, and d_q gains w * grad_q DE.
+// acc, and d_q gains w * grad_q DE. The argmin's bulb forward is the
+// adjoint's (shade_chain.cuh).
 template <bool kPow8>
 __device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
                            float* acc, int stride, float* d_q, const MbStore& st) {
   if (w == 0.0f) return;
   int kind = 0;
+  float g[3], gth[7];
+#ifdef TR_SHADE_SERIAL
   const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind);
   if (prim < 0) return;
-  float g[3], gth[7];
   prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth, st);
+#else
+  MbFwd<float> mb;
+  const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind, nullptr, &mb, &st);
+  if (prim < 0) return;
+  prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth, st,
+                         &mb);
+#endif
   const int np = prim_stride(kind);
 #pragma unroll
   for (int k = 0; k < 7; ++k)  // a constant index: gth stays in registers

@@ -15,7 +15,13 @@
 //
 // Everything here is plain C++ apart from the qualifiers, so that it also
 // builds as host code (the CPU tests hold that build against the plain
-// version). The functions that read the distance field are templates on its
+// version). Two steps of the chain run in an order of their own, each with
+// the same ops per value as the plain one: the bulb's forward at the hit
+// runs once (scene_argmin's, stored for the normal's adjoint), and the five
+// AO taps' DEs run in lock-step (scene_de_taps). Built with
+// TR_SHADE_SERIAL, the chain takes the plain order (the argmin, then the
+// adjoint's own forward; the taps one after another): the CPU tests hold
+// the two builds bit-equal. The functions that read the distance field are templates on its
 // Mandelbulb (kPow8: sdf.cuh), as are the kernels over them; those that run
 // its adjoint take the thread's MbStore (sdf_adj.cuh). The functions a
 // kernel calls once are forced inline, so that the arrays they fill stay in
@@ -140,6 +146,81 @@ __device__ __forceinline__ float penumbra(const ShadeParams& s, const float* p_o
   const float raw = s.soft_k * dd / fmaxf(ts, s.bias);
   *pass = raw >= 0.0f && raw <= 1.0f;
   return fminf(fmaxf(raw, 0.0f), 1.0f);
+}
+
+// The scene DE at the five AO tap points p + h_i n, h_i = ao_step (i + 1):
+// the closed-form primitives tap by tap, each bulb's iterations in
+// lock-step over the taps. A tap's escape freezes it (its own live flag:
+// its step is still computed, and dropped) and the loop runs while any tap
+// lives, so each tap's DE is scene_de's, op for op, while the thread holds
+// five independent chains for the scheduler to issue.
+template <bool kPow8>
+__device__ __forceinline__ void scene_de_taps(const SdfParams& s, const float* p,
+                                              const float* n, double ao_step,
+                                              float dd[kAoTaps]) {
+  float px[kAoTaps], py[kAoTaps], pz[kAoTaps];
+#pragma unroll
+  for (int i = 0; i < kAoTaps; ++i) {
+    const float h = static_cast<float>(ao_step * (i + 1));
+    px[i] = p[0] + h * n[0];
+    py[i] = p[1] + h * n[1];
+    pz[i] = p[2] + h * n[2];
+    dd[i] = kBig;
+  }
+  const float* q = s.p;
+  for (int k = 0; k < s.n_sph; ++k, q += 4) {
+#pragma unroll
+    for (int i = 0; i < kAoTaps; ++i) dd[i] = fminf(dd[i], sphere_de(q, px[i], py[i], pz[i]));
+  }
+  for (int k = 0; k < s.n_pln; ++k, q += 4) {
+#pragma unroll
+    for (int i = 0; i < kAoTaps; ++i) dd[i] = fminf(dd[i], plane_de(q, px[i], py[i], pz[i]));
+  }
+  for (int k = 0; k < s.n_box; ++k, q += 7) {
+#pragma unroll
+    for (int i = 0; i < kAoTaps; ++i) dd[i] = fminf(dd[i], box_de(q, px[i], py[i], pz[i]));
+  }
+  for (int k = 0; k < s.n_mb; ++k, q += kBulbStride) {
+    const float sc = q[3];
+    float lx[kAoTaps], ly[kAoTaps], lz[kAoTaps], zx[kAoTaps], zy[kAoTaps], zz[kAoTaps];
+    float dr[kAoTaps], r[kAoTaps];
+    bool live[kAoTaps];
+#pragma unroll
+    for (int i = 0; i < kAoTaps; ++i) {  // bulb_de's local point, the field's start
+      lx[i] = (px[i] - q[0]) / sc;
+      ly[i] = (py[i] - q[1]) / sc;
+      lz[i] = (pz[i] - q[2]) / sc;
+      r[i] = sqrtf(fmaxf(lx[i] * lx[i] + ly[i] * ly[i] + lz[i] * lz[i], kRmin2));
+      zx[i] = lx[i]; zy[i] = ly[i]; zz[i] = lz[i];
+      dr[i] = 1.0f;
+      live[i] = true;
+    }
+    for (int it = 0; it < s.mb_iters; ++it) {
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < kAoTaps; ++i) {
+        const float r_new = sqrtf(fmaxf(zx[i] * zx[i] + zy[i] * zy[i] + zz[i] * zz[i], kRmin2));
+        if (live[i]) r[i] = r_new;
+        live[i] = live[i] && r_new <= kBailout;
+        float x = zx[i], y = zy[i], z = zz[i], w = dr[i];
+        if (kPow8)
+          mb_pow8_step(x, y, z, w, r_new, lx[i], ly[i], lz[i]);
+        else
+          mb_generic_step(x, y, z, w, r_new, lx[i], ly[i], lz[i], q[4]);
+        if (live[i]) {
+          zx[i] = x; zy[i] = y; zz[i] = z;
+          dr[i] = w;
+        }
+        any = any || live[i];
+      }
+      if (!any) break;
+    }
+#pragma unroll
+    for (int i = 0; i < kAoTaps; ++i) {
+      const float rr = fmaxf(r[i], kRmin);
+      dd[i] = fminf(dd[i], 0.5f * logf(rr) * rr / dr[i] * sc);
+    }
+  }
 }
 
 // The Moller-Trumbore re-solve of the ray's selected triangle
@@ -273,10 +354,19 @@ __device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn&
     f->t_eff = sdf_t_eff(s, r);
     for (int k = 0; k < 3; ++k) f->p[k] = r.o[k] + f->t_eff * r.d[k];
     float dmin;
+#ifdef TR_SHADE_SERIAL
     f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
     if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
     prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
                            f->p[2], f->g, f->gth, st);
+#else
+    // the bulb's forward at p runs once: the argmin's, stored for the normal
+    MbFwd<float> mb;
+    f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin, &mb, &st);
+    if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
+    prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
+                           f->p[2], f->g, f->gth, st, &mb);
+#endif
     f->glen = sqrtf(fmaxf(dot3(f->g, f->g), 1e-12f));
     for (int k = 0; k < 3; ++k) f->n[k] = f->g[k] / f->glen;
     // on a miss the closest-approach point o + tmin d is p itself
@@ -300,13 +390,21 @@ __device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn&
   if (s.ao_sdf || s.ao_mesh) {
     float occ = 0.0f;
     double w = 1.0;
+    float dd_sdf[kAoTaps];
+#ifndef TR_SHADE_SERIAL
+    if (s.ao_sdf) scene_de_taps<kPow8>(s.sdf, f->p, f->nf, s.ao_step, dd_sdf);
+#endif
+#pragma unroll
     for (int i = 0; i < kAoTaps; ++i) {
       const float h = static_cast<float>(s.ao_step * (i + 1));
       float dd = 0.0f;
       bool tap_sdf = s.ao_sdf != 0;
+#ifdef TR_SHADE_SERIAL
       if (s.ao_sdf)
-        dd = scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
-                      f->p[2] + h * f->nf[2]);
+        dd_sdf[i] = scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
+                                    f->p[2] + h * f->nf[2]);
+#endif
+      if (s.ao_sdf) dd = dd_sdf[i];
       if (s.ao_mesh) {
         const float dm = fabsf(r.t_mesh - h);
         if (!s.ao_sdf || dm < dd) {

@@ -12,7 +12,9 @@ kernels come in two builds, for the power-8 Mandelbulb field and for the
 generic-power one (`SdfScene.mb_pow8`); the wrappers pass the flag. Each
 kernel launch adds one to `LAUNCHES`. The three marches take an optional
 `counters` tensor (int64, len(SHADOW_COUNTERS), on the rays' device) to
-which a launch adds what its march did; the main path passes none.
+which a launch adds what its march did; the main path passes none. They
+also take `packed=` (`pack`): the scene's parameters packed once for many
+launches, where a call without it packs them itself.
 
 The plain versions take an optional `visit(points, active)`, called once per
 march step with the step's sample points (R, 3) and the lanes that evaluate
@@ -20,6 +22,8 @@ the distance field there: a way to count the work a march needs.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -178,15 +182,57 @@ def field_flag(sdf: SdfScene) -> int:
     return int(bool(sdf.mb_pow8) or sdf.mb_center.shape[0] == 0)
 
 
-def _sdf_args(sdf: SdfScene):
-    params = pack_sdf(sdf)
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """The scene's parameters as the kernels take them, packed once for
+    many launches (render_pixels_flat packs them once a frame or fit step,
+    under no_grad, and hands them to every wrapper as `packed=`): the SDF
+    block of pack_sdf and its counts, the bounding spheres, the primary
+    march's bounds grown by bound_pad, and the shade kernels' block
+    (cuda_shade.pack_small, whose head is the SDF block), or None."""
+    params: torch.Tensor
+    counts: tuple
+    bounds: torch.Tensor | None
+    march_bounds: torch.Tensor | None
+    bound_pad: float
+    small: torch.Tensor | None = None
+
+
+def _counts(sdf: SdfScene) -> tuple:
+    return (sdf.sph_center.shape[0], sdf.pln_normal.shape[0], sdf.box_center.shape[0],
+            sdf.mb_center.shape[0], int(sdf.mb_iters), field_flag(sdf))
+
+
+def _grown(bounds, pad: float):
+    """The bounding spheres with their radii grown by pad."""
+    if bounds is None or not pad:
+        return bounds
+    return torch.cat([bounds[:, :3], bounds[:, 3:] + pad], 1).contiguous()
+
+
+@torch.no_grad()
+def pack(sdf: SdfScene, bound_pad: float = 0.0, small=None) -> Packed:
+    """The SDF's kernel arguments, packed once (see Packed). small: the shade
+    kernels' block, whose head then serves as the SDF block."""
+    params = pack_sdf(sdf) if small is None else small[:pack_size(sdf)]
     bounds = sdf_bounding_spheres(sdf)
     if bounds is not None:
         bounds = bounds.to(torch.float32).contiguous()
-    counts = (sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
-              sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
-              field_flag(sdf))
-    return params, counts, bounds
+    return Packed(params, _counts(sdf), bounds, _grown(bounds, bound_pad), float(bound_pad),
+                  small)
+
+
+def pack_size(sdf: SdfScene) -> int:
+    """The floats of pack_sdf's block."""
+    return (4 * sdf.sph_center.shape[0] + 4 * sdf.pln_normal.shape[0]
+            + 7 * sdf.box_center.shape[0] + 5 * sdf.mb_center.shape[0])
+
+
+def _sdf_args(sdf: SdfScene, packed: Packed | None = None):
+    """(params, counts, bounds): from packed, or packed for this call."""
+    if packed is None:
+        packed = pack(sdf)
+    return packed.params, packed.counts, packed.bounds
 
 
 def _ptr(t):
@@ -198,16 +244,20 @@ def _stream(device):
 
 
 def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
-          t_far: float, bound_pad: float = 0.0, counters=None):
+          t_far: float, bound_pad: float = 0.0, counters=None, packed: Packed | None = None):
     """Primary sphere trace -> (t, hit, steps, tmin); see march_torch.
     counters: as the shadow marches' (SHADOW_COUNTERS; live counts the rays
-    that reach a bound, marching those that take a step)."""
+    that reach a bound, marching those that take a step). packed: pack(sdf,
+    bound_pad), the same arguments packed once for many launches."""
     if o.device.type == "cpu":
         return march_torch(sdf, o, d, t0=t0, max_steps=max_steps, eps=eps,
                            t_far=t_far, bound_pad=bound_pad)
-    params, counts, bounds = _sdf_args(sdf)
-    if bounds is not None and bound_pad:
-        bounds = torch.cat([bounds[:, :3], bounds[:, 3:] + bound_pad], 1).contiguous()
+    if packed is None:
+        packed = pack(sdf, bound_pad)
+    elif packed.bound_pad != float(bound_pad):
+        raise ValueError(f"march: packed for bound_pad {packed.bound_pad}, called with "
+                         f"{bound_pad}")
+    params, counts, bounds = packed.params, packed.counts, packed.march_bounds
     check_cuda_inputs("march", o, d, params, bounds)
     check_counters("march", counters, o.device, SHADOW_COUNTERS)
     R = o.shape[0]
@@ -230,12 +280,14 @@ def march(sdf: SdfScene, o, d, *, t0: float, max_steps: int, eps: float,
 
 
 def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
-                steps: int, bias: float, t_far_rays=None, counters=None):
-    """Hard-shadow visibility -> (vis, ts); see shadow_hard_torch."""
+                steps: int, bias: float, t_far_rays=None, counters=None,
+                packed: Packed | None = None):
+    """Hard-shadow visibility -> (vis, ts); see shadow_hard_torch. packed:
+    see march."""
     if p.device.type == "cpu":
         return shadow_hard_torch(sdf, p, l_dir, eps=eps, t_far=t_far,
                                  steps=steps, bias=bias, t_far_rays=t_far_rays)
-    params, counts, bounds = _sdf_args(sdf)
+    params, counts, bounds = _sdf_args(sdf, packed)
     check_cuda_inputs("shadow_hard", p, l_dir, t_far_rays, params, bounds)
     check_counters("shadow_hard", counters, p.device, SHADOW_COUNTERS)
     R = p.shape[0]
@@ -256,13 +308,14 @@ def shadow_hard(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
 
 
 def shadow_soft(sdf: SdfScene, p, l_dir, *, eps: float, t_far: float,
-                steps: int, bias: float, soft_k: float, t_far_rays=None, counters=None):
+                steps: int, bias: float, soft_k: float, t_far_rays=None, counters=None,
+                packed: Packed | None = None):
     """Soft-shadow visibility and its argmin t -> (vis, ts); see
-    shadow_soft_torch."""
+    shadow_soft_torch. packed: see march."""
     if p.device.type == "cpu":
         return shadow_soft_torch(sdf, p, l_dir, eps=eps, t_far=t_far, steps=steps,
                                  bias=bias, soft_k=soft_k, t_far_rays=t_far_rays)
-    params, counts, _ = _sdf_args(sdf)
+    params, counts, _ = _sdf_args(sdf, packed)
     check_cuda_inputs("shadow_soft", p, l_dir, t_far_rays, params)
     check_counters("shadow_soft", counters, p.device, SHADOW_COUNTERS)
     R = p.shape[0]

@@ -21,6 +21,9 @@ CUDA tensors, raising on what the kernels do not take. Each launch adds one
 to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`; `shade_bwd` takes
 an optional `counters` tensor (int64, len(SHADE_BWD_COUNTERS), on the rays'
 device) to which a launch adds what it did, and the main path passes none.
+Both take `packed=` (`pack`): the scene's parameters packed once for many
+launches (a frame, a fit step), where a call without it packs them itself;
+the backward's parameter cotangents still come back per block.
 The chains the kernels take: methods sdf, mesh_* and mixed, directional and
 point lights, static shadow visibility (hard, soft or none), the
 soft-shadow penumbra with `diff_vis`, the 5-tap AO, the soft SDF silhouette
@@ -37,6 +40,7 @@ from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
                                          kernel_lib)
+from tpu_ray_torch.kernels import cuda_sdf
 from tpu_ray_torch.kernels.cuda_sdf import field_flag, pack_sdf
 from tpu_ray_torch.scene.types import apply_params, get_param
 from tpu_ray_torch.sdf.primitives import FLOAT_FIELDS
@@ -144,6 +148,7 @@ class _ShadeCall:
     res: dict
     aux: dict
     mesh_rows: object = None
+    packed: object = None
 
 
 class ShadeFn(torch.autograd.Function):
@@ -155,10 +160,10 @@ class ShadeFn(torch.autograd.Function):
     def forward(ctx, call: _ShadeCall, o, d, corners, *leaves):
         out = shade_fwd(call.scene, call.cfg, o.detach(), d.detach(), call.res,
                         call.method, corners=None if corners is None else corners.detach(),
-                        aux=call.aux, mesh_rows=call.mesh_rows)
+                        aux=call.aux, mesh_rows=call.mesh_rows, packed=call.packed)
         saved = {k: call.res[k] for k in _SAVED_RES if k in call.res}
         ctx.call = _ShadeCall(_detached(call.scene), call.cfg, call.method,
-                              saved, call.aux)
+                              saved, call.aux, packed=call.packed)
         ctx.save_for_backward(o, d, corners)
         return out
 
@@ -168,15 +173,16 @@ class ShadeFn(torch.autograd.Function):
         o, d, corners = (None if t is None else t.detach() for t in ctx.saved_tensors)
         c = ctx.call
         g = shade_bwd(c.scene, c.cfg, o, d, c.res, c.aux, corners,
-                      ct.contiguous(), c.method)
+                      ct.contiguous(), c.method, packed=c.packed)
         return (None, g["o"], g["d"], g["corners"],
                 *(g[p] for p in SHADE_PATHS))
 
 
-def shade(scene, cfg, o, d, res, method: str, corners=None, mesh_rows=None):
-    """The shade of one ray block through ShadeFn -> (R, 3)."""
+def shade(scene, cfg, o, d, res, method: str, corners=None, mesh_rows=None, packed=None):
+    """The shade of one ray block through ShadeFn -> (R, 3). packed: see
+    shade_fwd (the backward reads it too)."""
     aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows)
-    call = _ShadeCall(scene, cfg, method, res, aux, mesh_rows)
+    call = _ShadeCall(scene, cfg, method, res, aux, mesh_rows, packed)
     return ShadeFn.apply(call, o, d, corners,
                          *(get_param(scene, p) for p in SHADE_PATHS))
 
@@ -276,6 +282,14 @@ def pack_small(scene) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
+def pack(scene, bound_pad: float = 0.0) -> cuda_sdf.Packed:
+    """Every kernel's scene parameters packed once (cuda_sdf.Packed, with
+    pack_small's block): what render_pixels_flat hands the wrappers as
+    `packed=` for a frame or a fit step. bound_pad: the primary march's."""
+    with torch.no_grad():
+        return cuda_sdf.pack(scene.sdf, bound_pad, small=pack_small(scene))
+
+
 def unpack_small(vec: torch.Tensor, scene) -> dict:
     """Cotangents by path from a vector in pack_small's layout (mb_power's
     is 0 where the power-8 field runs: it does not read the power)."""
@@ -319,14 +333,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def kernel_args(scene, cfg, o, d, res, aux, corners, method: str):
+def kernel_args(scene, cfg, o, d, res, aux, corners, method: str, packed=None):
     """The arguments both shade kernels take: (spec, small, rays, statics).
     rays: the 12 per-ray tensors (o, d, corners, t_bar, tmin, hs, hm,
     closer, mat, vis, ts, ao_tmesh; None where the chain reads none), the
     kernels' pointer arguments; statics: the arguments after them, the ray
-    count and the packed block `small` (as a tensor) first."""
+    count and the packed block `small` (as a tensor) first. packed: pack's,
+    whose block serves as small (else it is packed here)."""
     spec = kernel_spec(scene, cfg, method)
-    small = pack_small(scene)
+    small = pack_small(scene) if packed is None else packed.small
     rays = [o, d, corners, res["sdf_t"] if spec["use_sdf"] else None,
             res["sdf_tmin"] if spec["soft_sil"] else None,
             res["sdf_hit"] if spec["use_sdf"] else None,
@@ -347,10 +362,11 @@ def kernel_args(scene, cfg, o, d, res, aux, corners, method: str):
     return spec, small, rays, statics
 
 
-def _checked_args(name, scene, cfg, o, d, res, aux, corners, method: str):
+def _checked_args(name, scene, cfg, o, d, res, aux, corners, method: str, packed=None):
     """kernel_args, checked for the CUDA kernels, with the tensors as
     pointers: (spec, small, pointers, statics)."""
-    spec, small, rays, statics = kernel_args(scene, cfg, o, d, res, aux, corners, method)
+    spec, small, rays, statics = kernel_args(scene, cfg, o, d, res, aux, corners, method,
+                                             packed)
     o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, t_mesh = rays
     R = o.shape[0]
     n_lights = spec["n_dir"] + spec["n_pos"]
@@ -369,16 +385,18 @@ def _checked_args(name, scene, cfg, o, d, res, aux, corners, method: str):
 
 
 def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
-              mesh_rows=None) -> torch.Tensor:
+              mesh_rows=None, packed=None) -> torch.Tensor:
     """The shade of one ray block without gradient -> (R, 3); see
-    shade_fwd_torch. aux: _make_aux's dict (made here when None)."""
+    shade_fwd_torch. aux: _make_aux's dict (made here when None). packed:
+    pack(scene), the parameters packed once for many launches (packed here
+    when None)."""
     if o.device.type == "cpu":
         return shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners,
                                mesh_rows=mesh_rows)
     if aux is None:
         aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows)
     _, _, pointers, statics = _checked_args("shade_fwd", scene, cfg, o, d, res, aux,
-                                            corners, method)
+                                            corners, method, packed)
     out = torch.empty((o.shape[0], 3), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         rc = kernel_lib().tr_shade_fwd(
@@ -390,12 +408,13 @@ def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
 
 
 def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str,
-              counters=None) -> dict:
-    """Cotangents of the shade of one ray block; see shade_bwd_torch."""
+              counters=None, packed=None) -> dict:
+    """Cotangents of the shade of one ray block; see shade_bwd_torch.
+    packed: see shade_fwd."""
     if o.device.type == "cpu":
         return shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
     spec, small, pointers, statics = _checked_args("shade_bwd", scene, cfg, o, d, res,
-                                                   aux, corners, method)
+                                                   aux, corners, method, packed)
     check_cuda_inputs("shade_bwd", o, ct)
     check_counters("shade_bwd", counters, o.device, SHADE_BWD_COUNTERS)
     R, dev = o.shape[0], o.device

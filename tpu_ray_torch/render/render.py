@@ -19,7 +19,9 @@ and the 5-tap distance-field AO.
 
 On a CUDA device the shade of a block is one launch of the fused forward
 kernel (`cuda_shade.shade_fwd`), with or without a gradient; on the CPU it
-is the plain `_shade_plain`. Gradients: ray generation runs inside
+is the plain `_shade_plain`. The primary march runs once per group of
+`MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
+packed once per `render_pixels_flat` call (`cuda_shade.pack`). Gradients: ray generation runs inside
 autograd, so the camera gets its gradient; the shade of a block is one
 `cuda_shade.ShadeFn`, whose backward is the fused shade-backward kernel on
 a CUDA device. Object poses (`scene.poses`) fold into world-space vertices
@@ -51,6 +53,16 @@ BIG = 1e10
 # approach sets their coverage. A ray that stays farther away has coverage
 # below sigmoid(-24) = 4e-11, under float32's resolution of the blend.
 SIL_REACH = 24.0
+# blocks whose primary rays render_pixels_flat marches in one launch: the
+# smallest group within 10% of the best device time a ray over a whole
+# frame (chip_smoke.py phase `launch`, groups of 1, 4, 16 and 32 blocks on
+# `mixed` and `mandelbulb`)
+MARCH_GROUP = 16
+
+
+def _bound_pad(cfg: RenderConfig) -> float:
+    """The primary march's bound-cull padding (SIL_REACH widths)."""
+    return SIL_REACH * max(cfg.soft_silhouette, 0.0)
 
 
 def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
@@ -311,9 +323,22 @@ def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 
 
 @torch.no_grad()
+def march_group(scene: Scene, cfg: RenderConfig, xs, ys, packed=None):
+    """The primary march of a group of blocks' samples in one launch ->
+    (t, hit, steps, tmin) over the group. Its rays are generate_rays' of
+    the group's samples, elementwise, so bit for bit each block's own."""
+    o, d = generate_rays(scene.camera, xs, ys, cfg.width, cfg.height)
+    return cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
+                          t_far=cfg.t_far, bound_pad=_bound_pad(cfg), packed=packed)
+
+
+@torch.no_grad()
 def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
-                       mesh_rows=None) -> dict:
-    """The geometry pass -> dict of per-ray residuals:
+                       mesh_rows=None, march=None, packed=None) -> dict:
+    """The geometry pass -> dict of per-ray residuals (march: this block's
+    slice of march_group's result, which the pass then takes in place of
+    its own march; packed: the kernels' parameters packed once,
+    cuda_shade.pack):
 
       sdf_t, sdf_hit, sdf_tmin   primary march (when the SDF is traced)
       mesh_tri, mesh_hit         mesh closest hit (when the mesh is traced)
@@ -339,9 +364,11 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     res = {}
     t_seed = None
     if _use_sdf(scene, method):
-        t, hit, _steps, tmin = cuda_sdf.march(
-            scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
-            t_far=cfg.t_far, bound_pad=SIL_REACH * max(cfg.soft_silhouette, 0.0))
+        if march is None:
+            march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
+                                   eps=cfg.eps, t_far=cfg.t_far, bound_pad=_bound_pad(cfg),
+                                   packed=packed)
+        t, hit, _steps, tmin = march
         res["sdf_t"], res["sdf_hit"], res["sdf_tmin"] = t, hit, tmin
         if method == "mixed":
             # the SDF hit bounds the mesh search
@@ -381,12 +408,12 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
         if _use_sdf(scene, method):
             if soft:
                 v, ts_m = shading.sdf_soft_shadow_argmin(scene.sdf, p_off, l_dir, cfg,
-                                                         t_far_rays)
+                                                         t_far_rays, packed=packed)
             else:
                 v, ts_m = cuda_sdf.shadow_hard(
                     scene.sdf, p_off, l_dir, eps=cfg.eps, t_far=cfg.t_far,
                     steps=cfg.shadow_steps, bias=cfg.shadow_bias,
-                    t_far_rays=t_far_rays)
+                    t_far_rays=t_far_rays, packed=packed)
             if soft_diff:
                 ts = ts_m  # the shade recomputes the penumbra from it
             else:
@@ -480,7 +507,7 @@ def _shade_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 
 
 def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
-                         method: str, mesh_rows=None) -> torch.Tensor:
+                         method: str, mesh_rows=None, packed=None) -> torch.Tensor:
     """Shade a flat ray batch from its geometry residuals -> (R, 3).
 
     On a CUDA device the shade is one launch of the fused forward kernel;
@@ -491,7 +518,8 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
     chain the kernels do not take, autograd of the plain shade). The
     per-ray corners of the selected triangles are gathered here, from the
     per-frame `mesh_table`, so the vertex gradient scatters by triangle per
-    block and by vertex once per frame."""
+    block and by vertex once per frame. packed: the kernels' parameters
+    packed once (cuda_shade.pack)."""
     grad = torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)
     spec = cuda_shade.kernel_spec(scene, cfg, method)
     if spec is None or not (grad or o.is_cuda):
@@ -504,8 +532,8 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
         corners = mesh_rows[idx][:, :9].contiguous()
     if not grad:
         return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
-                                    mesh_rows=mesh_rows)
-    return cuda_shade.shade(scene, cfg, o, d, res, method, corners, mesh_rows)
+                                    mesh_rows=mesh_rows, packed=packed)
+    return cuda_shade.shade(scene, cfg, o, d, res, method, corners, mesh_rows, packed)
 
 
 def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
@@ -514,17 +542,23 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
     contiguous) -> per-pixel colors (3, n_px), spp-averaged, channel-major.
     Samples run in blocks of cfg.block_size (rounded up to whole pixels).
 
+    The kernels' scene parameters are packed once here (cuda_shade.pack,
+    under no_grad) and handed to every wrapper. The primary march, which
+    takes no gradient, runs once per group of MARCH_GROUP consecutive
+    blocks (march_group), and each block takes its slice of the result.
     Rays are generated per block inside autograd (the camera's gradient);
     no block is checkpointed: the shade's Function saves only compact
     residuals, so the backward keeps ~100 bytes per ray."""
     method = method or resolve_method(scene, cfg)
     mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
+    packed = cuda_shade.pack(scene, _bound_pad(cfg))
 
-    def block_fn(x, y):
+    def block_fn(x, y, march=None):
         o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
-        res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows)
+        res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows, march=march,
+                                 packed=packed)
         colors = shade_with_residuals(scene, cfg, o, d, res, method,
-                                      mesh_rows=mesh_rows)
+                                      mesh_rows=mesh_rows, packed=packed)
         return colors.reshape(-1, cfg.spp, 3).mean(1).T  # (3, n_px_block)
 
     R = flat_x.shape[0]
@@ -536,8 +570,15 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
     if pad:
         flat_x = torch.cat([flat_x, flat_x[-1:].expand(pad)])
         flat_y = torch.cat([flat_y, flat_y[-1:].expand(pad)])
-    cols = [block_fn(flat_x[s:s + bs], flat_y[s:s + bs])
-            for s in range(0, flat_x.shape[0], bs)]
+    grouped = _use_sdf(scene, method)
+    group = MARCH_GROUP * bs if grouped else flat_x.shape[0]
+    cols = []
+    for g in range(0, flat_x.shape[0], group):
+        gx, gy = flat_x[g:g + group], flat_y[g:g + group]
+        marched = march_group(scene, cfg, gx, gy, packed) if grouped else None
+        for s in range(0, gx.shape[0], bs):
+            block = None if marched is None else tuple(v[s:s + bs] for v in marched)
+            cols.append(block_fn(gx[s:s + bs], gy[s:s + bs], block))
     return torch.cat(cols, dim=1)[:, :n_px]
 
 

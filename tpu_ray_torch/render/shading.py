@@ -21,19 +21,21 @@ from tpu_ray_torch.scene.types import Scene, background_color
 from tpu_ray_torch.utils.config import RenderConfig
 
 
-def sdf_soft_shadow_argmin(sdf_scene, p, l_dir, cfg: RenderConfig, t_far=None):
+def sdf_soft_shadow_argmin(sdf_scene, p, l_dir, cfg: RenderConfig, t_far=None,
+                           packed=None):
     """Penumbra visibility and the march parameter t_s at which its min was
     attained: (vis, t_s), both (R,), through `cuda_sdf.shadow_soft` (the
     kernel on a CUDA device, its plain version on the CPU). t_far: None
     (cfg.t_far), a number, or a per-ray (R,) cutoff. The distance field is
     the scene's, the one the kernel evaluates: the reference's `de_fn`
-    argument has no counterpart here."""
+    argument has no counterpart here. packed: the kernel's parameters
+    packed once (cuda_sdf.pack)."""
     per_ray = isinstance(t_far, torch.Tensor)
     return cuda_sdf.shadow_soft(
         sdf_scene, p, l_dir, eps=cfg.eps,
         t_far=cfg.t_far if t_far is None or per_ray else t_far,
         steps=cfg.shadow_steps, bias=cfg.shadow_bias, soft_k=cfg.soft_k,
-        t_far_rays=t_far if per_ray else None)
+        t_far_rays=t_far if per_ray else None, packed=packed)
 
 
 def sdf_soft_shadow(sdf_scene, p, l_dir, cfg: RenderConfig, t_far=None):
