@@ -28,14 +28,19 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      of the bulb's block, and both with the 5-tap AO (its Mandelbulb and
      mesh terms). The packet walks run once more with their counters
      (chunks staged, MT tests, the share of a staged chunk's rays that
-     passed its box), logged beside their times.
+     passed its box), logged beside their times. The primary march of each
+     block's group of render.MARCH_GROUP blocks (as the frame runs it)
+     against the block's own march, and every wrapper given the
+     parameters packed once against the same call packing its own: all
+     bit-identical.
   3b. content: the shade forward timed on all-sky, all-bulb and all-mesh
      sets of 32,768 rays from those blocks.
   4. small frame: `mixed` at 320x180, 1 spp, kernel path against plain path:
      the image, and the gradient of mean(img**2) for the six trainables.
   5. the forward slice: `render_image` of `mixed` at 1920x1080, 16 spp,
-     with every forward kernel's launch count over that one frame; the PNG
-     goes to build/.
+     with every forward kernel's launch count over that one frame (the
+     march once per group of render.MARCH_GROUP blocks, the others once a
+     block); the PNG goes to build/.
   6. the fit step: forward + backward of mean(img**2) at 1920x1080, 16 spp,
      for the six trainables: time, launch counts, peak memory, gradients.
   7. a fit: `fit()` for 3 Adam steps at 480x272, 16 spp, toward the CLI
@@ -98,8 +103,8 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      the shade backward with AO and the diff_vis penumbra, the
      `sdf.mb_power` group included, against their plain versions; timed at
      8.0 (the `mandelbulb_power` entries).
- 22. power_frame: the `mandelbulb_power` frame at 1024x1024x4 (64 launches
-     each of `march`, `shadow_soft` and `shade_fwd`), its diff_vis fit step
+ 22. power_frame: the `mandelbulb_power` frame at 1024x1024x4 (2 launches
+     of `march`, 64 each of `shadow_soft` and `shade_fwd`), its diff_vis fit step
      for the five bulb trainables and `sdf.mb_power` (64 `shade_bwd`), and
      3 Adam steps of `fit()` from the registry's power-8 scene (which fit
      switches to the generic field) at 256x256x4 toward the CLI demo target
@@ -1125,8 +1130,9 @@ def power_parity(scene, cfg, results):
 
 
 def power_frame(scene, cfg, smi, warm, profile_cfg):
-    """Phase 22: the `mandelbulb_power` frame (64 launches each of march,
-    soft march and shade forward), its diff_vis fit step for
+    """Phase 22: the `mandelbulb_power` frame (the march once per group of
+    blocks, 64 launches each of the soft march and the shade forward), its
+    diff_vis fit step for
     POWER_TRAINABLES (64 shade backward), then 3 Adam steps of fit() from
     the registry's power-8 scene toward the CLI demo target at 256x256x4,
     through the kernels. -> the frame's and the step's launch counts."""
@@ -2028,19 +2034,28 @@ def group_sweep(path, scene, cfg, packed, groups) -> dict:
         frame()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(1_000_000_000)  # ~0.5 s, longer than the host's enqueue
+        # ~1 ms of spin a launch (at ~1.9 GHz), longer than the host takes to
+        # enqueue them: the events then time the device's work alone
+        spin = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(2_000_000 * 3 * len(chunks))
         start.record()
+        t0 = time.perf_counter()
         for _ in range(3):
             frame()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
+        spin_ms = spin.elapsed_time(start)
         ms = start.elapsed_time(end) / 3
         rows[g] = dict(launches=len(chunks), ms=ms, ms_a_launch=ms / len(chunks),
                        ns_a_ray=ms * 1e6 / o.shape[0])
         log("launch", f"{path} march over the frame ({o.shape[0]} rays, "
             f"{o.shape[0] // cfg.block_size} blocks) in groups of {g} blocks: {len(chunks)} "
             f"launches, {ms:.4f} ms a frame, {ms / len(chunks):.4f} ms a launch, "
-            f"{rows[g]['ns_a_ray']:.5f} ns a ray")
+            f"{rows[g]['ns_a_ray']:.5f} ns a ray (host enqueue {host_ms:.1f} ms in a "
+            f"{spin_ms:.1f} ms spin" + ("" if host_ms < spin_ms else
+                                        ": the host outran the spin, an upper bound") + ")")
     best = min(r["ns_a_ray"] for r in rows.values())
     chosen = min(g for g, r in rows.items() if r["ns_a_ray"] <= 1.1 * best)
     log("launch", f"{path} group sweep: the smallest group within 10% of the best time a ray "

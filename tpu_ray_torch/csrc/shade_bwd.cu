@@ -89,17 +89,12 @@ __device__ void de_adj_add(const ShadeParams& s, const float* q, float w,
   if (w == 0.0f) return;
   int kind = 0;
   float g[3], gth[7];
-#ifdef TR_SHADE_SERIAL
-  const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind);
-  if (prim < 0) return;
-  prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth, st);
-#else
   MbFwd<float> mb;
-  const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind, nullptr, &mb, &st);
+  const int prim = scene_argmin<kPow8>(s.sdf, q[0], q[1], q[2], &kind, nullptr,
+                                       kSerialChain ? nullptr : &mb, &st);
   if (prim < 0) return;
   prim_adj<float, kPow8>(s.sdf.p + prim, kind, s.sdf.mb_iters, q[0], q[1], q[2], g, gth, st,
-                         &mb);
-#endif
+                         kSerialChain ? nullptr : &mb);
   const int np = prim_stride(kind);
 #pragma unroll
   for (int k = 0; k < 7; ++k)  // a constant index: gth stays in registers
@@ -195,7 +190,7 @@ __device__ __forceinline__ void shade_bwd_ray(const ShadeParams& s, const RayIn&
   const float* P = s.sdf.p;
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  const bool surf = shade_surface<kPow8>(s, r, &f, st);
+  const bool surf = shade_surface<kPow8, !kPow8>(s, r, &f, st);
 
   // --- reverse: out = bg + cov * (colour - bg), colour = albedo[mat] * rad
   float d_bg[3], d_color[3], d_cov = 0.0f;

@@ -17,11 +17,11 @@
 // builds as host code (the CPU tests hold that build against the plain
 // version). Two steps of the chain run in an order of their own, each with
 // the same ops per value as the plain one: the bulb's forward at the hit
-// runs once (scene_argmin's, stored for the normal's adjoint), and the five
-// AO taps' DEs run in lock-step (scene_de_taps). Built with
-// TR_SHADE_SERIAL, the chain takes the plain order (the argmin, then the
-// adjoint's own forward; the taps one after another): the CPU tests hold
-// the two builds bit-equal. The functions that read the distance field are templates on its
+// runs once (scene_argmin's, stored for the normal's adjoint), and in the
+// forward's power-8 build and the backward's generic one the five AO taps'
+// DEs run in lock-step (scene_de_taps). Built with TR_SHADE_SERIAL, the chain takes the serial
+// order (the argmin, then the adjoint's own forward; the taps one after
+// another): the CPU tests hold the two builds bit-equal. The functions that read the distance field are templates on its
 // Mandelbulb (kPow8: sdf.cuh), as are the kernels over them; those that run
 // its adjoint take the thread's MbStore (sdf_adj.cuh). The functions a
 // kernel calls once are forced inline, so that the arrays they fill stay in
@@ -33,6 +33,15 @@
 #include "sdf_adj.cuh"
 
 namespace tr {
+
+// The chain in its serial order (TR_SHADE_SERIAL, host tests only): the
+// argmin, then the normal's adjoint with its own forward of the bulb; the
+// AO taps one after another.
+#ifdef TR_SHADE_SERIAL
+constexpr bool kSerialChain = true;
+#else
+constexpr bool kSerialChain = false;
+#endif
 
 constexpr float kDenomMin = 1e-6f;  // the IFT denominator's clamp
 constexpr float kDetEps = 1e-10f;   // the Moller-Trumbore determinant's
@@ -317,8 +326,14 @@ __device__ __forceinline__ float sdf_t_eff(const ShadeParams& s, const RayIn& r)
 // The ray's selected surface and its radiance, or false for a lane that
 // selects no surface (its output is the sky and its coverage 0). Coverage,
 // as reconstruct_hits: cov = (hm && !closer) ? cm : max(cov_s, cm); an
-// SDF-only chain has cov_s, a mesh-only one cm.
-template <bool kPow8>
+// SDF-only chain has cov_s, a mesh-only one cm. kLockstepTaps: the AO taps'
+// DEs by scene_de_taps, where it measured faster on an H100 (chip_smoke.py
+// phase launch, `mandelbulb` and `mandelbulb_power` blocks): in the
+// forward with the power-8 field, in the backward with the generic one
+// (7% off a launch). The generic forward ran 4% slower with it (a dead
+// tap's step, still computed, costs its transcendentals) and the power-8
+// backward 15% slower.
+template <bool kPow8, bool kLockstepTaps = false>
 __device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn& r,
                                               SurfFwd* f, const MbStore& st) {
   const float* P = s.sdf.p;
@@ -354,19 +369,13 @@ __device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn&
     f->t_eff = sdf_t_eff(s, r);
     for (int k = 0; k < 3; ++k) f->p[k] = r.o[k] + f->t_eff * r.d[k];
     float dmin;
-#ifdef TR_SHADE_SERIAL
-    f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin);
-    if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
-    prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
-                           f->p[2], f->g, f->gth, st);
-#else
     // the bulb's forward at p runs once: the argmin's, stored for the normal
     MbFwd<float> mb;
-    f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin, &mb, &st);
+    f->prim = scene_argmin<kPow8>(s.sdf, f->p[0], f->p[1], f->p[2], &f->kind, &dmin,
+                                  kSerialChain ? nullptr : &mb, &st);
     if (f->prim < 0) return false;  // no primitive: the wrappers never send such a scene
     prim_adj<float, kPow8>(P + f->prim, f->kind, s.sdf.mb_iters, f->p[0], f->p[1],
-                           f->p[2], f->g, f->gth, st, &mb);
-#endif
+                           f->p[2], f->g, f->gth, st, kSerialChain ? nullptr : &mb);
     f->glen = sqrtf(fmaxf(dot3(f->g, f->g), 1e-12f));
     for (int k = 0; k < 3; ++k) f->n[k] = f->g[k] / f->glen;
     // on a miss the closest-approach point o + tmin d is p itself
@@ -390,21 +399,18 @@ __device__ __forceinline__ bool shade_surface(const ShadeParams& s, const RayIn&
   if (s.ao_sdf || s.ao_mesh) {
     float occ = 0.0f;
     double w = 1.0;
+    constexpr bool kLockstep = kLockstepTaps && !kSerialChain;
     float dd_sdf[kAoTaps];
-#ifndef TR_SHADE_SERIAL
-    if (s.ao_sdf) scene_de_taps<kPow8>(s.sdf, f->p, f->nf, s.ao_step, dd_sdf);
-#endif
+    if (kLockstep && s.ao_sdf) scene_de_taps<kPow8>(s.sdf, f->p, f->nf, s.ao_step, dd_sdf);
 #pragma unroll
     for (int i = 0; i < kAoTaps; ++i) {
       const float h = static_cast<float>(s.ao_step * (i + 1));
       float dd = 0.0f;
       bool tap_sdf = s.ao_sdf != 0;
-#ifdef TR_SHADE_SERIAL
       if (s.ao_sdf)
-        dd_sdf[i] = scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0], f->p[1] + h * f->nf[1],
-                                    f->p[2] + h * f->nf[2]);
-#endif
-      if (s.ao_sdf) dd = dd_sdf[i];
+        dd = kLockstep ? dd_sdf[i]
+                       : scene_de<kPow8>(s.sdf, f->p[0] + h * f->nf[0],
+                                         f->p[1] + h * f->nf[1], f->p[2] + h * f->nf[2]);
       if (s.ao_mesh) {
         const float dm = fabsf(r.t_mesh - h);
         if (!s.ao_sdf || dm < dd) {

@@ -38,7 +38,7 @@ __device__ __forceinline__ void shade_fwd_ray(const ShadeParams& s, const RayIn&
                                               float* rgb, const MbStore& st) {
   const float sb = 0.5f * (r.d[1] + 1.0f);
   SurfFwd f;
-  if (!shade_surface<kPow8>(s, r, &f, st)) {
+  if (!shade_surface<kPow8, kPow8>(s, r, &f, st)) {
     for (int c = 0; c < 3; ++c) rgb[c] = sky(s, c, sb);
     return;
   }

@@ -189,7 +189,7 @@ class Packed:
     under no_grad, and hands them to every wrapper as `packed=`): the SDF
     block of pack_sdf and its counts, the bounding spheres, the primary
     march's bounds grown by bound_pad, and the shade kernels' block
-    (cuda_shade.pack_small, whose head is the SDF block), or None."""
+    (cuda_shade.pack_small), or None."""
     params: torch.Tensor
     counts: tuple
     bounds: torch.Tensor | None
@@ -211,21 +211,13 @@ def _grown(bounds, pad: float):
 
 
 @torch.no_grad()
-def pack(sdf: SdfScene, bound_pad: float = 0.0, small=None) -> Packed:
-    """The SDF's kernel arguments, packed once (see Packed). small: the shade
-    kernels' block, whose head then serves as the SDF block."""
-    params = pack_sdf(sdf) if small is None else small[:pack_size(sdf)]
+def pack(sdf: SdfScene, bound_pad: float = 0.0) -> Packed:
+    """The SDF's kernel arguments, packed once (see Packed; no shade block)."""
     bounds = sdf_bounding_spheres(sdf)
     if bounds is not None:
         bounds = bounds.to(torch.float32).contiguous()
-    return Packed(params, _counts(sdf), bounds, _grown(bounds, bound_pad), float(bound_pad),
-                  small)
-
-
-def pack_size(sdf: SdfScene) -> int:
-    """The floats of pack_sdf's block."""
-    return (4 * sdf.sph_center.shape[0] + 4 * sdf.pln_normal.shape[0]
-            + 7 * sdf.box_center.shape[0] + 5 * sdf.mb_center.shape[0])
+    return Packed(pack_sdf(sdf), _counts(sdf), bounds, _grown(bounds, bound_pad),
+                  float(bound_pad))
 
 
 def _sdf_args(sdf: SdfScene, packed: Packed | None = None):

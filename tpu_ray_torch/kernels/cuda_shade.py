@@ -273,11 +273,12 @@ def ill_conditioned_colors(scene, cfg, o, d, res, corners, method: str,
 # CUDA path
 # ---------------------------------------------------------------------------
 
-def pack_small(scene) -> torch.Tensor:
+def pack_small(scene, sdf_block=None) -> torch.Tensor:
     """The kernels' packed float32 parameter block (layout in
-    csrc/shade_chain.cuh): the SDF block of pack_sdf, then the SHADE_PATHS
-    leaves after the SDF's, flattened."""
-    parts = [pack_sdf(scene.sdf)]
+    csrc/shade_chain.cuh): the SDF block of pack_sdf (sdf_block, when
+    packed already), then the SHADE_PATHS leaves after the SDF's,
+    flattened."""
+    parts = [pack_sdf(scene.sdf) if sdf_block is None else sdf_block]
     parts += [get_param(scene, p).reshape(-1).to(torch.float32) for p in _SMALL_PATHS]
     return torch.cat(parts).contiguous()
 
@@ -287,7 +288,8 @@ def pack(scene, bound_pad: float = 0.0) -> cuda_sdf.Packed:
     pack_small's block): what render_pixels_flat hands the wrappers as
     `packed=` for a frame or a fit step. bound_pad: the primary march's."""
     with torch.no_grad():
-        return cuda_sdf.pack(scene.sdf, bound_pad, small=pack_small(scene))
+        packed = cuda_sdf.pack(scene.sdf, bound_pad)
+        return dataclasses.replace(packed, small=pack_small(scene, packed.params))
 
 
 def unpack_small(vec: torch.Tensor, scene) -> dict:

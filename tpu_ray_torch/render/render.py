@@ -55,9 +55,10 @@ BIG = 1e10
 SIL_REACH = 24.0
 # blocks whose primary rays render_pixels_flat marches in one launch: the
 # smallest group within 10% of the best device time a ray over a whole
-# frame (chip_smoke.py phase `launch`, groups of 1, 4, 16 and 32 blocks on
-# `mixed` and `mandelbulb`)
-MARCH_GROUP = 16
+# frame, in groups of 1, 4, 16 and 32 blocks (chip_smoke.py phase `launch`
+# on an H100 80GB HBM3 at 700 W: `mixed` 1.095, 0.239, 0.129, 0.108 ns a
+# ray; `mandelbulb` 2.185, 1.067, 0.647, 0.588)
+MARCH_GROUP = 32
 
 
 def _bound_pad(cfg: RenderConfig) -> float:
