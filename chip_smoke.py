@@ -1380,7 +1380,7 @@ def check_counts(name, cfg, counts, kernels) -> None:
           f"{n_blocks} blocks in groups of {MARCH_GROUP}")
     for k in ("shade_fwd", "shade_bwd"):
         check(counts.get(k, n_blocks) == n_blocks,
-              f"{name}: {counts[k]} {k} launches for {n_blocks} blocks")
+              f"{name}: {counts.get(k)} {k} launches for {n_blocks} blocks")
 
 
 def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
@@ -2010,12 +2010,36 @@ def frame_rays(scene, cfg):
     return fx, fy, o, d
 
 
+def device_ms(launches, batch: int = 256) -> tuple:
+    """Device time of the launches, in ms, and the host's time to enqueue
+    them: CUDA events around each batch of `batch` launches, each batch
+    queued behind a spin kernel (~0.2 ms a launch at ~1.9 GHz) that outlasts
+    its enqueue. A batch stays within the device's queue of pending
+    launches, which would otherwise hold the host back to the device's
+    pace and let idle gaps into the timed span."""
+    total = host = 0.0
+    for i in range(0, len(launches), batch):
+        part = launches[i:i + batch]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000 * len(part))
+        start.record()
+        t0 = time.perf_counter()
+        for fn in part:
+            fn()
+        host += time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total, host * 1e3
+
+
 def group_sweep(path, scene, cfg, packed, groups) -> dict:
     """The primary march of the whole frame as render_pixels_flat runs it,
     one launch per group of G blocks, for each G in groups: device time of
-    the frame's launches (CUDA events over 3 frames after a warm-up, a spin
-    kernel queued first), its launches, ms a launch and ns a ray. -> {G:
-    row}, and the smallest G within 10% of the best time a ray."""
+    the frame's launches (device_ms, after a warm-up frame), its launches,
+    ms a launch and ns a ray. -> {G: row}, and the smallest G within 10% of
+    the best time a ray."""
     from tpu_ray_torch.kernels import cuda_sdf
     from tpu_ray_torch.render import render as R
 
@@ -2025,37 +2049,17 @@ def group_sweep(path, scene, cfg, packed, groups) -> dict:
     rows = {}
     for g in groups:
         n = g * cfg.block_size
-        chunks = [(o[s:s + n], d[s:s + n]) for s in range(0, o.shape[0], n)]
-
-        def frame():
-            for oc, dc in chunks:
-                cuda_sdf.march(scene.sdf, oc, dc, **kw)
-
-        frame()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        # ~1 ms of spin a launch (at ~1.9 GHz), longer than the host takes to
-        # enqueue them: the events then time the device's work alone
-        spin = torch.cuda.Event(enable_timing=True)
-        spin.record()
-        torch.cuda._sleep(2_000_000 * 3 * len(chunks))
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            frame()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        torch.cuda.synchronize()
-        spin_ms = spin.elapsed_time(start)
-        ms = start.elapsed_time(end) / 3
-        rows[g] = dict(launches=len(chunks), ms=ms, ms_a_launch=ms / len(chunks),
+        launches = [lambda s=s: cuda_sdf.march(scene.sdf, o[s:s + n], d[s:s + n], **kw)
+                    for s in range(0, o.shape[0], n)]
+        for fn in launches:  # warm-up
+            fn()
+        ms, host_ms = device_ms(launches)
+        rows[g] = dict(launches=len(launches), ms=ms, ms_a_launch=ms / len(launches),
                        ns_a_ray=ms * 1e6 / o.shape[0])
         log("launch", f"{path} march over the frame ({o.shape[0]} rays, "
-            f"{o.shape[0] // cfg.block_size} blocks) in groups of {g} blocks: {len(chunks)} "
-            f"launches, {ms:.4f} ms a frame, {ms / len(chunks):.4f} ms a launch, "
-            f"{rows[g]['ns_a_ray']:.5f} ns a ray (host enqueue {host_ms:.1f} ms in a "
-            f"{spin_ms:.1f} ms spin" + ("" if host_ms < spin_ms else
-                                        ": the host outran the spin, an upper bound") + ")")
+            f"{o.shape[0] // cfg.block_size} blocks) in groups of {g} blocks: "
+            f"{len(launches)} launches, {ms:.4f} ms a frame, {ms / len(launches):.4f} ms a "
+            f"launch, {rows[g]['ns_a_ray']:.5f} ns a ray (host enqueue {host_ms:.1f} ms)")
     best = min(r["ns_a_ray"] for r in rows.values())
     chosen = min(g for g, r in rows.items() if r["ns_a_ray"] <= 1.1 * best)
     log("launch", f"{path} group sweep: the smallest group within 10% of the best time a ray "
