@@ -39,6 +39,14 @@
 // at this size every ray already has a thread, so the kernel keeps one
 // thread a ray. A copy of the parameters in shared memory moved the soft
 // march by -1.0% (generic field) and +1.6% (power 8) in one run: not kept.
+// The primary march depends on nothing but the camera rays, so the render
+// launches it once per group of 32 blocks (render.march_group): one block
+// put ~2 warps on each of the card's schedulers, and a launch lasted as
+// long as its slowest warp (`mixed`, a bulb block: warps 9,627 cycles on
+// average, 27,228 at most); a group holds 32 such blocks' warps at once,
+// and a `mixed` frame's march fell from 7.87 ms in groups of 4 blocks to
+// 3.53 ms in groups of 32. Its lane efficiency over a group stays >= 0.8
+// (0.84 `mixed`, 0.81 `mandelbulb`), so the rays are not compacted.
 //
 // The per-ray marches (the primary one and the hard one with their culls,
 // the soft one) are plain C++ above the __CUDACC__ guard, so that they also

@@ -23,8 +23,16 @@
 // the Pallas kernel's per-tile class dispatch (pallas_shade.py:379-438):
 // a lane that selects no surface writes the sky, a selected mesh hit runs
 // the Moller-Trumbore re-solve, a selected SDF hit the normal's adjoint. The
-// branch is exact: it is the plain version's own select. No shared memory
-// and no reduction.
+// branch is exact: it is the plain version's own select. No reduction.
+//
+// At the path's launch size (32,768 or 65,536 rays) a bulb ray's chain is
+// arithmetic latency at ~2 warps a scheduler (the argmin's DE, the
+// adjoint's forward and reverse, the AO taps). The chain runs the bulb's
+// forward at the hit once: the argmin's, whose stored iterations the
+// normal's reverse pass reads (shade_chain.cuh); with the power-8 field the
+// five AO taps run in lock-step, five independent chains a thread. The
+// wrapper takes the parameters packed once a frame (cuda_shade.pack), which
+// were 0.0077 ms of a 0.019 ms `mixed` launch when packed per launch.
 #include <stdint.h>
 
 #include "shade_chain.cuh"

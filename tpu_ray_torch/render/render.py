@@ -21,11 +21,11 @@ On a CUDA device the shade of a block is one launch of the fused forward
 kernel (`cuda_shade.shade_fwd`), with or without a gradient; on the CPU it
 is the plain `_shade_plain`. The primary march runs once per group of
 `MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
-packed once per `render_pixels_flat` call (`cuda_shade.pack`). Gradients: ray generation runs inside
-autograd, so the camera gets its gradient; the shade of a block is one
-`cuda_shade.ShadeFn`, whose backward is the fused shade-backward kernel on
-a CUDA device. Object poses (`scene.poses`) fold into world-space vertices
-once per frame, at `render_image`'s entry.
+packed once per `render_pixels_flat` call (`cuda_shade.pack`). Gradients:
+ray generation runs inside autograd, so the camera gets its gradient; the
+shade of a block is one `cuda_shade.ShadeFn`, whose backward is the fused
+shade-backward kernel on a CUDA device. Object poses (`scene.poses`) fold
+into world-space vertices once per frame, at `render_image`'s entry.
 
 Not ported yet: jittered sampling.
 """
@@ -53,11 +53,11 @@ BIG = 1e10
 # approach sets their coverage. A ray that stays farther away has coverage
 # below sigmoid(-24) = 4e-11, under float32's resolution of the blend.
 SIL_REACH = 24.0
-# blocks whose primary rays render_pixels_flat marches in one launch: the
-# smallest group within 10% of the best device time a ray over a whole
-# frame, in groups of 1, 4, 16 and 32 blocks (chip_smoke.py phase `launch`
-# on an H100 80GB HBM3 at 700 W: `mixed` 1.095, 0.239, 0.129, 0.108 ns a
-# ray; `mandelbulb` 2.185, 1.067, 0.647, 0.588)
+# blocks whose primary rays render_pixels_flat marches in one launch: on
+# `mixed`, the smallest group within 10% of the best device time a ray over
+# the whole frame in groups of 1, 4, 16 and 32 blocks (chip_smoke.py phase
+# `launch`, an H100 80GB HBM3 at 700 W: 0.237, 0.128 and 0.107 ns a ray at
+# 4, 16 and 32 blocks; `mandelbulb` 2.16, 1.06, 0.642 and 0.585 at 1 to 32)
 MARCH_GROUP = 32
 
 
