@@ -1219,17 +1219,20 @@ def plain_paths():
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     def shade_fwd_plain(scene, cfg, o, d, res, method, corners=None, aux=None,
-                        mesh_rows=None):
+                        mesh_rows=None, packed=None):
         return cuda_shade.shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners,
                                           mesh_rows=mesh_rows)
 
-    def shade_bwd_plain(scene, cfg, o, d, res, aux, corners, ct, method):
+    def shade_bwd_plain(scene, cfg, o, d, res, aux, corners, ct, method, packed=None):
         return cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
 
+    def unpacked(plain):  # the plain version, called as its wrapper is
+        return lambda *args, packed=None, **kw: plain(*args, **kw)
+
     stack = ExitStack()
-    stack.enter_context(mock.patch.object(cuda_sdf, "march", cuda_sdf.march_torch))
-    stack.enter_context(mock.patch.object(cuda_sdf, "shadow_hard", cuda_sdf.shadow_hard_torch))
-    stack.enter_context(mock.patch.object(cuda_sdf, "shadow_soft", cuda_sdf.shadow_soft_torch))
+    for name in ("march", "shadow_hard", "shadow_soft"):
+        stack.enter_context(mock.patch.object(cuda_sdf, name,
+                                              unpacked(getattr(cuda_sdf, f"{name}_torch"))))
     stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet_streamed",
                                           cuda_mt.intersect_packet_streamed_torch))
     stack.enter_context(mock.patch.object(cuda_mt, "intersect_packet",
@@ -1273,18 +1276,18 @@ def ill_conditioned_paths():
             stats["ill"] += int(masks[key].sum())
         return masks[key]
 
-    def masked_kernel(scene, cfg, o, d, res, aux, corners, ct, method):
+    def masked_kernel(scene, cfg, o, d, res, aux, corners, ct, method, packed=None):
         ill = ill_of(scene, cfg, o, d, res, corners, ct, method)
-        k = kernel_bwd(scene, cfg, o, d, res, aux, corners, ct, method)
+        k = kernel_bwd(scene, cfg, o, d, res, aux, corners, ct, method, packed=packed)
         p = cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
         off = torch.stack([(k[x] - p[x]).norm(dim=1) / p[x].norm(dim=1).clamp_min(1e-30)
                            for x in ("o", "d")]).amax(0) > 1e-3
         stats["off"] += int(off.sum())
         stats["off_outside"] += int((off & ~ill).sum())
         return kernel_bwd(scene, cfg, o, d, res, aux, corners,
-                          torch.where(ill[:, None], 0.0, ct), method)
+                          torch.where(ill[:, None], 0.0, ct), method, packed=packed)
 
-    def masked_plain(scene, cfg, o, d, res, aux, corners, ct, method):
+    def masked_plain(scene, cfg, o, d, res, aux, corners, ct, method, packed=None):
         ill = ill_of(scene, cfg, o, d, res, corners, ct, method)
         return cuda_shade.shade_bwd_torch(scene, cfg, o, d, res, corners,
                                           torch.where(ill[:, None], 0.0, ct), method)
