@@ -928,7 +928,7 @@ def group_parity(scene, cfg, points, tag):
     for b in parity_blocks(scene, cfg, perm, points):
         g0 = b * bs // n * n
         gx, gy = fx[g0:g0 + n], fy[g0:g0 + n]
-        grouped = R.march_group(scene, cfg, gx, gy, packed)
+        grouped = R.march_group(scene, cfg, gx, gy, packed, bs)
         off = b * bs - g0
         with torch.no_grad():
             og, dg = generate_rays(scene.camera, gx, gy, cfg.width, cfg.height)
@@ -1412,7 +1412,7 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
     log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} soft_sil={cfg.soft_silhouette} "
         f"mesh_sil={cfg.mesh_silhouette}: {dt:.3f} s, "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
-        f"launches {counts}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"launches {counts}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"on {smi}; wrote {png}")
     return counts
 
@@ -1473,7 +1473,7 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
         f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette} forward + "
         f"backward: {dt:.3f} s (forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s), "
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss {float(loss.detach()):.8f}, "
-        f"launches {counts}, peak mem {peak:.2f} GiB on {smi}")
+        f"launches {counts}, peak mem {peak:.3f} GiB on {smi}")
     for path, g in grads.items():
         fin = bool(torch.isfinite(g).all())
         log(tag, f"grad {path}: norm {float(g.norm()):.6e}, finite {fin}, "
@@ -2085,7 +2085,7 @@ def group_launch(path, scene, cfg, packed, points) -> dict:
     g0 = b * cfg.block_size // n * n
     calls = []
     with recorded(cuda_sdf, "march", calls):
-        R.march_group(scene, cfg, fx[g0:g0 + n], fy[g0:g0 + n], packed)
+        R.march_group(scene, cfg, fx[g0:g0 + n], fy[g0:g0 + n], packed, cfg.block_size)
     (args, kw), = calls
     plain_kw = {k: v for k, v in kw.items() if k != "packed"}
     work = StepWork(scene.sdf, 8.0)

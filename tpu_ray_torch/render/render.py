@@ -324,11 +324,18 @@ def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 
 
 @torch.no_grad()
-def march_group(scene: Scene, cfg: RenderConfig, xs, ys, packed=None):
+def march_group(scene: Scene, cfg: RenderConfig, xs, ys, packed=None, block: int = 0):
     """The primary march of a group of blocks' samples in one launch ->
     (t, hit, steps, tmin) over the group. Its rays are generate_rays' of
-    the group's samples, elementwise, so bit for bit each block's own."""
-    o, d = generate_rays(scene.camera, xs, ys, cfg.width, cfg.height)
+    the group's samples, made `block` samples at a time (all at once for
+    0) into one buffer: generate_rays is elementwise, so they are bit for
+    bit each block's own, and its temporaries stay a block's."""
+    o = torch.empty((xs.shape[0], 3), dtype=xs.dtype, device=xs.device)
+    d = torch.empty_like(o)
+    step = block or xs.shape[0]
+    for s in range(0, xs.shape[0], step):
+        o[s:s + step], d[s:s + step] = generate_rays(scene.camera, xs[s:s + step],
+                                                     ys[s:s + step], cfg.width, cfg.height)
     return cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
                           t_far=cfg.t_far, bound_pad=_bound_pad(cfg), packed=packed)
 
@@ -576,10 +583,11 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
     cols = []
     for g in range(0, flat_x.shape[0], group):
         gx, gy = flat_x[g:g + group], flat_y[g:g + group]
-        marched = march_group(scene, cfg, gx, gy, packed) if grouped else None
+        marched = march_group(scene, cfg, gx, gy, packed, bs) if grouped else None
         for s in range(0, gx.shape[0], bs):
             block = None if marched is None else tuple(v[s:s + bs] for v in marched)
             cols.append(block_fn(gx[s:s + bs], gy[s:s + bs], block))
+        del marched, block  # the group's march out of memory before the next one's
     return torch.cat(cols, dim=1)[:, :n_px]
 
 
