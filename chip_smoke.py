@@ -122,6 +122,16 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      lane efficiency, cycles a warp) and #6 (rays by chain class, warps
      that mix classes, cycles a warp by its costliest class, the
      reduction's cycles).
+ 24. bench_cli: `tpu_ray_torch.bench.run_bench("mandelbulb")` at its
+     defaults (1024x1024x4, warmup 1, iters 2, forward + backward), its JSON
+     line, and the launches of #1, #2 soft, #5 and #6 over its 3 frames
+     and 2 steps; the jitter draw (seed 3, 1024x1024x4) on the card against
+     the CPU's, bit for bit, and the jittered 256x256x4 frame through the
+     kernels against the plain path (phase 9's bound); `fit` on
+     `mandelbulb` at 128x128x4, 4 steps straight against 2 and a resume
+     from the checkpoint to 4 (parameters bit-identical); and the CLI's
+     `render --stats` (`mixed` 512x512x1: 2^18 rays, one launch each of #1
+     and #3), `render --progressive 2` and `fit --target --checkpoint-dir`.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work, and its `launch_*` numbers),
@@ -470,9 +480,9 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
     n = o.shape[0]
     sdf, packet = scene.sdf, scene.packet[0]
 
-    # A: primary march (with soft silhouettes its bound cull is padded)
+    # A: primary march (its bound cull padded by eps, and more with soft silhouettes)
     kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far,
-              bound_pad=R.SIL_REACH * cfg.soft_silhouette)
+              bound_pad=R._bound_pad(cfg))
     tk, hk, _, mk = cuda_sdf.march(sdf, o, d, **kw)
     tp, hp, _, mp = cuda_sdf.march_torch(sdf, o, d, **kw)
     both = hk & hp
@@ -2207,6 +2217,132 @@ def launch_sizes(paths, results):
                        "march (one block a launch)" if key == "march" else key, entry, blocks)
 
 
+def cli_run(argv) -> str:
+    """The port's CLI in this process -> what it printed (logged too)."""
+    import io
+
+    from tpu_ray_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    for ln in buf.getvalue().splitlines():
+        log("bench_cli", f"  {ln}")
+    return buf.getvalue()
+
+
+def bench_cli(dev, smi):
+    """Phase 24: the port's bench, jittered sampling, a fit's resume and the
+    CLI's new commands, on the card (bench_cli)."""
+    import shutil
+
+    from tpu_ray_torch.bench import run_bench
+    from tpu_ray_torch.cli import demo_target
+    from tpu_ray_torch.fit import fit
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.scene.types import get_param
+    from tpu_ray_torch.utils import checkpoint as ckpt_lib
+    from tpu_ray_torch.utils.config import FitConfig
+
+    # A: `python -m tpu_ray_torch.bench mandelbulb` at its defaults
+    bulb, bcfg = build_scene("mandelbulb", device=dev)
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    t0 = time.perf_counter()
+    line = run_bench("mandelbulb")
+    counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    log("bench_cli", f"run_bench('mandelbulb') in {time.perf_counter() - t0:.2f} s on {smi}:")
+    print(json.dumps(line), flush=True)
+    for k in ("value", "fwd_seconds", "fwdbwd_seconds", "mrays_fwdbwd"):
+        check(line[k] == line[k] and 0 < line[k] < float("inf"), f"bench {k} = {line[k]}")
+    check(not line["persistent_loop"], "the mandelbulb bench took the turntable loop")
+    # warmup 1 + iters 2 forward frames, warmup 1 + max(iters - 1, 1) steps
+    n_fwd, n_bwd = 3, 2
+    n_blocks = -(-bcfg.num_rays // bcfg.block_size)
+    want = {"march": (n_fwd + n_bwd) * -(-n_blocks // R.MARCH_GROUP),
+            "shadow_soft": (n_fwd + n_bwd) * n_blocks,
+            "shade_fwd": (n_fwd + n_bwd) * n_blocks, "shade_bwd": n_bwd * n_blocks}
+    log("bench_cli", f"bench launches {counts}; expected {want} ({n_fwd} frames and {n_bwd} "
+        f"steps of {n_blocks} blocks, the march a group of {R.MARCH_GROUP})")
+    check(all(counts[k] == v for k, v in want.items()), "bench launch counts")
+
+    # B: jittered sampling: the card's draw is the CPU's; the frame through
+    # the kernels against the plain path (phase 9's bound)
+    jit_full = bcfg.replace(jitter_seed=3)
+    sx, sy = R.pixel_sample_coords(jit_full, dev)
+    hx, hy = R.pixel_sample_coords(jit_full, "cpu")
+    same = torch.equal(sx.cpu(), hx) and torch.equal(sy.cpu(), hy)
+    log("bench_cli", f"jitter seed 3 at {jit_full.width}x{jit_full.height}x{jit_full.spp} "
+        f"({2 * jit_full.num_rays} values, {-(-2 * jit_full.num_rays // R.JITTER_CHUNK)} "
+        f"chunks): card and CPU bit-identical {same}")
+    check(same, "the jitter offsets on the card differ from the CPU's")
+    jit = jit_full.replace(width=256, height=256)
+    with torch.no_grad():
+        img_k = R.render_image(bulb, jit)
+        img_0 = R.render_image(bulb, jit.replace(jitter_seed=None))
+        with plain_paths():
+            img_p = R.render_image(bulb, jit)
+    err = (img_k - img_p).abs().amax(-1)
+    p95 = float(torch.quantile(err.flatten(), 0.95))
+    moved = float((img_k - img_0).abs().max())
+    log("bench_cli", f"mandelbulb {jit.width}x{jit.height}x{jit.spp} jitter_seed=3: kernel vs "
+        f"plain path p95 {p95:.3e}, max {float(err.max()):.3e}, pixels over 1e-3: "
+        f"{int((err > 1e-3).sum())} of {err.numel()}; max change against the stratified "
+        f"frame {moved:.3e}")
+    check(bool(torch.isfinite(img_k).all()) and p95 < 1e-3 and moved > 0,
+          "jittered frame parity")
+
+    # C: a fit's resume on the card: 4 steps straight against 2 and a
+    # resume to 4, the fitted parameters bit for bit
+    rcfg = bcfg.replace(width=128, height=128)
+    trainable = ("sdf.mb_scale", "camera.origin", "materials.albedo", "lights.color")
+    target = demo_target(bulb, rcfg, trainable)
+    ck = os.path.join(REPO, "build", "chip_smoke_resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(learning_rate=1e-2, checkpoint_every=2)
+    full, h_full = fit(bulb, rcfg, target, trainable, FitConfig(steps=4, **kw), verbose=False)
+    _, h_a = fit(bulb, rcfg, target, trainable, FitConfig(steps=2, checkpoint_dir=ck, **kw),
+                 verbose=False)
+    resumed, h_b = fit(bulb, rcfg, target, trainable,
+                       FitConfig(steps=4, checkpoint_dir=ck, **kw), verbose=False)
+    same = {p: torch.equal(get_param(full, p), get_param(resumed, p)) for p in trainable}
+    log("bench_cli", f"mandelbulb 128x128x4 fit, {list(trainable)}: 4 steps {h_full}; 2 steps "
+        f"{h_a}, resumed {h_b} (checkpoints {ckpt_lib.make_manager(ck).steps()}); "
+        f"parameters bit-identical {same}")
+    check(all(same.values()) and h_a + h_b == h_full, "the resumed fit differs")
+
+    # D: the CLI's new commands
+    out = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    scene, cfg = build_scene("mixed", device=dev)
+    small = cfg.replace(width=512, height=512, spp=1)
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    text = cli_run(["render", "--scene", "mixed", "--width", "512", "--height", "512",
+                    "--spp", "1", "--stats", "--out", os.path.join(out, "stats.png")])
+    stats = json.loads(text.split("[render] stats: ", 1)[1].splitlines()[0])
+    counts = forward_counts()
+    n_blocks = -(-small.num_rays // small.block_size)
+    want = {"march": -(-n_blocks // R.MARCH_GROUP) + 1, "packet_closest": n_blocks + 1}
+    log("bench_cli", f"render --stats: launches {counts}, expected {want} (the frame's, "
+        f"then the stats' {stats['rays_sampled']} rays in one launch each)")
+    check(stats["rays_sampled"] == 1 << 18 and 0 < stats["hit_rate"] < 1
+          and stats["march_steps_max"] > 0 and stats["mean_hit_t"] > 0, f"stats {stats}")
+    check(all(counts[k] == v for k, v in want.items()), "render --stats launch counts")
+    cli_run(["render", "--scene", "mixed", "--width", "320", "--height", "180",
+             "--progressive", "2", "--out", os.path.join(out, "prog.png")])
+    check(all(os.path.getsize(os.path.join(out, f)) > 0
+              for f in ("prog_prog0.png", "prog_prog1.png", "prog.png")),
+          "render --progressive wrote no files")
+    ck = os.path.join(out, "ck")
+    text = cli_run(["fit", "--scene", "mixed", "--width", "512", "--height", "512", "--spp",
+                    "1", "--steps", "2", "--target", os.path.join(out, "stats.png"),
+                    "--checkpoint-dir", ck])
+    check("[fit] final loss" in text and ckpt_lib.make_manager(ck).steps() == [2],
+          "fit --target --checkpoint-dir")
+
+
 def ptxas_summary(log_text: str) -> str:
     """Registers, stack and spills of every build of the marches and the
     shade kernels, from ptxas' -v output."""
@@ -2320,6 +2456,7 @@ def main() -> int:
         ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
                                             bcfg.replace(width=256, height=256))),
         ("launch", lambda: launch_sizes(launch_paths, results)),
+        ("bench_cli", lambda: bench_cli(dev, smi)),
     )
     # the kernels at their launch size: the frame's config, the fit step's
     launch_paths = {

@@ -152,7 +152,8 @@ def test_mixed_frame_with_silhouettes_matches_jax(mixed):
 
 def test_soft_silhouette_cull_matches_jax_on_grazing_rays(mixed):
     """With soft silhouettes the port's march culls only the rays that pass
-    outside every bounding sphere grown by SIL_REACH widths; the reference
+    outside every bounding sphere grown by eps and SIL_REACH widths
+    (render._bound_pad); the reference
     marches every ray. Rays from the camera that graze the grown spheres of
     the `mixed` scene (its sphere and Mandelbulb; 1e-4 to 5e-2 outside):
     on those the port culls, the reference's closest approach stays more
@@ -167,7 +168,7 @@ def test_soft_silhouette_cull_matches_jax_on_grazing_rays(mixed):
     sil = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
     jcfg = JConfig(**{f.name: getattr(tcfg, f.name)
                       for f in dataclasses.fields(RenderConfig)}).replace(pallas="off", **sil)
-    pad = trender.SIL_REACH * sil["soft_silhouette"]
+    pad = trender._bound_pad(tcfg.replace(**sil))
     bounds = sdf_bounding_spheres(tscene.sdf).double().numpy()
     origin = tscene.camera.origin.double().numpy()
     dirs = []

@@ -1,29 +1,44 @@
-"""Command-line entry point of the port.
+"""Command-line entry point of the port: render / fit / bench / scenes.
 
     python -m tpu_ray_torch.cli render --scene mixed --out mixed.png
-    python -m tpu_ray_torch.cli render --scene mandelbulb --out bulb.png
+    python -m tpu_ray_torch.cli render --scene mandelbulb --out bulb.png --stats
+    python -m tpu_ray_torch.cli render --scene sphere --turntable 8 --out orbit.png
+    python -m tpu_ray_torch.cli render --scene mixed --progressive 3 --out mixed.png
     python -m tpu_ray_torch.cli render --scene sphere --width 64 --height 64 --device cpu --out s.png
     python -m tpu_ray_torch.cli fit --scene sphere --steps 20 --width 32 --height 32 --device cpu
+    python -m tpu_ray_torch.cli fit --scene sphere --target t.png --checkpoint-dir ck
+    python -m tpu_ray_torch.cli bench --scene mandelbulb
+    python -m tpu_ray_torch.cli scenes
     torchrun --nproc_per_node=N -m tpu_ray_torch.cli render --sharded --scene mixed
 
 The device is the CUDA device unless `--device cpu` is given; without a
 CUDA device and without `--device cpu` the CLI stops with an error. On a
 CUDA device the geometry pass and the shade backward run the hand-written
 kernels; on the CPU they run their plain PyTorch versions (slow for large
-frames). `fit` recovers a demo target: the render of the scene with every
-trainable leaf v set to v * 1.15 + 0.02. `--sharded` renders (or fits)
-pixel-parallel over the processes torchrun starts, one card each (gloo
-processes with `--device cpu`), the scene replicated; rank 0 prints and
-writes the PNG.
+frames). `render` times one frame (on CUDA its first frame includes the
+kernel build) and writes it; `--stats` adds the frame's ray statistics
+(render.frame_stats), `--profile DIR` a torch.profiler trace of the frame,
+`--turntable N` renders N frames orbiting the look-at point instead,
+`--progressive K` K coarse previews (half the resolution each, 1 spp, one
+block) before the full frame. `fit` fits a target PNG (`--target`) or
+recovers a demo target: the render of the scene with every trainable leaf
+v set to v * 1.15 + 0.02; `--checkpoint-dir` resumes from and saves to a
+directory. `bench` prints tpu_ray_torch.bench's JSON line. `--sharded`
+renders (or fits) pixel-parallel over the processes torchrun starts, one
+card each (gloo processes with `--device cpu`), the scene replicated; rank
+0 prints and writes the PNG.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from tpu_ray_torch.scene.scenes import build_scene, scene_names
@@ -48,25 +63,116 @@ def _add_cfg_flags(p):
 def cmd_render(args):
     from tpu_ray_torch.dist.multihost import is_main, main_print
     from tpu_ray_torch.dist.sharding import render_image_sharded
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import frame_stats, render_image
     from tpu_ray_torch.utils.image_io import write_png
+    from tpu_ray_torch.utils.metrics import profile_trace
 
     device, scene, cfg, n_proc = _device_and_scene(args)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    with torch.no_grad():
-        sync()
+    if args.turntable:
+        _render_turntable(args, device, scene, cfg)
+        return
+    if args.progressive:
+        _render_progressive(args, device, scene, cfg)
+        return
+    with torch.no_grad(), profile_trace(args.profile):
+        _sync(device)
         t0 = time.perf_counter()
         img = render_image_sharded(scene, cfg) if args.sharded else render_image(scene, cfg)
-        sync()
+        _sync(device)
         dt = time.perf_counter() - t0
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    main_print(f"[render] {args.scene} {cfg.width}x{cfg.height} spp={cfg.spp} on {where}"
-               f"{f' x {n_proc} processes' if args.sharded else ''}: {dt * 1e3:.1f} ms, "
-               f"{cfg.num_rays / dt / 1e6:.2f} Mrays/s (first frame: on CUDA it includes "
-               f"the kernel build)")
+    main_print(f"[render] {args.scene} {cfg.width}x{cfg.height} spp={cfg.spp} on "
+               f"{_where(device)}{f' x {n_proc} processes' if args.sharded else ''}: "
+               f"{dt * 1e3:.1f} ms, {cfg.num_rays / dt / 1e6:.2f} Mrays/s (first frame: on "
+               f"CUDA it includes the kernel build)")
     if is_main():
         write_png(args.out, img.cpu().numpy())
     main_print(f"[render] wrote {args.out}")
+    if args.profile:
+        main_print(f"[render] profiler trace in {args.profile}")
+    if args.stats:
+        main_print("[render] stats:", json.dumps(frame_stats(scene, cfg)))
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _where(device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def _render_turntable(args, device, scene, cfg):
+    """N frames orbiting the scene's look_at point about the y axis (the
+    CLI's stand-in for the reference's interactive orbit view); the PNGs
+    get _000.. suffixes."""
+    from tpu_ray_torch.dist.multihost import is_main, main_print
+    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.utils.image_io import write_png
+    from tpu_ray_torch.utils.metrics import Timer, mrays_per_sec, rays_per_frame
+
+    n = args.turntable
+    cam = scene.camera
+    center = cam.look_at.detach().cpu().numpy()
+    offset = cam.origin.detach().cpu().numpy() - center
+    radius = float(np.hypot(offset[0], offset[2]))
+    phi0 = float(np.arctan2(offset[0], offset[2]))
+    root, ext = os.path.splitext(args.out)
+    total = Timer().start()
+    for i in range(n):
+        phi = phi0 + 2.0 * np.pi * i / n
+        origin = center + np.asarray([radius * np.sin(phi), offset[1], radius * np.cos(phi)])
+        s = scene.replace(camera=dataclasses.replace(
+            cam, origin=torch.as_tensor(origin, dtype=cam.origin.dtype, device=device)))
+        with torch.no_grad():
+            img = render_image(s, cfg).cpu().numpy()
+        if is_main():
+            write_png(f"{root}_{i:03d}{ext}", img)
+    secs = total.stop()
+    rays = rays_per_frame(cfg, scene) * n
+    main_print(f"[render] turntable {n} frames in {secs:.2f}s ({secs / n * 1e3:.0f} ms/frame "
+               f"incl. PNG IO, {mrays_per_sec(rays, secs):.2f} Mrays/s) on {_where(device)} "
+               f"-> {root}_NNN{ext}")
+
+
+def _render_progressive(args, device, scene, cfg):
+    """Coarse-to-fine: level k renders at 1/2^k of the resolution (at least
+    8 pixels a side) with 1 spp as one block (block_size 0) and writes an
+    upscaled preview; the last frame is the full one. The previews cost at
+    most 1/3 of the full frame's primary rays."""
+    from tpu_ray_torch.dist.multihost import is_main, main_print
+    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.utils.image_io import write_png
+    from tpu_ray_torch.utils.metrics import Timer, mrays_per_sec, rays_per_frame
+
+    levels = args.progressive
+    root, ext = os.path.splitext(args.out)
+    total = Timer().start()
+    for k in range(levels, 0, -1):
+        w, h = max(cfg.width >> k, 8), max(cfg.height >> k, 8)
+        with torch.no_grad():
+            img = render_image(scene, cfg.replace(width=w, height=h, spp=1, block_size=0))
+        up = img.cpu().numpy().repeat(1 << k, axis=0).repeat(1 << k, axis=1)
+        path = f"{root}_prog{levels - k}{ext}"
+        if is_main():
+            write_png(path, up[:cfg.height, :cfg.width])
+        main_print(f"[render] progressive level {levels - k}: {w}x{h} -> {path}")
+    with torch.no_grad():
+        img = render_image(scene, cfg).cpu().numpy()
+    if is_main():
+        write_png(args.out, img)
+    secs = total.stop()
+    main_print(f"[render] progressive final {cfg.width}x{cfg.height} spp={cfg.spp} total "
+               f"{secs:.2f}s ({mrays_per_sec(rays_per_frame(cfg, scene), secs):.2f} Mrays/s "
+               f"over the full sequence) on {_where(device)} -> {args.out}")
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("tpu_ray_torch: no CUDA device; pass --device cpu to "
+                         "run the plain PyTorch versions on the CPU")
+    return device
 
 
 def _device_and_scene(args):
@@ -75,10 +181,7 @@ def _device_and_scene(args):
     per process: cuda:LOCAL_RANK)."""
     from tpu_ray_torch.dist.multihost import initialize, world
 
-    device = torch.device(args.device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("tpu_ray_torch: no CUDA device; pass --device cpu to "
-                         "run the plain PyTorch versions on the CPU")
+    device = _device(args)
     if args.sharded:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
@@ -114,25 +217,50 @@ def cmd_fit(args):
     from tpu_ray_torch.fit import fit
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.config import FitConfig
-    from tpu_ray_torch.utils.image_io import write_png
+    from tpu_ray_torch.utils.image_io import read_png, write_png
 
     device, scene, cfg, n_proc = _device_and_scene(args)
-    target = demo_target(scene, cfg, args.trainable)
+    if args.target:
+        target = torch.as_tensor(read_png(args.target), dtype=scene.camera.origin.dtype,
+                                 device=device)
+        if tuple(target.shape) != (cfg.height, cfg.width, 3):
+            raise SystemExit(f"tpu_ray_torch: --target {args.target} is "
+                             f"{target.shape[1]}x{target.shape[0]}, the frame "
+                             f"{cfg.width}x{cfg.height}")
+    else:
+        target = demo_target(scene, cfg, args.trainable)
     # the data-parallel step over the process group, when there is one
     group = dist.group.WORLD if args.sharded and dist.is_initialized() else None
     t0 = time.perf_counter()
     fitted, history = fit(scene, cfg, target, args.trainable,
-                          FitConfig(steps=args.steps, learning_rate=args.lr),
+                          FitConfig(steps=args.steps, learning_rate=args.lr,
+                                    checkpoint_dir=args.checkpoint_dir),
                           verbose=is_main(), group=group)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    main_print(f"[fit] {args.steps} steps of {args.scene} {cfg.width}x{cfg.height} "
-               f"spp={cfg.spp} on {where}{f' x {n_proc} processes' if args.sharded else ''}: "
+    main_print(f"[fit] {len(history)} steps of {args.scene} {cfg.width}x{cfg.height} "
+               f"spp={cfg.spp} on {_where(device)}"
+               f"{f' x {n_proc} processes' if args.sharded else ''}: "
                f"{time.perf_counter() - t0:.2f} s")
-    main_print(f"[fit] final loss {history[-1]:.3e}" if history else "[fit] no steps")
+    main_print(f"[fit] final loss {history[-1]:.3e}" if history else
+               "[fit] checkpoint already at the requested step count; nothing to do")
     if args.out and is_main():
         with torch.no_grad():
             write_png(args.out, render_image(fitted, cfg).cpu().numpy())
         print(f"[fit] wrote {args.out}")
+
+
+def cmd_bench(args):
+    from tpu_ray_torch.bench import run_bench
+
+    print(json.dumps(run_bench(args.scene, backward=not args.forward_only,
+                               device=args.device or "cuda")), flush=True)
+
+
+def cmd_scenes(args):
+    device = _device(args)
+    for name in scene_names():
+        scene, cfg = build_scene(name, device=device)
+        print(f"{name:12s} {cfg.width}x{cfg.height} spp={cfg.spp} method={cfg.method} "
+              f"tris={scene.mesh.num_tris} sdf_prims={scene.sdf.num_primitives}")
 
 
 def main(argv=None):
@@ -144,6 +272,14 @@ def main(argv=None):
     r.add_argument("--device", help="cuda (the default) or cpu")
     r.add_argument("--sharded", action="store_true",
                    help="pixel-parallel over the processes torchrun starts")
+    r.add_argument("--stats", action="store_true",
+                   help="print the frame's ray statistics (hit rate, march steps)")
+    r.add_argument("--turntable", type=int, metavar="N",
+                   help="render N frames orbiting the scene (out gets _000.. suffixes)")
+    r.add_argument("--progressive", type=int, metavar="K",
+                   help="K coarse previews (half the resolution each), then the full frame")
+    r.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace of the frame to DIR/trace.json")
     _add_cfg_flags(r)
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse-render: recover perturbed scene leaves")
@@ -151,12 +287,22 @@ def main(argv=None):
     f.add_argument("--trainable", nargs="+", default=["sdf.sph_radius"])
     f.add_argument("--steps", type=int, default=100)
     f.add_argument("--lr", type=float, default=1e-2)
+    f.add_argument("--target", help="target PNG (default: the demo target)")
+    f.add_argument("--checkpoint-dir", help="resume from and save checkpoints to DIR")
     f.add_argument("--out", help="PNG of the fitted scene")
     f.add_argument("--device", help="cuda (the default) or cpu")
     f.add_argument("--sharded", action="store_true",
                    help="data-parallel over the processes torchrun starts")
     _add_cfg_flags(f)
     f.set_defaults(fn=cmd_fit)
+    b = sub.add_parser("bench", help="Mrays/s benchmark (one JSON line)")
+    b.add_argument("--scene", default="mandelbulb", choices=scene_names())
+    b.add_argument("--forward-only", action="store_true")
+    b.add_argument("--device", help="cuda (the default) or cpu")
+    b.set_defaults(fn=cmd_bench)
+    sc = sub.add_parser("scenes", help="list the registry's scenes")
+    sc.add_argument("--device", help="cuda (the default) or cpu")
+    sc.set_defaults(fn=cmd_scenes)
     args = ap.parse_args(argv)
     try:
         args.fn(args)

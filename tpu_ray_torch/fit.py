@@ -5,9 +5,9 @@ Any float leaf of the Scene can be optimized, addressed by dotted path
 ("sdf.sph_radius", "camera.origin", "mesh.verts", "materials.albedo",
 "poses.translate", ...). The parameters are leaf tensors that require grad;
 `apply_params` puts them into a copy of the scene that shares every other
-tensor.
-
-Not ported yet: checkpoints.
+tensor. With `FitConfig.checkpoint_dir`, `fit` resumes from the newest
+checkpoint there and saves one every `checkpoint_every` steps and at the
+end (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from tpu_ray_torch.dist.sharding import ring_scene, shard_sample_coords
 from tpu_ray_torch.render.render import render_image, render_pixels_flat, resolve_method
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
+from tpu_ray_torch.utils import checkpoint as ckpt_lib
 from tpu_ray_torch.utils.config import FitConfig, RenderConfig
 
 ParamDict = Dict[str, torch.Tensor]
@@ -129,14 +130,27 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     return step
 
 
+def _save(mngr, step: int, params: ParamDict, optimizer, group) -> None:
+    """Rank 0 writes the checkpoint; with a process group every rank waits
+    for the write."""
+    if world(group)[1] == 0:
+        ckpt_lib.save(mngr, step, params, optimizer)
+    if group is not None:
+        dist.barrier(group)
+
+
 def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         trainable: Sequence[str], fit_cfg: FitConfig = FitConfig(),
         verbose: bool = True, group=None) -> Tuple[Scene, list]:
     """Optimize `trainable` scene leaves with Adam to match `target`.
     Returns (fitted_scene, loss_history). With a process group, every rank
-    calls it and takes the data-parallel step (make_sharded_fit_step)."""
-    if fit_cfg.checkpoint_dir:
-        raise NotImplementedError("fit checkpoints are not ported yet")
+    calls it and takes the data-parallel step (make_sharded_fit_step).
+
+    With fit_cfg.checkpoint_dir, the parameters and Adam's state are
+    restored from the newest checkpoint there (every rank reads it), the
+    steps run from its step to fit_cfg.steps, and the history holds those
+    steps only; rank 0 saves every checkpoint_every steps and after the
+    last step."""
     if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
         # the power-8 field ignores mb_power: use the generic DE, whose
         # power has a gradient (the CUDA kernels have both fields)
@@ -146,15 +160,26 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
 
     params = extract_params(scene, trainable)
     optimizer = torch.optim.Adam(params.values(), lr=fit_cfg.learning_rate)
+    start, mngr = 0, None
+    if fit_cfg.checkpoint_dir:
+        mngr = ckpt_lib.make_manager(fit_cfg.checkpoint_dir)
+        restored = ckpt_lib.restore_latest(mngr, params, optimizer)
+        if restored is not None:
+            start = restored
+            if verbose:
+                print(f"[fit] resumed from step {start}")
     if group is not None:
         step = make_sharded_fit_step(scene, cfg, target, params, optimizer, group=group,
                                      refit_accel=refit_accel)
     else:
         step = make_fit_step(scene, cfg, target, params, optimizer, refit_accel)
     history = []
-    for i in range(fit_cfg.steps):
+    for i in range(start, fit_cfg.steps):
         history.append(step())
         if verbose and (i % fit_cfg.log_every == 0 or i == fit_cfg.steps - 1):
             print(f"[fit] step {i} loss {history[-1]:.3e}")
+        if mngr is not None and ((i + 1) % fit_cfg.checkpoint_every == 0
+                                 or i + 1 == fit_cfg.steps):
+            _save(mngr, i + 1, params, optimizer, group)
     fitted = apply_params(scene, {p: v.detach() for p, v in params.items()})
     return _maybe_refit(fitted, refit_accel), history

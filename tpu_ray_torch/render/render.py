@@ -26,8 +26,8 @@ ray generation runs inside autograd, so the camera gets its gradient; the
 shade of a block is one `cuda_shade.ShadeFn`, whose backward is the fused
 shade-backward kernel on a CUDA device. Object poses (`scene.poses`) fold
 into world-space vertices once per frame, at `render_image`'s entry.
-
-Not ported yet: jittered sampling.
+`frame_stats` gives the per-frame ray statistics of the reference's
+overlay from the same geometry pass.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene
 from tpu_ray_torch.sdf.primitives import sdf_distance, sdf_distance_and_mat
+from tpu_ray_torch.utils import prng
 from tpu_ray_torch.utils.config import RenderConfig
 
 BIG = 1e10
@@ -59,11 +60,17 @@ SIL_REACH = 24.0
 # `launch`, an H100 80GB HBM3 at 700 W: 0.237, 0.128 and 0.107 ns a ray at
 # 4, 16 and 32 blocks; `mandelbulb` 2.16, 1.06, 0.642 and 0.585 at 1 to 32)
 MARCH_GROUP = 32
+# values of the jitter draw computed at a time: its int64 temporaries stay
+# ~0.2 GiB whatever the frame (1920x1080x16 draws 66M)
+JITTER_CHUNK = 1 << 22
 
 
 def _bound_pad(cfg: RenderConfig) -> float:
-    """The primary march's bound-cull padding (SIL_REACH widths)."""
-    return SIL_REACH * max(cfg.soft_silhouette, 0.0)
+    """The primary march's bound-cull padding: cfg.eps, because the exact
+    distance of a sphere or a box falls below the march's eps up to eps
+    outside its bounding sphere (the march hits there), plus SIL_REACH
+    widths with soft silhouettes."""
+    return cfg.eps + SIL_REACH * max(cfg.soft_silhouette, 0.0)
 
 
 def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
@@ -96,14 +103,32 @@ def sample_offsets(cfg: RenderConfig, device="cpu", dtype=torch.float32):
 
 
 def pixel_sample_coords(cfg: RenderConfig, device="cpu", dtype=torch.float32):
-    """Sample positions for every (pixel, sample): two (H, W, spp) tensors."""
-    if cfg.jitter_seed is not None:
-        raise NotImplementedError("jittered sampling is not ported yet")
+    """Sample positions for every (pixel, sample): two (H, W, spp) tensors.
+
+    Stratified cell centers by default; with cfg.jitter_seed each sample is
+    jittered uniformly inside its stratum by the reference's draw,
+    jax.random.uniform(PRNGKey(seed), (H, W, spp, 2), dtype), bit for bit
+    (utils.prng), computed JITTER_CHUNK values at a time."""
     xs = torch.arange(cfg.width, dtype=dtype, device=device)
     ys = torch.arange(cfg.height, dtype=dtype, device=device)
     px, py = torch.meshgrid(xs, ys, indexing="xy")  # (H, W)
-    off = sample_offsets(cfg, device, dtype)
-    return px[..., None] + off[:, 0], py[..., None] + off[:, 1]
+    if cfg.jitter_seed is None:
+        off = sample_offsets(cfg, device, dtype)
+        return px[..., None] + off[:, 0], py[..., None] + off[:, 1]
+    k = cfg.spp_side
+    cell = torch.arange(cfg.spp, device=device)
+    cx, cy = (cell % k).to(dtype), (cell // k).to(dtype)
+    sx = torch.empty((cfg.height, cfg.width, cfg.spp), dtype=dtype, device=device)
+    sy = torch.empty_like(sx)
+    row = cfg.width * cfg.spp * 2  # values of the draw a row of pixels
+    rows = max(1, JITTER_CHUNK // row)
+    for r0 in range(0, cfg.height, rows):
+        r1 = min(cfg.height, r0 + rows)
+        u = prng.uniform(cfg.jitter_seed, r0 * row, (r1 - r0) * row, dtype, device)
+        u = u.reshape(r1 - r0, cfg.width, cfg.spp, 2)
+        sx[r0:r1] = px[r0:r1, :, None] + (cx + u[..., 0]) / k
+        sy[r0:r1] = py[r0:r1, :, None] + (cy + u[..., 1]) / k
+    return sx, sy
 
 
 def _block_order_perm(cfg: RenderConfig):
@@ -607,3 +632,41 @@ def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     if perm is not None:
         flat = flat[:, _inverse_perm(perm)]
     return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
+
+
+@torch.no_grad()
+def frame_stats(scene: Scene, cfg: RenderConfig, max_rays: int = 1 << 18) -> dict:
+    """Per-frame ray statistics (the reference's overlay counters): hit
+    rate, mean hit distance and, when the SDF is traced, the primary
+    march's steps. The frame's samples in row-major order are subsampled
+    by a stride to about max_rays. The rays take the geometry pass without
+    shadows or AO: the march (whose steps these are) and the mesh walk,
+    the kernels on a CUDA device, then the values-only reconstruct for t
+    and hit."""
+    scene = realize_scene(scene)
+    dev, dtype = scene.device, scene.camera.origin.dtype
+    method = resolve_method(scene, cfg)
+    sx, sy = pixel_sample_coords(cfg, dev, dtype)
+    fx, fy = sx.reshape(-1), sy.reshape(-1)
+    stride = max(1, fx.shape[0] // max_rays)
+    fx, fy = fx[::stride], fy[::stride]
+    o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
+    primary = cfg.replace(shadow="none", ao="none")
+    march = None
+    if _use_sdf(scene, method):
+        march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
+                               t_far=cfg.t_far, bound_pad=_bound_pad(cfg))
+    res = geometry_residuals(scene, primary, o, d, method, march=march)
+    t, hit = reconstruct_hits(scene, primary, o, d, res, method, lite=True)[:2]
+    stats = {
+        "method": method,
+        "rays_sampled": int(fx.shape[0]),
+        "hit_rate": float(hit.to(torch.float32).mean()),
+        "mean_hit_t": float(torch.where(hit, t, torch.zeros_like(t)).sum()
+                            / torch.clamp_min(hit.sum(), 1)),
+    }
+    if march is not None:
+        steps = march[2]
+        stats["march_steps_mean"] = float(steps.to(torch.float32).mean())
+        stats["march_steps_max"] = int(steps.max())
+    return stats
