@@ -3,20 +3,23 @@
     python3 chip_smoke.py                 # every phase, the result line last
     python3 chip_smoke.py --only launch   # device, build and the named phases
 
-Six paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
+Eight paths: the headline `mixed` scene (BASELINE config 5: hard shadows, a
 mesh), the `mandelbulb` scene (config 4: soft shadows and 5-tap AO, its
 fit step with diff_vis), `mixed_sil`: `mixed` with the soft SDF
 silhouette and the mesh edge band (width 0.05 each), the silhouette-
 gradient path, with the README's two silhouette fits; `mixed_ring`:
 `mixed` with its accel partitioned around a ring of processes (of one,
 in this script); `knot1m_parts`: the 1.05M-triangle knot split into
-accel parts walked in sequence; and `mandelbulb_power`: `mandelbulb` with
-the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its seconds (any failure exits non-zero and prints no result):
+accel parts walked in sequence; `mandelbulb_power`: `mandelbulb` with
+the generic-power field, as a `sdf.mb_power` fit runs it; `knot8m`: the
+8.39M-triangle knot, the largest accel the reference supports; and `bunny`:
+BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases, each with its seconds (any failure exits non-zero and prints no result):
   1. device: a CUDA device must exist; its name and nvidia-smi power limit.
   2. build: the kernels from tpu_ray_torch/csrc with nvcc (sm_90a), one
      nvcc per source in parallel; ptxas' registers and spills, and one line
      (`ptxas of #1, #2, #5, #6`) with each build's registers, stack frame and
-     spill stores and loads for the marches and the shade kernels.
+     spill stores and loads for the marches and the shade kernels; then the
+     native packet-accel builder (tpu_ray_torch/native, g++).
   3. kernel parity on real rays: 4 blocks of the `mixed` frame in Morton
      order (those holding the bulb, the sphere, the knot and the ground in
      front) and the shadow rays the geometry pass makes from them; each
@@ -132,6 +135,30 @@ the generic-power field, as a `sdf.mb_power` fit runs it. Phases, each with its 
      from the checkpoint to 4 (parameters bit-identical); and the CLI's
      `render --stats` (`mixed` 512x512x1: 2^18 rays, one launch each of #1
      and #3), `render --progressive 2` and `fit --target --checkpoint-dir`.
+ 25. knot8m: the 8,388,610-triangle knot (one whole-mesh accel part, 4,097
+     supers, ~537 MB of corners): its host build natively and with numpy
+     (the disk cache off) and the cached load, each timed and equal to the
+     scene's accel; #3 closest and any-hit against their plain versions on
+     KNOT8M_SAMPLE rays strided over the frame (hits equal on >= 99.99%, t
+     rtol 1e-5, another triangle only on a tie), timed with the bound and
+     the walk counters, and at its launch size (one 65,536-ray block); the
+     1024x1024x1 frame with its launches (16 of each #3 kernel), time and
+     peak memory.
+ 26. grid_oracle: BASELINE config 3, `bunny` at 512x512 with its uniform
+     grid: #3 closest-hit on every primary ray and any-hit on every live
+     shadow ray against the grid's DDA (kernels/dda.py) under the same
+     rule, the DDA's time on the card, #3 against its plain version on
+     32,768 rays and at its launch size (the frame's one block of 262,144
+     rays), and the frame's launches.
+ 27. gradcheck: `cli gradcheck` on the card under its device rule (the
+     float64 finite-difference check on the CPU, then each trainable's
+     float32 gradient through #1, #5 and #6 within 1e-3 of the float64
+     one), and config 3's vertex check: <grad, V> on lit interior `bunny`
+     triangles, finite differences against autograd in float64 on the CPU,
+     then the card's float32 derivative (#3, #5, #6) within 1e-3 of it.
+ 28. inverse_lighting: tpu_ray_torch.examples.inverse_lighting at its
+     defaults (256x256, 150 steps, diff_vis): the loss falls >= 10x; the
+     light's position error and the launches of #1, #2 soft, #5 and #6.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work, and its `launch_*` numbers),
@@ -142,6 +169,7 @@ the card's name and power limit, and the result as the last line. With
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -183,7 +211,11 @@ PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_
                 "knot1m": ("packet_closest", "packet_any_hit"),
                 "knot1m_parts": ("resident_closest", "resident_any_hit"),
                 # `mandelbulb` with the generic-power field (mb_pow8=False)
-                "mandelbulb_power": ("march", "shadow_soft", "shade_fwd", "shade_bwd")}
+                "mandelbulb_power": ("march", "shadow_soft", "shade_fwd", "shade_bwd"),
+                # the 8.39M-triangle knot: one whole-mesh accel of 4,097 supers
+                "knot8m": ("packet_closest", "packet_any_hit"),
+                # BASELINE config 3 at 512x512, held against the uniform grid's DDA
+                "bunny": ("packet_closest", "packet_any_hit")}
 # the kernels the ring path shares with `mixed`, measured on the same rays
 RING_SHARED = ("march", "shadow_hard", "shade_fwd", "shade_bwd")
 # the silhouette-gradient path: `mixed` with both silhouettes (the README's
@@ -1592,6 +1624,8 @@ def resident_parity(scene, cfg, results, rays):
 # the knot1m frame's block that phase 18 takes (4,096 rays): the knot's
 # centre, where the tube crosses itself
 KNOT_POINTS = ((0.0, 1.12, 0.0),)
+# rays of `knot8m`'s parity sample: its plain version makes 8.4M MT tests a ray
+KNOT8M_SAMPLE = 1024
 
 
 def knot_parts(dev, smi, results, counts):
@@ -2217,17 +2251,320 @@ def launch_sizes(paths, results):
                        "march (one block a launch)" if key == "march" else key, entry, blocks)
 
 
-def cli_run(argv) -> str:
-    """The port's CLI in this process -> what it printed (logged too)."""
-    import io
+def knot8m(dev, smi, results, counts):
+    """Phase `knot8m`: the 8.39M-triangle knot. The host build of its accel
+    (the native builder, then the numpy build, the disk cache off), then
+    the cached load (each timed and equal to the scene's accel); #3
+    closest and any-hit against their plain versions on KNOT8M_SAMPLE rays
+    strided over the frame (the plain version tests all 8.4M triangles a
+    ray), timed with their bound and counters; #3 at its launch size (one
+    65,536-ray block, the geometry pass's arguments); the 1024x1024x1 frame
+    with its launches, time and peak memory."""
+    from tpu_ray_torch import native
+    from tpu_ray_torch.accel import packet as pk
+    from tpu_ray_torch.core.math3d import normalize
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.utils.image_io import write_png
 
+    t0 = time.perf_counter()
+    knot, kcfg = build_scene("knot8m", device=dev)
+    t_scene = time.perf_counter() - t0
+    verts, tris = knot.mesh.verts.cpu().numpy(), knot.mesh.tris.cpu().numpy()
+    (whole,) = knot.packet
+
+    def same(parts):
+        return len(parts) == 1 and all(torch.equal(getattr(parts[0], f), getattr(whole, f))
+                                       for f in ("corners", "chunk_aabb", "super_aabb", "perm"))
+
+    cache = pk.cache_dir()
+    with mock.patch.dict(os.environ, {pk.CACHE_ENV: ""}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = pk.build_packet_parts(verts, tris, device=dev)
+        torch.cuda.synchronize()
+        t_native = time.perf_counter() - t0
+    check(same(built), "knot8m: the native build differs from the scene's accel")
+    del built
+    with mock.patch.dict(os.environ, {pk.CACHE_ENV: "", native.ENV_SWITCH: "0"}):
+        t0 = time.perf_counter()
+        built = pk.build_packet_parts(verts, tris, device=dev)
+        torch.cuda.synchronize()
+        t_numpy = time.perf_counter() - t0
+    check(same(built), "knot8m: the numpy build differs from the native one")
+    del built
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = pk.build_packet_parts(verts, tris, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(same(loaded), "knot8m: the cached accel differs from the scene's")
+    del loaded
+    log("knot8m", f"{knot.mesh.num_tris} triangles, one whole-mesh part: "
+        f"{whole.chunk_aabb.shape[0]} chunks (padded), {whole.super_aabb.shape[0]} supers, "
+        f"{cuda_mt.accel_bytes(whole) / 2**20:.1f} MiB; the scene built in {t_scene:.2f} s "
+        f"(the mesh, the native accel build and the cache write); "
+        f"the accel alone: native build and upload {t_native:.2f} s, numpy build and upload "
+        f"{t_numpy:.2f} s, cached load and upload {t_load:.2f} s (cache {cache})")
+    check(whole.perm.shape[0] == 8_388_736 and whole.super_aabb.shape[0] == 4_097,
+          f"knot8m accel shape {tuple(whole.perm.shape)}, {whole.super_aabb.shape[0]} supers")
+
+    # every (R / KNOT8M_SAMPLE)-th primary ray of the frame: the knot, the
+    # ground (lit and in the knot's shadow) and the sky
+    sx, sy = R.pixel_sample_coords(kcfg, dev)
+    step = kcfg.num_rays // KNOT8M_SAMPLE
+    with torch.no_grad():
+        o, d = generate_rays(knot.camera, sx.reshape(-1)[step // 2::step],
+                             sy.reshape(-1)[step // 2::step], kcfg.width, kcfg.height)
+    results["knot8m"] = {}
+
+    def walk(ro, rd, seed0, any_hit, key):
+        kw = dict(t_max=kcfg.t_far, any_hit=any_hit, t_init=seed0)
+        k = cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw)
+        p = cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)
+        err = hit_parity(f"knot8m {key}", k, p, any_hit)
+        results["knot8m"][key] = dict(
+            max_abs_err=err,
+            ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw)),
+            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)),
+            **packet_bound(whole, ro, seed0),
+            counters=walk_counts(f"knot8m {key}", ro.shape[0],
+                                 lambda c: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw,
+                                                                             counters=c)))
+        return k
+
+    w = walk(o, d, None, False, "packet_closest")
+    with torch.no_grad():
+        _, p_off, _, live = R.shadow_ray_origins(knot, kcfg, o, d, {"mesh_tri": w.tri,
+                                                                    "mesh_hit": w.hit},
+                                                 "mesh_grid", mesh_rows=R.mesh_table(knot.mesh))
+    l_dir = normalize(knot.lights.direction[0]).expand_as(p_off).contiguous()
+    walk(p_off, l_dir, torch.where(live, kcfg.t_far, 0.0).to(torch.float32), True,
+         "packet_any_hit")
+    for key in ("packet_closest", "packet_any_hit"):
+        r = results["knot8m"][key]
+        log("knot8m", f"{key} on {o.shape[0]} rays: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})" + walk_rate(r))
+
+    o, d = block_rays(knot, kcfg, KNOT_POINTS, "knot8m launch")
+    calls = []
+    with recorded(cuda_mt, "intersect_packet_streamed", calls):
+        shade_inputs(knot, kcfg, o, d, "mesh_grid")
+    check(len(calls) == 2, f"knot8m: {len(calls)} walk calls for a block")
+    for key, (a, k) in zip(("packet_closest", "packet_any_hit"), calls):
+        rows = [dict(rays=o.shape[0], **timed_launch(
+            lambda: cuda_mt.intersect_packet_streamed(*a, **k), ("packet_kernel",),
+            packet_bound(a[0], a[1], k.get("t_init"))))]
+        results["knot8m"][key]["launch"] = launch_entry(rows)
+        log_launch("knot8m", key, results["knot8m"][key]["launch"], rows)
+    del calls
+
+    n_blocks = -(-kcfg.num_rays // kcfg.block_size)
+    with torch.no_grad():
+        R.render_image(knot, kcfg.replace(width=128, height=128))
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = R.render_image(knot, kcfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts["knot8m"] = c = forward_counts()
+    log("knot8m", f"frame {kcfg.width}x{kcfg.height}x{kcfg.spp}: {dt:.3f} s, "
+        f"{kcfg.num_rays / dt / 1e6:.3f} Mrays/s, launches {c}, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (1024, 1024, 3),
+          "knot8m frame not finite or of the wrong shape")
+    check(c["packet_closest"] == c["packet_any_hit"] == c["shade_fwd"] == n_blocks
+          and c["resident_closest"] == c["resident_any_hit"] == 0,
+          f"knot8m frame launches {c}")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    write_png(os.path.join(REPO, "build", "chip_smoke_knot8m.png"), img.cpu().numpy())
+
+
+def grid_oracle(dev, smi, results, counts):
+    """Phase `grid_oracle`: BASELINE config 3, `bunny` at 512x512, its
+    uniform grid built on the host; #3 closest-hit on every primary ray and
+    any-hit on every shadow ray (512x512, one launch each, as the frame
+    makes them) against the grid's DDA (kernels/dda.py, plain torch on the
+    card), under hit_parity's rule; the DDA's time; #3 against its plain
+    version on the 32,768 rays of the bunny's centre rows; the frame's
+    launches."""
+    from tpu_ray_torch.accel.grid_build import grid_stats
+    from tpu_ray_torch.core.math3d import normalize
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade, dda
+    from tpu_ray_torch.kernels.moller_trumbore import TriHit
+    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.camera import generate_rays
+    from tpu_ray_torch.scene.scenes import build_scene
+
+    t0 = time.perf_counter()
+    scene, cfg = build_scene("bunny", device=dev)
+    log("grid_oracle", f"bunny: {scene.mesh.num_tris} triangles, packet accel and grid built "
+        f"in {time.perf_counter() - t0:.2f} s; grid {grid_stats(scene.grid)}")
+    (packet,) = scene.packet
+    sx, sy = R.pixel_sample_coords(cfg, dev)
+    with torch.no_grad():
+        o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), cfg.width, cfg.height)
+    k = cuda_mt.intersect_packet_parts(scene.packet, o, d, t_max=cfg.t_far)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = dda.intersect_grid(scene.mesh, scene.grid, o, d, t_max=cfg.t_far)
+    torch.cuda.synchronize()
+    t_dda = time.perf_counter() - t0
+    hit_parity("grid_oracle #3 closest against the DDA", k, g, False)
+    with torch.no_grad():
+        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, {"mesh_tri": k.tri,
+                                                                    "mesh_hit": k.hit},
+                                                 "mesh_grid", mesh_rows=R.mesh_table(scene.mesh))
+    l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
+    aseed = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
+    ka = cuda_mt.intersect_packet_streamed(packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True,
+                                           t_init=aseed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ga = dda.intersect_grid(scene.mesh, scene.grid, p_off, l_dir, t_max=cfg.t_far, any_hit=True)
+    torch.cuda.synchronize()
+    t_dda_any = time.perf_counter() - t0
+    hit_parity("grid_oracle #3 any-hit against the DDA (live rays)", ka,
+               TriHit(ga.t, ga.tri, ga.hit & live), True)
+    log("grid_oracle", f"the DDA on the card: {o.shape[0]} primary rays {t_dda:.3f} s, "
+        f"{int(live.sum())} live shadow rays of {p_off.shape[0]} {t_dda_any:.3f} s; #3 on the "
+        f"same rays {kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, o, d, t_max=cfg.t_far)):.4f} "
+        f"/ {kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)):.4f} ms")
+
+    # kernel against plain on the bunny's centre rows (the plain version
+    # tests every triangle a ray)
+    s0 = (cfg.height // 2 - 32) * cfg.width
+    sl = slice(s0, s0 + 32_768)
+    results["bunny"] = {}
+    for key, ro, rd, kw in (
+            ("packet_closest", o[sl], d[sl], dict(t_max=cfg.t_far)),
+            ("packet_any_hit", p_off[sl], l_dir[sl],
+             dict(t_max=cfg.t_far, any_hit=True, t_init=aseed[sl]))):
+        kk = cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw)
+        pp = cuda_mt.intersect_packet_streamed_torch(packet, ro, rd, **kw)
+        err = hit_parity(f"grid_oracle bunny {key} against the plain version", kk, pp,
+                         key == "packet_any_hit")
+        results["bunny"][key] = dict(
+            max_abs_err=err,
+            ms=kernel_ms(lambda: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw)),
+            plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(packet, ro, rd, **kw)),
+            **packet_bound(packet, ro, kw.get("t_init")),
+            counters=walk_counts(f"grid_oracle bunny {key}", ro.shape[0],
+                                 lambda c: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw,
+                                                                             counters=c)))
+    calls = []
+    with recorded(cuda_mt, "intersect_packet_streamed", calls):
+        shade_inputs(scene, cfg, o, d, "mesh_grid")
+    check(len(calls) == 2, f"bunny: {len(calls)} walk calls for its block")
+    for key, (a, kw) in zip(("packet_closest", "packet_any_hit"), calls):
+        rows = [dict(rays=o.shape[0], **timed_launch(
+            lambda: cuda_mt.intersect_packet_streamed(*a, **kw), ("packet_kernel",),
+            packet_bound(a[0], a[1], kw.get("t_init"))))]
+        results["bunny"][key]["launch"] = launch_entry(rows)
+        log_launch("bunny", key, results["bunny"][key]["launch"], rows)
+    del calls
+    with torch.no_grad():
+        R.render_image(scene, cfg.replace(width=64, height=64))
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = R.render_image(scene, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts["bunny"] = c = forward_counts()
+    log("grid_oracle", f"bunny frame {cfg.width}x{cfg.height}x{cfg.spp}: {dt:.3f} s, launches "
+        f"{c} on {smi}")
+    check(bool(torch.isfinite(img).all()), "bunny frame not finite")
+    check(c["packet_closest"] == c["packet_any_hit"] == c["shade_fwd"] == 1,
+          f"bunny frame launches {c}")
+
+
+def gradcheck(dev):
+    """Phase `gradcheck`: `cli gradcheck` with its default device, the card
+    (the float64 finite-difference check on the CPU, then each trainable's
+    float32 gradient through #1, #5 and #6 against the float64 one), and
+    BASELINE config 3's vertex check: the directional derivative of the
+    masked loss on `bunny` (20x20, no shadows) along V on lit interior
+    triangles, finite differences against autograd in float64 on the CPU,
+    then the card's float32 derivative through #3, #5 and #6 against it."""
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.utils import gradcheck as gc
+
+    code = 0
+    try:
+        out = cli_run(["gradcheck", "--scene", "sphere"], "gradcheck")
+    except SystemExit as e:
+        code, out = e.code, ""
+    check(code in (0, None), f"cli gradcheck exited {code}")
+    for path in ("sdf.sph_radius", "camera.origin", "materials.albedo"):
+        check(f"[gradcheck] {path}: OK" in out and f"[gradcheck] card {path}: OK" in out,
+              f"cli gradcheck {path}")
+    launched = json.loads(out.split("[gradcheck] card launches: ")[1].splitlines()[0])
+    check(all(launched.get(k, 0) > 0 for k in ("march", "shade_fwd", "shade_bwd")),
+          f"cli gradcheck card launches {launched}")
+
+    scene, cfg = build_scene("bunny", device="cpu", dtype=torch.float64)
+    cfg = cfg.replace(width=20, height=20, shadow="none", block_size=0, method="mesh_grid")
+    V = gc.vertex_direction(scene, cfg, interior_only=True)
+    t0 = time.perf_counter()
+    g_ad, g_fd = gc.check_grad(gc.vertex_loss(scene, cfg, V), torch.zeros(()), eps=2e-6,
+                               rtol=5e-3, atol=1e-9)
+    log("gradcheck", f"config 3 vertex check, float64 on the CPU: <grad, V> autograd "
+        f"{float(g_ad):.9e}, finite differences {float(g_fd):.9e} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    r = gc.card_vertex_check(scene, cfg, V, dev)
+    launched = {k: v for t in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+                for k, v in t.items() if v}
+    log("gradcheck", f"config 3 on the card: float32 {r['d32']:.9e} against float64 "
+        f"{r['d64']:.9e}, rel {r['rel_err']:.3e} (at most 1e-3); launches {launched}")
+    check(abs(float(g_ad)) > 1e-4 and r["ok"], "config 3 vertex check on the card")
+    check(launched.get("closest", 0) > 0 and launched.get("shade_bwd", 0) > 0,
+          f"config 3 card launches {launched}")
+
+
+def inverse_lighting(dev, smi):
+    """Phase `inverse_lighting`: tpu_ray_torch.examples.inverse_lighting at
+    its defaults (`pointlight` 256x256, diff_vis, 150 Adam steps on the
+    light's position and intensity): the loss falls at least 10x; the
+    position error is printed, with the launches of #1, #2 soft, #5 and #6."""
+    from tpu_ray_torch.examples import inverse_lighting as il
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        true, fitted, hist = il.main(os.path.join(REPO, "build", "chip_smoke_light"), device=dev)
+    dt = time.perf_counter() - t0
+    for ln in buf.getvalue().splitlines():
+        log("inverse_lighting", f"  {ln}")
+    c = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    err = float((true.lights.position - fitted.lights.position).norm())
+    log("inverse_lighting", f"{len(hist)} steps in {dt:.2f} s ({dt / len(hist):.3f} s a step "
+        f"with the PNGs' frames), loss {hist[0]:.4e} -> {hist[-1]:.4e} "
+        f"({hist[0] / hist[-1]:.1f}x), position error {err:.4f}; launches {c} on {smi}")
+    check(hist[0] >= 10.0 * hist[-1], "inverse_lighting: the loss fell less than 10x")
+    check(all(c[k] > 0 for k in ("march", "shadow_soft", "shade_fwd", "shade_bwd")),
+          f"inverse_lighting launches {c}")
+
+
+def cli_run(argv, tag="bench_cli") -> str:
+    """The port's CLI in this process -> what it printed (logged too)."""
     from tpu_ray_torch import cli
 
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        cli.main(argv)
-    for ln in buf.getvalue().splitlines():
-        log("bench_cli", f"  {ln}")
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        for ln in buf.getvalue().splitlines():
+            log(tag, f"  {ln}")
     return buf.getvalue()
 
 
@@ -2389,6 +2726,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this "
                          "script runs only on a CUDA device")
     sys.path.insert(0, REPO)
+    from tpu_ray_torch import native
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.scene.scenes import build_scene
 
@@ -2408,6 +2746,11 @@ def main() -> int:
     for ln in regs:
         log("build", ln)
     log("build", f"ptxas of #1, #2, #5, #6: {ptxas_summary(build.BUILD_LOG['ptxas'])}")
+    t0 = time.perf_counter()
+    native.accel_lib()
+    log("build", f"native accel builder: {time.perf_counter() - t0:.2f} s (g++ "
+        f"{native.BUILD_LOG['seconds']:.2f} s, built={native.BUILD_LOG['built']}) -> "
+        f"{native.BUILD_LOG['path']}")
 
     dev = torch.device("cuda", 0)
     scene, cfg = build_scene("mixed", device=dev)
@@ -2457,6 +2800,10 @@ def main() -> int:
                                             bcfg.replace(width=256, height=256))),
         ("launch", lambda: launch_sizes(launch_paths, results)),
         ("bench_cli", lambda: bench_cli(dev, smi)),
+        ("knot8m", lambda: knot8m(dev, smi, results, knot_counts)),
+        ("grid_oracle", lambda: grid_oracle(dev, smi, results, knot_counts)),
+        ("gradcheck", lambda: gradcheck(dev)),
+        ("inverse_lighting", lambda: inverse_lighting(dev, smi)),
     )
     # the kernels at their launch size: the frame's config, the fit step's
     launch_paths = {

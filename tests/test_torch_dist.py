@@ -19,6 +19,11 @@ Tolerances and why:
     ids equal (ties break by the smallest id in both).
   * psum_buckets and one all_reduce per leaf: equal (the same sums of the
     same float32 values).
+  * the per-process image write: render_image_sharded(gather=False) gives
+    each rank its band of rows, and the bands stacked in rank order equal
+    the gathered frame bit for bit (the same values, moved); each rank's
+    PNG (write_image_per_host) decodes to its band's 8-bit image, and
+    stacked they equal rank 0's PNG of the gathered frame.
 """
 
 import os
@@ -159,6 +164,47 @@ def test_sharded_fit_step_matches_jax(runs, n, case):
         for k in W.FIT_PATHS:
             np.testing.assert_allclose(out[f"fit_{case}_{k}"], ref[f"fit_{case}_{k}"],
                                        atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.BANDS])
+def test_bands_stack_to_the_gathered_frame(runs, n, case):
+    from tpu_ray_torch.dist.sharding import row_bands
+    from tpu_ray_torch.utils.image_io import read_png
+
+    _, outs = runs
+    whole = outs[n][0][f"whole_{case}"]
+    bands = row_bands(whole.shape[0], n)
+    for r, out in enumerate(outs[n]):
+        r0, r1 = bands[r]
+        assert out[f"band_{case}"].shape == (r1 - r0, whole.shape[1], 3)
+        assert r1 - r0 <= -(-whole.shape[0] // n)
+    np.testing.assert_array_equal(np.concatenate([o[f"band_{case}"] for o in outs[n]]), whole)
+    files = [str(o[f"band_file_{case}"]) for o in outs[n]]
+    assert [os.path.basename(f) for f in files if f] == [
+        f"{case}.p{r:03d}.png" for r in range(n) if bands[r][1] > bands[r][0]]
+    assert [str(o[f"whole_file_{case}"]) for o in outs[n]][1:] == [""] * (n - 1)
+    pngs = np.concatenate([read_png(f) for f in files if f])
+    np.testing.assert_array_equal(pngs, read_png(str(outs[n][0][f"whole_file_{case}"])))
+
+
+def test_single_process_band_is_the_frame(tmp_path):
+    """At world size 1 gather=False returns the whole frame and the write
+    goes to `path` itself."""
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.utils.image_io import read_png
+
+    scene, cfg = build_scene("triangles", device="cpu")
+    cfg = cfg.replace(width=16, height=12, block_size=0)
+    with torch.no_grad():
+        band = sharding.render_image_sharded(scene, cfg, gather=False)
+        whole = sharding.render_image_sharded(scene, cfg)
+    assert torch.equal(band, whole)
+    path = str(tmp_path / "one.png")
+    assert multihost.write_image_per_host(path, band, banded=True) == path
+    assert read_png(path).shape == (12, 16, 3)
+    assert sharding.row_bands(13, 4) == [(0, 4), (4, 8), (8, 12), (12, 13)]
+    assert sharding.row_bands(9, 4) == [(0, 3), (3, 6), (6, 9), (9, 9)]
 
 
 @pytest.mark.parametrize("n", SIZES)

@@ -10,6 +10,9 @@ computed to <io dir>/out_<rank>.npz:
   psum_*        psum_buckets over 2 buckets, and one all_reduce per leaf
   ring_*        intersect_ring on this rank's slice of the rays
   img_<case>    render_image_sharded frames (every rank gathers the frame)
+  band_<case>   render_image_sharded(gather=False): this rank's band of rows,
+                written with write_image_per_host to <io dir>/<case>.pNNN.png
+                (and the gathered frame to <io dir>/<case>.png by rank 0)
   fit_<case>_*  the loss and the parameters after one sharded SGD step
 """
 
@@ -24,7 +27,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpu_ray_torch.dist.grad_allreduce import psum_buckets  # noqa: E402
-from tpu_ray_torch.dist.multihost import initialize, world  # noqa: E402
+from tpu_ray_torch.dist.multihost import initialize, world, write_image_per_host  # noqa: E402
 from tpu_ray_torch.dist.scene_shard import intersect_ring, partition_mesh  # noqa: E402
 from tpu_ray_torch.dist.sharding import render_image_sharded  # noqa: E402
 from tpu_ray_torch.fit import extract_params, make_sharded_fit_step  # noqa: E402
@@ -36,6 +39,12 @@ RENDERS = (("triangles", "triangles", dict(width=16, height=16), False),
            ("triangles_ring", "triangles", dict(width=16, height=16), True),
            ("mixed", "mixed", dict(width=16, height=16, spp=1, max_steps=64), False),
            ("mixed_ring", "mixed", dict(width=16, height=16, spp=1, max_steps=64), True))
+# (case, scene, config overrides, scene_shards): the frames rendered twice,
+# gathered and as per-rank bands of rows; 13 rows split unevenly (2 ranks: 7
+# and 6 rows, 4 ranks: 4, 4, 4 and 1) and do not divide into 8x8 blocks
+BANDS = (("triangles", "triangles", dict(width=16, height=16), False),
+         ("triangles_odd", "triangles", dict(width=16, height=13), False),
+         ("mixed_ring", "mixed", dict(width=16, height=16, spp=1, max_steps=64), True))
 # (case, scene_shards, start from the moved vertices): the fit steps of
 # `triangles` (mesh.verts, camera.origin), 12x12, no shadows
 FITS = (("replicated", False, False), ("ring", True, False), ("ring_moved", True, True))
@@ -73,6 +82,20 @@ def main():
             img = render_image_sharded(scene, cfg.replace(block_size=0, **over),
                                        scene_shards=shards)
         out[f"img_{case}"] = img.numpy()
+
+    for case, name, over, shards in BANDS:
+        scene, cfg = build_scene(name, device="cpu")
+        cfg = cfg.replace(block_size=0, **over)
+        with torch.no_grad():
+            # the gathered frame: the RENDERS case of the same name, if any
+            whole = (torch.as_tensor(out[f"img_{case}"]) if f"img_{case}" in out
+                     else render_image_sharded(scene, cfg, scene_shards=shards))
+            band = render_image_sharded(scene, cfg, scene_shards=shards, gather=False)
+        out[f"whole_{case}"], out[f"band_{case}"] = whole.numpy(), band.numpy()
+        wrote = write_image_per_host(os.path.join(io, f"{case}.png"), band, banded=True)
+        out[f"band_file_{case}"] = np.asarray(wrote or "")
+        wrote = write_image_per_host(os.path.join(io, f"{case}.png"), whole)
+        out[f"whole_file_{case}"] = np.asarray(wrote or "")
 
     scene, cfg = build_scene("triangles", device="cpu")
     cfg = cfg.replace(**FIT_CFG)

@@ -18,15 +18,32 @@ The structure selects hits only; they are recomputed from the mesh.
 `build_packet_parts` builds a mesh as a list of such accels: one
 whole-mesh accel by default, or, with `streamed=False`, Morton-contiguous
 parts under `VMEM_BUDGET_BYTES` that `cuda_mt.intersect_packet_parts`
-walks in sequence. Not ported: the reference's disk cache and native build.
+walks in sequence.
+
+An accel is built by the native C++ builder (tpu_ray_torch/native), bit for
+bit the numpy build `_numpy_build`, which runs only when the switch
+TPU_RAY_TORCH_NATIVE=0 asks for it; a failed native build raises. Meshes of
+at least CACHE_MIN_TRIS triangles go through a disk cache of the built
+parts, keyed by a hash of the vertices and triangles, the budget and
+`streamed`: in TPU_RAY_TORCH_CACHE_DIR, by default build/tpu_ray_torch/
+accel_cache at the repository root ("" turns it off). A cache file is
+written through a per-process temporary file and renamed; a corrupt file is
+ignored and rebuilt, and a directory that cannot be written never stops a
+build.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import zipfile
+from pathlib import Path
 
 import numpy as np
 import torch
+
+from tpu_ray_torch import native
 
 CHUNK = 128  # triangles per chunk
 ROWS_PER_CHUNK = 16  # 9 data rows (v0/e1/e2 xyz) + 7 pad
@@ -41,6 +58,12 @@ VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 # larger mesh stay below it. The port's slots are int32 and need no limit; it
 # keeps this one only so that both packages build the same parts.
 TRI_SLOT_LIMIT = 2 ** 24
+# meshes from this many triangles go through the disk cache (the reference's
+# threshold: the host build only costs seconds above it)
+CACHE_MIN_TRIS = 100_000
+CACHE_ENV = "TPU_RAY_TORCH_CACHE_DIR"
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ray_torch" / "accel_cache"
+_FIELDS = ("corners", "chunk_aabb", "super_aabb", "perm")
 
 
 @dataclasses.dataclass
@@ -88,31 +111,19 @@ def _morton_order(verts64: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return np.argsort(_morton3(q), kind="stable")
 
 
-def _to_accel(corners, chunk_aabb, super_aabb, perm, num_tris, device):
+def _to_accel(arrays: dict, num_tris: int, device) -> PacketAccel:
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return PacketAccel(corners=t(corners.astype(np.float32)),
-                       chunk_aabb=t(chunk_aabb.astype(np.float32)),
-                       super_aabb=t(super_aabb.astype(np.float32)),
-                       perm=t(perm.astype(np.int32)), num_tris=num_tris)
+    return PacketAccel(corners=t(arrays["corners"].astype(np.float32, copy=False)),
+                       chunk_aabb=t(arrays["chunk_aabb"].astype(np.float32, copy=False)),
+                       super_aabb=t(arrays["super_aabb"].astype(np.float32, copy=False)),
+                       perm=t(arrays["perm"].astype(np.int32, copy=False)), num_tris=num_tris)
 
 
-def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
-                       tri_id_base: np.ndarray | None = None,
-                       device="cpu") -> PacketAccel:
-    """Build one accel on the host and move it to `device`. tri_id_base:
-    the (T,) original triangle ids of a subset of a mesh (identity if
-    omitted), which `perm` then maps to."""
-    verts = np.asarray(verts, np.float64)
-    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+def _numpy_build(verts: np.ndarray, tris: np.ndarray, tri_id_base=None) -> dict:
+    """The numpy build of one accel of T > 0 triangles (the reference's
+    numpy path): the arrays of PacketAccel."""
     T = tris.shape[0]
     big = 1e10
-    if T == 0:
-        aabb = np.zeros((1, 128), np.float32)
-        aabb[0, :3] = big
-        aabb[0, 3:6] = -big
-        return _to_accel(np.zeros((ROWS_PER_CHUNK, CHUNK)), aabb, aabb,
-                         np.full((CHUNK,), -1), 0, device)
-
     tv = verts[tris]  # (T, 3, 3)
     order = _morton_order(verts, tris)
     tv = tv[order]
@@ -151,9 +162,73 @@ def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
     sup[:, 3:6] = hi_p.reshape(S, SUPER, 3).max(1)
 
     ids = order if tri_id_base is None else np.asarray(tri_id_base)[order]
-    perm = np.concatenate([ids, np.full(pad, -1, np.int64)])
-    return _to_accel(corners.reshape(C_pad * ROWS_PER_CHUNK, CHUNK), aabb, sup,
-                     perm, T, device)
+    perm = np.concatenate([ids, np.full(pad, -1, np.int64)]).astype(np.int32)
+    return dict(corners=corners.reshape(C_pad * ROWS_PER_CHUNK, CHUNK), chunk_aabb=aabb,
+                super_aabb=sup, perm=perm)
+
+
+def build_packet_accel(verts: np.ndarray, tris: np.ndarray,
+                       tri_id_base: np.ndarray | None = None,
+                       device="cpu") -> PacketAccel:
+    """Build one accel on the host (natively unless TPU_RAY_TORCH_NATIVE=0)
+    and move it to `device`. tri_id_base: the (T,) original triangle ids of
+    a subset of a mesh (identity if omitted), which `perm` then maps to."""
+    verts = np.asarray(verts, np.float64)
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    T = tris.shape[0]
+    if T == 0:
+        aabb = np.zeros((1, 128), np.float32)
+        aabb[0, :3] = 1e10
+        aabb[0, 3:6] = -1e10
+        return _to_accel(dict(corners=np.zeros((ROWS_PER_CHUNK, CHUNK)), chunk_aabb=aabb,
+                              super_aabb=aabb, perm=np.full((CHUNK,), -1)), 0, device)
+    build = native.build_accel if native.enabled() else _numpy_build
+    return _to_accel(build(verts, tris, tri_id_base), T, device)
+
+
+def cache_dir() -> str:
+    """The accel cache's directory ("" when TPU_RAY_TORCH_CACHE_DIR turns it off)."""
+    return os.environ.get(CACHE_ENV, str(DEFAULT_CACHE_DIR))
+
+
+def _cache_path(verts: np.ndarray, tris: np.ndarray, budget_bytes: int, streamed) -> str | None:
+    d = cache_dir()
+    if not d:
+        return None
+    h = hashlib.sha1(b"tpu_ray_torch-packet-accel-v1")
+    h.update(np.ascontiguousarray(verts, np.float64).tobytes())
+    h.update(np.ascontiguousarray(tris, np.int64).tobytes())
+    h.update(f"{budget_bytes}|{streamed}".encode())
+    return os.path.join(d, f"accel_{h.hexdigest()}.npz")
+
+
+def _save_parts(path: str, parts: list) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {"n_parts": np.asarray(len(parts))}
+    for i, a in enumerate(parts):
+        for name in _FIELDS:
+            payload[f"{name}_{i}"] = getattr(a, name).cpu().numpy()
+        payload[f"num_tris_{i}"] = np.asarray(a.num_tris)
+    # one temporary file per writer: concurrent builders each publish whole
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as fh:  # a file handle: savez must not append .npz
+            np.savez(fh, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load_parts(path: str, device) -> list | None:
+    """The cached parts, or None when the file is missing or unreadable."""
+    try:
+        with np.load(path) as z:
+            return [_to_accel({name: z[f"{name}_{i}"] for name in _FIELDS},
+                              int(z[f"num_tris_{i}"]), device)
+                    for i in range(int(z["n_parts"]))]
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None  # a missing or corrupt file is rebuilt
 
 
 def build_packet_parts(verts: np.ndarray, tris: np.ndarray,
@@ -168,8 +243,27 @@ def build_packet_parts(verts: np.ndarray, tris: np.ndarray,
       * larger, `streamed=False`: Morton-contiguous parts of as many whole
         supers as fit the budget, walked in sequence with the running best
         t (`cuda_mt.intersect_packet_parts`).
+
+    A mesh of CACHE_MIN_TRIS triangles or more is read from the disk cache
+    when it holds its parts, and written to it otherwise.
     """
     tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    T = tris.shape[0]
+    path = _cache_path(verts, tris, budget_bytes, streamed) if T >= CACHE_MIN_TRIS else None
+    if path is not None:
+        cached = _load_parts(path, device)
+        if cached is not None:
+            return cached
+    parts = _build_parts(verts, tris, budget_bytes, streamed, device)
+    if path is not None:
+        try:
+            _save_parts(path, parts)
+        except OSError:
+            pass  # a directory that cannot be written never stops a build
+    return parts
+
+
+def _build_parts(verts, tris, budget_bytes, streamed, device) -> list:
     T = tris.shape[0]
     build = lambda sel=None: build_packet_accel(
         verts, tris if sel is None else tris[sel], tri_id_base=sel, device=device)

@@ -9,6 +9,7 @@
     python -m tpu_ray_torch.cli fit --scene sphere --target t.png --checkpoint-dir ck
     python -m tpu_ray_torch.cli bench --scene mandelbulb
     python -m tpu_ray_torch.cli scenes
+    python -m tpu_ray_torch.cli gradcheck --scene sphere --device cpu
     torchrun --nproc_per_node=N -m tpu_ray_torch.cli render --sharded --scene mixed
 
 The device is the CUDA device unless `--device cpu` is given; without a
@@ -27,6 +28,16 @@ directory. `bench` prints tpu_ray_torch.bench's JSON line. `--sharded`
 renders (or fits) pixel-parallel over the processes torchrun starts, one
 card each (gloo processes with `--device cpu`), the scene replicated; rank
 0 prints and writes the PNG.
+
+`gradcheck` checks each trainable's gradient against central finite
+differences in float64 (24x24, one block, eps <= 1e-6, >= 256 march
+steps, target = render + 0.1, FD step 1e-5, `--rtol`); it exits 1 when one
+fails. Its device rule: float64 runs on CPU tensors only (the CUDA kernels
+take float32), so that check runs on the CPU whatever `--device` says;
+with a CUDA device (the default) it then checks the card: the float32
+gradient through the kernels against the float64 autograd gradient of the
+plain path, at the scene's own eps, within gradcheck.CARD_RTOL (1e-3) of
+the largest component.
 """
 
 from __future__ import annotations
@@ -255,6 +266,54 @@ def cmd_bench(args):
                                device=args.device or "cuda")), flush=True)
 
 
+def cmd_gradcheck(args):
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.scene.types import get_param
+    from tpu_ray_torch.utils.gradcheck import (CARD_RTOL, card_grad_check, check_grad,
+                                               gradcheck_config, mse_loss)
+
+    device = _device(args)
+    if device.type != "cpu":
+        print(f"[gradcheck] float64 runs on CPU tensors only (the kernels take float32): "
+              f"the finite-difference check runs on the CPU, then the card's float32 "
+              f"gradient is held against it on {_where(device)}")
+    cpu = torch.device("cpu")
+    scene, cfg = build_scene(args.scene, device=cpu, dtype=torch.float64)
+    fd_cfg = gradcheck_config(cfg)
+    with torch.no_grad():
+        target = render_image(scene, fd_cfg) + 0.1
+    failures = []
+    for path in args.trainable:
+        try:
+            check_grad(mse_loss(scene, fd_cfg, target, path), get_param(scene, path),
+                       eps=1e-5, rtol=args.rtol)
+            print(f"[gradcheck] {path}: OK")
+        except AssertionError as e:
+            failures.append(path)
+            print(f"[gradcheck] {path}: FAIL — {e}")
+    if device.type != "cpu":
+        card_cfg = fd_cfg.replace(eps=cfg.eps)  # the scene's own float32 eps
+        with torch.no_grad():
+            card_target = render_image(scene, card_cfg) + 0.1
+        for table in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES):
+            for k in table:
+                table[k] = 0
+        for path in args.trainable:
+            r = card_grad_check(scene, card_cfg, path, card_target, device)
+            print(f"[gradcheck] card {path}: {'OK' if r['ok'] else 'FAIL'} — float32 "
+                  f"{np.array2string(r['g32'].ravel(), precision=6)} float64 "
+                  f"{np.array2string(r['g64'].ravel(), precision=6)} max|diff| / max|g64| "
+                  f"{r['rel_err']:.3e} (rtol {CARD_RTOL})")
+            if not r["ok"]:
+                failures.append(f"card {path}")
+        launched = {k: v for t in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+                    for k, v in t.items() if v}
+        print(f"[gradcheck] card launches: {json.dumps(launched)}")
+    if failures:
+        sys.exit(1)
+
+
 def cmd_scenes(args):
     device = _device(args)
     for name in scene_names():
@@ -300,6 +359,15 @@ def main(argv=None):
     b.add_argument("--forward-only", action="store_true")
     b.add_argument("--device", help="cuda (the default) or cpu")
     b.set_defaults(fn=cmd_bench)
+    g = sub.add_parser("gradcheck", help="finite-difference gradient check (float64 on "
+                                         "the CPU), then the card's float32 gradient")
+    g.add_argument("--scene", default="sphere", choices=scene_names())
+    g.add_argument("--trainable", nargs="+",
+                   default=["sdf.sph_radius", "camera.origin", "materials.albedo"])
+    g.add_argument("--rtol", type=float, default=2e-3)
+    g.add_argument("--device", help="cuda (the default) or cpu: float64 always runs on "
+                                    "the CPU; cuda adds the card's float32 check")
+    g.set_defaults(fn=cmd_gradcheck)
     sc = sub.add_parser("scenes", help="list the registry's scenes")
     sc.add_argument("--device", help="cuda (the default) or cpu")
     sc.set_defaults(fn=cmd_scenes)

@@ -7,8 +7,9 @@ processes that each call `initialize` with the same `init_method` (a
 rank. Collectives then go through `torch.distributed` (NCCL between cards,
 gloo between CPU processes).
 
-Not ported yet: the per-process image write (`write_image_per_host`), which
-the reference never ran either.
+`write_image_per_host` writes a frame from a process group: rank 0 a
+gathered frame, each rank its band of rows of an ungathered one
+(`render_image_sharded(..., gather=False)`).
 """
 
 from __future__ import annotations
@@ -62,3 +63,30 @@ def is_main() -> bool:
 def main_print(*args, **kw) -> None:
     if is_main():
         print(*args, **kw)
+
+
+def write_image_per_host(path: str, img: torch.Tensor, banded: bool = False,
+                         group=None) -> str | None:
+    """Write a frame from every process of the group; returns the file this
+    process wrote (None if it wrote none).
+
+      * world size 1: `path`;
+      * a gathered frame (banded=False): rank 0 writes `path`;
+      * this rank's band of rows (banded=True, render_image_sharded's
+        gather=False): `<root>.pNNN<ext>` with NNN the rank; an empty band
+        writes nothing.
+    """
+    from tpu_ray_torch.utils.image_io import write_png
+
+    n, r = world(group)
+    if n == 1 or not banded:
+        if r != 0:
+            return None
+        write_png(path, img.detach().cpu().numpy())
+        return path
+    if img.shape[0] == 0:
+        return None
+    root, ext = os.path.splitext(path)
+    out = f"{root}.p{r:03d}{ext}"
+    write_png(out, img.detach().cpu().numpy())
+    return out

@@ -9,8 +9,10 @@ around the ring (`scene_shards`, dist/scene_shard.py).
 
 The reference's `make_mesh` and `RAY_AXIS` have no counterpart: the process
 group (torch.distributed's default, or the one given) takes their place, one
-process per device. Not ported yet: the reference's `gather=False`, which
-keeps each process's slice for a per-process image write.
+process per device. With `gather=False` no process gathers the frame: the
+pixels go by point-to-point exchange to the rank whose band of rows holds
+them (`row_bands`), for a per-process image write
+(dist/multihost.write_image_per_host).
 """
 
 from __future__ import annotations
@@ -70,15 +72,66 @@ def ring_scene(scene: Scene, group=None) -> Scene:
         return scene
     ring = build_ring_packet(scene.mesh.verts.detach().cpu().numpy(),
                              scene.mesh.tris.cpu().numpy(), group, scene.device)
-    return scene.replace(packet=None, ring=ring)
+    return scene.replace(packet=None, grid=None, ring=ring)
+
+
+def row_bands(height: int, n: int) -> list[tuple[int, int]]:
+    """Rank r's band of rows [r0, r1): ceil(height / n) rows each, the last
+    ones shorter or empty."""
+    b = -(-height // n)
+    return [(min(r * b, height), min((r + 1) * b, height)) for r in range(n)]
+
+
+def _to_bands(px: torch.Tensor, perm: np.ndarray, n_px: int, cfg: RenderConfig,
+              group) -> torch.Tensor:
+    """Rank r's rendered slice px (3, per) of the dealt pixels -> its band of
+    rows (rows, W, 3): each rank sends every other rank the pixels of its
+    slice that lie in that rank's band, and receives its own band's pixels
+    from the others (batch_isend_irecv). Which pixels go where follows from
+    perm alone, so every rank knows every message's size."""
+    n, r = world(group)
+    per = px.shape[1]
+    bands = row_bands(cfg.height, n)
+    # row-major pixel of each dealt position; the padding past n_px is no pixel
+    pix = np.full(n * per, -1, np.int64)
+    pix[:n_px] = perm
+    owner = np.searchsorted(np.asarray([b1 for _, b1 in bands]), pix // cfg.width,
+                            side="right")
+    owner[pix < 0] = -1
+    r0, r1 = bands[r]
+    band = px.new_empty((3, (r1 - r0) * cfg.width))
+    index = lambda a: torch.from_numpy(a).to(px.device)
+    ops, recvs = [], []
+    for q in range(n):
+        mine = index(np.nonzero(owner[r * per:(r + 1) * per] == q)[0])  # my pixels q holds
+        theirs = owner[q * per:(q + 1) * per] == r  # q's positions whose pixels I hold
+        dst = index(pix[q * per:(q + 1) * per][theirs] - r0 * cfg.width)
+        if q == r:
+            band[:, dst] = px[:, mine]
+            continue
+        if mine.numel():
+            ops.append(dist.P2POp(dist.isend, px[:, mine].contiguous(), q, group))
+        if dst.numel():
+            buf = px.new_empty((3, dst.numel()))
+            ops.append(dist.P2POp(dist.irecv, buf, q, group))
+            recvs.append((buf, dst))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for buf, dst in recvs:
+        band[:, dst] = buf
+    return band.reshape(3, r1 - r0, cfg.width).permute(1, 2, 0)
 
 
 def render_image_sharded(scene: Scene, cfg: RenderConfig, group=None,
-                         scene_shards: bool = False) -> torch.Tensor:
+                         scene_shards: bool = False, gather: bool = True) -> torch.Tensor:
     """The full frame (H, W, 3) rendered by every process of the group,
     each its own whole-pixel slice, gathered to every process. With
     scene_shards the mesh's accel is partitioned around the ring: each
-    process holds 1/N of it and the shards rotate past its rays."""
+    process holds 1/N of it and the shards rotate past its rays. With
+    gather=False each process gets only its band of rows of the frame,
+    row_bands(H, N)[rank] (at most ceil(H/N) rows, W, 3), and no process
+    holds the whole frame."""
     n, r = world(group)
     scene = ring_scene(scene, group) if scene_shards else realize_scene(scene)
     method = resolve_method(scene, cfg)
@@ -87,6 +140,8 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, group=None,
     per = flat_x.shape[0] // n
     px = render_pixels_flat(scene, cfg, flat_x[r * per:(r + 1) * per],
                             flat_y[r * per:(r + 1) * per], method)  # (3, per / spp)
+    if not gather:
+        return _to_bands(px, perm, n_px, cfg, group)
     if n > 1:
         parts = [torch.empty_like(px) for _ in range(n)]
         dist.all_gather(parts, px.contiguous(), group=group)

@@ -157,6 +157,9 @@ def fit(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         scene = scene.replace(sdf=scene.sdf.replace(mb_pow8=False))
     # moving vertices: the packet accel is refit every step
     refit_accel = any(p.split(".")[0] == "mesh" for p in trainable)
+    if any(p.split(".")[0] in ("mesh", "poses") for p in trainable):
+        # the grid was voxelized from the first vertices and would go stale
+        scene = scene.replace(grid=None)
 
     params = extract_params(scene, trainable)
     optimizer = torch.optim.Adam(params.values(), lr=fit_cfg.learning_rate)

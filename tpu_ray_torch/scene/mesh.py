@@ -1,8 +1,10 @@
-"""Triangle meshes: the tensor container and the host-side numpy generators.
+"""Triangle meshes: the tensor container and the host-side numpy loaders
+(OBJ, PLY) and generators.
 
-Counterpart of `tpu_ray/scene/mesh.py`. The generators are copies of the
-reference's numpy code (that module imports jax), so both packages build
-bit-identical meshes. Normals are geometric, computed at hit time.
+Counterpart of `tpu_ray/scene/mesh.py`. The loaders and generators are
+copies of the reference's numpy code (that module imports jax), so both
+packages read and build bit-identical meshes. Normals are geometric,
+computed at hit time.
 """
 
 from __future__ import annotations
@@ -59,8 +61,93 @@ def concat_meshes(a: MeshScene, b: MeshScene) -> MeshScene:
 
 
 # ---------------------------------------------------------------------------
-# Generators (host-side numpy, copied from the reference)
+# Loaders and generators (host-side numpy, copied from the reference)
 # ---------------------------------------------------------------------------
+
+def load_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Minimal OBJ parser: v / f lines, polygon faces triangulated as fans."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) for p in parts[1:]]
+                idx = [i - 1 if i > 0 else len(verts) + i for i in idx]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int32)
+
+
+def load_ply(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Minimal PLY parser: ascii and binary_little_endian, vertex x/y/z
+    properties + triangulated (fan) face lists — enough for Stanford scans."""
+    import struct as _struct
+
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError("not a PLY file")
+        fmt = None
+        elements = []  # (name, count, [(type, prop)...])
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError("unterminated PLY header")
+            parts = line.decode("ascii", "replace").split()
+            if not parts or parts[0] == "comment":
+                continue
+            if parts[0] == "format":
+                fmt = parts[1]
+            elif parts[0] == "element":
+                elements.append((parts[1], int(parts[2]), []))
+            elif parts[0] == "property":
+                elements[-1][2].append(tuple(parts[1:]))
+            elif parts[0] == "end_header":
+                break
+
+        _SZ = {"char": "b", "uchar": "B", "int8": "b", "uint8": "B",
+               "short": "h", "ushort": "H", "int16": "h", "uint16": "H",
+               "int": "i", "uint": "I", "int32": "i", "uint32": "I",
+               "float": "f", "float32": "f", "double": "d", "float64": "d"}
+        verts, faces = [], []
+        for name, count, props in elements:
+            is_vert = name == "vertex"
+            is_face = name == "face"
+            if fmt == "ascii":
+                for _ in range(count):
+                    vals = f.readline().split()
+                    if is_vert:
+                        verts.append([float(v) for v in vals[:3]])
+                    elif is_face:
+                        n = int(vals[0])
+                        idx = [int(v) for v in vals[1:1 + n]]
+                        for k in range(1, n - 1):
+                            faces.append([idx[0], idx[k], idx[k + 1]])
+            else:  # binary_little_endian
+                for _ in range(count):
+                    row = []
+                    for prop in props:
+                        if prop[0] == "list":
+                            n = _struct.unpack(
+                                "<" + _SZ[prop[1]],
+                                f.read(_struct.calcsize(_SZ[prop[1]])))[0]
+                            item = _SZ[prop[2]]
+                            idx = _struct.unpack(
+                                "<" + item * n, f.read(_struct.calcsize(item) * n))
+                            if is_face:
+                                for k in range(1, n - 1):
+                                    faces.append([idx[0], idx[k], idx[k + 1]])
+                        else:
+                            row.append(_struct.unpack(
+                                "<" + _SZ[prop[0]],
+                                f.read(_struct.calcsize(_SZ[prop[0]])))[0])
+                    if is_vert:
+                        verts.append(row[:3])
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int32)
+
 
 def normalize_to_unit(verts: np.ndarray, target_half: float = 1.0) -> np.ndarray:
     """Center at origin and scale the longest half-extent to target_half."""
@@ -109,6 +196,41 @@ def torus_knot(p: int = 2, q: int = 3, seg_u: int = 187, seg_v: int = 187,
     f0 = np.stack([grid, gu, guv], -1).reshape(-1, 3)
     f1 = np.stack([grid, guv, gv], -1).reshape(-1, 3)
     return verts, np.concatenate([f0, f1]).astype(np.int32)
+
+
+def icosphere(subdiv: int = 3, radius: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """Subdivided icosahedron: 20 * 4^subdiv triangles."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+         [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+         [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=-1, keepdims=True)
+    faces = np.array(
+        [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+         [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+         [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+         [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.int32)
+    for _ in range(subdiv):
+        edge_mid: dict[tuple[int, int], int] = {}
+        new_faces = []
+        vlist = list(verts)
+
+        def midpoint(a: int, b: int) -> int:
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = vlist[a] + vlist[b]
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(vlist)
+                vlist.append(m)
+            return edge_mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(vlist)
+        faces = np.asarray(new_faces, np.int32)
+    return verts * radius, faces
 
 
 def bunny_standin(target_tris: int = 69938) -> tuple[np.ndarray, np.ndarray]:

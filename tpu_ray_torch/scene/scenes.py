@@ -3,7 +3,8 @@
     sphere     config 1: single-sphere SDF, 256x256, no shadows
     triangles  config 2: 10 triangles + ground quad, brute MT, hard shadows
     bunny      config 3: the ~70k-triangle knot on a ground quad, hard
-               shadows, through the packet accel
+               shadows, through the packet accel; its uniform grid is
+               built too, as the walks' oracle
     knot1m     a ~1.05M-triangle torus knot on a ground quad, 1024x1024,
                hard shadows, 64k-ray blocks
     mandelbulb config 4: a power-8 Mandelbulb on a ground plane, 1024x1024
@@ -11,13 +12,17 @@
                64k-ray blocks
     pointlight a sphere and a rounded box on a plane, lit by a point light
                with inverse-square falloff and soft shadows, 512x512
+    knot8m     an ~8.39M-triangle torus knot on a ground quad, 1024x1024,
+               hard shadows, 64k-ray blocks: one whole-mesh accel part just
+               below TRI_SLOT_LIMIT (the native build and the disk cache
+               of accel/packet.py make it in seconds)
     mixed      config 5: a ~70k-triangle knot on a ground quad, a power-8
                Mandelbulb and a sphere, 1920x1080 at 16 spp, hard shadows,
                32k-ray blocks; the mesh is walked through the packet accel
+               (its uniform grid is built too, as in the reference)
 
-Same parameters as the reference. knot8m waits for a native accel build
-(numpy takes minutes for its 8.4M triangles). Scenes are built on the CUDA
-device unless the caller names another.
+Same parameters as the reference. Scenes are built on the CUDA device
+unless the caller names another.
 """
 
 from __future__ import annotations
@@ -113,8 +118,9 @@ def triangles_scene(device, dtype):
 
 @register("bunny")
 def bunny_scene(device, dtype):
-    """BASELINE config 3: the ~70k-triangle stand-in on a ground quad, hard
-    shadows; the reference walks a uniform grid, the port the packet accel."""
+    """BASELINE config 3: the ~70k-triangle stand-in voxelized into a uniform
+    grid, hard shadows. The frame walks the packet accel, as the reference's
+    kernel path does; the grid is its oracle (kernels/dda.py)."""
     bv, bf = bunny_standin()
     bv = bv + np.array([0.0, 1.02, 0.0])  # rest on the ground plane
     body = MeshScene.from_numpy(bv, bf, mat_id=0, device=device, dtype=dtype)
@@ -124,7 +130,7 @@ def bunny_scene(device, dtype):
     cam = Camera.make((0.0, 1.7, 3.6), (0.0, 0.9, 0.0), vfov_deg=45.0,
                       device=device, dtype=dtype)
     scene = _base(device, dtype, cam, mesh=mesh,
-                  albedos=[[0.82, 0.71, 0.55], [0.7, 0.73, 0.72]]).with_packet()
+                  albedos=[[0.82, 0.71, 0.55], [0.7, 0.73, 0.72]]).with_grid()
     cfg = RenderConfig(width=512, height=512, spp=1, method="mesh_grid",
                        shadow="hard", t_far=40.0)
     return scene, cfg
@@ -146,6 +152,27 @@ def knot1m_scene(device, dtype):
                       device=device, dtype=dtype)
     scene = _base(device, dtype, cam, mesh=mesh,
                   albedos=[[0.62, 0.7, 0.82], [0.7, 0.73, 0.72]]).with_packet()
+    cfg = RenderConfig(width=1024, height=1024, spp=1, method="mesh_grid",
+                       shadow="hard", t_far=40.0, block_size=1 << 16)
+    return scene, cfg
+
+
+@register("knot8m")
+def knot8m_scene(device, dtype):
+    """An ~8.39M-triangle torus knot on a ground quad, hard shadows: 65,537
+    chunks in one whole-mesh accel part (4,097 supers, ~537 MB of corners)
+    below TRI_SLOT_LIMIT, walked by the streamed kernel. The host build is
+    the native one (seconds), then a load from the disk cache."""
+    kv, kf = torus_knot(3, 5, 2048, 2048, radius=0.65, tube=0.16)
+    kv = kv + np.array([0.0, 1.12, 0.0])  # rest on the ground plane
+    body = MeshScene.from_numpy(kv, kf, mat_id=0, device=device, dtype=dtype)
+    gv, gf = ground_plane_quad(0.0, 8.0)
+    mesh = concat_meshes(body, MeshScene.from_numpy(gv, gf, mat_id=1,
+                                                    device=device, dtype=dtype))
+    cam = Camera.make((0.0, 1.9, 3.4), (0.0, 1.0, 0.0), vfov_deg=45.0,
+                      device=device, dtype=dtype)
+    scene = _base(device, dtype, cam, mesh=mesh,
+                  albedos=[[0.82, 0.55, 0.38], [0.7, 0.73, 0.72]]).with_packet()
     cfg = RenderConfig(width=1024, height=1024, spp=1, method="mesh_grid",
                        shadow="hard", t_far=40.0, block_size=1 << 16)
     return scene, cfg
@@ -236,7 +263,7 @@ def mixed_scene(device, dtype):
                       device=device, dtype=dtype)
     scene = _base(device, dtype, cam, sdf=sdf, mesh=mesh,
                   albedos=[[0.82, 0.71, 0.55], [0.68, 0.7, 0.7],
-                           [0.85, 0.45, 0.3], [0.3, 0.5, 0.85]]).with_packet()
+                           [0.85, 0.45, 0.3], [0.3, 0.5, 0.85]]).with_grid()
     cfg = RenderConfig(width=1920, height=1080, spp=16, method="mixed",
                        shadow="hard", max_steps=96, eps=1e-3, t_far=40.0,
                        block_size=1 << 15, diff_vis=False)

@@ -77,12 +77,14 @@ def apply_poses(poses: MeshPoses, verts: torch.Tensor) -> torch.Tensor:
 
 def realize_scene(scene):
     """The scene with its poses folded into world-space vertices, poses=None
-    (so a second call changes nothing), and its packet accel, if any, refit
-    to the posed vertices."""
+    (so a second call changes nothing), its packet accel, if any, refit
+    to the posed vertices, and its uniform grid dropped."""
     if scene.poses is None:
         return scene
     verts = apply_poses(scene.poses, scene.mesh.verts)
-    scene = scene.replace(mesh=dataclasses.replace(scene.mesh, verts=verts), poses=None)
+    # the grid's cell lists cannot follow the posed vertices: dropped
+    scene = scene.replace(mesh=dataclasses.replace(scene.mesh, verts=verts), poses=None,
+                          grid=None)
     if scene.packet is not None:
         scene = scene.replace(packet=[refit_packet_accel(a, verts, scene.mesh.tris)
                                       for a in scene.packet])

@@ -8,6 +8,7 @@ from typing import List, Optional
 
 import torch
 
+from tpu_ray_torch.accel.grid_build import UniformGrid, build_grid
 from tpu_ray_torch.accel.packet import PacketAccel, build_packet_parts
 from tpu_ray_torch.render.camera import Camera
 from tpu_ray_torch.scene.mesh import MeshScene
@@ -65,6 +66,10 @@ class Scene:
     # built; one whole-mesh part unless built split); selection only, never
     # differentiated
     packet: Optional[List[PacketAccel]] = None
+    # uniform grid of the mesh (accel/grid_build.UniformGrid, None unless
+    # built by with_grid): the oracle of the packet walks (kernels/dda.py),
+    # never a render path; dropped when vertices move (fit, poses)
+    grid: Optional[UniformGrid] = None
     # per-object differentiable transforms (scene/transform.MeshPoses),
     # folded into world-space vertices at render entry
     poses: Optional[object] = None
@@ -79,6 +84,13 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.camera.origin.device
+
+    def with_grid(self, density: float = 5.0) -> "Scene":
+        """Build the packet accel and the uniform grid on the host from the
+        current vertices."""
+        grid = build_grid(self.mesh.verts.detach().cpu().numpy(),
+                          self.mesh.tris.cpu().numpy(), density=density, device=self.device)
+        return self.with_packet().replace(grid=grid)
 
     def with_packet(self) -> "Scene":
         """Build the packet accel on the host from the current vertices: one

@@ -19,7 +19,8 @@ class RenderConfig:
     spp: int = 1  # samples per pixel; must be a square number (stratified grid)
 
     # "auto" picks per scene contents; sdf | mesh_brute | mesh_grid | mixed
-    # force one ("mesh_grid" walks the packet accel, the port has no grid)
+    # force one ("mesh_grid" walks the packet accel on every device; the
+    # uniform grid, Scene.grid, is the walks' oracle, kernels/dda.py)
     method: str = "auto"
 
     # sphere-trace march
