@@ -159,6 +159,12 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
  28. inverse_lighting: tpu_ray_torch.examples.inverse_lighting at its
      defaults (256x256, 150 steps, diff_vis): the loss falls >= 10x; the
      light's position error and the launches of #1, #2 soft, #5 and #6.
+ 29. tools: the port's measurement tools (tpu_ray_torch/tools) on the card
+     at a reduced size: bench_all's `sphere` row, and profile_stages,
+     profile_bwd and profile_trace_ops (bwd) on `mixed` at 256x128x16
+     (16 blocks, one march group): each stage's and subset's launches as
+     the frame and the step launch them, every profiled window's device
+     time within its wall time (0 < busy <= 1), every number finite.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work, and its `launch_*` numbers),
@@ -1181,6 +1187,7 @@ def power_frame(scene, cfg, smi, warm, profile_cfg):
     from tpu_ray_torch.cli import demo_target
     from tpu_ray_torch.fit import fit
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.tools import launch_counts
     from tpu_ray_torch.utils.config import FitConfig
 
     g = generic_field(scene)
@@ -1202,7 +1209,7 @@ def power_frame(scene, cfg, smi, warm, profile_cfg):
     fitted, history = fit(scene, small, target, trainable,
                           FitConfig(steps=3, learning_rate=1e-2), verbose=False)
     torch.cuda.synchronize()
-    launched = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    launched = launch_counts()
     log("power_fit", f"mandelbulb 256x256x4 from mb_pow8={scene.sdf.mb_pow8}, {list(trainable)}, "
         f"Adam lr 1e-2: loss history {[f'{v:.8f}' for v in history]}, mb_power "
         f"{float(scene.sdf.mb_power[0]):.4f} -> {float(fitted.sdf.mb_power[0]):.6f}, "
@@ -1400,16 +1407,10 @@ def bulb_small(scene, small):
 
 
 def forward_counts():
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    """The kernels' launch counts but the shade backward's (a frame's)."""
+    from tpu_ray_torch.tools import launch_counts
 
-    return {"march": cuda_sdf.LAUNCHES["march"],
-            "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
-            "shadow_soft": cuda_sdf.LAUNCHES["shadow_soft"],
-            "packet_closest": cuda_mt.LAUNCHES["closest"],
-            "packet_any_hit": cuda_mt.LAUNCHES["any_hit"],
-            "resident_closest": cuda_mt.LAUNCHES["resident_closest"],
-            "resident_any_hit": cuda_mt.LAUNCHES["resident_any_hit"],
-            "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"]}
+    return {k: n for k, n in launch_counts().items() if k != "shade_bwd"}
 
 
 def check_counts(name, cfg, counts, kernels) -> None:
@@ -1494,6 +1495,7 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
 
     from tpu_ray_torch.fit import apply_params, extract_params
     from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.tools import launch_counts
 
     grads_of(scene, warm, trainables)
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
@@ -1509,7 +1511,7 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     t2 = time.perf_counter()
     grads = {p: v.grad for p, v in params.items()}
     dt = t2 - t0
-    counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} diff_vis={cfg.diff_vis} "
         f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette} forward + "
@@ -1876,6 +1878,7 @@ def ring_fit_step(scene, cfg, smi, warm, dev):
     computation (rel 1e-5, cosine > 0.999999 per trainable)."""
     from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.tools import launch_counts
 
     def step_of(c):
         params = extract_params(scene, TRAINABLES)
@@ -1898,7 +1901,7 @@ def ring_fit_step(scene, cfg, smi, warm, dev):
         loss = step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    counts = launch_counts()
     n_blocks = -(-cfg.num_rays // cfg.block_size)
     rel = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
     log("ring_fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, six trainables: "
@@ -2044,14 +2047,8 @@ def frame_rays(scene, cfg):
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
 
-    dev = scene.device
-    sx, sy = R.pixel_sample_coords(cfg, dev)
-    perm = R._block_order_perm(cfg).to(dev)
-    fx = sx.reshape(-1, cfg.spp)[perm].reshape(-1)
-    fy = sy.reshape(-1, cfg.spp)[perm].reshape(-1)
-    pad = (-fx.shape[0]) % cfg.block_size
-    fx = torch.cat([fx, fx[-1:].expand(pad)])
-    fy = torch.cat([fy, fy[-1:].expand(pad)])
+    _, fx, fy, _ = R.frame_samples(scene, cfg)
+    fx, fy, _ = R.whole_blocks(cfg, fx, fy)
     with torch.no_grad():
         o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
     return fx, fy, o, d
@@ -2118,7 +2115,10 @@ def group_launch(path, scene, cfg, packed, points) -> dict:
     """One launch of the primary march as render_pixels_flat makes it: the
     group of render.MARCH_GROUP blocks that holds the path's first parity
     block, with the arguments march_group passes (recorded): its time, the
-    profiler's split, its counters and the bound of the group's work."""
+    profiler's split, its counters and the bound of the group's work. The
+    bound's operations: StepWork over the plain march of the whole group in
+    one call, every ray's DE evaluations counted at their points (the same
+    count a block at a time gives, in 1/MARCH_GROUP of the launches)."""
     from tpu_ray_torch.kernels import cuda_sdf
     from tpu_ray_torch.render import render as R
 
@@ -2133,9 +2133,7 @@ def group_launch(path, scene, cfg, packed, points) -> dict:
     (args, kw), = calls
     plain_kw = {k: v for k, v in kw.items() if k != "packed"}
     work = StepWork(scene.sdf, 8.0)
-    for s in range(0, args[1].shape[0], cfg.block_size):  # a block at a time: its memory
-        cuda_sdf.march_torch(args[0], args[1][s:s + cfg.block_size],
-                             args[2][s:s + cfg.block_size], **plain_kw, visit=work)
+    cuda_sdf.march_torch(*args, **plain_kw, visit=work)
     rays = args[1].shape[0]
     row = dict(rays=rays, **timed_launch(
         lambda: cuda_sdf.march(*args, **kw), ("march_kernel",),
@@ -2153,8 +2151,8 @@ def launch_sizes(paths, results):
     them, with the parameters packed once (cuda_shade.pack, as the frame
     packs them). #1: one launch over its group of render.MARCH_GROUP blocks
     (the group that holds the first parity block), and the whole frame's
-    march in groups of 1, 4, 16 and 32 blocks (`mixed`, `mandelbulb`; 1
-    and MARCH_GROUP on the other two paths). Per block of the path (32,768
+    march in groups of 1 and MARCH_GROUP blocks (a sweep of 1, 4, 16 and
+    32 chose the group; cut to keep the script's time). Per block of the path (32,768
     rays for `mixed` and `mixed_sil`, 65,536 for the bulb paths), on each of
     the path's parity blocks: the primary march of that block alone, the
     shadow march and the packet walks with the very arguments the geometry
@@ -2172,9 +2170,8 @@ def launch_sizes(paths, results):
     for path, (scene, cfg, fit_cfg, points, method) in paths.items():
         packed = cuda_shade.pack(scene, R._bound_pad(cfg))
         fit_packed = cuda_shade.pack(scene, R._bound_pad(fit_cfg))
-        groups = (1, 4, 16, 32) if path in ("mixed", "mandelbulb") else (1, R.MARCH_GROUP)
-        results[path].setdefault("march", {})["sweep"] = group_sweep(path, scene, cfg, packed,
-                                                                     groups)
+        results[path].setdefault("march", {})["sweep"] = group_sweep(
+            path, scene, cfg, packed, (1, R.MARCH_GROUP))
         results[path]["march"]["launch"] = group_launch(path, scene, cfg, packed, points)
         o_all, d_all = block_rays(scene, cfg, points, f"launch {path}")
         bs, sdf = cfg.block_size, scene.sdf
@@ -2535,6 +2532,7 @@ def inverse_lighting(dev, smi):
     position error is printed, with the launches of #1, #2 soft, #5 and #6."""
     from tpu_ray_torch.examples import inverse_lighting as il
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.tools import launch_counts
 
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
     buf = io.StringIO()
@@ -2544,7 +2542,7 @@ def inverse_lighting(dev, smi):
     dt = time.perf_counter() - t0
     for ln in buf.getvalue().splitlines():
         log("inverse_lighting", f"  {ln}")
-    c = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    c = launch_counts()
     err = float((true.lights.position - fitted.lights.position).norm())
     log("inverse_lighting", f"{len(hist)} steps in {dt:.2f} s ({dt / len(hist):.3f} s a step "
         f"with the PNGs' frames), loss {hist[0]:.4e} -> {hist[-1]:.4e} "
@@ -2552,6 +2550,116 @@ def inverse_lighting(dev, smi):
     check(hist[0] >= 10.0 * hist[-1], "inverse_lighting: the loss fell less than 10x")
     check(all(c[k] > 0 for k in ("march", "shadow_soft", "shade_fwd", "shade_bwd")),
           f"inverse_lighting launches {c}")
+
+
+# what each stage of tools/profile_stages launches on `mixed`: the march
+# once per group of render.MARCH_GROUP blocks, the others once per block
+STAGE_KERNELS = {"march": ("march",),
+                 "march+mesh": ("march", "packet_closest"),
+                 "+reconstruct": ("march", "packet_closest"),
+                 "geometry(all)": ("march", "packet_closest", "shadow_hard", "packet_any_hit"),
+                 "full fwd": ("march", "packet_closest", "shadow_hard", "packet_any_hit",
+                              "shade_fwd"),
+                 "fwd+bwd": ("march", "packet_closest", "shadow_hard", "packet_any_hit",
+                             "shade_fwd", "shade_bwd")}
+
+
+def finite_numbers(obj, where: str) -> None:
+    """Every number in a tool's report (nested dicts and lists) finite."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            finite_numbers(v, f"{where}.{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            finite_numbers(v, f"{where}[{i}]")
+    elif isinstance(obj, float):
+        check(obj == obj and abs(obj) < float("inf"), f"{where} = {obj}")
+
+
+def check_window(w: dict, where: str) -> None:
+    check(w["device_ms"] <= w["wall_ms"] and 0 < w["busy"] <= 1,
+          f"{where}: device {w['device_ms']} ms, wall {w['wall_ms']} ms, busy {w['busy']}")
+
+
+def tools_phase(dev, smi):
+    """Phase `tools`: tpu_ray_torch/tools on the card at a reduced size:
+    bench_all's `sphere` row; profile_stages, profile_bwd and
+    profile_trace_ops (bwd) on `mixed` at 256x128x16, 16 blocks in one
+    march group, each timed once, with each tool's seconds. Each stage's
+    and subset's launches equal what the frame and the step launch
+    (check_counts' rule: the march once a group, the rest once a block),
+    every profiled window's device time is at most its wall time with
+    0 < busy <= 1, and every number is finite."""
+    from tpu_ray_torch.render.render import MARCH_GROUP
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.tools import bench_all, profile_bwd, profile_stages, profile_trace_ops
+
+    say = lambda msg: log("tools", msg)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rows = bench_all.main(os.path.join(REPO, "build", "chip_smoke_bench_all.json"), dev,
+                              rows=(("sphere", {}),))["rows"]
+    for ln in buf.getvalue().splitlines()[:-1]:
+        say(f"  {ln}")
+    check(len(rows) == 1 and rows[0]["device"] == torch.cuda.get_device_name(dev)
+          and rows[0]["power_limit"] == smi.rsplit(",", 1)[1].strip(), f"bench_all row {rows}")
+    finite_numbers(rows, "bench_all")
+    check(all(rows[0][k] > 0 for k in ("value", "mrays_fwdbwd")), f"bench_all row {rows}")
+    say(f"bench_all sphere: {time.perf_counter() - t0:.2f} s")
+
+    scene, cfg = build_scene("mixed", device=dev)
+    cut = cfg.replace(width=256, height=128)
+    n_blocks = -(-cut.num_rays // cut.block_size)
+    n_groups = -(-n_blocks // MARCH_GROUP)
+    want = lambda names: {k: n_groups if k == "march" else n_blocks for k in names}
+
+    t0 = time.perf_counter()
+    rep = profile_stages.profile(scene, cut, dev, iters=1, log=say)
+    finite_numbers(rep, "profile_stages")
+    check([r["stage"] for r in rep["stages"]] == list(STAGE_KERNELS), "profile_stages' stages")
+    for r in rep["stages"]:
+        check(r["launches"] == want(STAGE_KERNELS[r["stage"]]),
+              f"profile_stages {r['stage']}: launches {r['launches']}")
+        check_window(r["window"], f"profile_stages {r['stage']}")
+        check(r["window"]["blocks"] == n_blocks, f"profile_stages window {r['window']}")
+    for stage, name in (("full fwd", "frame"), ("fwd+bwd", "step")):
+        r = next(r for r in rep["stages"] if r["stage"] == stage)
+        check_counts(f"profile_stages {name}", cut, r["launches"], STAGE_KERNELS[stage])
+    say(f"profile_stages: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    rep = profile_bwd.profile(scene, cut, dev, iters=1, log=say)
+    finite_numbers(rep, "profile_bwd")
+    check(list(rep["subsets"]) == list(profile_bwd.SUBSETS), f"subsets {list(rep['subsets'])}")
+    check(rep["fwd_launches"] == want(STAGE_KERNELS["full fwd"]),
+          f"profile_bwd forward launches {rep['fwd_launches']}")
+    for tag, r in rep["subsets"].items():
+        check(r["launches"] == want(STAGE_KERNELS["fwd+bwd"]) and r["grads_finite"],
+              f"profile_bwd {tag}: launches {r['launches']}, finite {r['grads_finite']}")
+    check("verts_over_albedo" in rep, "profile_bwd: no verts-only - albedo-only increment")
+    pieces = rep["pieces"]
+    check(pieces["shade fwd+bwd"]["launches"] == {"shade_fwd": 1, "shade_bwd": 1}
+          and pieces["shade fwd"]["launches"] == {"shade_fwd": 1},
+          f"profile_bwd pieces' launches {pieces}")
+    say(f"profile_bwd: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rep = profile_trace_ops.capture(scene, cut, "bwd", dev, os.path.join(
+            REPO, "build", "chip_smoke_trace_ops_bwd"), top_n=8)
+        profile_trace_ops.print_report(rep)
+    for ln in buf.getvalue().splitlines():
+        if ln.strip():
+            say(f"  {ln}")
+    finite_numbers(rep, "profile_trace_ops")
+    check(rep["window_blocks"] == rep["frame_blocks"] == n_blocks,
+          f"profile_trace_ops window {rep['window_blocks']} blocks")
+    check(0 < rep["busy"] <= 1 and rep["device_ms"] <= rep["wall_s"] * 1e3,
+          f"profile_trace_ops: device {rep['device_ms']} ms, wall {rep['wall_s']} s")
+    hand = {"#1 march", "#2 shadow", "#3 packet", "#5 shade_fwd", "#6 shade_bwd"}
+    check(hand <= set(rep["by_category"]),
+          f"profile_trace_ops: categories {list(rep['by_category'])}")
+    say(f"profile_trace_ops bwd: {time.perf_counter() - t0:.2f} s")
 
 
 def cli_run(argv, tag="bench_cli") -> str:
@@ -2580,6 +2688,7 @@ def bench_cli(dev, smi):
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.scene.types import get_param
+    from tpu_ray_torch.tools import launch_counts
     from tpu_ray_torch.utils import checkpoint as ckpt_lib
     from tpu_ray_torch.utils.config import FitConfig
 
@@ -2588,7 +2697,7 @@ def bench_cli(dev, smi):
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
     t0 = time.perf_counter()
     line = run_bench("mandelbulb")
-    counts = dict(forward_counts(), shade_bwd=cuda_shade.LAUNCHES["shade_bwd"])
+    counts = launch_counts()
     log("bench_cli", f"run_bench('mandelbulb') in {time.perf_counter() - t0:.2f} s on {smi}:")
     print(json.dumps(line), flush=True)
     for k in ("value", "fwd_seconds", "fwdbwd_seconds", "mrays_fwdbwd"):
@@ -2804,6 +2913,7 @@ def main() -> int:
         ("grid_oracle", lambda: grid_oracle(dev, smi, results, knot_counts)),
         ("gradcheck", lambda: gradcheck(dev)),
         ("inverse_lighting", lambda: inverse_lighting(dev, smi)),
+        ("tools", lambda: tools_phase(dev, smi)),
     )
     # the kernels at their launch size: the frame's config, the fit step's
     launch_paths = {

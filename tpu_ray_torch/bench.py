@@ -81,6 +81,30 @@ def power_limit(device: torch.device):
     return line.rsplit(",", 1)[1].strip()
 
 
+def bench_trainables(scene) -> list:
+    """BENCH_TRAINABLES that the scene has, in their order."""
+    return [p for p in BENCH_TRAINABLES if has_param(scene, p)]
+
+
+def backward_config(cfg, diff_vis: bool = False):
+    """The fit step's config of the backward bench: diff_vis as asked, the
+    block capped at BWD_BLOCK_CAP rays."""
+    cfg_b = cfg.replace(diff_vis=diff_vis)
+    if cfg_b.block_size:
+        cfg_b = cfg_b.replace(block_size=min(cfg_b.block_size, BWD_BLOCK_CAP))
+    return cfg_b
+
+
+def require_device(device, prog: str) -> torch.device:
+    """torch.device(device); a CUDA device without a card stops the
+    program (prog names it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{prog}: no CUDA device; pass --device cpu to measure the "
+                         "plain PyTorch versions on the CPU")
+    return device
+
+
 def _with_origin(scene, origin):
     return scene.replace(camera=dataclasses.replace(scene.camera, origin=origin))
 
@@ -94,10 +118,7 @@ def run_bench(scene_name: str = "mixed", backward: bool = True,
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.scene.scenes import build_scene
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("tpu_ray_torch.bench: no CUDA device; pass --device cpu "
-                         "to measure the plain PyTorch versions on the CPU")
+    device = require_device(device, "tpu_ray_torch.bench")
     scene, cfg = build_scene(scene_name, device=device)
     rays = rays_per_frame(cfg, scene)
     if persistent is None:
@@ -130,10 +151,8 @@ def run_bench(scene_name: str = "mixed", backward: bool = True,
     }
 
     if backward:
-        trainable = [p for p in BENCH_TRAINABLES if has_param(scene, p)]
-        cfg_b = cfg.replace(diff_vis=diff_vis)
-        if cfg_b.block_size:
-            cfg_b = cfg_b.replace(block_size=min(cfg_b.block_size, BWD_BLOCK_CAP))
+        trainable = bench_trainables(scene)
+        cfg_b = backward_config(cfg, diff_vis)
         deltas = origins - o0
 
         def fwd_bwd():

@@ -569,16 +569,58 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
     return cuda_shade.shade(scene, cfg, o, d, res, method, corners, mesh_rows, packed)
 
 
+def frame_samples(scene: Scene, cfg: RenderConfig):
+    """A frame's samples as render_image hands them to render_pixels_flat
+    -> (the scene with its poses folded in, flat_x, flat_y, perm): the
+    pixel_sample_coords, a pixel's spp samples contiguous, in
+    _block_order_perm's Morton order (perm None: row-major)."""
+    scene = realize_scene(scene)
+    dev, dtype = scene.device, scene.camera.origin.dtype
+    sx, sy = pixel_sample_coords(cfg, dev, dtype)
+    flat_x, flat_y = sx.reshape(-1), sy.reshape(-1)
+    perm = _block_order_perm(cfg)
+    if perm is not None:
+        perm = perm.to(dev)
+        flat_x = flat_x.reshape(-1, cfg.spp)[perm].reshape(-1)
+        flat_y = flat_y.reshape(-1, cfg.spp)[perm].reshape(-1)
+    return scene, flat_x, flat_y, perm
+
+
+def whole_blocks(cfg: RenderConfig, flat_x, flat_y):
+    """Flat samples covering whole pixels, split as render_pixels_flat runs
+    them -> (flat_x, flat_y, bs): one block (bs the sample count) when
+    cfg.block_size is 0 or covers them, else blocks of cfg.block_size
+    rounded up to whole pixels, the last padded with the last sample."""
+    n = flat_x.shape[0]
+    if not (cfg.block_size and cfg.block_size < n):
+        return flat_x, flat_y, n
+    bs = -(-cfg.block_size // cfg.spp) * cfg.spp
+    pad = (-n) % bs
+    if pad:
+        flat_x = torch.cat([flat_x, flat_x[-1:].expand(pad)])
+        flat_y = torch.cat([flat_y, flat_y[-1:].expand(pad)])
+    return flat_x, flat_y, bs
+
+
+def march_groups(n: int, bs: int) -> list:
+    """The slices of n samples in blocks of bs, one a group of MARCH_GROUP
+    blocks (the last may hold fewer): what march_group marches at once."""
+    step = MARCH_GROUP * bs
+    return [slice(g, g + step) for g in range(0, n, step)]
+
+
 def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
                        method: str | None = None) -> torch.Tensor:
     """Render flat sample coords covering whole pixels (a pixel's spp samples
     contiguous) -> per-pixel colors (3, n_px), spp-averaged, channel-major.
-    Samples run in blocks of cfg.block_size (rounded up to whole pixels).
+    Samples run in blocks of cfg.block_size (rounded up to whole pixels,
+    whole_blocks).
 
     The kernels' scene parameters are packed once here (cuda_shade.pack,
     under no_grad) and handed to every wrapper. The primary march, which
     takes no gradient, runs once per group of MARCH_GROUP consecutive
-    blocks (march_group), and each block takes its slice of the result.
+    blocks (march_groups, march_group), and each block takes its slice of
+    the result.
     Rays are generated per block inside autograd (the camera's gradient);
     no block is checkpointed: the shade's Function saves only compact
     residuals, so the backward keeps ~100 bytes per ray."""
@@ -596,18 +638,13 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
 
     R = flat_x.shape[0]
     n_px = R // cfg.spp
-    if not (cfg.block_size and cfg.block_size < R):
+    flat_x, flat_y, bs = whole_blocks(cfg, flat_x, flat_y)
+    if bs == R:
         return block_fn(flat_x, flat_y)
-    bs = -(-cfg.block_size // cfg.spp) * cfg.spp  # whole pixels per block
-    pad = (-R) % bs
-    if pad:
-        flat_x = torch.cat([flat_x, flat_x[-1:].expand(pad)])
-        flat_y = torch.cat([flat_y, flat_y[-1:].expand(pad)])
     grouped = _use_sdf(scene, method)
-    group = MARCH_GROUP * bs if grouped else flat_x.shape[0]
     cols = []
-    for g in range(0, flat_x.shape[0], group):
-        gx, gy = flat_x[g:g + group], flat_y[g:g + group]
+    for g in march_groups(flat_x.shape[0], bs):
+        gx, gy = flat_x[g], flat_y[g]
         marched = march_group(scene, cfg, gx, gy, packed, bs) if grouped else None
         for s in range(0, gx.shape[0], bs):
             block = None if marched is None else tuple(v[s:s + bs] for v in marched)
@@ -619,15 +656,7 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
 def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """Full frame: (H, W, 3) linear RGB, spp-averaged. Object poses fold
     into world-space vertices first (the packet accel refit to them)."""
-    scene = realize_scene(scene)
-    dev, dtype = scene.device, scene.camera.origin.dtype
-    sx, sy = pixel_sample_coords(cfg, dev, dtype)
-    flat_x, flat_y = sx.reshape(-1), sy.reshape(-1)
-    perm = _block_order_perm(cfg)
-    if perm is not None:
-        perm = perm.to(dev)
-        flat_x = flat_x.reshape(-1, cfg.spp)[perm].reshape(-1)
-        flat_y = flat_y.reshape(-1, cfg.spp)[perm].reshape(-1)
+    scene, flat_x, flat_y, perm = frame_samples(scene, cfg)
     flat = render_pixels_flat(scene, cfg, flat_x, flat_y)  # (3, H*W)
     if perm is not None:
         flat = flat[:, _inverse_perm(perm)]

@@ -72,10 +72,11 @@ class MetricsLogger:
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """torch.profiler over the block (the CPU and, when there is one, the
-    CUDA device), written to <log_dir>/trace.json as a Chrome trace; a
-    no-op when log_dir is None."""
+    CUDA device), written to <log_dir>/trace.json as a Chrome trace; yields
+    the profiler, whose events the caller may read after the block. A no-op
+    yielding None when log_dir is None."""
     if not log_dir:
-        yield
+        yield None
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,7 +85,7 @@ def profile_trace(log_dir: Optional[str]):
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
-        yield
+        yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
