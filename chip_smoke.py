@@ -44,8 +44,18 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      with every forward kernel's launch count over that one frame (the
      march once per group of render.MARCH_GROUP blocks, the others once a
      block); the PNG goes to build/.
+  5b. graph_frame: the same frame through `render_image_jit` (per-block
+     CUDA graphs, render/graphs.py): its first call (warm-up and capture,
+     the graph pool's and the plan's memory), then a timed one with the
+     launch counts from 0, which equal phase 5's; the image against phase
+     5's (max abs <= 1e-6); a profiled window of the middle march group
+     (32 blocks): busy share, launches and host ops a block.
   6. the fit step: forward + backward of mean(img**2) at 1920x1080, 16 spp,
      for the six trainables: time, launch counts, peak memory, gradients.
+  6b. graph_step: the same step through `render_image_jit`, after one step
+     that captures its backward: time, launch counts (#5 twice a block, the
+     others as phase 5b), loss and gradients against phase 6's (rel <= 1e-5
+     a trainable, <= 1e-4 for mesh.verts).
   7. a fit: `fit()` for 3 Adam steps at 480x272, 16 spp, toward the CLI
      demo target, with the packet accel refit every step; the loss falls.
   8. `mandelbulb` parity: 2 blocks of its frame (the bulb's silhouette, the
@@ -62,9 +72,10 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
   9. `mandelbulb` small frame: 256x256x1, kernel path against plain path,
      the image and the gradient of its five trainables, without and with
      diff_vis, both without the frame's ill-conditioned rays (phase 8).
- 10. `mandelbulb` frame: 1024x1024x4 with launch counts; the PNG to build/.
+ 10. `mandelbulb` frame: 1024x1024x4 with launch counts; the PNG to build/;
+     10b. bulb_graph_frame: as 5b.
  11. `mandelbulb` fit step with diff_vis: time, launch counts, memory,
-     gradients.
+     gradients; 11b. bulb_graph_step: as 6b.
  12. `mixed_sil` parity: phase 3's kernels on its 4 blocks (the march with
      its bound cull padded, every lane's shadow ray) and both shade
      kernels with the silhouettes.
@@ -126,14 +137,16 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      that mix classes, cycles a warp by its costliest class, the
      reduction's cycles).
  24. bench_cli: `tpu_ray_torch.bench.run_bench("mandelbulb")` at its
-     defaults (1024x1024x4, warmup 1, iters 2, forward + backward), its JSON
-     line, and the launches of #1, #2 soft, #5 and #6 over its 3 frames
-     and 2 steps; the jitter draw (seed 3, 1024x1024x4) on the card against
+     defaults (1024x1024x4, warmup 1, iters 2, forward + backward, through
+     render_image_jit), its JSON line, and the launches of #1, #2 soft, #5
+     and #6 over its 3 frames and 2 steps and its graphs' warm-ups (#5 twice
+     a block in a step); the jitter draw (seed 3, 1024x1024x4) on the card against
      the CPU's, bit for bit, and the jittered 256x256x4 frame through the
      kernels against the plain path (phase 9's bound); `fit` on
      `mandelbulb` at 128x128x4, 4 steps straight against 2 and a resume
      from the checkpoint to 4 (parameters bit-identical); and the CLI's
-     `render --stats` (`mixed` 512x512x1: 2^18 rays, one launch each of #1
+     `render --stats` (`mixed` 512x512x1, graphed: the frame's and its
+     warm-up's launches, then the stats' 2^18 rays in one launch each of #1
      and #3), `render --progressive 2` and `fit --target --checkpoint-dir`.
  25. knot8m: the 8,388,610-triangle knot (one whole-mesh accel part, 4,097
      supers, ~537 MB of corners): its host build natively and with numpy
@@ -167,7 +180,9 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      time within its wall time (0 < busy <= 1), every number finite.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
-beat for the same work, and its `launch_*` numbers),
+beat for the same work, and its `launch_*` numbers; `mixed`'s and
+`mandelbulb`'s launches are those of the graphed frame and step, phases
+5b, 6b, 10b and 11b),
 the card's name and power limit, and the result as the last line. With
 --only, the per-launch table is the last line and no result is printed.
 """
@@ -1429,9 +1444,10 @@ def check_counts(name, cfg, counts, kernels) -> None:
               f"{name}: {counts.get(k)} {k} launches for {n_blocks} blocks")
 
 
-def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
+def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
     """Phases 5 and 10: the whole frame through the kernels -> launch
-    counts."""
+    counts. keep: a dict that receives the image, its seconds and the
+    counts (for graph_frame)."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
@@ -1457,6 +1473,8 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame"):
         f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.4f}, "
         f"launches {counts}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"on {smi}; wrote {png}")
+    if keep is not None:
+        keep.update(image=img, seconds=dt, counts=counts)
     return counts
 
 
@@ -1487,10 +1505,11 @@ def profile_step(scene, cfg, trainables, tag):
 
 
 def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
-             tag="fit_step"):
+             tag="fit_step", keep=None):
     """Phases 6 and 11: one forward + backward of mean(img**2) over the full
     frame for the trainables -> launch counts, the shade backward's among
-    them."""
+    them. keep: a dict that receives the loss, the gradients and the
+    seconds (for graph_step)."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 
     from tpu_ray_torch.fit import apply_params, extract_params
@@ -1524,8 +1543,159 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
             f"nonzero {int((g != 0).sum())} of {g.numel()}")
         check(fin and bool((g != 0).any()), f"gradient of {path} not finite and nonzero")
     check_counts(name, cfg, counts, PATH_KERNELS[name])
+    if keep is not None:
+        keep.update(loss=loss.detach(), grads=grads, seconds=dt)
     # after the timed step: the profiler slows the launches that follow it
     profile_step(scene, profile_cfg, trainables, tag)
+    return counts
+
+
+def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame"):
+    """Phases 5b and 10b: the frame of phase 5 (10) through render_image_jit (its blocks
+    replayed as CUDA graphs) -> launch counts. The first call warms up and
+    captures (its seconds, and the plan's graph pool and buffers); the
+    second is timed with the counts from 0: they equal phase 5's, and the
+    image phase 5's within 1e-6 (the same kernels in the same order). Then
+    a profiled window of the frame's middle march group (32 blocks,
+    tools.window) through the same plan: busy share, launches and host
+    self time a block."""
+    from tpu_ray_torch import tools
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import graphs
+    from tpu_ray_torch.render.render import (frame_samples, march_groups, render_image_jit,
+                                             whole_blocks)
+
+    check("image" in eager, f"graph_frame needs phase `frame`'s image (--only frame,...)")
+    graphs.PLANS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0, allocated0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    with torch.no_grad(), captures_timed() as captured:
+        t0 = time.perf_counter()
+        render_image_jit(scene, cfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        plan = next(iter(graphs.PLANS.values()))
+        pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(plan.pool))
+        held = (torch.cuda.memory_reserved() - reserved0,
+                torch.cuda.memory_allocated() - allocated0)
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = render_image_jit(scene, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = forward_counts()
+    err = float((img - eager["image"]).abs().max())
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} through render_image_jit: "
+        f"{dt:.3f} s, {cfg.num_rays / dt / 1e6:.3f} Mrays/s (eager: "
+        f"{eager['seconds']:.3f} s, {cfg.num_rays / eager['seconds'] / 1e6:.3f} Mrays/s; "
+        f"{eager['seconds'] / dt:.2f}x); first call {first:.3f} s, its warm-ups and "
+        f"captures {sum(captured):.3f} s ({len(captured)} graphs); graph pool {pool / 2**30:.3f} GiB, the plan's memory "
+        f"reserved {held[0] / 2**30:.3f} GiB, allocated {held[1] / 2**30:.3f} GiB; peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; max |jit - eager| {err:.3e}; "
+        f"launches {counts} on {smi}")
+    check(bool(torch.isfinite(img).all()), "graphed frame not finite")
+    check(err <= 1e-6, f"graphed frame against the eager one: max abs {err:.3e} > 1e-6")
+    check_counts(name, cfg, counts, PATH_KERNELS[name][:-1])
+    check(counts == eager["counts"], f"graphed launches {counts} != eager {eager['counts']}")
+    # the middle march group's 32 blocks through the frame's own plan
+    s_r, fx, fy, _ = frame_samples(scene, cfg)
+    fx, fy, bs = whole_blocks(cfg, fx, fy)
+    groups = march_groups(fx.shape[0], bs)
+    g = groups[len(groups) // 2]
+    with torch.no_grad():
+        win, events = tools.window(
+            lambda: graphs.render_pixels_flat_jit(s_r, cfg, fx[g], fy[g]), img.device)
+    check(len(graphs.PLANS) == 1, "the window captured a second plan")
+    blocks = (g.stop - g.start) // bs
+    top = sorted(tools.host_self(events).items(), key=lambda kv: -kv[1][0])[:4]
+    log(tag, f"profiled window, {blocks} blocks (the middle march group): "
+        f"{tools.window_line(tools.per_block(win, blocks))}; host self time: "
+        + ", ".join(f"{k} {ms:.1f} ms ({n})" for k, (ms, n) in top))
+    # busy: the profiled run's device time over the unprofiled run's wall
+    # time, which can pass 1 by noise when the device is the bound
+    check(0.0 < win["device_ms"] <= win["profiled_wall_ms"],
+          f"window device {win['device_ms']} ms, its wall {win['profiled_wall_ms']} ms")
+    return counts
+
+
+@contextlib.contextmanager
+def captures_timed():
+    """-> a list that receives the seconds of each Graph's warm-up and
+    capture (render/graphs.py) made inside the block, synchronized."""
+    from tpu_ray_torch.render import graphs
+
+    spent, real = [], graphs.Graph.prepare
+
+    def prepare(self):
+        if not self.captures or self.graph is not None:
+            return real(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(self)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+
+    with mock.patch.object(graphs.Graph, "prepare", prepare):
+        yield spent
+
+
+def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_counts,
+               tag="graph_step"):
+    """Phases 6b and 11b: phase 6's (11's) fit step through render_image_jit: the first
+    step captures the backward's graph, the second is timed with the
+    counts from 0 (#5 twice a block: the backward recomputes the shade
+    forward from the kept residuals; the geometry pass and the march
+    once). Loss and gradients against phase 6's: rel <= 1e-5 a trainable,
+    <= 1e-4 for mesh.verts (the scatter's summation order)."""
+    from tpu_ray_torch.fit import apply_params, extract_params
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render.render import render_image_jit
+    from tpu_ray_torch.tools import launch_counts
+
+    check("grads" in eager, "graph_step needs phase `fit_step`'s gradients")
+
+    def step():
+        params = extract_params(scene, trainables)
+        loss = torch.mean(render_image_jit(apply_params(scene, params), cfg) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), {p: v.grad for p, v in params.items()}, t1
+
+    t0 = time.perf_counter()
+    with captures_timed() as captured:
+        step()
+    first = time.perf_counter() - t0
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads, t1 = step()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    rel_loss = float((loss - eager["loss"]).abs() / eager["loss"].abs())
+    log(tag, f"{name} {cfg.width}x{cfg.height}x{cfg.spp} forward + backward through "
+        f"render_image_jit: {dt:.3f} s (forward {t1 - t0:.3f} s, backward "
+        f"{t0 + dt - t1:.3f} s), {cfg.num_rays / dt / 1e6:.3f} Mrays/s (eager: "
+        f"{eager['seconds']:.3f} s; {eager['seconds'] / dt:.2f}x); first step {first:.3f} s, "
+        f"its warm-ups and captures {sum(captured):.3f} s ({len(captured)} graphs); loss {float(loss):.8f} (rel "
+        f"{rel_loss:.2e}); peak mem {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches {counts} on {smi}")
+    ok = rel_loss <= 1e-6
+    for path, g in grads.items():
+        ref = eager["grads"][path]
+        rel = float((g - ref).abs().max() / ref.abs().max())
+        bound = 1e-4 if path == "mesh.verts" else 1e-5
+        ok &= rel <= bound
+        log(tag, f"grad {path}: rel {rel:.3e} (bound {bound:.0e}) against the eager step's")
+    check(ok, "graphed fit step against the eager one")
+    want = dict(frame_counts, shade_fwd=2 * n_blocks, shade_bwd=n_blocks)
+    check(counts == want, f"graphed step launches {counts} != {want}")
     return counts
 
 
@@ -2685,6 +2855,7 @@ def bench_cli(dev, smi):
     from tpu_ray_torch.cli import demo_target
     from tpu_ray_torch.fit import fit
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import graphs
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.scene.types import get_param
@@ -2692,8 +2863,10 @@ def bench_cli(dev, smi):
     from tpu_ray_torch.utils import checkpoint as ckpt_lib
     from tpu_ray_torch.utils.config import FitConfig
 
-    # A: `python -m tpu_ray_torch.bench mandelbulb` at its defaults
+    # A: `python -m tpu_ray_torch.bench mandelbulb` at its defaults, through
+    # render_image_jit: a new plan, whose graphs' warm-ups launch once each
     bulb, bcfg = build_scene("mandelbulb", device=dev)
+    graphs.PLANS.clear()
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
     t0 = time.perf_counter()
     line = run_bench("mandelbulb")
@@ -2703,14 +2876,18 @@ def bench_cli(dev, smi):
     for k in ("value", "fwd_seconds", "fwdbwd_seconds", "mrays_fwdbwd"):
         check(line[k] == line[k] and 0 < line[k] < float("inf"), f"bench {k} = {line[k]}")
     check(not line["persistent_loop"], "the mandelbulb bench took the turntable loop")
-    # warmup 1 + iters 2 forward frames, warmup 1 + max(iters - 1, 1) steps
+    # warmup 1 + iters 2 forward frames, warmup 1 + max(iters - 1, 1) steps,
+    # whose backward runs #5 again; one warm-up of the group graph (#1), the
+    # block graph (#2, #5) and the vjp graph (#5, #6)
     n_fwd, n_bwd = 3, 2
     n_blocks = -(-bcfg.num_rays // bcfg.block_size)
-    want = {"march": (n_fwd + n_bwd) * -(-n_blocks // R.MARCH_GROUP),
-            "shadow_soft": (n_fwd + n_bwd) * n_blocks,
-            "shade_fwd": (n_fwd + n_bwd) * n_blocks, "shade_bwd": n_bwd * n_blocks}
+    want = {"march": (n_fwd + n_bwd) * -(-n_blocks // R.MARCH_GROUP) + 1,
+            "shadow_soft": (n_fwd + n_bwd) * n_blocks + 1,
+            "shade_fwd": (n_fwd + 2 * n_bwd) * n_blocks + 2,
+            "shade_bwd": n_bwd * n_blocks + 1}
     log("bench_cli", f"bench launches {counts}; expected {want} ({n_fwd} frames and {n_bwd} "
-        f"steps of {n_blocks} blocks, the march a group of {R.MARCH_GROUP})")
+        f"steps of {n_blocks} blocks, the march a group of {R.MARCH_GROUP}, and the "
+        f"graphs' warm-ups)")
     check(all(counts[k] == v for k, v in want.items()), "bench launch counts")
 
     # B: jittered sampling: the card's draw is the CPU's; the frame through
@@ -2764,15 +2941,17 @@ def bench_cli(dev, smi):
     os.makedirs(out)
     scene, cfg = build_scene("mixed", device=dev)
     small = cfg.replace(width=512, height=512, spp=1)
+    graphs.PLANS.clear()
     reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
     text = cli_run(["render", "--scene", "mixed", "--width", "512", "--height", "512",
                     "--spp", "1", "--stats", "--out", os.path.join(out, "stats.png")])
     stats = json.loads(text.split("[render] stats: ", 1)[1].splitlines()[0])
     counts = forward_counts()
     n_blocks = -(-small.num_rays // small.block_size)
-    want = {"march": -(-n_blocks // R.MARCH_GROUP) + 1, "packet_closest": n_blocks + 1}
-    log("bench_cli", f"render --stats: launches {counts}, expected {want} (the frame's, "
-        f"then the stats' {stats['rays_sampled']} rays in one launch each)")
+    want = {"march": -(-n_blocks // R.MARCH_GROUP) + 2, "packet_closest": n_blocks + 2}
+    log("bench_cli", f"render --stats: launches {counts}, expected {want} (the graphed "
+        f"frame's and its warm-up's, then the stats' {stats['rays_sampled']} rays in one "
+        f"launch each)")
     check(stats["rays_sampled"] == 1 << 18 and 0 < stats["hit_rate"] < 1
           and stats["march_steps_max"] > 0 and stats["mean_hit_t"] > 0, f"stats {stats}")
     check(all(counts[k] == v for k, v in want.items()), "render --stats launch counts")
@@ -2874,23 +3053,33 @@ def main() -> int:
     results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={},
                    mandelbulb_power={})
     parity_rays, kept, knot_counts = [], {}, {}
+    # phases 5, 6, 10 and 11, for 5b, 6b, 10b and 11b
+    eager_frame, eager_step, eager_bulb, eager_bulb_step = {}, {}, {}, {}
     phases = (
         ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"], kept))),
         ("content", lambda: content_classes(scene, cfg, *parity_rays)),
         ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
                                       "mixed", TRAINABLES)),
-        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm)),
+        ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm, keep=eager_frame)),
+        ("graph_frame", lambda: graph_frame(scene, cfg, smi, "mixed", eager_frame)),
         ("fit_step", lambda: fit_step(scene, cfg, smi, "mixed", TRAINABLES, warm,
-                                      cfg.replace(width=256, height=128))),
+                                      cfg.replace(width=256, height=128), keep=eager_step)),
+        ("graph_step", lambda: graph_step(scene, cfg, smi, "mixed", TRAINABLES, eager_step,
+                                          eager_frame["counts"])),
         ("fit", lambda: fit_run(scene, cfg)),
         ("bulb_parity", lambda: bulb_parity(bulb, bcfg, results["mandelbulb"])),
         ("bulb_small", lambda: bulb_small(bulb, bsmall)),
         ("bulb_frame", lambda: full_frame(bulb, bcfg, smi, "mandelbulb", bsmall,
-                                          "bulb_frame")),
+                                          "bulb_frame", keep=eager_bulb)),
+        ("bulb_graph_frame", lambda: graph_frame(bulb, bcfg, smi, "mandelbulb", eager_bulb,
+                                                 "bulb_graph_frame")),
         ("bulb_fit_step", lambda: fit_step(
             bulb, bcfg.replace(diff_vis=True), smi, "mandelbulb", BULB_TRAINABLES,
             bsmall.replace(diff_vis=True), bcfg.replace(width=256, height=256, diff_vis=True),
-            "bulb_fit_step")),
+            "bulb_fit_step", keep=eager_bulb_step)),
+        ("bulb_graph_step", lambda: graph_step(
+            bulb, bcfg.replace(diff_vis=True), smi, "mandelbulb", BULB_TRAINABLES,
+            eager_bulb_step, eager_bulb["counts"], "bulb_graph_step")),
         ("sil_parity", lambda: sil_parity(scene, sil, results["mixed_sil"])),
         ("sil_small", lambda: small_frame(scene, sil.replace(width=320, height=180, spp=1),
                                           "mixed_sil", TRAINABLES, "sil_small")),
@@ -2940,8 +3129,11 @@ def main() -> int:
         print(smi)
         print(json.dumps({"launch": launch_table}))
         return 0
-    counts = {"mixed": dict(out["frame"], shade_bwd=out["fit_step"]["shade_bwd"]),
-              "mandelbulb": dict(out["bulb_frame"], shade_bwd=out["bulb_fit_step"]["shade_bwd"]),
+    # `mixed`, `mandelbulb`: the graphed frames and steps, as the bench, the CLI
+    # and fit run them
+    counts = {"mixed": dict(out["graph_frame"], shade_bwd=out["graph_step"]["shade_bwd"]),
+              "mandelbulb": dict(out["bulb_graph_frame"],
+                                 shade_bwd=out["bulb_graph_step"]["shade_bwd"]),
               "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
               "mixed_ring": dict(out["ring_frame"],
                                  shade_bwd=out["ring_fit_step"]["shade_bwd"]),

@@ -8,8 +8,9 @@ and fwd+bwd) at 1080p": rays_per_frame (primary samples plus one shadow
 ray per directional light per sample) over the best of `iters` timed
 windows, after `warmup` untimed ones.
 
-  * forward: `render_image` under no_grad.
-  * forward + backward: mean(render_image(apply_params(scene, params),
+  * forward: `render_image_jit` under no_grad (the reference times its
+    jitted frame), after the warm-up that captures its graphs.
+  * forward + backward: mean(render_image_jit(apply_params(scene, params),
     cfg_b)**2).backward(), timed together, for the reference's six
     trainables that the scene has; cfg_b is the frame's config with
     diff_vis as asked and its block size capped at 65,536.
@@ -115,7 +116,7 @@ def run_bench(scene_name: str = "mixed", backward: bool = True,
               diff_vis: bool = False, device="cuda") -> dict:
     """Measure one registry scene at its own config -> the JSON line's dict."""
     from tpu_ray_torch.fit import apply_params, extract_params
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.scene.scenes import build_scene
 
     device = require_device(device, "tpu_ray_torch.bench")
@@ -129,7 +130,7 @@ def run_bench(scene_name: str = "mixed", backward: bool = True,
 
     @torch.no_grad()
     def frames():
-        return [render_image(_with_origin(scene, org), cfg) for org in origins]
+        return [render_image_jit(_with_origin(scene, org), cfg) for org in origins]
 
     _, fwd_k = block_and_time(frames, warmup=warmup, iters=iters)
     fwd_s = fwd_k / k
@@ -160,7 +161,7 @@ def run_bench(scene_name: str = "mixed", backward: bool = True,
             s = apply_params(scene, params)
             base = s.camera.origin
             for delta in deltas:
-                img = render_image(_with_origin(s, base + delta), cfg_b)
+                img = render_image_jit(_with_origin(s, base + delta), cfg_b)
                 (torch.mean(img ** 2) / k).backward()
             return {p: v.grad for p, v in params.items()}
 

@@ -16,8 +16,11 @@ The device is the CUDA device unless `--device cpu` is given; without a
 CUDA device and without `--device cpu` the CLI stops with an error. On a
 CUDA device the geometry pass and the shade backward run the hand-written
 kernels; on the CPU they run their plain PyTorch versions (slow for large
-frames). `render` times one frame (on CUDA its first frame includes the
-kernel build) and writes it; `--stats` adds the frame's ray statistics
+frames). `render`, the turntable, the previews and `fit` render through
+render.render_image_jit (per-block CUDA graphs on the card), `--sharded`
+through render_image_sharded. `render` times one frame (on CUDA it
+includes the kernel build and the graphs' capture) and writes it;
+`--stats` adds the frame's ray statistics
 (render.frame_stats), `--profile DIR` a torch.profiler trace of the frame,
 `--turntable N` renders N frames orbiting the look-at point instead,
 `--progressive K` K coarse previews (half the resolution each, 1 spp, one
@@ -74,7 +77,7 @@ def _add_cfg_flags(p):
 def cmd_render(args):
     from tpu_ray_torch.dist.multihost import is_main, main_print
     from tpu_ray_torch.dist.sharding import render_image_sharded
-    from tpu_ray_torch.render.render import frame_stats, render_image
+    from tpu_ray_torch.render.render import frame_stats, render_image_jit
     from tpu_ray_torch.utils.image_io import write_png
     from tpu_ray_torch.utils.metrics import profile_trace
 
@@ -88,13 +91,14 @@ def cmd_render(args):
     with torch.no_grad(), profile_trace(args.profile):
         _sync(device)
         t0 = time.perf_counter()
-        img = render_image_sharded(scene, cfg) if args.sharded else render_image(scene, cfg)
+        img = (render_image_sharded(scene, cfg) if args.sharded
+               else render_image_jit(scene, cfg))
         _sync(device)
         dt = time.perf_counter() - t0
     main_print(f"[render] {args.scene} {cfg.width}x{cfg.height} spp={cfg.spp} on "
                f"{_where(device)}{f' x {n_proc} processes' if args.sharded else ''}: "
                f"{dt * 1e3:.1f} ms, {cfg.num_rays / dt / 1e6:.2f} Mrays/s (first frame: on "
-               f"CUDA it includes the kernel build)")
+               f"CUDA it includes the kernel build and the graphs' capture)")
     if is_main():
         write_png(args.out, img.cpu().numpy())
     main_print(f"[render] wrote {args.out}")
@@ -118,7 +122,7 @@ def _render_turntable(args, device, scene, cfg):
     CLI's stand-in for the reference's interactive orbit view); the PNGs
     get _000.. suffixes."""
     from tpu_ray_torch.dist.multihost import is_main, main_print
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.utils.image_io import write_png
     from tpu_ray_torch.utils.metrics import Timer, mrays_per_sec, rays_per_frame
 
@@ -136,7 +140,7 @@ def _render_turntable(args, device, scene, cfg):
         s = scene.replace(camera=dataclasses.replace(
             cam, origin=torch.as_tensor(origin, dtype=cam.origin.dtype, device=device)))
         with torch.no_grad():
-            img = render_image(s, cfg).cpu().numpy()
+            img = render_image_jit(s, cfg).cpu().numpy()
         if is_main():
             write_png(f"{root}_{i:03d}{ext}", img)
     secs = total.stop()
@@ -152,7 +156,7 @@ def _render_progressive(args, device, scene, cfg):
     upscaled preview; the last frame is the full one. The previews cost at
     most 1/3 of the full frame's primary rays."""
     from tpu_ray_torch.dist.multihost import is_main, main_print
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.utils.image_io import write_png
     from tpu_ray_torch.utils.metrics import Timer, mrays_per_sec, rays_per_frame
 
@@ -162,14 +166,14 @@ def _render_progressive(args, device, scene, cfg):
     for k in range(levels, 0, -1):
         w, h = max(cfg.width >> k, 8), max(cfg.height >> k, 8)
         with torch.no_grad():
-            img = render_image(scene, cfg.replace(width=w, height=h, spp=1, block_size=0))
+            img = render_image_jit(scene, cfg.replace(width=w, height=h, spp=1, block_size=0))
         up = img.cpu().numpy().repeat(1 << k, axis=0).repeat(1 << k, axis=1)
         path = f"{root}_prog{levels - k}{ext}"
         if is_main():
             write_png(path, up[:cfg.height, :cfg.width])
         main_print(f"[render] progressive level {levels - k}: {w}x{h} -> {path}")
     with torch.no_grad():
-        img = render_image(scene, cfg).cpu().numpy()
+        img = render_image_jit(scene, cfg).cpu().numpy()
     if is_main():
         write_png(args.out, img)
     secs = total.stop()
@@ -207,7 +211,7 @@ def demo_target(scene, cfg, trainable):
     """The fit demo's target: the render with each trainable leaf v set to
     v * 1.15 + 0.02 (the packet accel refit to perturbed vertices)."""
     from tpu_ray_torch.fit import _maybe_refit, apply_params
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.scene.types import get_param
 
     if "sdf.mb_power" in trainable and scene.sdf.mb_pow8:
@@ -218,7 +222,7 @@ def demo_target(scene, cfg, trainable):
     moved = _maybe_refit(apply_params(scene, perturbed),
                          any(p.split(".")[0] == "mesh" for p in trainable))
     with torch.no_grad():
-        return render_image(moved, cfg)
+        return render_image_jit(moved, cfg)
 
 
 def cmd_fit(args):
@@ -226,7 +230,7 @@ def cmd_fit(args):
 
     from tpu_ray_torch.dist.multihost import is_main, main_print
     from tpu_ray_torch.fit import fit
-    from tpu_ray_torch.render.render import render_image
+    from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.utils.config import FitConfig
     from tpu_ray_torch.utils.image_io import read_png, write_png
 
@@ -255,7 +259,7 @@ def cmd_fit(args):
                "[fit] checkpoint already at the requested step count; nothing to do")
     if args.out and is_main():
         with torch.no_grad():
-            write_png(args.out, render_image(fitted, cfg).cpu().numpy())
+            write_png(args.out, render_image_jit(fitted, cfg).cpu().numpy())
         print(f"[fit] wrote {args.out}")
 
 

@@ -23,7 +23,7 @@ from tpu_ray_torch.dist.grad_allreduce import psum_buckets
 from tpu_ray_torch.dist.multihost import world
 from tpu_ray_torch.dist.scene_shard import refit_ring_packet
 from tpu_ray_torch.dist.sharding import ring_scene, shard_sample_coords
-from tpu_ray_torch.render.render import render_image, render_pixels_flat, resolve_method
+from tpu_ray_torch.render.render import render_image_jit, render_pixels_flat, resolve_method
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils import checkpoint as ckpt_lib
@@ -54,12 +54,15 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
                   params: ParamDict, optimizer: torch.optim.Optimizer,
                   refit_accel: bool = False) -> Callable[[], float]:
     """step() -> the MSE loss at the current params, after which the
-    optimizer has taken one step on its gradient."""
+    optimizer has taken one step on its gradient. The frame and its
+    gradient go through render_image_jit (the reference jits the step); the
+    loss, `backward` and the optimizer's step run eagerly."""
 
     def step() -> float:
         optimizer.zero_grad(set_to_none=True)
-        # render_image folds object poses in (and refits the accel to them)
-        img = render_image(_maybe_refit(apply_params(scene, params), refit_accel), cfg)
+        # render_image_jit folds object poses in (and refits the accel to
+        # them) outside its graphs
+        img = render_image_jit(_maybe_refit(apply_params(scene, params), refit_accel), cfg)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()

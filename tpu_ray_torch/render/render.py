@@ -28,6 +28,11 @@ shade-backward kernel on a CUDA device. Object poses (`scene.poses`) fold
 into world-space vertices once per frame, at `render_image`'s entry.
 `frame_stats` gives the per-frame ray statistics of the reference's
 overlay from the same geometry pass.
+
+`render_image_jit` is the reference's jitted frame: the same blocks
+(`render_block`, `march_group`) captured once as CUDA graphs and replayed
+over the frame (render/graphs.py); the bench, the fit step and the CLI
+render through it.
 """
 
 from __future__ import annotations
@@ -609,32 +614,65 @@ def march_groups(n: int, bs: int) -> list:
     return [slice(g, g + step) for g in range(0, n, step)]
 
 
+def frame_tables(scene: Scene, cfg: RenderConfig, method: str):
+    """What every block of a frame reads besides the scene -> (mesh_rows,
+    packed): the per-frame mesh_table (differentiable; None when the mesh
+    is not traced) and the kernels' parameters packed once (cuda_shade.pack,
+    under no_grad)."""
+    mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
+    return mesh_rows, cuda_shade.pack(scene, _bound_pad(cfg))
+
+
+def _pixel_mean(cfg: RenderConfig, colors: torch.Tensor) -> torch.Tensor:
+    """(R, 3) sample colours -> (3, R / spp) channel-major pixel means."""
+    return colors.reshape(-1, cfg.spp, 3).mean(1).T
+
+
+def render_block(scene: Scene, cfg: RenderConfig, method: str, x, y, mesh_rows=None,
+                 packed=None, march=None):
+    """One block of samples -> ((3, n_px) spp-averaged colours, the geometry
+    residuals). It reads only its arguments: the block's sample coordinates,
+    its slice of march_group's result (march; None: the pass marches
+    itself), the frame's tables (frame_tables) and the scene's tensors, so a
+    CUDA graph of it (render/graphs.py) can be replayed over a frame's
+    blocks. Rays are generated inside autograd (the camera's gradient)."""
+    o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
+    res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows, march=march,
+                             packed=packed)
+    colors = shade_with_residuals(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                  packed=packed)
+    return _pixel_mean(cfg, colors), res
+
+
+def shade_block(scene: Scene, cfg: RenderConfig, method: str, x, y, res, mesh_rows=None,
+                packed=None) -> torch.Tensor:
+    """render_block's colours from its geometry residuals, without the
+    geometry pass: the rays again (inside autograd) and the shade. What the
+    backward of a graphed frame differentiates, block by block."""
+    o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
+    colors = shade_with_residuals(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                  packed=packed)
+    return _pixel_mean(cfg, colors)
+
+
 def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
                        method: str | None = None) -> torch.Tensor:
     """Render flat sample coords covering whole pixels (a pixel's spp samples
     contiguous) -> per-pixel colors (3, n_px), spp-averaged, channel-major.
     Samples run in blocks of cfg.block_size (rounded up to whole pixels,
-    whole_blocks).
+    whole_blocks), one render_block each.
 
-    The kernels' scene parameters are packed once here (cuda_shade.pack,
-    under no_grad) and handed to every wrapper. The primary march, which
-    takes no gradient, runs once per group of MARCH_GROUP consecutive
-    blocks (march_groups, march_group), and each block takes its slice of
-    the result.
-    Rays are generated per block inside autograd (the camera's gradient);
-    no block is checkpointed: the shade's Function saves only compact
+    The kernels' scene parameters are packed once here (frame_tables) and
+    handed to every wrapper. The primary march, which takes no gradient,
+    runs once per group of MARCH_GROUP consecutive blocks (march_groups,
+    march_group), and each block takes its slice of the result.
+    No block is checkpointed: the shade's Function saves only compact
     residuals, so the backward keeps ~100 bytes per ray."""
     method = method or resolve_method(scene, cfg)
-    mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
-    packed = cuda_shade.pack(scene, _bound_pad(cfg))
+    mesh_rows, packed = frame_tables(scene, cfg, method)
 
     def block_fn(x, y, march=None):
-        o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
-        res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows, march=march,
-                                 packed=packed)
-        colors = shade_with_residuals(scene, cfg, o, d, res, method,
-                                      mesh_rows=mesh_rows, packed=packed)
-        return colors.reshape(-1, cfg.spp, 3).mean(1).T  # (3, n_px_block)
+        return render_block(scene, cfg, method, x, y, mesh_rows, packed, march)[0]
 
     R = flat_x.shape[0]
     n_px = R // cfg.spp
@@ -653,14 +691,33 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
     return torch.cat(cols, dim=1)[:, :n_px]
 
 
+def _to_image(cfg: RenderConfig, flat: torch.Tensor, perm) -> torch.Tensor:
+    """(3, H*W) pixels in the samples' order -> the (H, W, 3) image."""
+    if perm is not None:
+        flat = flat[:, _inverse_perm(perm)]
+    return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
+
+
 def render_image(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     """Full frame: (H, W, 3) linear RGB, spp-averaged. Object poses fold
     into world-space vertices first (the packet accel refit to them)."""
     scene, flat_x, flat_y, perm = frame_samples(scene, cfg)
-    flat = render_pixels_flat(scene, cfg, flat_x, flat_y)  # (3, H*W)
-    if perm is not None:
-        flat = flat[:, _inverse_perm(perm)]
-    return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
+    return _to_image(cfg, render_pixels_flat(scene, cfg, flat_x, flat_y), perm)
+
+
+def render_image_jit(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """render_image as a compiled program (counterpart of the reference's
+    `jax.jit` of render_image): on a CUDA scene every block replays CUDA
+    graphs captured once per config, method, block size and the scene's
+    structure (render/graphs.py); eager dispatch runs only at their
+    warm-up and capture, and a capture that fails raises. Differentiable:
+    torch.autograd through it gives render_image's gradients. On a CPU
+    scene the same replay plan runs its blocks without capture. Object
+    poses fold in first, outside the graphs, as in render_image."""
+    from tpu_ray_torch.render import graphs
+
+    scene, flat_x, flat_y, perm = frame_samples(scene, cfg)
+    return _to_image(cfg, graphs.render_pixels_flat_jit(scene, cfg, flat_x, flat_y), perm)
 
 
 @torch.no_grad()
