@@ -50,12 +50,24 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      launch counts from 0, which equal phase 5's; the image against phase
      5's (max abs <= 1e-6); a profiled window of the middle march group
      (32 blocks): busy share, launches and host ops a block.
+  5c. sharded_graph_frame: the same frame through
+     `dist.sharding.render_image_sharded_jit` in an NCCL group of one
+     process (the frame's plan is 5b's, reused; the gather one captured
+     all_gather_into_tensor): first call (capture), then timed with the
+     launch counts from 0, which equal phase 5's; the image against 5b's
+     (at most 1e-4 of the pixels off by more than 1e-4); capture seconds,
+     the graph pools' GiB.
   6. the fit step: forward + backward of mean(img**2) at 1920x1080, 16 spp,
      for the six trainables: time, launch counts, peak memory, gradients.
   6b. graph_step: the same step through `render_image_jit`, after one step
      that captures its backward: time, launch counts (#5 twice a block, the
      others as phase 5b), loss and gradients against phase 6's (rel <= 1e-5
      a trainable, <= 1e-4 for mesh.verts).
+  6c. sharded_graph_step: `fit.make_sharded_fit_step` (graphed: the frame's
+     plan, then one captured graph of the bucketed all_reduces and the
+     loss's) in an NCCL group of one, SGD at lr 0 toward a zero target:
+     first step (capture), then timed; loss and gradients against 6b's
+     (rel <= 1e-5, mesh.verts <= 1e-4), the launches 6b's.
   7. a fit: `fit()` for 3 Adam steps at 480x272, 16 spp, toward the CLI
      demo target, with the packet accel refit every step; the loss falls.
   8. `mandelbulb` parity: 2 blocks of its frame (the bulb's silhouette, the
@@ -106,11 +118,18 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      quarter of phase 5's pixels, to keep the script well inside its time:
      254 launches of each #4 kernel, none of #3; the image against
      render_image's of the same frame (at most 1e-4 of the pixels off by
-     more than 1e-4); then render_image and the ring in turns at 480x272x16.
- 20. ring_fit_step: `make_sharded_fit_step` on the same ring at 960x540x16,
+     more than 1e-4).
+     19b. ring_graph_frame: the same through `render_image_sharded_jit`
+     (the ring's walk inside each block's graph; at world size 1 it never
+     rotates): bit-equal to phase 19's image, its launches.
+ 20. ring_fit_step: the data-parallel step on the same ring at 960x540x16,
+     eagerly (make_sharded_fit_step's computation before it was graphed),
      the six trainables, the shard refit every step: loss (rel 1e-5) and
      gradients (cosine > 0.999999) against phase 6's computation on the same
      frame, 254 `shade_bwd` launches.
+     20b. ring_graph_step: `make_sharded_fit_step` with the ring, graphed,
+     as 6c, against phase 20's loss and gradients (#4 254 times each, #5
+     508, #6 254).
  21. power_parity: phase 8's two `mandelbulb` blocks with the generic
      field (mb_pow8=False) at mb_power 8.0 and 7.5: the march, the soft
      march, the shade forward with AO (without and with the penumbra) and
@@ -180,9 +199,9 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      time within its wall time (0 < busy <= 1), every number finite.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
-beat for the same work, and its `launch_*` numbers; `mixed`'s and
-`mandelbulb`'s launches are those of the graphed frame and step, phases
-5b, 6b, 10b and 11b),
+beat for the same work, and its `launch_*` numbers; `mixed`'s,
+`mandelbulb`'s and `mixed_ring`'s launches are those of the graphed frame
+and step, phases 5b, 6b, 10b, 11b, 19b and 20b),
 the card's name and power limit, and the result as the last line. With
 --only, the per-launch table is the last line and no result is printed.
 """
@@ -1550,7 +1569,7 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     return counts
 
 
-def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame"):
+def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame", keep=None):
     """Phases 5b and 10b: the frame of phase 5 (10) through render_image_jit (its blocks
     replayed as CUDA graphs) -> launch counts. The first call warms up and
     captures (its seconds, and the plan's graph pool and buffers); the
@@ -1558,7 +1577,8 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame")
     image phase 5's within 1e-6 (the same kernels in the same order). Then
     a profiled window of the frame's middle march group (32 blocks,
     tools.window) through the same plan: busy share, launches and host
-    self time a block."""
+    self time a block. keep: a dict that receives the image (for
+    sharded_graph_frame)."""
     from tpu_ray_torch import tools
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
@@ -1601,6 +1621,8 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame")
     check(err <= 1e-6, f"graphed frame against the eager one: max abs {err:.3e} > 1e-6")
     check_counts(name, cfg, counts, PATH_KERNELS[name][:-1])
     check(counts == eager["counts"], f"graphed launches {counts} != eager {eager['counts']}")
+    if keep is not None:
+        keep.update(image=img)
     # the middle march group's 32 blocks through the frame's own plan
     s_r, fx, fy, _ = frame_samples(scene, cfg)
     fx, fy, bs = whole_blocks(cfg, fx, fy)
@@ -1644,13 +1666,14 @@ def captures_timed():
 
 
 def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_counts,
-               tag="graph_step"):
+               tag="graph_step", keep=None):
     """Phases 6b and 11b: phase 6's (11's) fit step through render_image_jit: the first
     step captures the backward's graph, the second is timed with the
     counts from 0 (#5 twice a block: the backward recomputes the shade
     forward from the kept residuals; the geometry pass and the march
     once). Loss and gradients against phase 6's: rel <= 1e-5 a trainable,
-    <= 1e-4 for mesh.verts (the scatter's summation order)."""
+    <= 1e-4 for mesh.verts (the scatter's summation order). keep: a dict
+    that receives the loss and the gradients (for sharded_graph_step)."""
     from tpu_ray_torch.fit import apply_params, extract_params
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image_jit
@@ -1696,6 +1719,119 @@ def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_c
     check(ok, "graphed fit step against the eager one")
     want = dict(frame_counts, shade_fwd=2 * n_blocks, shade_bwd=n_blocks)
     check(counts == want, f"graphed step launches {counts} != {want}")
+    if keep is not None:
+        keep.update(loss=loss, grads=grads)
+    return counts
+
+
+def pools_gib(plans) -> float:
+    """GiB of the CUDA graph pools of these plans (render.graphs.PLANS'
+    values: a frame plan, a sharded frame's gather, a step's all-reduce)."""
+    pools = {tuple(p.pool) for p in plans if getattr(p, "pool", None) is not None}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) in pools) / 2**30
+
+
+def pools_line(before) -> str:
+    """The graph pools of the plans made since `before` (a set of
+    render.graphs.PLANS' keys) and of every plan held."""
+    from tpu_ray_torch.render import graphs
+
+    new = [p for k, p in graphs.PLANS.items() if k not in before]
+    return (f"{len(new)} new plans, their graph pools {pools_gib(new):.3f} GiB (every plan's "
+            f"{pools_gib(graphs.PLANS.values()):.3f} GiB)")
+
+
+def sharded_graph_frame(scene, cfg, smi: str, dev, graphed: dict, eager_counts: dict):
+    """Phase 5c: phase 5b's frame through dist.sharding.render_image_sharded_jit
+    in an NCCL group of one process: the frame's plan (the key of 5b's, so
+    reused), and the gather, one captured all_gather_into_tensor. The
+    first call captures the gather, the second is timed with the counts
+    from 0 (phase 5's); the image against phase 5b's: at most 1e-4 of the
+    pixels off by more than 1e-4 (the pixels are dealt to the blocks in
+    another order)."""
+    from tpu_ray_torch.dist.sharding import render_image_sharded_jit
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import graphs
+
+    check("image" in graphed, "sharded_graph_frame needs phase `graph_frame`'s image")
+    before = set(graphs.PLANS)
+    with ring_group(dev), torch.no_grad(), captures_timed() as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image_sharded_jit(scene, cfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        t0 = time.perf_counter()
+        img = render_image_sharded_jit(scene, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pools = pools_line(before)
+    counts = forward_counts()
+    err = (img - graphed["image"]).abs().amax(-1)
+    frac = float((err > 1e-4).float().mean())
+    log("sharded_graph_frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp} through "
+        f"render_image_sharded_jit, NCCL group of 1: {dt:.3f} s, "
+        f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s; first call {first:.3f} s, its warm-ups and "
+        f"captures {sum(captured):.3f} s ({len(captured)} graphs); {pools}; against "
+        f"render_image_jit's frame: max {float(err.max()):.3e}, pixels over 1e-4 "
+        f"{frac:.2e} (at most 1e-4); launches {counts} on {smi}")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(img).all()),
+          "sharded graphed frame shape or values")
+    check(frac <= 1e-4, "sharded graphed frame against render_image_jit's")
+    check(counts == eager_counts, f"sharded graphed launches {counts} != eager {eager_counts}")
+    return counts
+
+
+def graphed_sharded_step(scene, cfg, smi: str, dev, ref: dict, want_counts: dict, tag: str,
+                         scene_shards: bool = False):
+    """Phases 6c and 20b: the graphed data-parallel step (make_sharded_fit_step)
+    of the six trainables toward a zero target (its loss mean(img**2)),
+    SGD at lr 0, in an NCCL group of one process; its first step captures
+    what is new (the all-reduce graph; with the ring, its frame plan), the
+    second is timed with the counts from 0. Loss and gradients against
+    ref's: rel <= 1e-5, mesh.verts <= 1e-4."""
+    from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import graphs
+    from tpu_ray_torch.tools import launch_counts
+
+    before = set(graphs.PLANS)
+    params = extract_params(scene, TRAINABLES)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    with ring_group(dev):
+        step = make_sharded_fit_step(scene, cfg, target, params,
+                                     torch.optim.SGD(params.values(), lr=0.0),
+                                     scene_shards=scene_shards)
+        with captures_timed() as captured:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pools = pools_line(before)
+    counts = launch_counts()
+    rel_loss = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
+    log(tag, f"mixed {cfg.width}x{cfg.height}x{cfg.spp}{', ring' if scene_shards else ''}, "
+        f"make_sharded_fit_step, NCCL group of 1, six trainables: {dt:.3f} s, "
+        f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s; first step {first:.3f} s, its warm-ups and "
+        f"captures {sum(captured):.3f} s ({len(captured)} graphs); {pools}; "
+        f"loss {loss:.8f} (rel {rel_loss:.2e}); peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {counts} on {smi}")
+    ok = rel_loss <= 1e-5
+    for path, v in params.items():
+        rel = rel_max(v.grad, ref["grads"][path])
+        bound = 1e-4 if path == "mesh.verts" else 1e-5
+        ok &= rel <= bound and bool(torch.isfinite(v.grad).all())
+        log(tag, f"grad {path}: rel {rel:.3e} (bound {bound:.0e})")
+    check(ok, f"{tag}: the graphed sharded step against its reference")
+    check(counts == want_counts, f"{tag}: launches {counts} != {want_counts}")
     return counts
 
 
@@ -1965,10 +2101,9 @@ def knot_launches(knot, kcfg, parts, results):
 @contextlib.contextmanager
 def ring_group(dev):
     """A process group of this one process (NCCL, through a file:// store
-    under build/), destroyed on exit: the ring at world size 1."""
-    import torch.distributed as dist
-
-    from tpu_ray_torch.dist.multihost import initialize
+    under build/), destroyed on exit after the graph plans that captured
+    its collectives (multihost.destroy): the ring at world size 1."""
+    from tpu_ray_torch.dist.multihost import destroy, initialize
 
     store = os.path.join(REPO, "build", f"ring_store_{os.getpid()}")
     os.makedirs(os.path.dirname(store), exist_ok=True)
@@ -1979,18 +2114,18 @@ def ring_group(dev):
     try:
         yield
     finally:
-        dist.destroy_process_group()
+        destroy()
         if os.path.exists(store):
             os.remove(store)
 
 
-def ring_frame(scene, cfg, smi, warm, dev):
+def ring_frame(scene, cfg, smi, warm, dev, keep):
     """Phase 19: render_image_sharded of `mixed` with the accel partitioned
     around a ring of one process: every block's closest hit and shadow
     any-hit through kernel #4, none through #3; the image against
     render_image's of the same frame (the same rays): at most 1e-4 of the
-    pixels off by > 1e-4. Then render_image and the ring in turns on a
-    smaller frame, so that the two compare in one state of the host."""
+    pixels off by > 1e-4. keep: a dict that receives the image (for
+    ring_graph_frame)."""
     from tpu_ray_torch.dist.sharding import render_image_sharded
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
@@ -2007,13 +2142,9 @@ def ring_frame(scene, cfg, smi, warm, dev):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts = forward_counts()
-    n_blocks = -(-cfg.num_rays // cfg.block_size)
     check(tuple(img.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(img).all()),
           "ring frame shape or values")
-    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"][:-1])
-    check(counts["resident_closest"] == counts["resident_any_hit"] == n_blocks
-          and counts["packet_closest"] == counts["packet_any_hit"] == 0,
-          f"ring frame launches {counts}")
+    check_ring_counts("ring frame", cfg, counts)
     err = (img - ref_img).abs().amax(-1)
     frac = float((err > 1e-4).float().mean())
     log("ring_frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1: {dt:.3f} s, "
@@ -2021,74 +2152,124 @@ def ring_frame(scene, cfg, smi, warm, dev):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; against render_image's "
         f"frame: max {float(err.max()):.3e}, pixels over 1e-4 {frac:.2e} (at most 1e-4)")
     check(frac <= 1e-4, "ring frame against render_image's frame")
-    # the ring against phase 5's path in the same state of the host, in turns
-    # (plain, ring, ring, plain) on a smaller frame
-    turns = cfg.replace(width=480, height=272)
-    secs = {"render_image": [], "ring": []}
-    with ring_group(dev), torch.no_grad():
-        for kind in ("render_image", "ring", "ring", "render_image"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if kind == "ring":
-                render_image_sharded(scene, turns, scene_shards=True)
-            else:
-                render_image(scene, turns)
-            torch.cuda.synchronize()
-            secs[kind].append(round(time.perf_counter() - t0, 3))
-    log("ring_frame", f"in turns at {turns.width}x{turns.height}x{turns.spp}: render_image "
-        f"{secs['render_image']} s, ring {secs['ring']} s")
+    keep.update(image=img, counts=counts)
     return counts
 
 
-def ring_fit_step(scene, cfg, smi, warm, dev):
-    """Phase 20: make_sharded_fit_step of `mixed` for the six trainables
-    with the ring (each step refits its shard: mesh.verts is trained),
-    target 0 so that the loss is mean(img**2), SGD at lr 0: loss and
-    gradients against those of render_image on the same frame, phase 6's
-    computation (rel 1e-5, cosine > 0.999999 per trainable)."""
-    from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
+def check_ring_counts(what: str, cfg, counts, backward: bool = False) -> None:
+    """The ring's launches: #4's closest and any-hit once a block, none of
+    #3, the march once a group, and the shade forward once a block (twice
+    in a graphed step, whose backward recomputes it)."""
+    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"][:None if backward else -1])
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    check(counts["resident_closest"] == counts["resident_any_hit"] == n_blocks
+          and counts["packet_closest"] == counts["packet_any_hit"] == 0,
+          f"{what} launches {counts}")
+
+
+def ring_graph_frame(scene, cfg, smi, dev, eager: dict):
+    """Phase 19b: phase 19's frame through render_image_sharded_jit: the
+    ring's walk, #4 and the (here empty) rotation inside each block's
+    graph, the gather captured. The first call captures, the second is
+    timed with the counts from 0; the image phase 19's bit for bit, the
+    launches phase 19's."""
+    from tpu_ray_torch.dist.sharding import render_image_sharded_jit
+    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.render import graphs
+
+    check("image" in eager, "ring_graph_frame needs phase `ring_frame`'s image")
+    before = set(graphs.PLANS)
+    with ring_group(dev), torch.no_grad(), captures_timed() as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_image_sharded_jit(scene, cfg, scene_shards=True)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = render_image_sharded_jit(scene, cfg, scene_shards=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pools = pools_line(before)
+    counts = forward_counts()
+    same = torch.equal(img, eager["image"])
+    log("ring_graph_frame", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, through "
+        f"render_image_sharded_jit: {dt:.3f} s, {cfg.num_rays / dt / 1e6:.3f} Mrays/s; first "
+        f"call {first:.3f} s, its warm-ups and captures {sum(captured):.3f} s "
+        f"({len(captured)} graphs); {pools}; peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; equal to phase 19's frame: "
+        f"{same} (max {float((img - eager['image']).abs().max()):.3e}); launches {counts} "
+        f"on {smi}")
+    check(same, "graphed ring frame against the eager one")
+    check_ring_counts("graphed ring frame", cfg, counts)
+    check(counts == eager["counts"], f"graphed ring launches {counts} != {eager['counts']}")
+    return counts
+
+
+def eager_ring_step(scene, cfg, dev):
+    """The data-parallel step with the ring as it runs eagerly at world size
+    1 (render_pixels_flat over the dealt samples, the shard refit to the
+    vertices, loss sum(px**2) / (n_px * 3)) for the six trainables ->
+    step() -> (loss, gradients)."""
+    from tpu_ray_torch.dist.scene_shard import refit_ring_packet
+    from tpu_ray_torch.dist.sharding import ring_scene, shard_sample_coords
+    from tpu_ray_torch.fit import apply_params, extract_params
+    from tpu_ray_torch.render.render import render_pixels_flat
+    from tpu_ray_torch.scene.transform import realize_scene
+
+    ring = ring_scene(scene).ring
+    base = scene.replace(packet=None)
+    fx, fy, n_px, _ = shard_sample_coords(cfg, 1, dev)
+
+    def step():
+        params = extract_params(base, TRAINABLES)
+        s = realize_scene(apply_params(base, params))
+        s = s.replace(ring=refit_ring_packet(ring, s.mesh.verts, s.mesh.tris))
+        loss = torch.sum(render_pixels_flat(s, cfg, fx, fy) ** 2) / (n_px * 3)
+        loss.backward()
+        return loss.detach(), {k: v.grad for k, v in params.items()}
+
+    return step
+
+
+def ring_fit_step(scene, cfg, smi, warm, dev, keep):
+    """Phase 20: the data-parallel step of `mixed` with the ring, eagerly
+    (eager_ring_step: make_sharded_fit_step's computation before it was
+    graphed), the six trainables, the shard refit (mesh.verts is
+    trained): loss (rel 1e-5) and gradients (cosine > 0.999999) against
+    those of render_image on the same frame, phase 6's computation, 254
+    `shade_bwd` launches. keep: a dict that receives the loss and the
+    gradients (for ring_graph_step)."""
     from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.tools import launch_counts
 
-    def step_of(c):
-        params = extract_params(scene, TRAINABLES)
-        target = torch.zeros((c.height, c.width, 3), device=dev)
-        return params, make_sharded_fit_step(scene, c, target, params,
-                                             torch.optim.SGD(params.values(), lr=0.0),
-                                             scene_shards=True)
-
     ref_loss, ref_grads = grads_of(scene, cfg, TRAINABLES)
-    ref = {"loss": ref_loss, "grads": ref_grads}
     with ring_group(dev):
-        step_of(warm)[1]()
-        t0 = time.perf_counter()
-        params, step = step_of(cfg)
-        t_make = time.perf_counter() - t0
+        eager_ring_step(scene, warm, dev)()
+        step = eager_ring_step(scene, cfg, dev)
         reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        loss = step()
+        loss, grads = step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts = launch_counts()
-    n_blocks = -(-cfg.num_rays // cfg.block_size)
-    rel = abs(loss - float(ref["loss"])) / abs(float(ref["loss"]))
-    log("ring_fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, six trainables: "
-        f"{dt:.3f} s (step made in {t_make:.2f} s), {cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss "
-        f"{loss:.8f} (render_image {float(ref['loss']):.8f}, rel {rel:.2e}), launches {counts}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    rel = float((loss - ref_loss).abs() / ref_loss.abs())
+    log("ring_fit_step", f"mixed {cfg.width}x{cfg.height}x{cfg.spp}, ring of 1, six trainables, "
+        f"eager: {dt:.3f} s, {cfg.num_rays / dt / 1e6:.3f} Mrays/s, loss {float(loss):.8f} "
+        f"(render_image {float(ref_loss):.8f}, rel {rel:.2e}), launches {counts}, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
     ok = rel < 1e-5
-    for path, v in params.items():
-        cos = cosine(v.grad, ref["grads"][path])
-        ok &= cos > 0.999999 and bool(torch.isfinite(v.grad).all())
+    for path, g in grads.items():
+        cos = cosine(g, ref_grads[path])
+        ok &= cos > 0.999999 and bool(torch.isfinite(g).all())
         log("ring_fit_step", f"grad {path}: cosine {cos:.9f} against render_image's, rel "
-            f"{rel_max(v.grad, ref['grads'][path]):.3e}, norm {float(v.grad.norm()):.6e}")
+            f"{rel_max(g, ref_grads[path]):.3e}, norm {float(g.norm()):.6e}")
     check(ok, "ring fit step against render_image's step")
-    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"])
-    check(counts["resident_closest"] == counts["resident_any_hit"] == counts["shade_bwd"]
-          == n_blocks and counts["packet_closest"] == counts["packet_any_hit"] == 0,
-          f"ring fit step launches {counts}")
+    check_ring_counts("ring fit step", cfg, counts, backward=True)
+    keep.update(loss=loss, grads=grads, counts=counts)
     return counts
 
 
@@ -3050,22 +3231,30 @@ def main() -> int:
     sil = cfg.replace(**SILHOUETTES)
     sil_cut = sil.replace(width=960, height=540)  # phases 14, 15
     ring_cut = cfg.replace(width=960, height=540)  # phases 19, 20
+    ring_blocks = -(-ring_cut.num_rays // ring_cut.block_size)
     results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={},
                    mandelbulb_power={})
     parity_rays, kept, knot_counts = [], {}, {}
-    # phases 5, 6, 10 and 11, for 5b, 6b, 10b and 11b
+    # phases 5, 6, 10 and 11, for 5b, 6b, 10b and 11b; 5b and 6b for 5c and
+    # 6c; 19 and 20 for 19b and 20b
     eager_frame, eager_step, eager_bulb, eager_bulb_step = {}, {}, {}, {}
+    graphed_frame, graphed_step, eager_ring, eager_ring_fit = {}, {}, {}, {}
     phases = (
         ("parity", lambda: parity_rays.extend(parity(scene, cfg, results["mixed"], kept))),
         ("content", lambda: content_classes(scene, cfg, *parity_rays)),
         ("small", lambda: small_frame(scene, cfg.replace(width=320, height=180, spp=1),
                                       "mixed", TRAINABLES)),
         ("frame", lambda: full_frame(scene, cfg, smi, "mixed", warm, keep=eager_frame)),
-        ("graph_frame", lambda: graph_frame(scene, cfg, smi, "mixed", eager_frame)),
+        ("graph_frame", lambda: graph_frame(scene, cfg, smi, "mixed", eager_frame,
+                                            keep=graphed_frame)),
+        ("sharded_graph_frame", lambda: sharded_graph_frame(scene, cfg, smi, dev, graphed_frame,
+                                                            eager_frame["counts"])),
         ("fit_step", lambda: fit_step(scene, cfg, smi, "mixed", TRAINABLES, warm,
                                       cfg.replace(width=256, height=128), keep=eager_step)),
         ("graph_step", lambda: graph_step(scene, cfg, smi, "mixed", TRAINABLES, eager_step,
-                                          eager_frame["counts"])),
+                                          eager_frame["counts"], keep=graphed_step)),
+        ("sharded_graph_step", lambda: graphed_sharded_step(
+            scene, cfg, smi, dev, graphed_step, out["graph_step"], "sharded_graph_step")),
         ("fit", lambda: fit_run(scene, cfg)),
         ("bulb_parity", lambda: bulb_parity(bulb, bcfg, results["mandelbulb"])),
         ("bulb_small", lambda: bulb_small(bulb, bsmall)),
@@ -3091,8 +3280,14 @@ def main() -> int:
         ("sil_fits", lambda: sil_fits(dev)),
         ("resident_parity", lambda: resident_parity(scene, cfg, results["mixed_ring"], kept)),
         ("knot1m_parts", lambda: knot_parts(dev, smi, results, knot_counts)),
-        ("ring_frame", lambda: ring_frame(scene, ring_cut, smi, warm, dev)),
-        ("ring_fit_step", lambda: ring_fit_step(scene, ring_cut, smi, warm, dev)),
+        ("ring_frame", lambda: ring_frame(scene, ring_cut, smi, warm, dev, eager_ring)),
+        ("ring_graph_frame", lambda: ring_graph_frame(scene, ring_cut, smi, dev, eager_ring)),
+        ("ring_fit_step", lambda: ring_fit_step(scene, ring_cut, smi, warm, dev,
+                                                eager_ring_fit)),
+        ("ring_graph_step", lambda: graphed_sharded_step(
+            scene, ring_cut, smi, dev, eager_ring_fit,
+            dict(out["ring_graph_frame"], shade_fwd=2 * ring_blocks, shade_bwd=ring_blocks),
+            "ring_graph_step", scene_shards=True)),
         ("power_parity", lambda: power_parity(bulb, bcfg, results["mandelbulb_power"])),
         ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
                                             bcfg.replace(width=256, height=256))),
@@ -3135,8 +3330,8 @@ def main() -> int:
               "mandelbulb": dict(out["bulb_graph_frame"],
                                  shade_bwd=out["bulb_graph_step"]["shade_bwd"]),
               "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
-              "mixed_ring": dict(out["ring_frame"],
-                                 shade_bwd=out["ring_fit_step"]["shade_bwd"]),
+              "mixed_ring": dict(out["ring_graph_frame"],
+                                 shade_bwd=out["ring_graph_step"]["shade_bwd"]),
               "mandelbulb_power": out["power_frame"],
               **knot_counts}
     for key in RING_SHARED:

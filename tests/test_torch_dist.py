@@ -1,5 +1,7 @@
 """The port's distributed layer in 2 and 4 gloo processes on the CPU, against
-the JAX package's single-device render and fit step.
+the JAX package's single-device render and fit step and its compiled
+sharded entry points over a mesh of as many fake CPU devices
+(`render_image_sharded_jit`, the jitted `make_sharded_fit_step`).
 
 The processes run tests/torch_dist_worker.py (torch, numpy and the port
 only); one group of each size runs every case once, started together by a
@@ -10,11 +12,18 @@ Tolerances and why:
     1e-5 (no fractal); `mixed` the bound tests/test_torch_render.py holds
     its frame to (95th-percentile pixel error < 5e-3, max < 1.0, mean <
     1e-3: the Mandelbulb march is chaotic). Every rank gathers the same
-    frame, bit for bit.
-  * the sharded fit step: loss rtol 1e-5 and parameters after one SGD step
-    atol 1e-6 (the per-rank losses and gradients are summed in another
-    order than the single-device step's; lr 1e-3 scales the gradient's
-    float32 rounding far below that).
+    frame, bit for bit. The JAX package's render_image_sharded_jit takes
+    no ring, so the ring cases are held against its replicated frame (the
+    ring replaces only the geometry pass's walk).
+  * render_image_sharded_jit against render_image_sharded: bit for bit,
+    frames and bands (on the CPU its plan runs the same blocks uncaptured,
+    and the gather only moves values).
+  * the sharded fit step (graphed): loss rtol 1e-5 and parameters after
+    one SGD step atol 1e-6, against the single-device step and the JAX
+    package's sharded step on the same mesh, with the ring where the case
+    has it (the per-rank losses and gradients are summed in another order
+    than the reference's; lr 1e-3 scales the gradient's float32 rounding
+    far below that).
   * the brute ring against brute MT, both float64: t rtol 1e-10, hits and
     ids equal (ties break by the smallest id in both).
   * psum_buckets and one all_reduce per leaf: equal (the same sums of the
@@ -94,6 +103,27 @@ def _references(inputs) -> dict:
             ref[f"fit_{case}_loss"] = float(loss)
             for k in W.FIT_PATHS:
                 ref[f"fit_{case}_{k}"] = np.asarray(new[k])
+        for n in SIZES:
+            dev_mesh = jsharding.make_mesh(jax.devices()[:n])
+            for case, name, over, _ in W.RENDERS:
+                jscene, jcfg = jscenes.build_scene(name, dtype=jnp.float32)
+                ref[f"sharded_{n}_{case}"] = np.asarray(jsharding.render_image_sharded_jit(
+                    jscene, jcfg.replace(pallas="off", block_size=0, **over), dev_mesh))
+            jscene, jcfg = jscenes.build_scene("triangles", dtype=jnp.float32)
+            jcfg = jcfg.replace(pallas="off", **W.FIT_CFG)
+            # one jitted step with the ring and one without (the ring's
+            # Pallas walk runs in interpret mode here: one compile a size)
+            steps = {shards: jfit.make_sharded_fit_step(
+                jscene, jcfg, jnp.asarray(inputs["fit_target"]), opt, dev_mesh,
+                scene_shards=shards) for shards in (False, True)}
+            for case, shards, moved in W.FITS:
+                params = jfit.extract_params(jscene, W.FIT_PATHS)
+                if moved:
+                    params["mesh.verts"] = jnp.asarray(inputs["fit_moved_verts"])
+                new, _, loss = steps[shards](params, opt.init(params))
+                ref[f"sharded_fit_{n}_{case}_loss"] = float(loss)
+                for k in W.FIT_PATHS:
+                    ref[f"sharded_fit_{n}_{case}_{k}"] = np.asarray(new[k])
     mesh = JMesh.from_numpy(inputs["ring_verts"], inputs["ring_faces"], dtype=jnp.float64)
     brute = jmt.intersect_brute(mesh, jnp.asarray(inputs["ring_o"]),
                                 jnp.asarray(inputs["ring_d"]))
@@ -148,6 +178,61 @@ def test_render_image_sharded_matches_jax(runs, n, case):
         assert p95 < 5e-3 and mx < 1.0 and mean < 1e-3, (p95, mx, mean)
     else:
         np.testing.assert_allclose(img, want, atol=1e-5, rtol=0)
+
+
+def _frame_close(img, want, case):
+    assert img.shape == want.shape and np.isfinite(img).all()
+    if case.startswith("mixed"):
+        err = np.abs(img - want).max(-1)
+        p95, mx, mean = np.quantile(err, 0.95), err.max(), np.abs(img - want).mean()
+        assert p95 < 5e-3 and mx < 1.0 and mean < 1e-3, (p95, mx, mean)
+    else:
+        np.testing.assert_allclose(img, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.RENDERS])
+def test_render_image_sharded_jit_matches_eager_and_jax(runs, n, case):
+    """render_image_sharded_jit (each rank's slice through the graphs'
+    plan, the gather an all_gather_into_tensor) on every rank equals the
+    eager frame bit for bit, and matches the JAX package's
+    render_image_sharded_jit over a mesh of n devices."""
+    ref, outs = runs
+    for out in outs[n]:
+        np.testing.assert_array_equal(out[f"jit_{case}"], out[f"img_{case}"])
+    _frame_close(outs[n][0][f"jit_{case}"], ref[f"sharded_{n}_{case}"], case)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.BANDS])
+def test_render_image_sharded_jit_bands_equal_eager(runs, n, case):
+    _, outs = runs
+    for out in outs[n]:
+        np.testing.assert_array_equal(out[f"bandjit_{case}"], out[f"band_{case}"])
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("case", [c for c, *_ in W.FITS])
+def test_sharded_fit_step_matches_jax_sharded_step(runs, n, case):
+    """The graphed step against the JAX package's jitted make_sharded_fit_step
+    on a mesh of as many devices, its ring where the case has one (the
+    moved vertices: both refit their shards before the ring turns)."""
+    ref, outs = runs
+    for out in outs[n]:
+        np.testing.assert_allclose(float(out[f"fit_{case}_loss"]),
+                                   ref[f"sharded_fit_{n}_{case}_loss"], rtol=1e-5)
+        for k in W.FIT_PATHS:
+            np.testing.assert_allclose(out[f"fit_{case}_{k}"], ref[f"sharded_fit_{n}_{case}_{k}"],
+                                       atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_destroy_drops_the_plans_of_the_group(runs, n):
+    """multihost.destroy drops every graph plan that names the group (the
+    ring frames', the gathers', the all-reduces') and keeps the others."""
+    _, outs = runs
+    for out in outs[n]:
+        assert int(out["plans_named_before"]) >= 4 and int(out["plans_named_after"]) == 0
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -283,3 +368,91 @@ def test_cli_render_sharded_under_torchrun(tmp_path):
     assert two.returncode == 0, two.stderr
     assert "x 2 processes" in two.stdout and two.stdout.count("[render] wrote") == 1
     assert (tmp_path / "two.png").read_bytes() == (tmp_path / "one.png").read_bytes()
+
+
+def test_one_process_ring_renders_through_the_graphs_plan(tmp_path):
+    """A process group of one (gloo, a `file://` store): a `mixed` ring
+    scene (a block walks its shard, which never rotates) renders through
+    render_pixels_flat_jit bit for bit as render_pixels_flat does, in 4
+    blocks; the plan keys on the group itself (the default group for the
+    ring's None), and multihost.destroy drops it with the group, and the
+    sharded frame's plan too: no plan object that held the group survives
+    the destroy (a plan's graphs hold its bound methods, a cycle that kept
+    the group alive until the interpreter's exit, where gloo's teardown
+    could abort the process)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from tpu_ray_torch.render import graphs, render
+    from tpu_ray_torch.scene.scenes import build_scene
+
+    scene, cfg = build_scene("mixed", device="cpu")
+    cfg = cfg.replace(width=16, height=16, spp=1, max_steps=64, block_size=64)
+    multihost.initialize(f"file://{tmp_path / 'store'}", world_size=1, rank=0, backend="gloo")
+    try:
+        group = dist.group.WORLD
+        ring_scene = sharding.ring_scene(scene)
+        assert ring_scene.ring is not None and ring_scene.ring.group is None
+        _, fx, fy, _ = render.frame_samples(ring_scene, cfg)
+        graphs.PLANS.clear()
+        with torch.no_grad():
+            got = graphs.render_pixels_flat_jit(ring_scene, cfg, fx, fy)
+            want = render.render_pixels_flat(ring_scene, cfg, fx, fy)
+        assert torch.equal(got, want)
+        (key,) = graphs.PLANS
+        assert graphs._names(key, lambda v: v is group)
+        with torch.no_grad():
+            img = sharding.render_image_sharded_jit(scene, cfg.replace(block_size=0))
+            assert torch.equal(img, sharding.render_image_sharded(scene,
+                                                                  cfg.replace(block_size=0)))
+        gc.disable()  # only drop_plans may collect the dropped plans
+        try:
+            multihost.destroy()
+            kept = {id(p) for p in graphs.PLANS.values()}
+            alive = [o for o in gc.get_objects() if id(o) not in kept
+                     and type(o) in (graphs.FramePlan, sharding._ShardedPlan)]
+        finally:
+            gc.enable()
+        assert not dist.is_initialized() and not alive
+        assert list(graphs.PLANS) == [k for k in graphs.PLANS if not graphs._names(
+            k, lambda v: isinstance(v, dist.ProcessGroup))]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_bucket_sum_replays_sum_each_step_once(monkeypatch):
+    """bucket_sum's graph reduces its buffers in place, so its warm-up
+    must run before a step's gradients are loaded. A fake capture (the
+    warm-up and the capture run the callable, a replay runs it again) and
+    an all_reduce that doubles (two ranks holding the same values): two
+    steps each return exactly twice their own gradients and loss, equal to
+    psum_buckets' sums under the same all_reduce."""
+    import torch.distributed as dist
+
+    from tpu_ray_torch.dist import grad_allreduce
+    from tpu_ray_torch.render import graphs
+
+    monkeypatch.setattr(graphs.Graph, "captures", True)
+    monkeypatch.setattr(graphs.Graph, "_warm_up", lambda self: self.fn())
+    monkeypatch.setattr(graphs.Graph, "_capture", lambda self: ("graph", self.fn()))
+    monkeypatch.setattr(graphs.Graph, "_launch", lambda self: self.fn())
+    monkeypatch.setattr(graphs.Graph, "reset", lambda self: None)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, **kw: t.mul_(2))
+    monkeypatch.setattr(grad_allreduce, "world", lambda group=None: (2, 0))
+    group = object()  # any static value stands for the process group in the key
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        grads = {"a": torch.as_tensor(rng.normal(size=(5, 3)), dtype=torch.float32),
+                 "b": torch.as_tensor(rng.normal(size=7), dtype=torch.float32),
+                 "c": torch.as_tensor(rng.normal(), dtype=torch.float32)}
+        loss = torch.as_tensor(rng.random(), dtype=torch.float32)
+        got, total = grad_allreduce.bucket_sum(grads, loss, group, num_buckets=2)
+        want = grad_allreduce.psum_buckets(grads, num_buckets=2)
+        assert list(got) == list(grads) and torch.equal(total, 2 * loss)
+        for k, g in grads.items():
+            assert torch.equal(got[k], 2 * g) and torch.equal(got[k], want[k]), k
+    keys = [k for k in graphs.PLANS if k[0] == "bucket_sum" and k[1] is group]
+    assert len(keys) == 1
+    graphs.PLANS.pop(keys[0])

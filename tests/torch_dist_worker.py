@@ -10,10 +10,16 @@ computed to <io dir>/out_<rank>.npz:
   psum_*        psum_buckets over 2 buckets, and one all_reduce per leaf
   ring_*        intersect_ring on this rank's slice of the rays
   img_<case>    render_image_sharded frames (every rank gathers the frame)
+  jit_<case>    the same frames through render_image_sharded_jit (the
+                per-block graphs' plan, run uncaptured on the CPU)
   band_<case>   render_image_sharded(gather=False): this rank's band of rows,
                 written with write_image_per_host to <io dir>/<case>.pNNN.png
                 (and the gathered frame to <io dir>/<case>.png by rank 0)
-  fit_<case>_*  the loss and the parameters after one sharded SGD step
+  bandjit_<case> render_image_sharded_jit(gather=False): the same band
+  fit_<case>_*  the loss and the parameters after one sharded SGD step (the
+                graphed step, make_sharded_fit_step)
+  plans_named_* the graph plans whose key names a process group, before and
+                after multihost.destroy
 """
 
 import os
@@ -27,10 +33,13 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tpu_ray_torch.dist.grad_allreduce import psum_buckets  # noqa: E402
-from tpu_ray_torch.dist.multihost import initialize, world, write_image_per_host  # noqa: E402
+from tpu_ray_torch.dist.multihost import (destroy, initialize, world,  # noqa: E402
+                                          write_image_per_host)
 from tpu_ray_torch.dist.scene_shard import intersect_ring, partition_mesh  # noqa: E402
-from tpu_ray_torch.dist.sharding import render_image_sharded  # noqa: E402
+from tpu_ray_torch.dist.sharding import (render_image_sharded,  # noqa: E402
+                                         render_image_sharded_jit)
 from tpu_ray_torch.fit import extract_params, make_sharded_fit_step  # noqa: E402
+from tpu_ray_torch.render import graphs  # noqa: E402
 from tpu_ray_torch.scene.scenes import build_scene  # noqa: E402
 
 # (case, scene, config overrides, scene_shards): the frames the test holds
@@ -78,10 +87,11 @@ def main():
 
     for case, name, over, shards in RENDERS:
         scene, cfg = build_scene(name, device="cpu")
+        cfg = cfg.replace(block_size=0, **over)
         with torch.no_grad():
-            img = render_image_sharded(scene, cfg.replace(block_size=0, **over),
-                                       scene_shards=shards)
+            img = render_image_sharded(scene, cfg, scene_shards=shards)
         out[f"img_{case}"] = img.numpy()
+        out[f"jit_{case}"] = render_image_sharded_jit(scene, cfg, scene_shards=shards).numpy()
 
     for case, name, over, shards in BANDS:
         scene, cfg = build_scene(name, device="cpu")
@@ -92,6 +102,8 @@ def main():
                      else render_image_sharded(scene, cfg, scene_shards=shards))
             band = render_image_sharded(scene, cfg, scene_shards=shards, gather=False)
         out[f"whole_{case}"], out[f"band_{case}"] = whole.numpy(), band.numpy()
+        out[f"bandjit_{case}"] = render_image_sharded_jit(scene, cfg, scene_shards=shards,
+                                                          gather=False).numpy()
         wrote = write_image_per_host(os.path.join(io, f"{case}.png"), band, banded=True)
         out[f"band_file_{case}"] = np.asarray(wrote or "")
         wrote = write_image_per_host(os.path.join(io, f"{case}.png"), whole)
@@ -112,9 +124,16 @@ def main():
         for k, v in params.items():
             out[f"fit_{case}_{k}"] = v.detach().numpy()
 
+    def named() -> int:  # the plans whose key names a process group
+        return sum(graphs._names(k, lambda v: isinstance(v, dist.ProcessGroup))
+                   for k in graphs.PLANS)
+
+    out["plans_named_before"] = np.asarray(named())
+    destroy()
+    assert not dist.is_initialized()
+    out["plans_named_after"] = np.asarray(named())
     out["seconds"] = np.asarray(time.perf_counter() - t0)
     np.savez(os.path.join(io, f"out_{rank}.npz"), **out)
-    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

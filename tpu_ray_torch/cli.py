@@ -17,10 +17,13 @@ CUDA device and without `--device cpu` the CLI stops with an error. On a
 CUDA device the geometry pass and the shade backward run the hand-written
 kernels; on the CPU they run their plain PyTorch versions (slow for large
 frames). `render`, the turntable, the previews and `fit` render through
-render.render_image_jit (per-block CUDA graphs on the card), `--sharded`
-through render_image_sharded. `render` times one frame (on CUDA it
-includes the kernel build and the graphs' capture) and writes it;
-`--stats` adds the frame's ray statistics
+render.render_image_jit (per-block CUDA graphs on the card); with
+`--sharded`, `render` through dist.sharding.render_image_sharded_jit (the
+same graphs for each rank's pixels, the frame's all_gather captured under
+NCCL) and `fit` through fit.make_sharded_fit_step (its all_reduces
+captured too). `render` times one frame (on CUDA it includes the kernel
+build and the graphs' capture) and writes it; `--stats` adds the frame's
+ray statistics
 (render.frame_stats), `--profile DIR` a torch.profiler trace of the frame,
 `--turntable N` renders N frames orbiting the look-at point instead,
 `--progressive K` K coarse previews (half the resolution each, 1 spp, one
@@ -76,7 +79,7 @@ def _add_cfg_flags(p):
 
 def cmd_render(args):
     from tpu_ray_torch.dist.multihost import is_main, main_print
-    from tpu_ray_torch.dist.sharding import render_image_sharded
+    from tpu_ray_torch.dist.sharding import render_image_sharded_jit
     from tpu_ray_torch.render.render import frame_stats, render_image_jit
     from tpu_ray_torch.utils.image_io import write_png
     from tpu_ray_torch.utils.metrics import profile_trace
@@ -91,7 +94,7 @@ def cmd_render(args):
     with torch.no_grad(), profile_trace(args.profile):
         _sync(device)
         t0 = time.perf_counter()
-        img = (render_image_sharded(scene, cfg) if args.sharded
+        img = (render_image_sharded_jit(scene, cfg) if args.sharded
                else render_image_jit(scene, cfg))
         _sync(device)
         dt = time.perf_counter() - t0
@@ -379,10 +382,9 @@ def main(argv=None):
     try:
         args.fn(args)
     finally:
-        import torch.distributed as dist
+        from tpu_ray_torch.dist.multihost import destroy
 
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        destroy()  # the graphs that captured its collectives first
 
 
 if __name__ == "__main__":

@@ -10,6 +10,10 @@ gloo between CPU processes).
 `write_image_per_host` writes a frame from a process group: rank 0 a
 gathered frame, each rank its band of rows of an ungathered one
 (`render_image_sharded(..., gather=False)`).
+
+A CUDA graph that captured a communicator's work must not outlive its
+process group: `destroy` drops the graph plans that name the group
+(render/graphs.drop_plans) before it destroys the group.
 """
 
 from __future__ import annotations
@@ -54,6 +58,26 @@ def world(group=None) -> tuple[int, int]:
     if not dist.is_available() or not dist.is_initialized():
         return 1, 0
     return dist.get_world_size(group), dist.get_rank(group)
+
+
+def live_group(group=None):
+    """The process group a collective of `group` runs in: group itself, or
+    the default group (None without a process group)."""
+    if group is not None or not dist.is_available() or not dist.is_initialized():
+        return group
+    return dist.group.WORLD
+
+
+def destroy(group=None) -> None:
+    """Drop the graph plans that captured work of the group (None: of every
+    group), then destroy it (None: the default group and every other); a
+    no-op without a process group."""
+    from tpu_ray_torch.render import graphs
+
+    if not dist.is_available() or not dist.is_initialized():
+        return
+    graphs.drop_plans(group)
+    dist.destroy_process_group(group)
 
 
 def is_main() -> bool:

@@ -11,7 +11,9 @@ tensors, NCCL CUDA tensors). With one process there is no rotation.
 `intersect_ring` is the brute oracle over raw triangle shards;
 `intersect_ring_packet` is the production path over packet-accel shards,
 each step the resident kernel (#4), or the streamed one (#3) for a shard
-over VMEM_BUDGET_BYTES, seeded with the running best t.
+over VMEM_BUDGET_BYTES, seeded with the running best t. It reads no device
+value on the host, so a block's CUDA graph captures it, the rotation
+included (render/graphs.py).
 """
 
 from __future__ import annotations
@@ -50,7 +52,14 @@ def partition_mesh(verts: np.ndarray, tris: np.ndarray, n_shards: int):
 
 
 def _rotate(tensors, group=None):
-    """Each rank sends its tensors to rank r+1 and receives rank r-1's."""
+    """Each rank sends its tensors to rank r+1 and receives rank r-1's.
+
+    Safe under CUDA graph capture (render/graphs.py): the receive buffers
+    are allocated here, so a captured rotation takes them from the graph's
+    pool, and nothing reads a device value on the host. Under NCCL
+    `req.wait()` only orders the current stream after NCCL's (torch's
+    ProcessGroupNCCL blocks the host there only with TORCH_NCCL_BLOCKING_WAIT
+    set)."""
     n, r = world(group)
     peer = (lambda i: i) if group is None else (lambda i: dist.get_global_rank(group, i))
     outs = [torch.empty_like(t) for t in tensors]

@@ -13,6 +13,14 @@ process per device. With `gather=False` no process gathers the frame: the
 pixels go by point-to-point exchange to the rank whose band of rows holds
 them (`row_bands`), for a per-process image write
 (dist/multihost.write_image_per_host).
+
+`render_image_sharded_jit` is the compiled form (the reference's
+`render_image_sharded_jit`): each rank's slice through the per-block CUDA
+graphs (render/graphs.render_pixels_flat_jit, the ring's rotation captured
+with its block), and the gather one captured `all_gather_into_tensor`
+into a static buffer, whenever a process group is live (world size 1
+included); the slice's samples and the gathered frame's pixel index are
+built once per plan.
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_ray_torch.dist.multihost import world
+from tpu_ray_torch.dist.multihost import live_group, world
 from tpu_ray_torch.dist.scene_shard import build_ring_packet
+from tpu_ray_torch.render import graphs
 from tpu_ray_torch.render.render import pixel_sample_coords, render_pixels_flat, resolve_method
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene
@@ -150,3 +159,75 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, group=None,
     inv[perm] = np.arange(n_px, dtype=perm.dtype)
     flat = px[:, :n_px][:, torch.from_numpy(inv.astype(np.int64)).to(px.device)]
     return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
+
+
+# torch 2.13 renamed all_gather_into_tensor (its old name still works, with a
+# warning); the older name is the one every version has
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+class _ShardedPlan:
+    """render_image_sharded_jit's state for one (config, group, rank, device,
+    dtype): this rank's samples, the index of each pixel of the row-major
+    frame in the gathered (n, 3, per) pixels, and with a live group the
+    gather: a Graph of one all_gather_into_tensor from a static (3, per)
+    buffer into a static (n * 3, per) one."""
+
+    def __init__(self, cfg: RenderConfig, group, device, dtype):
+        n, r = world(group)
+        flat_x, flat_y, self.n_px, self.perm = shard_sample_coords(cfg, n, device, dtype)
+        per = flat_x.shape[0] // n
+        self.xs, self.ys = flat_x[r * per:(r + 1) * per], flat_y[r * per:(r + 1) * per]
+        per_px = per // cfg.spp
+        # pixel i is dealt to position inv[i]: rank inv[i] // per_px, column
+        # inv[i] % per_px of that rank's (3, per_px) slice
+        inv = np.empty(self.n_px, np.int64)
+        inv[self.perm] = np.arange(self.n_px)
+        pos = (inv // per_px) * 3 * per_px + inv % per_px
+        self.index = torch.from_numpy(pos[None, :] + np.arange(3)[:, None] * per_px).to(device)
+        self.group, self.gather = group, None
+        if group is not None:
+            self.px = torch.zeros((3, per_px), dtype=dtype, device=device)
+            self.gathered = torch.zeros((n * 3, per_px), dtype=dtype, device=device)
+            self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+            self.gather = graphs.Graph(self._gather, device, self.pool)
+
+    def _gather(self) -> torch.Tensor:
+        _all_gather(self.gathered, self.px, group=self.group)
+        return self.gathered
+
+    def reset(self) -> None:
+        if self.gather is not None:
+            self.gather.reset()
+
+    def frame(self, px: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+        """This rank's (3, per) pixels -> the gathered (H, W, 3) frame."""
+        if self.gather is not None:
+            self.px.copy_(px)
+            px = self.gather.replay()
+        flat = px.reshape(-1)[self.index]
+        return flat.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
+
+
+@torch.no_grad()
+def render_image_sharded_jit(scene: Scene, cfg: RenderConfig, group=None,
+                             scene_shards: bool = False, gather: bool = True) -> torch.Tensor:
+    """render_image_sharded through CUDA graphs: each rank renders its
+    slice with graphs.render_pixels_flat_jit (the ring's walk and rotation
+    inside the block graph with scene_shards) and the frame is gathered by
+    a captured all_gather_into_tensor whenever a process group is live.
+    The same frame as render_image_sharded, bit for bit; not
+    differentiated (the data-parallel fit step is
+    fit.make_sharded_fit_step). gather=False: this rank's band of rows, by
+    render_image_sharded's host exchange after the replays."""
+    group = live_group(group)
+    scene = ring_scene(scene, group) if scene_shards else realize_scene(scene)
+    dtype = scene.camera.origin.dtype
+    key = ("sharded", cfg, world(group), group, scene.device, dtype)
+    plan = graphs.PLANS.get(key)
+    if plan is None:
+        plan = graphs.PLANS[key] = _ShardedPlan(cfg, group, scene.device, dtype)
+    px = graphs.render_pixels_flat_jit(scene, cfg, plan.xs, plan.ys)  # (3, per / spp)
+    if not gather:
+        return _to_bands(px, plan.perm, plan.n_px, cfg, group)
+    return plan.frame(px, cfg)

@@ -19,11 +19,12 @@ import torch
 import torch.distributed as dist
 
 from tpu_ray_torch.accel.packet import refit_packet_accel
-from tpu_ray_torch.dist.grad_allreduce import psum_buckets
-from tpu_ray_torch.dist.multihost import world
+from tpu_ray_torch.dist.grad_allreduce import bucket_sum
+from tpu_ray_torch.dist.multihost import live_group, world
 from tpu_ray_torch.dist.scene_shard import refit_ring_packet
 from tpu_ray_torch.dist.sharding import ring_scene, shard_sample_coords
-from tpu_ray_torch.render.render import render_image_jit, render_pixels_flat, resolve_method
+from tpu_ray_torch.render.graphs import render_pixels_flat_jit
+from tpu_ray_torch.render.render import render_image_jit
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils import checkpoint as ckpt_lib
@@ -76,23 +77,28 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
                           group=None, scene_shards: bool = False,
                           refit_accel: bool = False) -> Callable[[], float]:
     """The data-parallel fit step over a process group (counterpart of the
-    reference's `make_sharded_fit_step`): step() -> the global loss.
+    reference's jitted `make_sharded_fit_step`): step() -> the global loss.
 
     Each rank renders and differentiates its own whole pixels
-    (dist.sharding.shard_sample_coords); its loss is sum(w * (px - t)**2) /
-    (n_px * 3), so the sum over ranks is the MSE of the spp-averaged image,
-    the objective of make_fit_step. After `backward` the parameter gradients
-    are summed over the group in buckets (psum_buckets, outside autograd),
-    the loss is all-reduced, and every rank takes the same optimizer step:
+    (dist.sharding.shard_sample_coords) through the per-block CUDA graphs
+    (render.graphs.render_pixels_flat_jit: the frame's Function, its
+    backward by the vjp graph); its loss is sum(w * (px - t)**2) / (n_px *
+    3), so the sum over ranks is the MSE of the spp-averaged image, the
+    objective of make_fit_step. After `backward` the parameter gradients
+    and the loss are summed over the group by one captured graph of
+    bucketed all_reduces (grad_allreduce.bucket_sum, whenever a process
+    group is live), and every rank takes the same optimizer step, eagerly:
     the parameters stay replicated. target: (H, W, 3), the full frame.
 
     scene_shards partitions the accel around the ring: the geometry pass
-    walks the rotating shards, the differentiable re-solve reads the
-    replicated mesh, so vertex gradients stay exact. When `mesh.*` or
-    `poses.*` is trained (or refit_accel), each rank refits its shard to the
-    current posed vertices before the ring turns."""
+    walks the rotating shards (inside the block graph), the differentiable
+    re-solve reads the replicated mesh, so vertex gradients stay exact.
+    When `mesh.*` or `poses.*` is trained (or refit_accel), each rank
+    refits its shard to the current posed vertices before the ring turns.
+    apply_params, the pose fold and the refits run outside the graphs; the
+    plan copies their new tensors in at every step."""
+    group = live_group(group)
     n, r = world(group)
-    method = resolve_method(scene, cfg)
     dev, dtype = scene.device, scene.camera.origin.dtype
     ring = None
     if scene_shards and scene.has_mesh:
@@ -117,16 +123,16 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
         if ring is not None:
             s = s.replace(ring=refit_ring_packet(ring, s.mesh.verts, s.mesh.tris)
                           if moving else ring)
-        px = render_pixels_flat(s, cfg, xs, ys, method)  # (3, per_px)
+        px = render_pixels_flat_jit(s, cfg, xs, ys)  # (3, per_px)
         loss = torch.sum(w[None, :] * (px - tgt) ** 2) / (n_px * 3)
         loss.backward()
-        grads = psum_buckets({k: v.grad if v.grad is not None else torch.zeros_like(v)
-                              for k, v in params.items()}, group)
+        grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+                 for k, v in params.items()}
+        total = loss.detach()
+        if group is not None:
+            grads, total = bucket_sum(grads, total, group)
         for k, v in params.items():
             v.grad = grads[k]
-        total = loss.detach().clone()
-        if n > 1:
-            dist.all_reduce(total, group=group)
         optimizer.step()
         return float(total)
 

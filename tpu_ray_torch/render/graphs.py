@@ -44,15 +44,32 @@ On the CPU nothing is captured: the same plan runs each graph's callable
 at every replay. On a CUDA device nothing falls back: a warm-up or a
 capture that fails (a host sync, an op capture refuses, a kernel the
 wrappers reject) raises.
+
+A scene partitioned around a process group's ring (`scene.ring`,
+dist/scene_shard.py) renders here too: its shard's tensors are leaves of
+the plan and its size, rank and process group static parts of the key
+(the group by identity), so the block graph captures the ring's rotation
+(`batch_isend_irecv` under NCCL) with the walks. Its warm-up rotates
+first, outside the capture, which creates NCCL's point-to-point
+communicators. The vjp graph never walks the ring: the shade reads the
+replicated mesh. The sharded frame's gather (dist/sharding.py) and the
+sharded fit step's gradient all-reduce (dist/grad_allreduce.py) are Graphs
+of their own, in PLANS under keys that name their group. Such a graph must
+not outlive its group: `drop_plans` (through `dist.multihost.destroy`)
+drops them before the group is destroyed. Captures run in the
+"thread_local" mode, so that ProcessGroupNCCL's watchdog thread may query
+its events while this thread captures.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from tpu_ray_torch.dist.multihost import live_group
 from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
 from tpu_ray_torch.render import render
 
@@ -118,12 +135,18 @@ class Graph:
 
     def _capture(self):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             out = self.fn()
         return graph, out
 
     def _launch(self) -> None:
         self.graph.replay()
+
+    def reset(self) -> None:
+        """Free the captured graph (a later replay captures anew)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.out = self.deltas = None
 
 
 # ---------------------------------------------------------------------------
@@ -159,9 +182,35 @@ def unflatten(node, leaves):
     return items if node[1] is list else node[1](items)
 
 
-# the plans by key (render_pixels_flat_jit); each holds its graphs' pool and
-# its buffers, ~0.12 GiB for `mixed` at 1920x1080x16 on an H100
+# the plans by key (render_pixels_flat_jit's, and the gather's and the
+# all-reduce's of dist/); each holds its graphs' pool and its buffers, ~0.12
+# GiB for `mixed` at 1920x1080x16 on an H100
 PLANS = {}
+
+
+def _names(key, match) -> bool:
+    """Whether a plan's key holds a value `match` accepts, at any depth."""
+    if isinstance(key, tuple):
+        return any(_names(k, match) for k in key)
+    return match(key)
+
+
+def drop_plans(group=None) -> int:
+    """Drop the plans whose key names the process group (None: any group),
+    freeing their graphs, after the device has finished what they launched
+    -> how many. Call it before the group is destroyed: a graph that
+    captured a communicator's work must not be replayed after it."""
+    pg_type = torch.distributed.ProcessGroup if torch.distributed.is_available() else ()
+    match = (lambda v: isinstance(v, pg_type)) if group is None else (lambda v: v is group)
+    gone = [k for k in PLANS if _names(k, match)]
+    if gone and torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for k in gone:
+        PLANS.pop(k).reset()
+    # a plan and its graphs' callables (its bound methods) form a cycle: free
+    # them, and their references to the group, before the group is destroyed
+    gc.collect()
+    return len(gone)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +268,12 @@ class FramePlan:
                                               mesh_rows, packed, self.march)
         # the geometry pass's hit state serves only the forward shade
         return colors, {k: v for k, v in res.items() if k != "hits"}
+
+    def reset(self) -> None:
+        """Free every graph of the plan."""
+        graphs = [self.block_graph] + [v.graph for v in self.vjps.values()]
+        for g in graphs + ([self.group_graph] if self.group else []):
+            g.reset()
 
     def load(self, leaves) -> None:
         """Copy the frame's tensors into the plan's buffers."""
@@ -339,13 +394,14 @@ class _FrameFn(torch.autograd.Function):
 def render_pixels_flat_jit(scene, cfg, flat_x, flat_y) -> torch.Tensor:
     """render.render_pixels_flat through the FramePlan of its key (captured
     at the first call of that key) -> (3, n_px). Differentiable with
-    respect to every tensor of the scene, as render_pixels_flat is."""
-    if scene.ring is not None:
-        raise NotImplementedError("render_pixels_flat_jit: a ring-partitioned scene; its "
-                                  "collectives are not captured (render_image_sharded "
-                                  "renders it)")
+    respect to every tensor of the scene, as render_pixels_flat is. A ring
+    scene's plan keys on the ring's process group itself (the default
+    group for None)."""
     method = render.resolve_method(scene, cfg)
     scene = scene.replace(grid=None)  # the DDA oracle's, never read by a frame
+    if scene.ring is not None:
+        scene = scene.replace(ring=dataclasses.replace(scene.ring,
+                                                       group=live_group(scene.ring.group)))
     leaves = []
     treedef = flatten((scene, *render.frame_tables(scene, cfg, method)), leaves)
     n_px = flat_x.shape[0] // cfg.spp
