@@ -1,0 +1,9 @@
+"""device.idle_pct.fit: 100 x (1 - the union of the device's kernel and
+copy intervals / the wall time of the same traced window) of a fit loop."""
+
+
+def read(trace):
+    busy, wall = trace.traced.busy_s(), trace.traced.window_s
+    if trace.item != "fit" or busy <= 0 or wall <= 0:
+        return None
+    return 100.0 * (1.0 - busy / wall)
