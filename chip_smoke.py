@@ -1637,10 +1637,10 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame",
     log(tag, f"profiled window, {blocks} blocks (the middle march group): "
         f"{tools.window_line(tools.per_block(win, blocks))}; host self time: "
         + ", ".join(f"{k} {ms:.1f} ms ({n})" for k, (ms, n) in top))
-    # busy: the profiled run's device time over the unprofiled run's wall
-    # time, which can pass 1 by noise when the device is the bound
-    check(0.0 < win["device_ms"] <= win["profiled_wall_ms"],
-          f"window device {win['device_ms']} ms, its wall {win['profiled_wall_ms']} ms")
+    # busy: the profiled window's union of device intervals over its own wall
+    check(0.0 < win["device_ms"] <= win["profiled_wall_ms"] and 0.0 < win["busy"] <= 1.0,
+          f"window device {win['device_ms']} ms, its wall {win['profiled_wall_ms']} ms, "
+          f"busy {win['busy']}")
     return counts
 
 

@@ -120,13 +120,7 @@ def test_block_and_time_returns_the_best_run():
     assert 0.02 <= best < 0.15
 
 
-def test_metrics_logger_and_timer(tmp_path):
-    path = tmp_path / "m.jsonl"
-    log = metrics.MetricsLogger(path=str(path))
-    log.log(step=1, loss=0.5)
-    log.log(step=2, loss=0.25)
-    lines = [json.loads(x) for x in path.read_text().splitlines()]
-    assert [x["step"] for x in lines] == [1, 2] and all("ts" in x for x in lines)
+def test_metrics_logger_and_timer():
     with metrics.Timer() as t:
         time.sleep(0.01)
     assert t.elapsed >= 0.01

@@ -247,7 +247,7 @@ def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
     monkeypatch.setattr(graphs.Graph, "_warm_up", lambda self: self.fn())
     monkeypatch.setattr(graphs.Graph, "_launch", lambda self: None)
     _reset()
-    g = graphs.Graph(fn, torch.device("cuda"), None)
+    g = graphs.Graph(fn, torch.device("cuda"), None, "block")
     for _ in range(3):
         g.replay()
     assert len(runs) == 2 and g.deltas == [{"march": 1}, {}, {"shade_fwd": 2}]

@@ -24,7 +24,9 @@ NCCL) and `fit` through fit.make_sharded_fit_step (its all_reduces
 captured too). `render` times one frame (on CUDA it includes the kernel
 build and the graphs' capture) and writes it; `--stats` adds the frame's
 ray statistics
-(render.frame_stats), `--profile DIR` a torch.profiler trace of the frame,
+(render.frame_stats), `--profile DIR` a torch.profiler trace of the frame
+(its host spans `render.*` and, on the card, the stage markers
+`trace_stage_*` that name the device work after them; utils/metrics.py),
 `--turntable N` renders N frames orbiting the look-at point instead,
 `--progressive K` K coarse previews (half the resolution each, 1 spp, one
 block) before the full frame. `fit` fits a target PNG (`--target`) or
@@ -345,7 +347,9 @@ def main(argv=None):
     r.add_argument("--progressive", type=int, metavar="K",
                    help="K coarse previews (half the resolution each), then the full frame")
     r.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler trace of the frame to DIR/trace.json")
+                   help="write a torch.profiler trace of the frame to DIR/trace.json, "
+                        "with the program's render.* spans and, on the card, its "
+                        "trace_stage_* markers")
     _add_cfg_flags(r)
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse-render: recover perturbed scene leaves")

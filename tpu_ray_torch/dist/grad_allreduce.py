@@ -68,7 +68,7 @@ class BucketSum:
                       for b in self.buckets]
         self.loss = torch.zeros_like(loss)
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-        self.graph = Graph(self._reduce, device, self.pool)
+        self.graph = Graph(self._reduce, device, self.pool, "allreduce")
 
     def _reduce(self) -> None:
         for flat in self.flats:

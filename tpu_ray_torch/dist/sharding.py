@@ -190,7 +190,7 @@ class _ShardedPlan:
             self.px = torch.zeros((3, per_px), dtype=dtype, device=device)
             self.gathered = torch.zeros((n * 3, per_px), dtype=dtype, device=device)
             self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
-            self.gather = graphs.Graph(self._gather, device, self.pool)
+            self.gather = graphs.Graph(self._gather, device, self.pool, "gather")
 
     def _gather(self) -> torch.Tensor:
         _all_gather(self.gathered, self.px, group=self.group)

@@ -29,6 +29,7 @@ from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene, apply_params, get_param, set_param
 from tpu_ray_torch.utils import checkpoint as ckpt_lib
 from tpu_ray_torch.utils.config import FitConfig, RenderConfig
+from tpu_ray_torch.utils.metrics import span
 
 ParamDict = Dict[str, torch.Tensor]
 
@@ -57,17 +58,25 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     """step() -> the MSE loss at the current params, after which the
     optimizer has taken one step on its gradient. The frame and its
     gradient go through render_image_jit (the reference jits the step); the
-    loss, `backward` and the optimizer's step run eagerly."""
+    loss, `backward` and the optimizer's step run eagerly. Spans
+    (utils.metrics.span): `fit.params` (zero_grad, apply_params, the refit),
+    `fit.forward` (the frame), `fit.backward` (the loss and its backward),
+    `fit.optimizer` (the step and the loss's read-back)."""
 
     def step() -> float:
-        optimizer.zero_grad(set_to_none=True)
-        # render_image_jit folds object poses in (and refits the accel to
-        # them) outside its graphs
-        img = render_image_jit(_maybe_refit(apply_params(scene, params), refit_accel), cfg)
-        loss = torch.mean((img - target) ** 2)
-        loss.backward()
-        optimizer.step()
-        return float(loss.detach())
+        with span("fit.params"):
+            optimizer.zero_grad(set_to_none=True)
+            s = _maybe_refit(apply_params(scene, params), refit_accel)
+        with span("fit.forward"):
+            # render_image_jit folds object poses in (and refits the accel to
+            # them) outside its graphs
+            img = render_image_jit(s, cfg)
+        with span("fit.backward"):
+            loss = torch.mean((img - target) ** 2)
+            loss.backward()
+        with span("fit.optimizer"):
+            optimizer.step()
+            return float(loss.detach())
 
     return step
 
@@ -96,7 +105,8 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     When `mesh.*` or `poses.*` is trained (or refit_accel), each rank
     refits its shard to the current posed vertices before the ring turns.
     apply_params, the pose fold and the refits run outside the graphs; the
-    plan copies their new tensors in at every step."""
+    plan copies their new tensors in at every step. Spans as
+    make_fit_step's, `fit.backward` holding the gradients' all-reduce."""
     group = live_group(group)
     n, r = world(group)
     dev, dtype = scene.device, scene.camera.origin.dtype
@@ -118,23 +128,27 @@ def make_sharded_fit_step(scene: Scene, cfg: RenderConfig, target: torch.Tensor,
     moving = refit_accel or any(k.split(".")[0] in ("mesh", "poses") for k in params)
 
     def step() -> float:
-        optimizer.zero_grad(set_to_none=True)
-        s = _maybe_refit(realize_scene(apply_params(scene, params)), refit_accel)
-        if ring is not None:
-            s = s.replace(ring=refit_ring_packet(ring, s.mesh.verts, s.mesh.tris)
-                          if moving else ring)
-        px = render_pixels_flat_jit(s, cfg, xs, ys)  # (3, per_px)
-        loss = torch.sum(w[None, :] * (px - tgt) ** 2) / (n_px * 3)
-        loss.backward()
-        grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
-                 for k, v in params.items()}
-        total = loss.detach()
-        if group is not None:
-            grads, total = bucket_sum(grads, total, group)
-        for k, v in params.items():
-            v.grad = grads[k]
-        optimizer.step()
-        return float(total)
+        with span("fit.params"):
+            optimizer.zero_grad(set_to_none=True)
+            s = _maybe_refit(realize_scene(apply_params(scene, params)), refit_accel)
+            if ring is not None:
+                s = s.replace(ring=refit_ring_packet(ring, s.mesh.verts, s.mesh.tris)
+                              if moving else ring)
+        with span("fit.forward"):
+            px = render_pixels_flat_jit(s, cfg, xs, ys)  # (3, per_px)
+        with span("fit.backward"):
+            loss = torch.sum(w[None, :] * (px - tgt) ** 2) / (n_px * 3)
+            loss.backward()
+            grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+                     for k, v in params.items()}
+            total = loss.detach()
+            if group is not None:
+                grads, total = bucket_sum(grads, total, group)
+            for k, v in params.items():
+                v.grad = grads[k]
+        with span("fit.optimizer"):
+            optimizer.step()
+            return float(total)
 
     return step
 

@@ -72,6 +72,8 @@ _SIGNATURES = {
                      + [_P] * 4 + [_I, _P, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],
+    # stage (its index in utils.metrics.STAGES), stream: its empty marker
+    "tr_trace_stage": [_I, _P],
 }
 
 _LIB = None

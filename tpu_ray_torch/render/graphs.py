@@ -40,6 +40,16 @@ not run. A Graph records each LAUNCHES table's change during its capture,
 takes it back (nothing ran), and adds it at every replay; the warm-up's
 launches ran and stay counted.
 
+Tracing (utils/metrics.py): the group, block and vjp graphs capture the
+stage markers of what they run (`march`; `rays` to `shade`;
+`vjp.forward`, `vjp.backward`, `vjp.accumulate`), so a replay's device
+work is named by stage at no host cost. Host spans: `render.prepare` (the
+key and the plan), `render.load`, `render.group` and `render.block` (a
+replay with its copies), `render.backward` and `render.vjp` (a vjp replay
+with its copies). Always on, by graph kind (`counters()`): replays, the
+host ns inside the replays' graph launches, captures, and the seconds of
+`prepare` (warm-up and capture).
+
 On the CPU nothing is captured: the same plan runs each graph's callable
 at every replay. On a CUDA device nothing falls back: a warm-up or a
 capture that fails (a host sync, an op capture refuses, a kernel the
@@ -65,13 +75,17 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import time
+import types
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.dist.multihost import live_group
 from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels.build import kernel_lib
 from tpu_ray_torch.render import render
+from tpu_ray_torch.utils.metrics import span, stage
 
 LAUNCH_TABLES = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
 
@@ -86,20 +100,39 @@ def _add_counts(deltas: list, sign: int) -> None:
             table[k] += sign * n
 
 
+# what every Graph of a kind did in this process, updated in place
+_COUNTS = {}
+COUNT_KEYS = ("replays", "launch_ns", "captures", "prepare_s")
+
+
+def counters() -> types.MappingProxyType:
+    """A read-only snapshot of the graphs' counts in this process, by kind
+    ("group", "block", "vjp", and dist/'s "gather" and "allreduce"): the
+    replays (on the CPU too, where the callable runs), the host ns spent
+    inside the CUDA graph launches of those replays (a launch waits there
+    while the device's launch queue is full), the captures, and the
+    seconds inside `prepare` that warmed up and captured (the kernel
+    library is built and loaded before the clock starts)."""
+    return types.MappingProxyType({k: types.MappingProxyType(dict(v))
+                                   for k, v in _COUNTS.items()})
+
+
 class Graph:
     """A callable captured once and replayed: on a CUDA device, after one
-    warm-up run on a side stream (which also builds and loads the kernel
-    library), a torch.cuda.CUDAGraph in the plan's pool, at its first
+    warm-up run on a side stream (the kernel library built and loaded
+    first), a torch.cuda.CUDAGraph in the plan's pool, at its first
     replay; on the CPU the callable itself, run at every replay. `out`:
     what the callable returned (on a CUDA device, the graph's static
     outputs, rewritten by each replay). `deltas`: each LAUNCHES table's
-    change during the capture, added at every replay."""
+    change during the capture, added at every replay. kind: the name its
+    counts go under (counters())."""
 
-    def __init__(self, fn, device: torch.device, pool):
+    def __init__(self, fn, device: torch.device, pool, kind: str):
         self.fn, self.device, self.pool = fn, device, pool
         self.graph = None
         self.out = None
         self.deltas = None
+        self.counts = _COUNTS.setdefault(kind, dict.fromkeys(COUNT_KEYS, 0))
 
     @property
     def captures(self) -> bool:
@@ -110,19 +143,27 @@ class Graph:
         callable runs once (the warm-up) on what the buffers hold."""
         if not self.captures or self.graph is not None:
             return
+        if torch.cuda.is_available():  # the library built and loaded outside prepare_s
+            kernel_lib()
+        t0 = time.perf_counter()
         self._warm_up()
         before = _snapshot()
         self.graph, self.out = self._capture()
         self.deltas = [{k: n - b[k] for k, n in t.items() if n != b[k]}
                        for t, b in zip(LAUNCH_TABLES, before)]
         _add_counts(self.deltas, -1)
+        self.counts["captures"] += 1
+        self.counts["prepare_s"] += time.perf_counter() - t0
 
     def replay(self):
+        self.counts["replays"] += 1
         if not self.captures:
             self.out = self.fn()
             return self.out
         self.prepare()
+        t0 = time.perf_counter_ns()
         self._launch()
+        self.counts["launch_ns"] += time.perf_counter_ns() - t0
         _add_counts(self.deltas, 1)
         return self.out
 
@@ -253,8 +294,8 @@ class FramePlan:
             n = group * bs
             self.gx = torch.zeros(n, dtype=sample.dtype, device=self.device)
             self.gy = torch.zeros_like(self.gx)
-            self.group_graph = Graph(self._march_group, self.device, self.pool)
-        self.block_graph = Graph(self._block, self.device, self.pool)
+            self.group_graph = Graph(self._march_group, self.device, self.pool, "group")
+        self.block_graph = Graph(self._block, self.device, self.pool, "block")
         self.vjps = {}
 
     def _march_group(self):
@@ -277,7 +318,7 @@ class FramePlan:
 
     def load(self, leaves) -> None:
         """Copy the frame's tensors into the plan's buffers."""
-        with torch.no_grad():
+        with span("render.load"), torch.no_grad():
             for buf, x in zip(self.inputs, leaves):
                 buf.copy_(x)
 
@@ -301,21 +342,26 @@ class FramePlan:
         store = None
         step = self.group * bs if self.group else bs
         for g in range(0, n, step):
-            marched = self._replay_group(xs, ys, g) if self.group else None
+            marched = None
+            if self.group:
+                with span("render.group"):
+                    marched = self._replay_group(xs, ys, g)
             for s in range(g, min(g + step, n), bs):
-                self.x.copy_(xs[s:s + bs])
-                self.y.copy_(ys[s:s + bs])
-                if marched is not None:
-                    for buf, v in zip(self.march, marched):
-                        buf.copy_(v[s - g:s - g + bs])
-                colors, res = self.block_graph.replay()
-                b = s // bs
-                out[:, b * npx:(b + 1) * npx].copy_(colors)
-                if keep:
-                    if store is None:
-                        store = {k: v.new_empty((n // bs, *v.shape)) for k, v in res.items()}
-                    for k, v in res.items():
-                        store[k][b].copy_(v)
+                with span("render.block"):
+                    self.x.copy_(xs[s:s + bs])
+                    self.y.copy_(ys[s:s + bs])
+                    if marched is not None:
+                        for buf, v in zip(self.march, marched):
+                            buf.copy_(v[s - g:s - g + bs])
+                    colors, res = self.block_graph.replay()
+                    b = s // bs
+                    out[:, b * npx:(b + 1) * npx].copy_(colors)
+                    if keep:
+                        if store is None:
+                            store = {k: v.new_empty((n // bs, *v.shape))
+                                     for k, v in res.items()}
+                        for k, v in res.items():
+                            store[k][b].copy_(v)
         return out, store
 
     def _vjp(self, need: tuple, store: dict) -> _Vjp:
@@ -332,17 +378,21 @@ class FramePlan:
         used = [False] * len(need)
 
         def vjp():
+            dev = self.device
             with torch.enable_grad():
-                colors = render.shade_block(scene, self.cfg, self.method, self.x, self.y, res,
-                                            mesh_rows, packed)
-                got = torch.autograd.grad(colors, [leaves[i] for i in wanted], ct,
-                                          allow_unused=True)
-            for i, g in zip(wanted, got):
-                if g is not None:
-                    used[i] = True
-                    grads[i].add_(g)
+                with stage("vjp.forward", dev):
+                    colors = render.shade_block(scene, self.cfg, self.method, self.x, self.y,
+                                                res, mesh_rows, packed)
+                with stage("vjp.backward", dev):
+                    got = torch.autograd.grad(colors, [leaves[i] for i in wanted], ct,
+                                              allow_unused=True)
+            with stage("vjp.accumulate", dev):
+                for i, g in zip(wanted, got):
+                    if g is not None:
+                        used[i] = True
+                        grads[i].add_(g)
 
-        return _Vjp(Graph(vjp, self.device, self.pool), res, ct, grads, used)
+        return _Vjp(Graph(vjp, self.device, self.pool, "vjp"), res, ct, grads, used)
 
     def backward(self, xs, ys, store: dict, ct, need: tuple) -> list:
         """The gradients of <colours, ct> for the inputs `need` marks (None
@@ -354,18 +404,19 @@ class FramePlan:
         npx = self.bs // self.cfg.spp
         with torch.no_grad():
             for i, b in enumerate(reversed(range(xs.shape[0] // self.bs))):
-                s = b * self.bs
-                self.x.copy_(xs[s:s + self.bs])
-                self.y.copy_(ys[s:s + self.bs])
-                for k, buf in vjp.res.items():
-                    buf.copy_(store[k][b])
-                vjp.ct.copy_(ct[:, b * npx:(b + 1) * npx])
-                if i == 0:  # the warm-up adds into the gradients: zeroed after it
-                    vjp.graph.prepare()
-                    for g in vjp.grads:
-                        if g is not None:
-                            g.zero_()
-                vjp.graph.replay()
+                with span("render.vjp"):
+                    s = b * self.bs
+                    self.x.copy_(xs[s:s + self.bs])
+                    self.y.copy_(ys[s:s + self.bs])
+                    for k, buf in vjp.res.items():
+                        buf.copy_(store[k][b])
+                    vjp.ct.copy_(ct[:, b * npx:(b + 1) * npx])
+                    if i == 0:  # the warm-up adds into the gradients: zeroed after it
+                        vjp.graph.prepare()
+                        for g in vjp.grads:
+                            if g is not None:
+                                g.zero_()
+                    vjp.graph.replay()
         return [g.clone() if g is not None and u else None
                 for g, u in zip(vjp.grads, vjp.used)]
 
@@ -385,10 +436,11 @@ class _FrameFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        xs, ys, *leaves = ctx.saved_tensors
-        ctx.plan.load(leaves)
-        grads = ctx.plan.backward(xs, ys, ctx.store, ct, tuple(ctx.needs_input_grad[3:]))
-        return (None, None, None, *grads)
+        with span("render.backward"):
+            xs, ys, *leaves = ctx.saved_tensors
+            ctx.plan.load(leaves)
+            grads = ctx.plan.backward(xs, ys, ctx.store, ct, tuple(ctx.needs_input_grad[3:]))
+            return (None, None, None, *grads)
 
 
 def render_pixels_flat_jit(scene, cfg, flat_x, flat_y) -> torch.Tensor:
@@ -396,24 +448,25 @@ def render_pixels_flat_jit(scene, cfg, flat_x, flat_y) -> torch.Tensor:
     at the first call of that key) -> (3, n_px). Differentiable with
     respect to every tensor of the scene, as render_pixels_flat is. A ring
     scene's plan keys on the ring's process group itself (the default
-    group for None)."""
-    method = render.resolve_method(scene, cfg)
-    scene = scene.replace(grid=None)  # the DDA oracle's, never read by a frame
-    if scene.ring is not None:
-        scene = scene.replace(ring=dataclasses.replace(scene.ring,
-                                                       group=live_group(scene.ring.group)))
-    leaves = []
-    treedef = flatten((scene, *render.frame_tables(scene, cfg, method)), leaves)
-    n_px = flat_x.shape[0] // cfg.spp
-    xs, ys, bs = render.whole_blocks(cfg, flat_x, flat_y)
-    n_blocks = xs.shape[0] // bs
-    group = (min(render.MARCH_GROUP, n_blocks)
-             if render._use_sdf(scene, method) and n_blocks > 1 else 0)
-    key = (cfg, method, bs, group, treedef, xs.dtype, xs.device,
-           tuple((tuple(x.shape), x.dtype, x.device) for x in leaves))
-    plan = PLANS.get(key)
-    if plan is None:
-        plan = PLANS[key] = FramePlan(cfg, method, treedef, leaves, bs, group, xs)
+    group for None). Its key and plan lookup are the span `render.prepare`."""
+    with span("render.prepare"):
+        method = render.resolve_method(scene, cfg)
+        scene = scene.replace(grid=None)  # the DDA oracle's, never read by a frame
+        if scene.ring is not None:
+            scene = scene.replace(ring=dataclasses.replace(scene.ring,
+                                                           group=live_group(scene.ring.group)))
+        leaves = []
+        treedef = flatten((scene, *render.frame_tables(scene, cfg, method)), leaves)
+        n_px = flat_x.shape[0] // cfg.spp
+        xs, ys, bs = render.whole_blocks(cfg, flat_x, flat_y)
+        n_blocks = xs.shape[0] // bs
+        group = (min(render.MARCH_GROUP, n_blocks)
+                 if render._use_sdf(scene, method) and n_blocks > 1 else 0)
+        key = (cfg, method, bs, group, treedef, xs.dtype, xs.device,
+               tuple((tuple(x.shape), x.dtype, x.device) for x in leaves))
+        plan = PLANS.get(key)
+        if plan is None:
+            plan = PLANS[key] = FramePlan(cfg, method, treedef, leaves, bs, group, xs)
     if torch.is_grad_enabled() and any(x.requires_grad for x in leaves):
         out = _FrameFn.apply(plan, xs, ys, *leaves)
     else:

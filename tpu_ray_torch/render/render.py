@@ -52,6 +52,7 @@ from tpu_ray_torch.scene.types import Scene
 from tpu_ray_torch.sdf.primitives import sdf_distance, sdf_distance_and_mat
 from tpu_ray_torch.utils import prng
 from tpu_ray_torch.utils.config import RenderConfig
+from tpu_ray_torch.utils.metrics import span, stage
 
 BIG = 1e10
 # with soft silhouettes the march also takes the rays that pass within this
@@ -360,14 +361,15 @@ def march_group(scene: Scene, cfg: RenderConfig, xs, ys, packed=None, block: int
     the group's samples, made `block` samples at a time (all at once for
     0) into one buffer: generate_rays is elementwise, so they are bit for
     bit each block's own, and its temporaries stay a block's."""
-    o = torch.empty((xs.shape[0], 3), dtype=xs.dtype, device=xs.device)
-    d = torch.empty_like(o)
-    step = block or xs.shape[0]
-    for s in range(0, xs.shape[0], step):
-        o[s:s + step], d[s:s + step] = generate_rays(scene.camera, xs[s:s + step],
-                                                     ys[s:s + step], cfg.width, cfg.height)
-    return cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
-                          t_far=cfg.t_far, bound_pad=_bound_pad(cfg), packed=packed)
+    with stage("march", xs.device):
+        o = torch.empty((xs.shape[0], 3), dtype=xs.dtype, device=xs.device)
+        d = torch.empty_like(o)
+        step = block or xs.shape[0]
+        for s in range(0, xs.shape[0], step):
+            o[s:s + step], d[s:s + step] = generate_rays(scene.camera, xs[s:s + step],
+                                                         ys[s:s + step], cfg.width, cfg.height)
+        return cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
+                              t_far=cfg.t_far, bound_pad=_bound_pad(cfg), packed=packed)
 
 
 @torch.no_grad()
@@ -396,44 +398,62 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
                                  silhouettes the geometry pass's
                                  reconstruct is the shade's); never saved
                                  for the backward
+
+    Stages (utils.metrics.stage): `march` where the pass marches itself,
+    `walk`, `reconstruct` (shadow_ray_origins) and `shadow` (the rest).
     """
     _check_supported(cfg)
     o, d = o.detach(), d.detach()
     res = {}
-    t_seed = None
     if _use_sdf(scene, method):
         if march is None:
-            march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
-                                   eps=cfg.eps, t_far=cfg.t_far, bound_pad=_bound_pad(cfg),
-                                   packed=packed)
+            with stage("march", o.device):
+                march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
+                                       eps=cfg.eps, t_far=cfg.t_far, bound_pad=_bound_pad(cfg),
+                                       packed=packed)
         t, hit, _steps, tmin = march
         res["sdf_t"], res["sdf_hit"], res["sdf_tmin"] = t, hit, tmin
-        if method == "mixed":
-            # the SDF hit bounds the mesh search
-            t_seed = torch.where(hit, t, torch.full_like(t, cfg.t_far))
     if _use_mesh(scene, method):
-        res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(
-            scene, cfg, o, d, method, t_init=t_seed)
+        with stage("walk", o.device):
+            t_seed = None
+            if method == "mixed" and "sdf_t" in res:
+                # the SDF hit bounds the mesh search
+                t_seed = torch.where(res["sdf_hit"], res["sdf_t"],
+                                     torch.full_like(res["sdf_t"], cfg.t_far))
+            res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(
+                scene, cfg, o, d, method, t_init=t_seed)
     ao_mesh = cfg.ao == "sdf5" and _use_mesh(scene, method)
     if cfg.shadow == "none" and not ao_mesh:
         return res
 
-    aux = {}
-    hits, p_off, n, live = shadow_ray_origins(scene, cfg, o, d, res, method,
-                                              mesh_rows=mesh_rows, aux_out=aux)
-    res["hit_mat"] = aux["mat"]
-    if "closer" in aux:
-        res["hit_closer"] = aux["closer"]
-    if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
-        res["hits"] = hits
-    p = hits[2]
+    with stage("reconstruct", o.device):
+        aux = {}
+        hits, p_off, n, live = shadow_ray_origins(scene, cfg, o, d, res, method,
+                                                  mesh_rows=mesh_rows, aux_out=aux)
+        res["hit_mat"] = aux["mat"]
+        if "closer" in aux:
+            res["hit_closer"] = aux["closer"]
+        if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
+            res["hits"] = hits
+    with stage("shadow", o.device):
+        _shadow_residuals(scene, cfg, method, res, hits[2], p_off, n, live, ao_mesh, packed)
+    return res
+
+
+def _shadow_residuals(scene: Scene, cfg: RenderConfig, method: str, res: dict, p, p_off, n,
+                      live, ao_mesh: bool, packed) -> None:
+    """The geometry pass's shadow part, into res: the AO taps' mesh term
+    (ao_mesh), then each light's hard or soft SDF march and mesh any-hit
+    from the shadow origins p_off (sh_vis, and sh_ts with diff_vis soft
+    shadows). p: the hit points; n: the ray-facing normal; live: as
+    shadow_ray_origins gives it."""
     if ao_mesh:
         # the mesh term of the AO taps: the closest hit along the shade
         # normal within the taps' reach, measured from p
         cut = 5.0 * cfg.ao_step + cfg.shadow_bias
         res["ao_tmesh"] = _mesh_closest_t(scene, p_off, n, cut) + cfg.shadow_bias
     if cfg.shadow == "none":
-        return res
+        return
     soft = cfg.shadow == "soft"
     soft_diff = _soft_diff(scene, cfg, method)
 
@@ -485,7 +505,6 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     res["sh_vis"] = torch.stack([v for v, _ in rows])
     if soft_diff:
         res["sh_ts"] = torch.stack([t for _, t in rows])
-    return res
 
 
 def make_residual_occluder(scene: Scene, cfg: RenderConfig, res, method: str):
@@ -635,13 +654,16 @@ def render_block(scene: Scene, cfg: RenderConfig, method: str, x, y, mesh_rows=N
     its slice of march_group's result (march; None: the pass marches
     itself), the frame's tables (frame_tables) and the scene's tensors, so a
     CUDA graph of it (render/graphs.py) can be replayed over a frame's
-    blocks. Rays are generated inside autograd (the camera's gradient)."""
-    o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
+    blocks. Rays are generated inside autograd (the camera's gradient).
+    Stages: `rays`, the geometry pass's, `shade`."""
+    with stage("rays", x.device):
+        o, d = generate_rays(scene.camera, x, y, cfg.width, cfg.height)
     res = geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows, march=march,
                              packed=packed)
-    colors = shade_with_residuals(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
-                                  packed=packed)
-    return _pixel_mean(cfg, colors), res
+    with stage("shade", x.device):
+        colors = shade_with_residuals(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                      packed=packed)
+        return _pixel_mean(cfg, colors), res
 
 
 def shade_block(scene: Scene, cfg: RenderConfig, method: str, x, y, res, mesh_rows=None,
@@ -713,11 +735,17 @@ def render_image_jit(scene: Scene, cfg: RenderConfig) -> torch.Tensor:
     warm-up and capture, and a capture that fails raises. Differentiable:
     torch.autograd through it gives render_image's gradients. On a CPU
     scene the same replay plan runs its blocks without capture. Object
-    poses fold in first, outside the graphs, as in render_image."""
+    poses fold in first, outside the graphs, as in render_image. Spans
+    (utils.metrics.span): `render.frame` around the call, `render.prepare`
+    around the samples, `render.to_image` around the image's assembly."""
     from tpu_ray_torch.render import graphs
 
-    scene, flat_x, flat_y, perm = frame_samples(scene, cfg)
-    return _to_image(cfg, graphs.render_pixels_flat_jit(scene, cfg, flat_x, flat_y), perm)
+    with span("render.frame"):
+        with span("render.prepare"):
+            scene, flat_x, flat_y, perm = frame_samples(scene, cfg)
+        flat = graphs.render_pixels_flat_jit(scene, cfg, flat_x, flat_y)
+        with span("render.to_image"):
+            return _to_image(cfg, flat, perm)
 
 
 @torch.no_grad()
@@ -736,14 +764,17 @@ def frame_stats(scene: Scene, cfg: RenderConfig, max_rays: int = 1 << 18) -> dic
     fx, fy = sx.reshape(-1), sy.reshape(-1)
     stride = max(1, fx.shape[0] // max_rays)
     fx, fy = fx[::stride], fy[::stride]
-    o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
+    with stage("rays", dev):
+        o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
     primary = cfg.replace(shadow="none", ao="none")
     march = None
     if _use_sdf(scene, method):
-        march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps,
-                               t_far=cfg.t_far, bound_pad=_bound_pad(cfg))
+        with stage("march", dev):
+            march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
+                                   eps=cfg.eps, t_far=cfg.t_far, bound_pad=_bound_pad(cfg))
     res = geometry_residuals(scene, primary, o, d, method, march=march)
-    t, hit = reconstruct_hits(scene, primary, o, d, res, method, lite=True)[:2]
+    with stage("reconstruct", dev):
+        t, hit = reconstruct_hits(scene, primary, o, d, res, method, lite=True)[:2]
     stats = {
         "method": method,
         "rays_sampled": int(fx.shape[0]),

@@ -14,7 +14,9 @@ time exists. On CUDA each prints the card's nvidia-smi name and power limit
 beside its numbers, and each ends with one JSON line of what it measured.
 
 Shared here: the card's line, synchronized timing after a warm-up, the
-kernels' launch counts, and torch.profiler windows read by kernel.
+kernels' launch counts, and torch.profiler windows read by kernel, by the
+program's stages (utils.metrics.STAGES: the device work after each stage's
+marker) and by the program's spans that hold the device's idle time.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import math
 import time
 
 import torch
+
+from tpu_ray_torch.utils import metrics
 
 # the hand-written kernels by the names nvcc gives them, each with its
 # number in the table of TPU kernels (PERF.md); no name holds another
@@ -112,20 +116,33 @@ def is_copy(name: str) -> bool:
 
 
 def raw_events(prof) -> list:
-    """(name, on the device, start ns, duration ns, thread) of every event
-    a torch.profiler recorded, read from its raw results: building its
-    parsed events (key_averages, events) takes ~50 us an event, minutes
-    for a window of 32 `mixed` blocks."""
+    """(name, on the device, start ns, duration ns, thread, in a graph) of
+    every host event and device operation (kernel, copy, set) a
+    torch.profiler recorded, read from its raw results: building its parsed
+    events (key_averages, events) takes ~50 us an event, minutes for a
+    window of 32 `mixed` blocks. A host range's annotation on the device's
+    timeline is left out (no device work). In a graph: a device operation
+    that a cudaGraphLaunch launched (they share the runtime call's
+    correlation id)."""
     from torch.autograd import DeviceType
 
-    return [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns(), e.duration_ns(),
-             e.start_thread_id()) for e in prof.profiler.kineto_results.events()]
+    evs = list(prof.profiler.kineto_results.events())
+    launches = {e.correlation_id() for e in evs
+                if e.device_type() != DeviceType.CUDA and e.name() == "cudaGraphLaunch"}
+    out = []
+    for e in evs:
+        dev = e.device_type() == DeviceType.CUDA
+        if dev and e.is_user_annotation():
+            continue
+        out.append((e.name(), dev, e.start_ns(), e.duration_ns(), e.start_thread_id(),
+                    dev and e.correlation_id() in launches))
+    return out
 
 
 def device_totals(events) -> dict:
     """{name: [device ms, count]} of the device's events (kernels, copies)."""
     out = {}
-    for name, on_device, _start, dur, _tid in events:
+    for name, on_device, _start, dur, *_ in events:
         if on_device and dur > 0:
             row = out.setdefault(name, [0.0, 0])
             row[0] += dur / 1e6
@@ -137,7 +154,7 @@ def _by_thread(events, keep) -> list:
     """The host events that `keep` takes, per thread, each sorted so that an
     event comes before the events it contains."""
     threads = {}
-    for name, on_device, start, dur, tid in events:
+    for name, on_device, start, dur, tid, _ in events:
         if not on_device and keep(name):
             threads.setdefault(tid, []).append((start, -dur, name))
     return [sorted(evs) for evs in threads.values()]
@@ -175,19 +192,114 @@ def host_self(events) -> dict:
     return out
 
 
+STAGE_OF_MARKER = {metrics.marker_kernel(s): s for s in metrics.STAGES}
+PROGRAM_SPANS = (set(metrics.RENDER_SPANS) | set(metrics.FIT_SPANS)
+                 | {f"stage.{s}" for s in metrics.STAGES})
+MARKER = "tools.window"
+NO_MARKER = "(no marker)"
+
+
+def stage_ms(events) -> dict:
+    """{stage: device ms} of the window's device operations, each under the
+    stage whose marker came last before it on the device among the
+    operations of its kind (launched by a graph, or not); the markers'
+    own ms under "(markers)", and the operations that follow no marker of
+    their kind under NO_MARKER (in a graphed window: the copies between
+    replays)."""
+    ops = sorted((start, dur, name, graph) for name, on_device, start, dur, _, graph in events
+                 if on_device and dur > 0)
+    current = {True: NO_MARKER, False: NO_MARKER}
+    out = {}
+    for _, dur, name, graph in ops:
+        if name in STAGE_OF_MARKER:
+            current[graph] = STAGE_OF_MARKER[name]
+            label = "(markers)"
+        else:
+            label = current[graph]
+        out[label] = out.get(label, 0.0) + dur / 1e6
+    return out
+
+
+def window_bounds(events, marker: str = MARKER) -> tuple:
+    """(start, end) ns of the window's marker range."""
+    return next((s, s + d) for n, dev, s, d, *_ in events if not dev and n == marker)
+
+
+def busy_intervals(events, start: int, end: int) -> list:
+    """The union of the device's operations between start and end ns, as
+    sorted disjoint [start, end] ns."""
+    out = []
+    for a, b in sorted((max(s, start), min(s + d, end))
+                       for _, dev, s, d, *_ in events if dev and d > 0):
+        if b <= a:
+            continue
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_by_span(events, marker: str = MARKER) -> dict:
+    """The device's idle time in the window by the program span that holds
+    it -> {"idle_ms", "in_spans_ms", "by_span": {"<span> (<thread>)": ms}}:
+    each gap between the window's busy intervals goes to the innermost
+    program span (utils.metrics: render.*, fit.*, stage.*) open at its
+    middle on any thread, the one that began last; "(no span)" where none
+    is. Threads: "caller" (the window's), else "thread <n>" in the order
+    they first appear. marker: the range that bounds the window."""
+    start, end = window_bounds(events, marker)
+    caller = next(t for n, dev, _, _, t, _ in events if not dev and n == marker)
+    gaps, at = [], start
+    for a, b in busy_intervals(events, start, end):
+        if a > at:
+            gaps.append((at, a))
+        at = max(at, b)
+    if end > at:
+        gaps.append((at, end))
+    names, by_thread = {caller: "caller"}, {}
+    for n, dev, s, d, t, _ in events:
+        if not dev and n in PROGRAM_SPANS:
+            names.setdefault(t, f"thread {len(names)}")
+            by_thread.setdefault(t, []).append((s, -d, n))
+    # each thread's spans nest: a sweep keeps the stack of those open
+    sweep = {t: [sorted(evs), 0, []] for t, evs in by_thread.items()}
+    out, idle, held = {}, 0, 0
+    for a, b in gaps:
+        mid, inner = (a + b) // 2, None
+        for t, (evs, j, stack) in sweep.items():
+            while j < len(evs) and evs[j][0] <= mid:
+                s, neg, n = evs[j]
+                while stack and stack[-1][1] <= s:
+                    stack.pop()
+                stack.append((s, s - neg, n))
+                j += 1
+            sweep[t][1] = j
+            while stack and stack[-1][1] <= mid:
+                stack.pop()
+            if stack and (inner is None or stack[-1][0] > inner[0]):
+                inner = (stack[-1][0], stack[-1][2], t)
+        label = f"{inner[1]} ({names[inner[2]]})" if inner else "(no span)"
+        out[label] = out.get(label, 0.0) + (b - a) / 1e6
+        idle += b - a
+        held += (b - a) if inner else 0
+    return {"idle_ms": idle / 1e6, "in_spans_ms": held / 1e6,
+            "by_span": dict(sorted(out.items(), key=lambda kv: -kv[1]))}
+
+
 def window(fn, device: torch.device, trace_dir=None) -> tuple:
     """fn() once with the host clock, synchronized (wall ms), then once under
     torch.profiler (the CPU and, on CUDA, the device; with trace_dir,
-    metrics.profile_trace, which writes the Chrome trace there) -> (the
-    window: wall ms, the wall ms under the profiler, host ops and, on CUDA,
-    device ms, busy share (device ms over the wall ms without the profiler,
-    which slows the host), kernel launches, copies, device ms by category
-    (each hand-written kernel, other kernels, memcpy / memset) and each
-    hand-written kernel's device ms and launches, the device numbers None
-    on the CPU; the raw events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tpu_ray_torch.utils.metrics import profile_trace
+    metrics.profile_trace, which writes the Chrome trace there) inside the
+    range MARKER, which ends after the device has finished -> (the window:
+    wall ms, the wall ms under the profiler, host ops and, on CUDA, device
+    ms, busy share (the union of the device's intervals over the profiled
+    window's own wall, so never above 1), kernel launches, copies, device
+    ms by category (each hand-written kernel, other kernels, memcpy /
+    memset), each hand-written kernel's device ms and launches, device ms
+    by stage (stage_ms) and the idle time by span (idle_by_span), the
+    device numbers None on the CPU; the raw events)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -197,16 +309,17 @@ def window(fn, device: torch.device, trace_dir=None) -> tuple:
     fn()
     sync(device)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with (profile_trace(trace_dir) if trace_dir else profile(activities=acts)) as prof:
+    with (metrics.profile_trace(trace_dir) if trace_dir else profile(activities=acts)) as prof:
         t0 = time.perf_counter()
-        fn()
-        sync(device)
+        with record_function(MARKER):
+            fn()
+            sync(device)
         profiled_ms = (time.perf_counter() - t0) * 1e3
     events = raw_events(prof)
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "host_ops": host_ops(events)}
     if device.type != "cuda":
         return dict(out, device_ms=None, busy=None, kernel_launches=None, copies=None,
-                    by_category={}, kernels={}), events
+                    by_category={}, kernels={}, stages={}, idle=None), events
     dev_ms = launches = copies = 0
     by_cat, kernels = {}, {}
     for name, (ms, count) in device_totals(events).items():
@@ -222,8 +335,11 @@ def window(fn, device: torch.device, trace_dir=None) -> tuple:
             k = kernels.setdefault(label, {"ms": 0.0, "launches": 0})
             k["ms"] += ms
             k["launches"] += count
-    return dict(out, device_ms=dev_ms, busy=dev_ms / wall_ms, kernel_launches=launches,
-                copies=copies, by_category=by_cat, kernels=kernels), events
+    start, end = window_bounds(events)
+    busy = sum(b - a for a, b in busy_intervals(events, start, end)) / max(end - start, 1)
+    return dict(out, device_ms=dev_ms, busy=busy, kernel_launches=launches, copies=copies,
+                by_category=by_cat, kernels=kernels, stages=stage_ms(events),
+                idle=idle_by_span(events)), events
 
 
 def per_block(win: dict, blocks: int) -> dict:
@@ -232,7 +348,8 @@ def per_block(win: dict, blocks: int) -> dict:
            "host_ops_a_block": win["host_ops"] / blocks}
     if win["device_ms"] is not None:
         out.update(device_ms_a_block=win["device_ms"] / blocks,
-                   kernel_launches_a_block=win["kernel_launches"] / blocks)
+                   kernel_launches_a_block=win["kernel_launches"] / blocks,
+                   stage_ms_a_block={k: v / blocks for k, v in win["stages"].items()})
     return dict(win, **out)
 
 
@@ -244,8 +361,10 @@ def window_line(w: dict) -> str:
         return s
     ks = ", ".join(f"{k} {v['ms'] / w['blocks']:.4f} ms ({v['launches']})"
                    for k, v in sorted(w["kernels"].items()))
+    st = ", ".join(f"{k} {v:.4f}" for k, v in w["stage_ms_a_block"].items())
     return (f"{s}; device {w['device_ms_a_block']:.4f} ms a block, busy {w['busy']:.4f}, "
-            f"{w['kernel_launches_a_block']:.1f} kernel launches a block; {ks or 'no hand kernel'}")
+            f"{w['kernel_launches_a_block']:.1f} kernel launches a block; {ks or 'no hand kernel'}"
+            f"; by stage, ms a block: {st or 'no marker'}")
 
 
 def emit(obj: dict) -> None:

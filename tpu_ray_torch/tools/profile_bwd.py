@@ -14,7 +14,13 @@ by one-block pieces (counterpart of `tools/profile_bwd.py`).
 3. one-block pieces on the frame's first block (render_image's Morton
    order), its geometry residuals made once: the shade forward + backward
    (to the parameters and the per-frame mesh table), the shade forward,
-   and the geometry pass alone, each times the frame's block count.
+   and the geometry pass alone, each times the frame's block count;
+4. one profiled window (tools.window) of the frame's middle march group,
+   forward and backward of mean(colours**2) for the `all` subset through
+   the per-block CUDA graphs (render.graphs.render_pixels_flat_jit, as the
+   benchmark's traced fit window runs them), after a call that captures
+   them: device ms a block by the program's stages, the vjp graph's
+   `vjp.forward`, `vjp.backward`, `vjp.accumulate` among them.
 
 Times: host clock, synchronized, after a warm-up on a 160x90 cut of the
 frame; the frame's the best of 2 runs (3 for the subsets), of 1 for frames
@@ -33,6 +39,7 @@ from tpu_ray_torch.bench import (BENCH_TRAINABLES, PERSISTENT_BELOW_RAYS, backwa
                                  has_param, require_device)
 from tpu_ray_torch.fit import apply_params, extract_params
 from tpu_ray_torch.kernels import cuda_shade
+from tpu_ray_torch.render import graphs
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.tools.profile_stages import WARM, frame_of
@@ -122,6 +129,24 @@ def pieces(scene, cfg, device, log=print) -> dict:
     return out
 
 
+def graphed_window(scene, cfg, device, log=print) -> dict:
+    """Item 4 of the module's doc on the frame of (scene, cfg) -> the
+    window a block (tools.per_block) and its march group."""
+    fr = frame_of(scene, cfg)
+    g = fr.n_groups // 2
+    xs, ys = fr.group(g)
+    params = extract_params(fr.scene, [p for p in BENCH_TRAINABLES if has_param(fr.scene, p)])
+
+    def fwd_bwd():
+        px = graphs.render_pixels_flat_jit(apply_params(fr.scene, params), fr.cfg, xs, ys)
+        torch.mean(px ** 2).backward()
+
+    fwd_bwd()  # captures the plan's graphs
+    win = tools.per_block(tools.window(fwd_bwd, device)[0], fr.blocks_of(g))
+    log(f"graphed fwd+bwd, group {g} ({win['blocks']} blocks): {tools.window_line(win)}")
+    return dict(win, group=g)
+
+
 def profile(scene, cfg, device, only=(), iters=None, log=print) -> dict:
     """The frame's forward, each subset's forward + backward and the
     one-block pieces -> the report (see the module's doc)."""
@@ -168,6 +193,7 @@ def profile(scene, cfg, device, only=(), iters=None, log=print) -> dict:
         log(f"verts-only - albedo-only       {inc:8.3f}s a frame = {inc * 1e3 / n_blocks:.3f} "
             f"ms a block over {n_blocks} blocks (the vertex gradient's gathers)")
     out["pieces"] = pieces(scene, cfg_b, device, log)
+    out["graphed_window"] = graphed_window(scene, cfg_b, device, log)
     return out
 
 

@@ -27,9 +27,11 @@ before, the cumulative Mrays/s (the bench's ray count), each kernel's
 launches over the frame; and over one window of one march group (the
 frame's middle group), run once untimed by the profiler and once under
 torch.profiler: the host ms a block, device ms a block, the busy share
-(device time over the untraced wall time: the profiler slows the host),
+(the profiled window's union of device intervals over its own wall),
 CUDA kernel launches a block, host ops a block (aten operators called from
-outside another one) and each hand-written kernel's device time.
+outside another one), each hand-written kernel's device time and the
+device time by the program's stages (tools.stage_ms; fwd+bwd marks its
+backward `vjp.backward`).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from tpu_ray_torch.fit import apply_params, extract_params
 from tpu_ray_torch.kernels import cuda_shade
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.utils import metrics
 from tpu_ray_torch.utils.metrics import rays_per_frame
 
 STAGES = ("march", "march+mesh", "+reconstruct", "geometry(all)", "full fwd", "fwd+bwd")
@@ -174,7 +177,8 @@ def run_stage(stage: str, fr: Frame, groups=None) -> dict:
             return {"image": image(fr.scene).sum(dtype=torch.float64)}
     params = extract_params(fr.scene, bench_trainables(fr.scene))
     loss = torch.mean(image(apply_params(fr.scene, params)) ** 2)
-    loss.backward()
+    with metrics.stage("vjp.backward", loss.device):  # the eager backward's device work
+        loss.backward()
     return {"loss": loss.detach(), **{f"|d {p}|": v.grad.double().norm()
                                       for p, v in params.items()}}
 

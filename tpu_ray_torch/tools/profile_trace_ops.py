@@ -16,10 +16,12 @@ trace goes to --trace-dir (default build/trace_ops_<scene>_<mode>).
 Printed: the window (blocks and rays of the frame's), the total device
 self time, the device time by category (each hand-written kernel, the
 other kernels, memcpy / memset), the top_n device ops by self time and
-the top_n host ops by self CPU time, each with its count. The window
-runs once untraced first, whose wall time the busy share divides (the
-profiler slows the host). The port is host-bound: the host list is the
-one that says where a block goes.
+the top_n host ops by self CPU time, each with its count, the device
+time by the program's stages (the work after each stage's marker,
+tools.stage_ms) and the device's idle time by the program span that
+holds it (tools.idle_by_span). The window runs once untraced first, for
+its wall time; the busy share is the traced window's union of device
+intervals over its own wall.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ MODES = {"fwd": "full fwd", "bwd": "fwd+bwd"}
 
 def report(win: dict, events, top_n: int = 40) -> dict:
     """A window's totals (tools.window -> win, events): device self time
-    (all, by category, the top_n ops) and the top_n host ops by self CPU
-    time, each with its count."""
+    (all, by category, by stage, the top_n ops), the top_n host ops by
+    self CPU time, each with its count, and the idle time by span."""
     device = [(name, ms, count) for name, (ms, count) in tools.device_totals(events).items()]
     host = [(name, ms, count) for name, (ms, count) in tools.host_self(events).items()]
     device.sort(key=lambda r: -r[1])
@@ -49,7 +51,7 @@ def report(win: dict, events, top_n: int = 40) -> dict:
             "top_device": [{"name": n, "ms": ms, "count": c} for n, ms, c in device[:top_n]],
             "host_ms": sum(ms for _, ms, _ in host),
             "top_host": [{"name": n, "self_ms": ms, "count": c} for n, ms, c in host[:top_n]],
-            "host_ops": win["host_ops"]}
+            "host_ops": win["host_ops"], "stages": win["stages"], "idle": win["idle"]}
 
 
 def print_report(rep: dict, log=print) -> None:
@@ -59,6 +61,15 @@ def print_report(rep: dict, log=print) -> None:
     log("== device time by category ==")
     for k, v in rep["by_category"].items():
         log(f"  {k:<40} {v / 1e3:10.6f}s  {100 * v / max(total, 1e-12):5.1f}%")
+    log("\n== device time by stage ==")
+    for k, v in rep["stages"].items():
+        log(f"  {k:<40} {v / 1e3:10.6f}s  {100 * v / max(total, 1e-12):5.1f}%")
+    if rep["idle"]:
+        idle = rep["idle"]
+        log(f"\n== device idle {idle['idle_ms'] / 1e3:.6f}s, {idle['in_spans_ms'] / 1e3:.6f}s "
+            f"of it inside a program span, by the innermost ==")
+        for k, v in list(idle["by_span"].items())[:10]:
+            log(f"  {k:<40} {v / 1e3:10.6f}s")
     log(f"\n== top {len(rep['top_device'])} device ops by self time ==")
     for r in rep["top_device"]:
         log(f"  {r['ms'] / 1e3:10.6f}s  {r['count']:7d}x  {r['name'][:110]}")

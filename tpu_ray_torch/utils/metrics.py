@@ -1,18 +1,77 @@
-"""Timing, ray counts and structured metrics logging (counterpart of
+"""Timing, ray counts and the program's own tracing (counterpart of
 `tpu_ray/utils/metrics.py`): wall-clock timing around synchronized device
-work, the Mrays/s ray count, JSONL metrics, and a torch.profiler trace
-(`profile_trace`) written as a Chrome trace."""
+work, the Mrays/s ray count, a torch.profiler trace (`profile_trace`)
+written as a Chrome trace, and what the program records into such a trace:
+
+  span(name)           a host range (torch.profiler's record_function), opened
+                       only while a profiler records: with none, one check of
+                       a flag and no dispatcher call. It lands on the thread
+                       that runs it, autograd's worker thread included.
+  stage(name, device)  on a CUDA device, the stage's empty marker kernel
+                       (csrc/trace_stage.cu) launched on the current stream,
+                       then the span `stage.<name>`. Launched while a CUDA
+                       graph captures, the marker replays with the graph, so
+                       the device trace names the stage of every kernel and
+                       copy after it, up to the next marker.
+
+STAGES partition each of a frame plan's graphs (render/graphs.py), and
+mark the eager path the same way: `march` (the group's primary march, or
+a block's own), `rays` (the block's rays), `walk` (the mesh closest hit),
+`reconstruct` (the values-only `shadow_ray_origins`), `shadow` (hard or soft
+marches, the mesh any-hits, the AO taps' mesh term), `shade` (the corner
+gather, #5, the pixel mean); in the vjp graph `vjp.forward` (the rays, the
+corners and the shade again), `vjp.backward` (the autograd pass: #6, the
+corner scatter, the camera's chain) and `vjp.accumulate` (the gradients
+added into the plan's buffers). RENDER_SPANS and FIT_SPANS are the host
+spans of render/ and fit.py."""
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
-import json
 import os
 import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
+
+STAGES = ("march", "rays", "walk", "reconstruct", "shadow", "shade",
+          "vjp.forward", "vjp.backward", "vjp.accumulate")
+# each stage's marker kernel is MARKER_PREFIX + its name, a dot made "_"
+MARKER_PREFIX = "trace_stage_"
+RENDER_SPANS = ("render.frame", "render.prepare", "render.load", "render.group",
+                "render.block", "render.backward", "render.vjp", "render.to_image")
+FIT_SPANS = ("fit.params", "fit.forward", "fit.backward", "fit.optimizer")
+_STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}
+_STAGE_SPAN = {s: f"stage.{s}" for s in STAGES}
+_OFF = contextlib.nullcontext()
+
+
+def marker_kernel(stage_name: str) -> str:
+    """The name of a stage's marker kernel, as the device trace shows it."""
+    return MARKER_PREFIX + stage_name.replace(".", "_")
+
+
+def span(name: str):
+    """A context manager: torch.profiler's record_function(name) while a
+    profiler records, else a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(name)
+
+
+def stage(name: str, device: torch.device):
+    """Begin stage `name` (one of STAGES) -> its span (a context manager).
+    On a CUDA device the stage's marker kernel is launched first, on the
+    current stream, captured where a graph captures."""
+    which = _STAGE_INDEX[name]
+    if device.type == "cuda":
+        from tpu_ray_torch.kernels.build import check_launch, kernel_lib
+
+        check_launch("trace_stage", kernel_lib().tr_trace_stage(
+            which, torch.cuda.current_stream(device).cuda_stream))
+    return span(_STAGE_SPAN[name])
 
 
 class Timer:
@@ -50,23 +109,6 @@ def rays_per_frame(cfg, scene=None) -> int:
 
 def mrays_per_sec(n_rays: int, seconds: float) -> float:
     return n_rays / max(seconds, 1e-12) / 1e6
-
-
-@dataclasses.dataclass
-class MetricsLogger:
-    """Structured JSONL metrics: appended to `path` and/or printed."""
-
-    path: Optional[str] = None
-    echo: bool = False
-
-    def log(self, **kv):
-        kv.setdefault("ts", time.time())
-        line = json.dumps(kv)
-        if self.path:
-            with open(self.path, "a") as fh:
-                fh.write(line + "\n")
-        if self.echo:
-            print(line)
 
 
 @contextlib.contextmanager
