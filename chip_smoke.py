@@ -33,9 +33,9 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      (chunks staged, MT tests, the share of a staged chunk's rays that
      passed its box), logged beside their times. The primary march of each
      block's group of render.MARCH_GROUP blocks (as the frame runs it)
-     against the block's own march, and every wrapper given the
-     parameters packed once against the same call packing its own: all
-     bit-identical.
+     against the block's own march, and every wrapper (the reconstruct
+     too) given the parameters packed once against the same call packing
+     its own: all bit-identical.
   3b. content: the shade forward timed on all-sky, all-bulb and all-mesh
      sets of 32,768 rays from those blocks.
   4. small frame: `mixed` at 320x180, 1 spp, kernel path against plain path:
@@ -148,7 +148,13 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      block of the path's parity points, and #4 as the ring calls it on the
      `mixed` blocks: the marches and the walks with the arguments the
      geometry pass gives them (recorded), the shade forward with the
-     frame's config, the backward with the fit step's. Per block:
+     frame's config, the backward with the fit step's, and the values-only
+     reconstruct (csrc/reconstruct.cu) on the call the geometry pass made,
+     held there against its plain version (reconstruct_row: t, hit, p,
+     mat and the masks bit-equal; the normals and shadow origins within
+     1e-5 on >= 99% of the rays and 1e-4 on the hit rays, past either only
+     where the float64 witness sides with the kernel; float64 rays raise).
+     Per block:
      CUDA-event time of the wrapper's launch, the profiler's device time in
      the kernel and in the wrapper's tensor ops, the bound of that block's
      work, and the counters of #1 and #2 (live and marching rays, DE steps,
@@ -231,33 +237,36 @@ REPLACES = {
     "resident_any_hit": "tpu_ray/kernels/pallas_mt.py:102",  # any_hit_packet, :589
     "shade_fwd": "tpu_ray/kernels/pallas_shade.py:510",
     "shade_bwd": "tpu_ray/kernels/pallas_shade.py:591",
+    # no Pallas kernel: XLA fuses _sdf_from_res / _mesh_from_res
+    "reconstruct": "tpu_ray/render/render.py:272-340",
 }
 SOURCES = {"march": "sdf_march.cu", "shadow_hard": "sdf_march.cu",
            "shadow_soft": "sdf_march.cu", "packet_closest": "packet_mt.cu",
            "packet_any_hit": "packet_mt.cu", "resident_closest": "packet_mt.cu",
            "resident_any_hit": "packet_mt.cu", "shade_fwd": "shade_fwd.cu",
-           "shade_bwd": "shade_bwd.cu"}
+           "shade_bwd": "shade_bwd.cu", "reconstruct": "reconstruct.cu"}
 # the kernels each path runs, forward then backward
 PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                          "shade_fwd", "shade_bwd"),
-                "mandelbulb": ("march", "shadow_soft", "shade_fwd", "shade_bwd"),
+                          "reconstruct", "shade_fwd", "shade_bwd"),
+                "mandelbulb": ("march", "shadow_soft", "reconstruct", "shade_fwd", "shade_bwd"),
                 "mixed_sil": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                              "shade_fwd", "shade_bwd"),
+                              "reconstruct", "shade_fwd", "shade_bwd"),
                 # `mixed` with its accel partitioned around a ring of processes
                 "mixed_ring": ("march", "shadow_hard", "resident_closest", "resident_any_hit",
-                               "shade_fwd", "shade_bwd"),
+                               "reconstruct", "shade_fwd", "shade_bwd"),
                 # the packet walks of the 1.05M-triangle knot: one whole-mesh
                 # accel, and 6 parts under the budget
                 "knot1m": ("packet_closest", "packet_any_hit"),
                 "knot1m_parts": ("resident_closest", "resident_any_hit"),
                 # `mandelbulb` with the generic-power field (mb_pow8=False)
-                "mandelbulb_power": ("march", "shadow_soft", "shade_fwd", "shade_bwd"),
+                "mandelbulb_power": ("march", "shadow_soft", "reconstruct", "shade_fwd",
+                                     "shade_bwd"),
                 # the 8.39M-triangle knot: one whole-mesh accel of 4,097 supers
                 "knot8m": ("packet_closest", "packet_any_hit"),
                 # BASELINE config 3 at 512x512, held against the uniform grid's DDA
                 "bunny": ("packet_closest", "packet_any_hit")}
 # the kernels the ring path shares with `mixed`, measured on the same rays
-RING_SHARED = ("march", "shadow_hard", "shade_fwd", "shade_bwd")
+RING_SHARED = ("march", "shadow_hard", "reconstruct", "shade_fwd", "shade_bwd")
 # the silhouette-gradient path: `mixed` with both silhouettes (the README's
 # fit width; VERDICT.md:180-187)
 SILHOUETTES = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
@@ -339,6 +348,13 @@ def reset(*tables) -> None:
     for table in tables:
         for k in table:
             table[k] = 0
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES, cuda_reconstruct.LAUNCHES)
 
 
 def _max(x) -> float:
@@ -1033,10 +1049,11 @@ def packed_parity(scene, cfg, o, d, method, tag):
     render_pixels_flat hands them down) against the same calls packing
     their own: every output bit-identical, one launch of the same kernel
     each."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import render as R
 
     packed = cuda_shade.pack(scene, R._bound_pad(cfg))
+    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
     soft = cfg.shadow == "soft"
     shadow = "shadow_soft" if soft else "shadow_hard"
     calls = []
@@ -1053,14 +1070,17 @@ def packed_parity(scene, cfg, o, d, method, tag):
         "shade_fwd": lambda p: cuda_shade.shade_fwd(scene, cfg, o, d, res, method,
                                                     corners=corners, aux=aux, packed=p),
         "shade_bwd": lambda p: cuda_shade.shade_bwd(scene, cfg, o, d, res, aux, corners, ct,
-                                                    method, packed=p)}
+                                                    method, packed=p),
+        "reconstruct": lambda p: recon_values(cuda_reconstruct.reconstruct(
+            scene, cfg, o, d, res, method, mesh_rows=rows, packed=p))}
     for name, call in cases.items():
         outs = []
         for p in (packed, None):
-            reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+            reset_launches()
             out = call(p)
             torch.cuda.synchronize()
-            launched = {**cuda_sdf.LAUNCHES, **cuda_shade.LAUNCHES}
+            launched = {**cuda_sdf.LAUNCHES, **cuda_shade.LAUNCHES,
+                        **cuda_reconstruct.LAUNCHES}
             out = out.values() if isinstance(out, dict) else (
                 out if isinstance(out, tuple) else (out,))
             outs.append(([v for v in out if v is not None], launched))
@@ -1220,7 +1240,6 @@ def power_frame(scene, cfg, smi, warm, profile_cfg):
     through the kernels. -> the frame's and the step's launch counts."""
     from tpu_ray_torch.cli import demo_target
     from tpu_ray_torch.fit import fit
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.tools import launch_counts
     from tpu_ray_torch.utils.config import FitConfig
 
@@ -1238,7 +1257,7 @@ def power_frame(scene, cfg, smi, warm, profile_cfg):
     trainable = ("sdf.mb_power", "materials.albedo", "lights.color")
     small = cfg.replace(width=256, height=256)
     target = demo_target(scene, small, trainable)
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     fitted, history = fit(scene, small, target, trainable,
                           FitConfig(steps=3, learning_rate=1e-2), verbose=False)
@@ -1299,7 +1318,15 @@ def plain_paths():
     """Every kernel wrapper patched with its plain PyTorch version."""
     from contextlib import ExitStack
 
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+
+    def reconstruct_plain(scene, cfg, o, d, res, method, mesh_rows=None, packed=None):
+        from tpu_ray_torch.render.render import shadow_ray_origins_plain
+
+        aux = {}
+        hits, p_off, nf, live = shadow_ray_origins_plain(scene, cfg, o, d, res, method,
+                                                         mesh_rows=mesh_rows, aux_out=aux)
+        return cuda_reconstruct.Recon(hits, aux.get("closer"), nf, p_off, live)
 
     def shade_fwd_plain(scene, cfg, o, d, res, method, corners=None, aux=None,
                         mesh_rows=None, packed=None):
@@ -1322,6 +1349,7 @@ def plain_paths():
                                           cuda_mt.intersect_packet_torch))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_fwd", shade_fwd_plain))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_bwd", shade_bwd_plain))
+    stack.enter_context(mock.patch.object(cuda_reconstruct, "reconstruct", reconstruct_plain))
     return stack
 
 
@@ -1449,8 +1477,8 @@ def forward_counts():
 
 def check_counts(name, cfg, counts, kernels) -> None:
     """Every kernel of the path launched; the march once per group of
-    render.MARCH_GROUP blocks, the shade forward (and the backward, where it
-    ran) once per block."""
+    render.MARCH_GROUP blocks, the reconstruct and the shade forward (and
+    the backward, where it ran) once per block."""
     from tpu_ray_torch.render.render import MARCH_GROUP
 
     n_blocks = -(-cfg.num_rays // cfg.block_size)
@@ -1458,7 +1486,7 @@ def check_counts(name, cfg, counts, kernels) -> None:
     check(all(counts[k] > 0 for k in kernels), f"{name}: a kernel never launched: {counts}")
     check(counts["march"] == n_groups, f"{name}: {counts['march']} march launches for "
           f"{n_blocks} blocks in groups of {MARCH_GROUP}")
-    for k in ("shade_fwd", "shade_bwd"):
+    for k in ("reconstruct", "shade_fwd", "shade_bwd"):
         check(counts.get(k, n_blocks) == n_blocks,
               f"{name}: {counts.get(k)} {k} launches for {n_blocks} blocks")
 
@@ -1467,13 +1495,12 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
     """Phases 5 and 10: the whole frame through the kernels -> launch
     counts. keep: a dict that receives the image, its seconds and the
     counts (for graph_frame)."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.utils.image_io import write_png
 
     with torch.no_grad():
         render_image(scene, warm)
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1529,14 +1556,12 @@ def fit_step(scene, cfg, smi: str, name: str, trainables, warm, profile_cfg,
     frame for the trainables -> launch counts, the shade backward's among
     them. keep: a dict that receives the loss, the gradients and the
     seconds (for graph_step)."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
-
     from tpu_ray_torch.fit import apply_params, extract_params
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.tools import launch_counts
 
     grads_of(scene, warm, trainables)
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1580,7 +1605,6 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame",
     self time a block. keep: a dict that receives the image (for
     sharded_graph_frame)."""
     from tpu_ray_torch import tools
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
     from tpu_ray_torch.render.render import (frame_samples, march_groups, render_image_jit,
                                              whole_blocks)
@@ -1601,7 +1625,7 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame",
                    if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(plan.pool))
         held = (torch.cuda.memory_reserved() - reserved0,
                 torch.cuda.memory_allocated() - allocated0)
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         img = render_image_jit(scene, cfg)
@@ -1675,7 +1699,6 @@ def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_c
     <= 1e-4 for mesh.verts (the scatter's summation order). keep: a dict
     that receives the loss and the gradients (for sharded_graph_step)."""
     from tpu_ray_torch.fit import apply_params, extract_params
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image_jit
     from tpu_ray_torch.tools import launch_counts
 
@@ -1694,7 +1717,7 @@ def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_c
     with captures_timed() as captured:
         step()
     first = time.perf_counter() - t0
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss, grads, t1 = step()
@@ -1751,7 +1774,6 @@ def sharded_graph_frame(scene, cfg, smi: str, dev, graphed: dict, eager_counts: 
     pixels off by more than 1e-4 (the pixels are dealt to the blocks in
     another order)."""
     from tpu_ray_torch.dist.sharding import render_image_sharded_jit
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
 
     check("image" in graphed, "sharded_graph_frame needs phase `graph_frame`'s image")
@@ -1762,7 +1784,7 @@ def sharded_graph_frame(scene, cfg, smi: str, dev, graphed: dict, eager_counts: 
         render_image_sharded_jit(scene, cfg)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         t0 = time.perf_counter()
         img = render_image_sharded_jit(scene, cfg)
         torch.cuda.synchronize()
@@ -1793,7 +1815,6 @@ def graphed_sharded_step(scene, cfg, smi: str, dev, ref: dict, want_counts: dict
     second is timed with the counts from 0. Loss and gradients against
     ref's: rel <= 1e-5, mesh.verts <= 1e-4."""
     from tpu_ray_torch.fit import extract_params, make_sharded_fit_step
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
     from tpu_ray_torch.tools import launch_counts
 
@@ -1809,7 +1830,7 @@ def graphed_sharded_step(scene, cfg, smi: str, dev, ref: dict, want_counts: dict
             step()
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loss = step()
@@ -1944,7 +1965,7 @@ def knot_parts(dev, smi, results, counts):
     version, then both 1024x1024x1 frames, with their launch counts."""
     from tpu_ray_torch.accel.packet import build_packet_parts
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.utils.image_io import write_png
@@ -2037,7 +2058,7 @@ def knot_parts(dev, smi, results, counts):
     with torch.no_grad():
         R.render_image(knot, kcfg.replace(width=128, height=128))
         for name, sc in (("knot1m", knot), ("knot1m_parts", knot.replace(packet=parts))):
-            reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+            reset_launches()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2127,14 +2148,13 @@ def ring_frame(scene, cfg, smi, warm, dev, keep):
     pixels off by > 1e-4. keep: a dict that receives the image (for
     ring_graph_frame)."""
     from tpu_ray_torch.dist.sharding import render_image_sharded
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render.render import render_image
 
     with torch.no_grad():
         ref_img = render_image(scene, cfg)
     with ring_group(dev), torch.no_grad():
         render_image_sharded(scene, warm, scene_shards=True)
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2174,7 +2194,6 @@ def ring_graph_frame(scene, cfg, smi, dev, eager: dict):
     timed with the counts from 0; the image phase 19's bit for bit, the
     launches phase 19's."""
     from tpu_ray_torch.dist.sharding import render_image_sharded_jit
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
 
     check("image" in eager, "ring_graph_frame needs phase `ring_frame`'s image")
@@ -2185,7 +2204,7 @@ def ring_graph_frame(scene, cfg, smi, dev, eager: dict):
         render_image_sharded_jit(scene, cfg, scene_shards=True)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         img = render_image_sharded_jit(scene, cfg, scene_shards=True)
@@ -2241,14 +2260,13 @@ def ring_fit_step(scene, cfg, smi, warm, dev, keep):
     those of render_image on the same frame, phase 6's computation, 254
     `shade_bwd` launches. keep: a dict that receives the loss and the
     gradients (for ring_graph_step)."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.tools import launch_counts
 
     ref_loss, ref_grads = grads_of(scene, cfg, TRAINABLES)
     with ring_group(dev):
         eager_ring_step(scene, warm, dev)()
         step = eager_ring_step(scene, cfg, dev)
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2392,6 +2410,95 @@ def timed_launch(fn, names, bound_of, counters=None) -> dict:
     return row
 
 
+def recon_values(r) -> tuple:
+    """A cuda_reconstruct.Recon's tensors in order (None where it has none)."""
+    return (*r.hits, r.closer, r.nf, r.p_off, r.live)
+
+
+def reconstruct_row(path, args, kw) -> dict:
+    """The reconstruct kernel (cuda_reconstruct) on the call the geometry
+    pass made for a block (args, kw as recorded), against its plain version
+    (render.shadow_ray_origins_plain) on the card: t, hit, p, mat, cov, the
+    closest-select mask and the live lanes bit-equal; the normal, the
+    ray-facing normal and the shadow origins under tests/recon_witness.py's
+    rule (per ray, the largest component within 1e-5 on >= 99% of the rays
+    and within 1e-4 on every hit ray, past either only where the float64
+    witness at the same hit point sides with the kernel), each hit ray over
+    1e-4 logged with its distances from the witness. Also: float64 rays
+    raise. -> the launch's row (timed_launch) with its parity error and the
+    plain version's time. The bound: the rays' inputs and outputs and the
+    selected triangles' rows read once; the argmin's DE at the SDF point
+    and the adjoint's reverse pass counted as one DE more, ~60 operations a
+    mesh re-solve."""
+    from tpu_ray_torch.kernels import cuda_reconstruct as CR
+    from tpu_ray_torch.render.render import shadow_ray_origins_plain
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import recon_witness
+
+    scene, cfg, o, d, res, method = args
+    rows = kw.get("mesh_rows")
+
+    def plain():
+        aux = {}
+        hits, p_off, nf, live = shadow_ray_origins_plain(scene, cfg, o, d, res, method,
+                                                         mesh_rows=rows, aux_out=aux)
+        return CR.Recon(hits, aux.get("closer"), nf, p_off, live)
+
+    got = CR.reconstruct(*args, **kw)
+    want = plain()
+    for name, x, y in zip(("t", "hit", "p", "n", "mat", "cov", "closer", "nf", "p_off", "live"),
+                          recon_values(got), recon_values(want)):
+        if name in ("n", "nf", "p_off"):
+            continue
+        check((x is None) == (y is None) and (x is None or torch.equal(x, y)),
+              f"reconstruct {path}: {name} not bit-equal to the plain version")
+    wit = recon_witness.witness(scene, cfg, o, d, want.hits, want.closer, method)
+    worst = 0.0
+    for name, x, y in (("n", got.hits[3], want.hits[3]), ("nf", got.nf, want.nf),
+                       ("p_off", got.p_off, want.p_off)):
+        j = recon_witness.judge(x, y, wit[name], want.hits[1])
+        log("launch", f"reconstruct {path} " + recon_witness.describe(name, j))
+        check(j["ok"], f"reconstruct {path}: {name} parity")
+        worst = max(worst, j["max_err"])
+    try:
+        CR.reconstruct(scene, cfg, o.double(), d.double(), res, method, **kw)
+        raised = False
+    except TypeError:
+        raised = True
+    check(raised, f"reconstruct {path}: float64 rays did not raise")
+    ins = [o, d] + [res.get(k) for k in ("sdf_t", "sdf_tmin", "sdf_hit", "mesh_tri", "mesh_hit")]
+    n_bytes = nbytes(*ins, *(v for v in recon_values(got)[:-1] if v is not None))
+    ops = 0.0
+    if method in ("sdf", "mixed") and scene.has_sdf:
+        t_eff = (torch.where(res["sdf_hit"], res["sdf_t"], res["sdf_tmin"])
+                 if cfg.soft_silhouette > 0.0 else res["sdf_t"])
+        ops += 2.0 * float(de_ops(scene.sdf, o + t_eff[:, None] * d).sum())
+    if method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh:
+        n_bytes += 40 * o.shape[0]
+        ops += 60.0 * o.shape[0]
+    row = timed_launch(lambda: CR.reconstruct(*args, **kw), ("reconstruct_kernel",),
+                       bound(n_bytes, ops))
+    row.update(err=worst, plain_ms=wall_ms(plain))
+    return row
+
+
+def reconstruct_call_ms(path, scene, cfg, method, packed, o, d) -> float:
+    """The reconstruct kernel's time a call (CUDA events) on all the path's
+    parity blocks' rays at once (131,072 rays: the table's call size)."""
+    from tpu_ray_torch.kernels import cuda_reconstruct
+    from tpu_ray_torch.render import render as R
+
+    rows = R.mesh_table(scene.mesh) if R._use_mesh(scene, method) else None
+    with torch.no_grad():
+        res = R.geometry_residuals(scene, cfg.replace(shadow="none", ao="none"), o, d, method,
+                                   mesh_rows=rows, packed=packed)
+    ms = kernel_ms(lambda: cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method,
+                                                        mesh_rows=rows, packed=packed))
+    log("launch", f"{path} reconstruct at {o.shape[0]} rays a call: {ms:.4f} ms")
+    return ms
+
+
 def frame_rays(scene, cfg):
     """Every primary ray of the frame in Morton block order, padded to whole
     blocks as render_pixels_flat pads them: (xs, ys, o, d)."""
@@ -2514,7 +2621,7 @@ def launch_sizes(paths, results):
     #6, the kernel's counters. paths: {path: (scene, frame config, fit-step
     config, world points of its blocks, method)}."""
     from tpu_ray_torch.dist.sharding import ring_scene
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
 
@@ -2534,16 +2641,18 @@ def launch_sizes(paths, results):
         walks = ("packet_closest", "packet_any_hit") if scene.has_mesh else ()
         ring = ("resident_closest", "resident_any_hit") if path == "mixed" else ()
         shard = ring_scene(scene).ring.accel() if ring else None
-        rows = {k: [] for k in ("march", shadow, *walks, *ring, "shade_fwd", "shade_bwd")}
+        rows = {k: [] for k in ("march", shadow, *walks, *ring, "reconstruct", "shade_fwd",
+                                "shade_bwd")}
         for b in range(o_all.shape[0] // bs):
             o, d = o_all[b * bs:(b + 1) * bs], d_all[b * bs:(b + 1) * bs]
-            calls = {"march": [], shadow: [], "walks": []}
+            calls = {"march": [], shadow: [], "walks": [], "reconstruct": []}
             with recorded(cuda_sdf, "march", calls["march"]), \
                     recorded(cuda_sdf, shadow, calls[shadow]), \
-                    recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]):
+                    recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]), \
+                    recorded(cuda_reconstruct, "reconstruct", calls["reconstruct"]):
                 res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method, packed)
             check(len(calls["march"]) == 1 and len(calls[shadow]) == 1
-                  and len(calls["walks"]) == len(walks),
+                  and len(calls["walks"]) == len(walks) and len(calls["reconstruct"]) == 1,
                   f"launch {path}: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
             args, kw = calls["march"][0]
             plain_kw = {k: v for k, v in kw.items() if k != "packed"}
@@ -2573,6 +2682,8 @@ def launch_sizes(paths, results):
                 rows[key].append(dict(rays=bs, **timed_launch(
                     lambda: cuda_mt.intersect_packet(shard, ro, rd, t_max=cfg.t_far, **kw),
                     ("packet_resident_kernel",), packet_bound(shard, ro, None))))
+            rows["reconstruct"].append(dict(rays=bs, **reconstruct_row(
+                path, *calls["reconstruct"][0])))
             fwd = lambda: cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
                                                aux=aux, packed=packed)
             rows["shade_fwd"].append(dict(rays=bs, **timed_launch(
@@ -2597,6 +2708,15 @@ def launch_sizes(paths, results):
             table["launch_block" if key == "march" else "launch"] = entry
             log_launch("mixed_ring" if key in ring else path,
                        "march (one block a launch)" if key == "march" else key, entry, blocks)
+            if key == "reconstruct":  # its entry of the kernels line
+                table.update(max_abs_err=max(e["err"] for e in blocks),
+                             ms=reconstruct_call_ms(path, scene, cfg, method, packed, o_all,
+                                                    d_all),
+                             # the call covers the blocks' rays: their plain times and
+                             # bounds summed
+                             plain_ms=sum(e["plain_ms"] for e in blocks),
+                             bound_ms=sum(e["bound_ms"] for e in blocks),
+                             bound_by=entry["bound_by"])
 
 
 def knot8m(dev, smi, results, counts):
@@ -2611,7 +2731,7 @@ def knot8m(dev, smi, results, counts):
     from tpu_ray_torch import native
     from tpu_ray_torch.accel import packet as pk
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
@@ -2712,7 +2832,7 @@ def knot8m(dev, smi, results, counts):
     n_blocks = -(-kcfg.num_rays // kcfg.block_size)
     with torch.no_grad():
         R.render_image(knot, kcfg.replace(width=128, height=128))
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2742,7 +2862,7 @@ def grid_oracle(dev, smi, results, counts):
     launches."""
     from tpu_ray_torch.accel.grid_build import grid_stats
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade, dda
+    from tpu_ray_torch.kernels import cuda_mt, dda
     from tpu_ray_torch.kernels.moller_trumbore import TriHit
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
@@ -2817,7 +2937,7 @@ def grid_oracle(dev, smi, results, counts):
     del calls
     with torch.no_grad():
         R.render_image(scene, cfg.replace(width=64, height=64))
-        reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = R.render_image(scene, cfg)
@@ -2839,7 +2959,7 @@ def gradcheck(dev):
     masked loss on `bunny` (20x20, no shadows) along V on lit interior
     triangles, finite differences against autograd in float64 on the CPU,
     then the card's float32 derivative through #3, #5 and #6 against it."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.utils import gradcheck as gc
 
@@ -2865,10 +2985,10 @@ def gradcheck(dev):
     log("gradcheck", f"config 3 vertex check, float64 on the CPU: <grad, V> autograd "
         f"{float(g_ad):.9e}, finite differences {float(g_fd):.9e} "
         f"({time.perf_counter() - t0:.2f} s)")
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     r = gc.card_vertex_check(scene, cfg, V, dev)
-    launched = {k: v for t in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
-                for k, v in t.items() if v}
+    launched = {k: v for t in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
+                               cuda_reconstruct.LAUNCHES) for k, v in t.items() if v}
     log("gradcheck", f"config 3 on the card: float32 {r['d32']:.9e} against float64 "
         f"{r['d64']:.9e}, rel {r['rel_err']:.3e} (at most 1e-3); launches {launched}")
     check(abs(float(g_ad)) > 1e-4 and r["ok"], "config 3 vertex check on the card")
@@ -2882,10 +3002,9 @@ def inverse_lighting(dev, smi):
     light's position and intensity): the loss falls at least 10x; the
     position error is printed, with the launches of #1, #2 soft, #5 and #6."""
     from tpu_ray_torch.examples import inverse_lighting as il
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.tools import launch_counts
 
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -2907,12 +3026,13 @@ def inverse_lighting(dev, smi):
 # once per group of render.MARCH_GROUP blocks, the others once per block
 STAGE_KERNELS = {"march": ("march",),
                  "march+mesh": ("march", "packet_closest"),
-                 "+reconstruct": ("march", "packet_closest"),
-                 "geometry(all)": ("march", "packet_closest", "shadow_hard", "packet_any_hit"),
-                 "full fwd": ("march", "packet_closest", "shadow_hard", "packet_any_hit",
-                              "shade_fwd"),
-                 "fwd+bwd": ("march", "packet_closest", "shadow_hard", "packet_any_hit",
-                             "shade_fwd", "shade_bwd")}
+                 "+reconstruct": ("march", "packet_closest", "reconstruct"),
+                 "geometry(all)": ("march", "packet_closest", "reconstruct", "shadow_hard",
+                                   "packet_any_hit"),
+                 "full fwd": ("march", "packet_closest", "reconstruct", "shadow_hard",
+                              "packet_any_hit", "shade_fwd"),
+                 "fwd+bwd": ("march", "packet_closest", "reconstruct", "shadow_hard",
+                             "packet_any_hit", "shade_fwd", "shade_bwd")}
 
 
 def finite_numbers(obj, where: str) -> None:
@@ -3035,7 +3155,6 @@ def bench_cli(dev, smi):
     from tpu_ray_torch.bench import run_bench
     from tpu_ray_torch.cli import demo_target
     from tpu_ray_torch.fit import fit
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
     from tpu_ray_torch.render import graphs
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.scene.scenes import build_scene
@@ -3048,7 +3167,7 @@ def bench_cli(dev, smi):
     # render_image_jit: a new plan, whose graphs' warm-ups launch once each
     bulb, bcfg = build_scene("mandelbulb", device=dev)
     graphs.PLANS.clear()
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     line = run_bench("mandelbulb")
     counts = launch_counts()
@@ -3123,7 +3242,7 @@ def bench_cli(dev, smi):
     scene, cfg = build_scene("mixed", device=dev)
     small = cfg.replace(width=512, height=512, spp=1)
     graphs.PLANS.clear()
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+    reset_launches()
     text = cli_run(["render", "--scene", "mixed", "--width", "512", "--height", "512",
                     "--spp", "1", "--stats", "--out", os.path.join(out, "stats.png")])
     stats = json.loads(text.split("[render] stats: ", 1)[1].splitlines()[0])

@@ -28,7 +28,7 @@ from tpu_ray import fit as jfit
 from tpu_ray.render import render as jrender
 from tpu_ray.scene import scenes as jscenes
 from tpu_ray_torch import fit as tfit
-from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
 from tpu_ray_torch.render import graphs
 from tpu_ray_torch.render import render as trender
 from tpu_ray_torch.scene import scenes as tscenes
@@ -241,6 +241,7 @@ def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
         runs.append(1)
         cuda_sdf.LAUNCHES["march"] += 1
         cuda_shade.LAUNCHES["shade_fwd"] += 2
+        cuda_reconstruct.LAUNCHES["reconstruct"] += 1
         return torch.zeros(1)
 
     monkeypatch.setattr(graphs.Graph, "_capture", lambda self: ("graph", self.fn()))
@@ -250,8 +251,10 @@ def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
     g = graphs.Graph(fn, torch.device("cuda"), None, "block")
     for _ in range(3):
         g.replay()
-    assert len(runs) == 2 and g.deltas == [{"march": 1}, {}, {"shade_fwd": 2}]
+    assert len(runs) == 2 and g.deltas == [{"march": 1}, {}, {"shade_fwd": 2},
+                                           {"reconstruct": 1}]
     assert cuda_sdf.LAUNCHES["march"] == 1 + 3 and cuda_shade.LAUNCHES["shade_fwd"] == 2 + 6
+    assert cuda_reconstruct.LAUNCHES["reconstruct"] == 1 + 3
     _reset()
 
 

@@ -123,6 +123,8 @@ def test_every_tool_stops_without_a_card(monkeypatch, run):
     ("void shade_fwd_kernel<true>(ShadeArgs)", "#5 shade_fwd"),
     ("void shade_bwd_kernel<false>(ShadeArgs)", "#6 shade_bwd"),
     ("sum_partials_kernel(float const*, float*, int, int)", "#6 sum_partials"),
+    ("void reconstruct_kernel<true>(tr::ShadeParams, tr::ReconArgs, int)", "reconstruct"),
+    ("trace_stage_reconstruct", None),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", None),
     ("Memcpy HtoD (Pageable -> Device)", None),
 ])

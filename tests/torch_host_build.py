@@ -1,8 +1,9 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
 port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py,
-test_torch_mandelbulb.py, test_torch_sdf.py): the shade forward, the shade
-backward, the primary, hard and soft marches, the Mandelbulb fields and
-their adjoint, and the packet walk, called
+test_torch_mandelbulb.py, test_torch_sdf.py, test_torch_reconstruct.py):
+the shade forward, the shade backward, the primary, hard and soft marches,
+the Mandelbulb fields and their adjoint, the packet walk and the values-only
+reconstruct, called
 with the arguments their CUDA wrappers pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
@@ -281,6 +282,90 @@ def build_packet(tmp_dir):
                                     _P, _P, _P, _P]
     so.host_packet_walk.restype = None
     return so
+
+
+RECON_MAIN = r"""
+#include "reconstruct.cu"
+// The reconstruct kernel's rays one after another, with tr_reconstruct's
+// arguments; returns 0, or 1 where the entry point refuses them.
+extern "C" int host_reconstruct(
+    const float* o, const float* d, const float* t_bar, const float* tmin,
+    const uint8_t* hs, const int* tri, const uint8_t* hm, const float* rows, int n_tris,
+    int n, const float* params, const int* prim_mat, int n_sph, int n_pln, int n_box,
+    int n_mb, int mb_iters, int mb_pow8, int use_sdf, int use_mesh, float soft_sil,
+    float bias, float* t, uint8_t* hit, float* p, float* nrm, int* mat, float* cov,
+    uint8_t* closer, float* nf, float* p_off) {
+  const tr::ReconArgs a{o, d, t_bar, tmin, hs, tri, hm, rows, n_tris, prim_mat,
+                        t, hit, p, nrm, mat, cov, closer, nf, p_off};
+  tr::ShadeParams s;
+  if (!tr::recon_params(params, n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, use_sdf,
+                        use_mesh, soft_sil, bias, a, &s))
+    return 1;
+  float buf[4 * tr::kMaxMbIters];
+  const tr::MbStore st{buf, 1, 0};
+  for (int i = 0; i < n; ++i) {
+    if (mb_pow8)
+      tr::reconstruct_one<true>(s, a, i, st);
+    else
+      tr::reconstruct_one<false>(s, a, i, st);
+  }
+  return 0;
+}
+"""
+
+
+def build_reconstruct(tmp_dir):
+    """The reconstruct kernel's per-ray arithmetic (csrc/reconstruct.cu)
+    built into tmp_dir, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    (tmp_dir / "recon_main.cpp").write_text(RECON_MAIN)
+    lib = tmp_dir / "librecon_host.so"
+    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", str(lib), str(tmp_dir / "recon_main.cpp")], check=True,
+                   capture_output=True, timeout=180)
+    so = ctypes.CDLL(str(lib))
+    so.host_reconstruct.argtypes = ([_P] * 8 + [_I, _I, _P, _P] + [_I] * 8 + [_F, _F]
+                                    + [_P] * 9)
+    so.host_reconstruct.restype = ctypes.c_int
+    return so
+
+
+def reconstruct(so, scene, cfg, o, d, res, method, mesh_rows=None):
+    """The host build of the reconstruct kernel on CPU tensors, with the
+    arguments cuda_reconstruct.reconstruct passes -> its Recon."""
+    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf
+
+    use_sdf = method in ("sdf", "mixed") and scene.has_sdf
+    use_mesh = method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
+    sil = max(float(cfg.soft_silhouette), 0.0)
+    packed = cuda_sdf.pack(scene.sdf)
+    rows = None
+    if use_mesh:
+        rows = (trender.mesh_table(scene.mesh) if mesh_rows is None else mesh_rows).detach()
+    ins = [o.contiguous(), d.contiguous(), res["sdf_t"] if use_sdf else None,
+           res["sdf_tmin"] if use_sdf and sil > 0.0 else None,
+           res["sdf_hit"] if use_sdf else None, res["mesh_tri"] if use_mesh else None,
+           res["mesh_hit"] if use_mesh else None, rows]
+    for x in ins:
+        assert x is None or x.is_contiguous()
+    R = o.shape[0]
+    t, cov, hit, mat = (torch.empty(R), torch.empty(R), torch.empty(R, dtype=torch.bool),
+                        torch.empty(R, dtype=torch.int32))
+    p, n, nf, p_off = (torch.empty(R, 3) for _ in range(4))
+    closer = torch.empty(R, dtype=torch.bool) if use_sdf and use_mesh else None
+    rc = so.host_reconstruct(*[None if x is None else x.data_ptr() for x in ins],
+                             0 if rows is None else rows.shape[0], R, packed.params.data_ptr(),
+                             packed.mats.data_ptr(), *packed.counts, int(use_sdf),
+                             int(use_mesh), sil, float(cfg.shadow_bias), t.data_ptr(),
+                             hit.data_ptr(), p.data_ptr(), n.data_ptr(), mat.data_ptr(),
+                             cov.data_ptr(), None if closer is None else closer.data_ptr(),
+                             nf.data_ptr(), p_off.data_ptr())
+    assert rc == 0
+    return cuda_reconstruct.Recon((t, hit, p, n, mat, cov), closer, nf, p_off,
+                                  hit if sil <= 0.0 else None)
 
 
 def march(so, sdf, o, d, *, t0, max_steps, eps, t_far, bound_pad=0.0):

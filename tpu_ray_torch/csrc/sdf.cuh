@@ -65,6 +65,14 @@ __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ float pow_(float b, float e) { return powf(b, e); }
+// ... and on double (the reconstruct kernel's generic-field normal)
+__device__ __forceinline__ double val(double x) { return x; }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ double log_(double x) { return log(x); }
+__device__ __forceinline__ double sin_(double x) { return sin(x); }
+__device__ __forceinline__ double cos_(double x) { return cos(x); }
+__device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ double pow_(double b, double e) { return pow(b, e); }
 // max(x, c) and min(x, c) with torch's clamp gradients: x passes through
 // where x >= c (resp. x <= c), the constant elsewhere.
 template <typename T>

@@ -10,7 +10,8 @@
 //
 // Everything is a template on the scalar type T:
 //   * T = float gives the first-order adjoint (the IFT numerator, the
-//     denominator <grad_p DE, d> and the normal's grad_p DE);
+//     denominator <grad_p DE, d> and the normal's grad_p DE); T = double
+//     the same in double (the reconstruct kernel's generic-field normal);
 //   * T = Dual, a value plus one tangent, run on p + eps*u, gives in its
 //     tangent parts H*u and d2DE/dtheta dp * u: the pullback of the normal
 //     (forward-over-reverse). Nothing of the Mandelbulb's second-order chain
@@ -62,10 +63,12 @@ __device__ __forceinline__ Dual& operator-=(Dual& a, Dual b) { a = a - b; return
 
 // Where the reverse pass keeps the stored iterations: slot 4 it + c holds
 // iteration it's z (c = 0, 1, 2) and dr (c = 3), its value at
-// p[slot * stride] and, for a Dual, its tangent tan_off floats further.
+// p[slot * stride] and, for a Dual, its tangent tan_off floats further; a
+// double at p64[slot * stride].
 struct MbStore {
   float* p;
   int stride, tan_off;
+  double* p64;
 };
 
 // Slots a Mandelbulb of `iters` iterations stores (a Dual takes two floats
@@ -82,6 +85,12 @@ __device__ __forceinline__ void mb_put(const MbStore& st, int slot, Dual x) {
 }
 __device__ __forceinline__ void mb_get(const MbStore& st, int slot, float& x) {
   x = st.p[slot * st.stride];
+}
+__device__ __forceinline__ void mb_put(const MbStore& st, int slot, double x) {
+  st.p64[slot * st.stride] = x;
+}
+__device__ __forceinline__ void mb_get(const MbStore& st, int slot, double& x) {
+  x = st.p64[slot * st.stride];
 }
 __device__ __forceinline__ void mb_get(const MbStore& st, int slot, Dual& x) {
   x = Dual(st.p[slot * st.stride], st.p[slot * st.stride + st.tan_off]);
@@ -368,7 +377,7 @@ __device__ T mandelbulb_rev(T px, T py, T pz, T power, MbFwd<T> f, T g[3], T* d_
       mb_pow8_step_adj(zx0, zy0, zz0, dr0, r_safe, dz, d_dr, d_rs);
     else
       mb_generic_step_adj(zx0, zy0, zz0, dr0, r_safe, power, dz, d_dr, d_rs, d_pw);
-    const float rn = val(r_new);
+    const auto rn = val(r_new);
     T d_rnew = (rn >= kRmin && rn <= kBailout) ? d_rs : T(0.0f);
     if (it == last) d_rnew += d_r;  // no escape: r is this step's |z|
     if (val(s2) >= kRmin2) {

@@ -72,6 +72,10 @@ _SIGNATURES = {
                      + [_P] * 4 + [_I, _P, _P, _P]),
     # rays per block of tr_shade_bwd (one partial row each)
     "tr_shade_bwd_threads": [],
+    # o, d, t_bar, tmin, hs, tri, hm, rows, n_tris, n, params, prim_mat,
+    # n_sph, n_pln, n_box, n_mb, mb_iters, mb_pow8, use_sdf, use_mesh,
+    # soft_sil, bias, t, hit, p, n, mat, cov, closer, nf, p_off, stream
+    "tr_reconstruct": [_P] * 8 + [_I, _I, _P, _P] + [_I] * 8 + [_F, _F] + [_P] * 10,
     # stage (its index in utils.metrics.STAGES), stream: its empty marker
     "tr_trace_stage": [_I, _P],
 }

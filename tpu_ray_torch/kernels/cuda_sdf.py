@@ -175,6 +175,12 @@ def pack_sdf(sdf: SdfScene) -> torch.Tensor:
     return torch.cat([q.reshape(-1) for q in parts]).to(torch.float32).contiguous()
 
 
+def pack_mats(sdf: SdfScene) -> torch.Tensor:
+    """The primitives' material ids in pack_sdf's order (int32)."""
+    return torch.cat([sdf.sph_mat, sdf.pln_mat, sdf.box_mat, sdf.mb_mat]).to(
+        torch.int32).contiguous()
+
+
 def field_flag(sdf: SdfScene) -> int:
     """The kernels' mb_pow8 argument: 1 runs the power-8 build (also for a
     scene without a bulb, which either build marches alike), 0 the
@@ -188,13 +194,15 @@ class Packed:
     many launches (render_pixels_flat packs them once a frame or fit step,
     under no_grad, and hands them to every wrapper as `packed=`): the SDF
     block of pack_sdf and its counts, the bounding spheres, the primary
-    march's bounds grown by bound_pad, and the shade kernels' block
-    (cuda_shade.pack_small), or None."""
+    march's bounds grown by bound_pad, the primitives' material ids in the
+    block's order (int32, what the reconstruct kernel reads), and the shade
+    kernels' block (cuda_shade.pack_small), or None."""
     params: torch.Tensor
     counts: tuple
     bounds: torch.Tensor | None
     march_bounds: torch.Tensor | None
     bound_pad: float
+    mats: torch.Tensor
     small: torch.Tensor | None = None
 
 
@@ -217,7 +225,7 @@ def pack(sdf: SdfScene, bound_pad: float = 0.0) -> Packed:
     if bounds is not None:
         bounds = bounds.to(torch.float32).contiguous()
     return Packed(pack_sdf(sdf), _counts(sdf), bounds, _grown(bounds, bound_pad),
-                  float(bound_pad))
+                  float(bound_pad), pack_mats(sdf))
 
 
 def _sdf_args(sdf: SdfScene, packed: Packed | None = None):

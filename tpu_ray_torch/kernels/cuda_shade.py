@@ -114,17 +114,18 @@ def kernel_spec(scene, cfg, method: str):
     return None
 
 
-def _make_aux(scene, cfg, method: str, o, d, res, mesh_rows=None) -> dict:
+def _make_aux(scene, cfg, method: str, o, d, res, mesh_rows=None, packed=None) -> dict:
     """The hit material id and the mixed closest-select mask: the geometry
     pass's residuals when it made them (with shadows or the AO's mesh term),
-    else recomputed by a values-only reconstruct."""
+    else recomputed by a values-only reconstruct (on CUDA tensors the
+    reconstruct kernel, given packed)."""
     if "hit_mat" not in res:
         from tpu_ray_torch.render.render import reconstruct_hits
 
         aux = {}
         with torch.no_grad():
             reconstruct_hits(scene, cfg, o.detach(), d.detach(), res, method,
-                             lite=True, mesh_rows=mesh_rows, aux_out=aux)
+                             lite=True, mesh_rows=mesh_rows, aux_out=aux, packed=packed)
         res = {"hit_mat": aux["mat"], "hit_closer": aux.get("closer")}
     aux = {"mat": res["hit_mat"].to(torch.int32)}
     if res.get("hit_closer") is not None:
@@ -181,7 +182,7 @@ class ShadeFn(torch.autograd.Function):
 def shade(scene, cfg, o, d, res, method: str, corners=None, mesh_rows=None, packed=None):
     """The shade of one ray block through ShadeFn -> (R, 3). packed: see
     shade_fwd (the backward reads it too)."""
-    aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows)
+    aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows, packed)
     call = _ShadeCall(scene, cfg, method, res, aux, mesh_rows, packed)
     return ShadeFn.apply(call, o, d, corners,
                          *(get_param(scene, p) for p in SHADE_PATHS))
@@ -396,7 +397,7 @@ def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
         return shade_fwd_torch(scene, cfg, o, d, res, method, corners=corners,
                                mesh_rows=mesh_rows)
     if aux is None:
-        aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows)
+        aux = _make_aux(scene, cfg, method, o, d, res, mesh_rows, packed)
     _, _, pointers, statics = _checked_args("shade_fwd", scene, cfg, o, d, res, aux,
                                             corners, method, packed)
     out = torch.empty((o.shape[0], 3), dtype=torch.float32, device=o.device)

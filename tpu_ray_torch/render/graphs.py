@@ -82,12 +82,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.dist.multihost import live_group
-from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels.build import kernel_lib
 from tpu_ray_torch.render import render
 from tpu_ray_torch.utils.metrics import span, stage
 
-LAUNCH_TABLES = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES)
+LAUNCH_TABLES = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
+                 cuda_reconstruct.LAUNCHES)
 
 
 def _snapshot() -> list:

@@ -17,10 +17,13 @@ coverage, and shades with the static shadow visibility or, with `diff_vis`
 soft shadows, the penumbra recomputed from one DE at the march's argmin t,
 and the 5-tap distance-field AO.
 
-On a CUDA device the shade of a block is one launch of the fused forward
-kernel (`cuda_shade.shade_fwd`), with or without a gradient; on the CPU it
-is the plain `_shade_plain`. The primary march runs once per group of
-`MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
+On a CUDA device the geometry pass's values-only reconstruct of a block
+(`shadow_ray_origins`, and every `reconstruct_hits(lite=True)`) is one
+launch of the reconstruct kernel (`cuda_reconstruct`), and the shade of a
+block one launch of the fused forward kernel (`cuda_shade.shade_fwd`),
+with or without a gradient; on the CPU they are the plain
+`shadow_ray_origins_plain` and `_shade_plain`. The primary march runs
+once per group of `MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
 packed once per `render_pixels_flat` call (`cuda_shade.pack`). Gradients:
 ray generation runs inside autograd, so the camera gets its gradient; the
 shade of a block is one `cuda_shade.ShadeFn`, whose backward is the fused
@@ -42,7 +45,7 @@ import torch
 
 from tpu_ray_torch.core.math3d import clamp01, dot, normalize
 from tpu_ray_torch.dist.scene_shard import intersect_ring_packet
-from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import moller_trumbore as mt
 from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
 from tpu_ray_torch.render import shading
@@ -294,12 +297,27 @@ def _mesh_from_res(scene: Scene, cfg: RenderConfig, o, d, res,
 
 def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
                      lite: bool = False, mesh_rows=None, aux_out=None,
-                     corners=None):
+                     corners=None, packed=None):
     """(t, hit, p, n, mat, cov) from the geometry residuals.
 
     aux_out: a dict that receives the by-products the fused shade backward
     takes as residuals: the hit material id and, for mixed, the
-    closest-select mask."""
+    closest-select mask. lite: shadow_ray_origins' hit state (on CUDA
+    tensors the reconstruct kernel, which gathers the corners itself from
+    mesh_rows; packed: cuda_sdf.pack's)."""
+    if lite:
+        if corners is not None:
+            raise ValueError("the values-only reconstruct gathers the corners itself, "
+                             "from mesh_rows")
+        return shadow_ray_origins(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                  aux_out=aux_out, packed=packed)[0]
+    return reconstruct_plain(scene, cfg, o, d, res, method, lite=lite, mesh_rows=mesh_rows,
+                             aux_out=aux_out, corners=corners)
+
+
+def reconstruct_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                      lite: bool = False, mesh_rows=None, aux_out=None, corners=None):
+    """reconstruct_hits as plain PyTorch, on any device."""
     if method == "sdf":
         out = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
     elif method in ("mesh_brute", "mesh_grid"):
@@ -331,7 +349,7 @@ def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
 
 
 def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                       mesh_rows=None, aux_out=None):
+                       mesh_rows=None, aux_out=None, packed=None):
     """Hit state and shadow-ray origins from the primary residuals ->
     (hits, p_off, n, live): the reconstructed (t, hit, p, n, mat, cov), the
     hit points offset along the ray-facing normal, that normal, and the lanes
@@ -341,9 +359,23 @@ def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
     Without soft silhouettes a miss lane's shadow never reaches the image
     and o + BIG*d is a garbage origin: such lanes are parked at the camera,
     and the shadow queries give them a zero budget. aux_out: see
-    reconstruct_hits."""
-    hits = reconstruct_hits(scene, cfg, o, d, res, method, lite=True,
-                            mesh_rows=mesh_rows, aux_out=aux_out)
+    reconstruct_hits. cuda_reconstruct.reconstruct decides by the device: on
+    CUDA tensors one launch of the reconstruct kernel (packed: cuda_sdf.pack's),
+    on CPU tensors shadow_ray_origins_plain."""
+    r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                     packed=packed)
+    if aux_out is not None:
+        if r.closer is not None:
+            aux_out["closer"] = r.closer
+        aux_out["mat"] = r.hits[4]
+    return r.hits, r.p_off, r.nf, r.live
+
+
+def shadow_ray_origins_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
+                             mesh_rows=None, aux_out=None):
+    """shadow_ray_origins as plain PyTorch, on any device."""
+    hits = reconstruct_plain(scene, cfg, o, d, res, method, lite=True,
+                             mesh_rows=mesh_rows, aux_out=aux_out)
     _t, hit_any, p, n, _mat, _cov = hits
     n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
     p_off = p + cfg.shadow_bias * n
@@ -429,7 +461,8 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
     with stage("reconstruct", o.device):
         aux = {}
         hits, p_off, n, live = shadow_ray_origins(scene, cfg, o, d, res, method,
-                                                  mesh_rows=mesh_rows, aux_out=aux)
+                                                  mesh_rows=mesh_rows, aux_out=aux,
+                                                  packed=packed)
         res["hit_mat"] = aux["mat"]
         if "closer" in aux:
             res["hit_closer"] = aux["closer"]

@@ -31,11 +31,12 @@ import torch
 from tpu_ray_torch.utils import metrics
 
 # the hand-written kernels by the names nvcc gives them, each with its
-# number in the table of TPU kernels (PERF.md); no name holds another
+# number in the table of TPU kernels (PERF.md; the reconstruct has no TPU
+# twin); no name holds another
 HAND_KERNELS = (("march_kernel", "#1 march"), ("shadow_kernel", "#2 shadow"),
                 ("packet_kernel", "#3 packet"), ("packet_resident_kernel", "#4 packet_resident"),
                 ("shade_fwd_kernel", "#5 shade_fwd"), ("shade_bwd_kernel", "#6 shade_bwd"),
-                ("sum_partials_kernel", "#6 sum_partials"))
+                ("sum_partials_kernel", "#6 sum_partials"), ("reconstruct_kernel", "reconstruct"))
 
 
 def parser(prog: str, doc: str) -> argparse.ArgumentParser:
@@ -84,7 +85,7 @@ def timed(fn, device: torch.device, iters: int = 1, warm=None):
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count so far, by kernel."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
 
     return {"march": cuda_sdf.LAUNCHES["march"],
             "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
@@ -94,7 +95,8 @@ def launch_counts() -> dict:
             "resident_closest": cuda_mt.LAUNCHES["resident_closest"],
             "resident_any_hit": cuda_mt.LAUNCHES["resident_any_hit"],
             "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"],
-            "shade_bwd": cuda_shade.LAUNCHES["shade_bwd"]}
+            "shade_bwd": cuda_shade.LAUNCHES["shade_bwd"],
+            "reconstruct": cuda_reconstruct.LAUNCHES["reconstruct"]}
 
 
 def launches_since(before: dict) -> dict:

@@ -12,7 +12,8 @@ slice. The stages, each the one before plus:
   march           march_group, a launch per group
   march+mesh      the mesh closest hit of each block, seeded with the SDF t
   +reconstruct    shadow_ray_origins: the values-only reconstruct of the
-                  hits and the shadow rays' origins, plain PyTorch op by op
+                  hits and the shadow rays' origins (one launch of the
+                  reconstruct kernel a block on the card)
   geometry(all)   geometry_residuals whole: the shadow marches and any-hits
   full fwd        render_image under no_grad
   fwd+bwd         mean(render_image(apply_params(scene, p), cfg_b)**2)
@@ -126,7 +127,7 @@ def block_outputs(stage: str, fr: Frame, o, d, march, packed, mesh_rows) -> dict
     ao_mesh = cfg.ao == "sdf5" and R._use_mesh(scene, method)
     if stage == "+reconstruct" and (cfg.shadow != "none" or ao_mesh):
         _hits, out["p_off"], out["n"], _live = R.shadow_ray_origins(
-            scene, cfg, o, d, res, method, mesh_rows=mesh_rows, aux_out={})
+            scene, cfg, o, d, res, method, mesh_rows=mesh_rows, aux_out={}, packed=packed)
     return out
 
 
