@@ -179,9 +179,12 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      scene's accel; #3 closest and any-hit against their plain versions on
      KNOT8M_SAMPLE rays strided over the frame (hits equal on >= 99.99%, t
      rtol 1e-5, another triangle only on a tie), timed with the bound and
-     the walk counters, and at its launch size (one 65,536-ray block); the
-     1024x1024x1 frame with its launches (16 of each #3 kernel), time and
-     peak memory.
+     the walk counters; on one 65,536-ray block, #3 at its launch size and
+     the reconstruct's mesh-only branch and #5 against their plain
+     versions; the 1024x1024x1 frame through render_image_jit (captured
+     block graphs) within 1e-6 of the eager one, with its launches (16 each
+     of #3 closest and any-hit, the reconstruct and #5, nothing else), time
+     and peak memory.
  26. grid_oracle: BASELINE config 3, `bunny` at 512x512 with its uniform
      grid: #3 closest-hit on every primary ray and any-hit on every live
      shadow ray against the grid's DDA (kernels/dda.py) under the same
@@ -261,8 +264,9 @@ PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_
                 # `mandelbulb` with the generic-power field (mb_pow8=False)
                 "mandelbulb_power": ("march", "shadow_soft", "reconstruct", "shade_fwd",
                                      "shade_bwd"),
-                # the 8.39M-triangle knot: one whole-mesh accel of 4,097 supers
-                "knot8m": ("packet_closest", "packet_any_hit"),
+                # the 8.39M-triangle knot: one whole-mesh accel of 4,097
+                # supers, hard shadows, no SDF
+                "knot8m": ("packet_closest", "packet_any_hit", "reconstruct", "shade_fwd"),
                 # BASELINE config 3 at 512x512, held against the uniform grid's DDA
                 "bunny": ("packet_closest", "packet_any_hit")}
 # the kernels the ring path shares with `mixed`, measured on the same rays
@@ -485,11 +489,22 @@ def counted(launch, names) -> dict:
 
 
 def walk_counts(tag, n_rays, launch) -> dict:
-    """One more launch of a packet walk, with the kernel's counters
-    (cuda_mt.COUNTERS): logged with what they say, and returned."""
+    """One more launch of a packet walk and what it added to the process's
+    walk counters (cuda_mt.walk_counters, every kind summed): logged with
+    what they say, and returned."""
     from tpu_ray_torch.kernels import cuda_mt
 
-    c = counted(launch, cuda_mt.COUNTERS)
+    def total():
+        return {k: sum(kind[k] for kind in cuda_mt.walk_counters().values())
+                for k in cuda_mt.COUNTERS}
+
+    before = total()
+    launch()
+    c = {k: n - before[k] for k, n in total().items()}
+    # each ray counted once; a passing (ray, chunk) pair runs the chunk's 128
+    # tests, fewer where an any-hit ray is decided inside it
+    check(c["rays"] == n_rays and c["mt_tests"] <= 128 * c["box_passes"]
+          and c["box_passes"] <= c["box_slots"], f"{tag}: walk counters {c}")
     c["pass_share"] = c["box_passes"] / max(c["box_slots"], 1)
     log(tag, f"walk counters: {c['blocks']} blocks, supers visited a block "
         f"{c['supers_visited'] / max(c['blocks'], 1):.2f}, chunks staged a block "
@@ -598,8 +613,8 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, o, d, t_max=cfg.t_far, t_init=seed)),
         **packet_bound(packet, o, seed),
-        counters=walk_counts("parity packet closest", n, lambda c: cuda_mt.intersect_packet_streamed(
-            packet, o, d, t_max=cfg.t_far, t_init=seed, counters=c)))
+        counters=walk_counts("parity packet closest", n, lambda: cuda_mt.intersect_packet_streamed(
+            packet, o, d, t_max=cfg.t_far, t_init=seed)))
 
     # the geometry pass's shadow rays for the one directional light
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk, "mesh_tri": ck.tri,
@@ -649,8 +664,8 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
         plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(
             packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)),
         **packet_bound(packet, p_off, aseed),
-        counters=walk_counts("parity packet any-hit", n, lambda c: cuda_mt.intersect_packet_streamed(
-            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed, counters=c)))
+        counters=walk_counts("parity packet any-hit", n, lambda: cuda_mt.intersect_packet_streamed(
+            packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True, t_init=aseed)))
     if keep is not None:
         keep.update(o=o, d=d, seed=seed, p_off=p_off, l_dir=l_dir, aseed=aseed)
     for name, r in results.items():
@@ -1940,8 +1955,7 @@ def resident_parity(scene, cfg, results, rays):
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(shard, ro, rd, **ring_kw)),
             **packet_bound(shard, ro, None),
             counters=walk_counts(f"resident_parity {key}", ro.shape[0],
-                                 lambda c: cuda_mt.intersect_packet(shard, ro, rd, **ring_kw,
-                                                                    counters=c)))
+                                 lambda: cuda_mt.intersect_packet(shard, ro, rd, **ring_kw)))
         r = results[key]
         log("resident_parity", f"{key} on {ro.shape[0]} rays, {list(hint)}: as the ring calls "
             f"it (unseeded, the ring's shard) kernel #4 {r['ms']:.3f} ms, plain "
@@ -2002,8 +2016,7 @@ def knot_parts(dev, smi, results, counts):
                 plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_torch(part, ro, rd, **kw)),
                 **packet_bound(part, ro, t_run),
                 counters=walk_counts(f"knot1m_parts part {i} {key}", ro.shape[0],
-                                     lambda c: cuda_mt.intersect_packet(part, ro, rd, **kw,
-                                                                        counters=c))))
+                                     lambda: cuda_mt.intersect_packet(part, ro, rd, **kw))))
             best = cuda_mt.fold_hits(best, k, any_hit)
             t_run = cuda_mt.running_t(best, kcfg.t_far, any_hit)
             if seed0 is not None:
@@ -2022,8 +2035,7 @@ def knot_parts(dev, smi, results, counts):
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)),
             **packet_bound(whole, ro, seed0),
             counters=walk_counts(f"knot1m whole {key}", ro.shape[0],
-                                 lambda c: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw,
-                                                                             counters=c)))
+                                 lambda: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw)))
         return k
 
     w = whole_walk(o, d, None, False, "packet_closest")
@@ -2725,13 +2737,16 @@ def knot8m(dev, smi, results, counts):
     the cached load (each timed and equal to the scene's accel); #3
     closest and any-hit against their plain versions on KNOT8M_SAMPLE rays
     strided over the frame (the plain version tests all 8.4M triangles a
-    ray), timed with their bound and counters; #3 at its launch size (one
-    65,536-ray block, the geometry pass's arguments); the 1024x1024x1 frame
-    with its launches, time and peak memory."""
+    ray), timed with their bound and counters; on one 65,536-ray block, #3
+    at its launch size (the geometry pass's arguments), the reconstruct's
+    mesh-only branch and #5 against their plain versions; the 1024x1024x1
+    frame through render_image_jit against the eager one, with its launches
+    (each of PATH_KERNELS["knot8m"] once a block), time and peak memory."""
     from tpu_ray_torch import native
     from tpu_ray_torch.accel import packet as pk
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct
+    from tpu_ray_torch.render import graphs
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
@@ -2799,8 +2814,7 @@ def knot8m(dev, smi, results, counts):
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(whole, ro, rd, **kw)),
             **packet_bound(whole, ro, seed0),
             counters=walk_counts(f"knot8m {key}", ro.shape[0],
-                                 lambda c: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw,
-                                                                             counters=c)))
+                                 lambda: cuda_mt.intersect_packet_streamed(whole, ro, rd, **kw)))
         return k
 
     w = walk(o, d, None, False, "packet_closest")
@@ -2817,37 +2831,62 @@ def knot8m(dev, smi, results, counts):
             f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})" + walk_rate(r))
 
     o, d = block_rays(knot, kcfg, KNOT_POINTS, "knot8m launch")
-    calls = []
-    with recorded(cuda_mt, "intersect_packet_streamed", calls):
+    calls = {"walks": [], "reconstruct": []}
+    with recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]), \
+            recorded(cuda_reconstruct, "reconstruct", calls["reconstruct"]):
         shade_inputs(knot, kcfg, o, d, "mesh_grid")
-    check(len(calls) == 2, f"knot8m: {len(calls)} walk calls for a block")
-    for key, (a, k) in zip(("packet_closest", "packet_any_hit"), calls):
+    check(len(calls["walks"]) == 2 and len(calls["reconstruct"]) == 1,
+          f"knot8m: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
+    for key, (a, k) in zip(("packet_closest", "packet_any_hit"), calls["walks"]):
         rows = [dict(rays=o.shape[0], **timed_launch(
             lambda: cuda_mt.intersect_packet_streamed(*a, **k), ("packet_kernel",),
             packet_bound(a[0], a[1], k.get("t_init"))))]
         results["knot8m"][key]["launch"] = launch_entry(rows)
         log_launch("knot8m", key, results["knot8m"][key]["launch"], rows)
+    # the reconstruct's mesh-only branch and #5 on the same block, against
+    # their plain versions
+    row = dict(rays=o.shape[0], **reconstruct_row("knot8m", *calls["reconstruct"][0]))
+    results["knot8m"]["reconstruct"] = dict(
+        max_abs_err=row["err"], launch=launch_entry([row]),
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    log_launch("knot8m", "reconstruct", results["knot8m"]["reconstruct"]["launch"], [row])
     del calls
+    shade_fwd_parity(knot, kcfg, o, d, "mesh_grid", results["knot8m"])
 
+    # the frame: eager (the image's reference), then through render_image_jit
+    # (its first call warms up and captures, the second is timed, its
+    # launches counted from 0)
     n_blocks = -(-kcfg.num_rays // kcfg.block_size)
     with torch.no_grad():
-        R.render_image(knot, kcfg.replace(width=128, height=128))
-        reset_launches()
+        t0 = time.perf_counter()
+        eager = R.render_image(knot, kcfg)
         torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        graphs.PLANS.clear()
+        t0 = time.perf_counter()
+        R.render_image_jit(knot, kcfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        img = R.render_image(knot, kcfg)
+        img = R.render_image_jit(knot, kcfg)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts["knot8m"] = c = forward_counts()
-    log("knot8m", f"frame {kcfg.width}x{kcfg.height}x{kcfg.spp}: {dt:.3f} s, "
-        f"{kcfg.num_rays / dt / 1e6:.3f} Mrays/s, launches {c}, peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    err = float((img - eager).abs().max())
+    log("knot8m", f"frame {kcfg.width}x{kcfg.height}x{kcfg.spp} through render_image_jit: "
+        f"{dt:.3f} s, {kcfg.num_rays / dt / 1e6:.3f} Mrays/s (eager {t_eager:.3f} s; first "
+        f"call, its warm-ups and captures, {first:.3f} s); max |jit - eager| {err:.3e}; "
+        f"launches {c}, peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
     check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (1024, 1024, 3),
           "knot8m frame not finite or of the wrong shape")
-    check(c["packet_closest"] == c["packet_any_hit"] == c["shade_fwd"] == n_blocks
-          and c["resident_closest"] == c["resident_any_hit"] == 0,
-          f"knot8m frame launches {c}")
+    check(err <= 1e-6, f"knot8m graphed frame against the eager one: max abs {err:.3e} > 1e-6")
+    check(all(c[k] == n_blocks for k in PATH_KERNELS["knot8m"])
+          and all(n == 0 for k, n in c.items() if k not in PATH_KERNELS["knot8m"]),
+          f"knot8m frame launches {c}: each of {PATH_KERNELS['knot8m']} once a block "
+          f"({n_blocks}), nothing else")
+    graphs.PLANS.clear()
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     write_png(os.path.join(REPO, "build", "chip_smoke_knot8m.png"), img.cpu().numpy())
 
@@ -2922,8 +2961,7 @@ def grid_oracle(dev, smi, results, counts):
             plain_ms=wall_ms(lambda: cuda_mt.intersect_packet_streamed_torch(packet, ro, rd, **kw)),
             **packet_bound(packet, ro, kw.get("t_init")),
             counters=walk_counts(f"grid_oracle bunny {key}", ro.shape[0],
-                                 lambda c: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw,
-                                                                             counters=c)))
+                                 lambda: cuda_mt.intersect_packet_streamed(packet, ro, rd, **kw)))
     calls = []
     with recorded(cuda_mt, "intersect_packet_streamed", calls):
         shade_inputs(scene, cfg, o, d, "mesh_grid")

@@ -319,9 +319,9 @@ def test_kernel_walk_keeps_the_first_of_tied_triangles(host_walk, case):
 
 def test_kernel_walk_counts_its_work(host_walk):
     """The walk's counters on 1,000 rays (a ragged last block): one count
-    per block, every passing (ray, chunk) pair runs the chunk's 128 MT
-    tests, at most every ray passes a staged chunk's box, and the counts
-    do not change the result."""
+    per block, each ray counted once, every passing (ray, chunk) pair runs
+    the chunk's 128 MT tests, at most every ray passes a staged chunk's
+    box, and the counts do not change the result."""
     v, f = _knot()
     accel = tpacket.build_packet_accel(v, f)
     o, d = _camera_rays(1000, 23)
@@ -332,6 +332,6 @@ def test_kernel_walk_counts_its_work(host_walk):
     want = cuda_mt.intersect_packet_streamed_torch(accel, ot, dt)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     c = dict(zip(cuda_mt.COUNTERS, counters.tolist()))
-    assert c["blocks"] == 32 and 0 < c["supers_visited"] <= 32 * 3
+    assert c["blocks"] == 32 and c["rays"] == 1000 and 0 < c["supers_visited"] <= 32 * 3
     assert 0 < c["box_passes"] <= c["box_slots"] and c["chunks_staged"] > 0
     assert c["mt_tests"] == 128 * c["box_passes"]

@@ -30,6 +30,12 @@ accel_cache at the repository root ("" turns it off). A cache file is
 written through a per-process temporary file and renamed; a corrupt file is
 ignored and rebuilt, and a directory that cannot be written never stops a
 build.
+
+Tracing: `build_packet_parts` runs inside the host span `accel.build`
+(utils/metrics.py) and adds to its counters (`build_counters()`): calls,
+triangles, chunks and supers of the parts, their bytes on the device, host
+seconds, and the disk cache's hits and misses (a mesh under CACHE_MIN_TRIS
+is neither).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import time
+import types
 import zipfile
 from pathlib import Path
 
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from tpu_ray_torch import native
+from tpu_ray_torch.utils.metrics import span
 
 CHUNK = 128  # triangles per chunk
 ROWS_PER_CHUNK = 16  # 9 data rows (v0/e1/e2 xyz) + 7 pad
@@ -64,6 +73,19 @@ CACHE_MIN_TRIS = 100_000
 CACHE_ENV = "TPU_RAY_TORCH_CACHE_DIR"
 DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_ray_torch" / "accel_cache"
 _FIELDS = ("corners", "chunk_aabb", "super_aabb", "perm")
+# what build_packet_parts did in this process, updated in place
+BUILD_KEYS = ("builds", "triangles", "chunks", "supers", "bytes", "seconds", "cache_hits",
+              "cache_misses")
+_BUILDS = dict.fromkeys(BUILD_KEYS, 0)
+
+
+def build_counters() -> types.MappingProxyType:
+    """A read-only snapshot of build_packet_parts' counts in this process:
+    its calls, the triangles of their meshes, the chunks and supers of the
+    parts (padding included), their bytes on the device (corners, boxes and
+    perm), the host seconds inside it (building or loading, and the copy to
+    the device), and the disk cache's hits and misses."""
+    return types.MappingProxyType(dict(_BUILDS))
 
 
 @dataclasses.dataclass
@@ -245,21 +267,32 @@ def build_packet_parts(verts: np.ndarray, tris: np.ndarray,
         t (`cuda_mt.intersect_packet_parts`).
 
     A mesh of CACHE_MIN_TRIS triangles or more is read from the disk cache
-    when it holds its parts, and written to it otherwise.
+    when it holds its parts, and written to it otherwise. The span
+    `accel.build`; counted in build_counters().
     """
-    tris = np.asarray(tris, np.int64).reshape(-1, 3)
-    T = tris.shape[0]
-    path = _cache_path(verts, tris, budget_bytes, streamed) if T >= CACHE_MIN_TRIS else None
-    if path is not None:
-        cached = _load_parts(path, device)
-        if cached is not None:
-            return cached
-    parts = _build_parts(verts, tris, budget_bytes, streamed, device)
-    if path is not None:
-        try:
-            _save_parts(path, parts)
-        except OSError:
-            pass  # a directory that cannot be written never stops a build
+    t0 = time.perf_counter()
+    with span("accel.build"):
+        tris = np.asarray(tris, np.int64).reshape(-1, 3)
+        T = tris.shape[0]
+        path = _cache_path(verts, tris, budget_bytes, streamed) if T >= CACHE_MIN_TRIS else None
+        parts = None if path is None else _load_parts(path, device)
+        if path is not None:
+            _BUILDS["cache_hits" if parts is not None else "cache_misses"] += 1
+        if parts is None:
+            parts = _build_parts(verts, tris, budget_bytes, streamed, device)
+            if path is not None:
+                try:
+                    _save_parts(path, parts)
+                except OSError:
+                    pass  # a directory that cannot be written never stops a build
+    _BUILDS["builds"] += 1
+    _BUILDS["triangles"] += T
+    for a in parts:
+        _BUILDS["chunks"] += a.chunk_aabb.shape[0]
+        _BUILDS["supers"] += a.super_aabb.shape[0]
+        _BUILDS["bytes"] += sum(getattr(a, f).numel() * getattr(a, f).element_size()
+                                for f in _FIELDS)
+    _BUILDS["seconds"] += time.perf_counter() - t0
     return parts
 
 

@@ -50,10 +50,10 @@
 // (T_MIN, t_far) for the static t_far; in any-hit mode a ray is decided at
 // its first hit (its best t becomes 0).
 //
-// An optional counter buffer (null on the main path) receives, per launch,
-// the chunks staged, the MT tests run, the (ray, staged chunk) pairs whose
-// box test passed and all such pairs, the supers visited and the blocks:
-// what says whether the time goes to staging, to divergence or to culling.
+// An optional counter buffer receives, per launch, the chunks staged, the MT
+// tests run, the (ray, staged chunk) pairs whose box test passed and all such
+// pairs, the supers visited, the blocks and the rays: what says whether the
+// time goes to staging, to divergence or to culling.
 //
 // The walk is written once for the card and for a host emulation of the
 // block: TRMT_LANES runs a stretch between barriers for this thread on the
@@ -91,7 +91,9 @@ constexpr int kStageFloats = 9 * kChunk;     // a chunk's v0, e1, e2 rows
 constexpr int kSuperRank = kSuper * kChunk;  // visit ranks a super
 
 // the optional counter buffer's entries (cuda_mt.COUNTERS)
-enum Counter { kChunksStaged, kMtTests, kBoxPasses, kBoxSlots, kSupersVisited, kBlocks };
+enum Counter {
+  kChunksStaged, kMtTests, kBoxPasses, kBoxSlots, kSupersVisited, kBlocks, kRayCount
+};
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -130,6 +132,7 @@ struct Shared {
   int rank[kSlices][kRays];     // their visit ranks (the final reduction)
   uint32_t mask[3];             // the block's chunk mask of a super, rotating
   int undecided[3];             // its undecided rays, rotating
+  unsigned long long tally[2];  // the block's MT tests and box passes (counters)
 };
 
 // One thread's state: its ray and slice, and its slice's best hit.
@@ -203,9 +206,21 @@ __host__ __device__ __forceinline__ void slice_mt(const float* rows, Lane& L,
 
 __device__ __forceinline__ void shared_or(uint32_t* w, uint32_t v) { atomicOr(w, v); }
 __device__ __forceinline__ void shared_add(int* w, int v) { atomicAdd(w, v); }
+__device__ __forceinline__ void shared_add64(unsigned long long* w, unsigned long long v) {
+  atomicAdd(w, v);
+}
 __device__ __forceinline__ void counter_add(unsigned long long* c, unsigned long long v) {
   atomicAdd(c, v);
 }
+// The sum of v over the thread's warp, and whether the thread adds it for
+// the warp: the counters' atomics, one a warp in shared memory and one a
+// block in global memory (one global atomic a thread took a third of a
+// 32,768-ray walk's time).
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ bool warp_lead(int tid) { return (tid & 31) == 0; }
 __device__ __forceinline__ int lowest_bit(uint32_t m) { return __ffs(m) - 1; }
 
 // This thread's 16-byte pieces of a chunk's 9 rows into dst, one cp.async
@@ -233,7 +248,10 @@ __device__ __forceinline__ void stage_wait(bool newer) {
 
 inline void shared_or(uint32_t* w, uint32_t v) { *w |= v; }
 inline void shared_add(int* w, int v) { *w += v; }
+inline void shared_add64(unsigned long long* w, unsigned long long v) { *w += v; }
 inline void counter_add(unsigned long long* c, unsigned long long v) { *c += v; }
+inline unsigned long long warp_sum(unsigned long long v) { return v; }  // a lane at a time
+inline bool warp_lead(int) { return true; }
 inline int lowest_bit(uint32_t m) { return __builtin_ctz(m); }
 inline void stage_part(float* dst, const float* src, int tid) {
   for (int q = tid; q < kStageFloats / 4; q += kThreads)
@@ -275,6 +293,7 @@ __device__ __forceinline__ void walk_block(
       sh.mask[L.tid] = 0;
       sh.undecided[L.tid] = 0;
     }
+    if (L.tid < 2) sh.tally[L.tid] = 0;
   )
   TRMT_SYNC();
   unsigned staged = 0, visited = 0;
@@ -361,18 +380,27 @@ __device__ __forceinline__ void walk_block(
         tri_out[L.i] = hit ? perm[clipped] : -1;
       }
     }
-    if (counters) {
-      counter_add(counters + kMtTests, L.mt_tests);
-      counter_add(counters + kBoxPasses, L.passes);
-      if (L.tid == 0) {
-        const int rays = n - block * kRays < kRays ? n - block * kRays : kRays;
-        counter_add(counters + kChunksStaged, staged);
-        counter_add(counters + kBoxSlots, (unsigned long long)staged * rays);
-        counter_add(counters + kSupersVisited, visited);
-        counter_add(counters + kBlocks, 1);
+    if (counters) {  // the lanes' counts summed a warp, then in shared memory
+      const unsigned long long tests = warp_sum(L.mt_tests), passes = warp_sum(L.passes);
+      if (warp_lead(L.tid)) {
+        shared_add64(&sh.tally[0], tests);
+        shared_add64(&sh.tally[1], passes);
       }
     }
   )
+  if (counters) {  // the block's counts, one global atomic each
+    TRMT_SYNC();
+    TRMT_LANES(if (L.tid == 0) {
+      const int rays = n - block * kRays < kRays ? n - block * kRays : kRays;
+      counter_add(counters + kMtTests, sh.tally[0]);
+      counter_add(counters + kBoxPasses, sh.tally[1]);
+      counter_add(counters + kChunksStaged, staged);
+      counter_add(counters + kBoxSlots, (unsigned long long)staged * rays);
+      counter_add(counters + kSupersVisited, visited);
+      counter_add(counters + kBlocks, 1);
+      counter_add(counters + kRayCount, rays);
+    })
+  }
 }
 
 }  // namespace trmt

@@ -9,10 +9,12 @@ in the order of `sort_origin` or `sort_dir`), and the multi-part walk
 Dispatch follows the device: each wrapper runs its `*_torch` plain version
 on CPU tensors and launches its kernel on CUDA tensors, raising on what the
 kernel does not take. Each launch adds one to `LAUNCHES`: "closest" and
-"any_hit" for #3, "resident_closest" and "resident_any_hit" for #4. Both
-kernels take an optional `counters` tensor (int64, len(COUNTERS), on the
-rays' device) to which a launch adds what its walk did; the main path
-passes none.
+"any_hit" for #3, "resident_closest" and "resident_any_hit" for #4. Each
+launch adds what its walk did (COUNTERS) to the process's counters, one
+int64 tensor per device and LAUNCHES kind, made at the kind's first launch
+on the device (a graph's warm-up, before its capture, so the captured
+launch adds to it at every replay); `walk_counters()` reads them, and the
+difference of two readings is what the launches between them did.
 
 Semantics shared by all versions: best t starts at min(t_init, t_far); a
 triangle counts with t in (T_MIN, t_far) for the static t_far; only strictly
@@ -23,20 +25,23 @@ blocker exists: t is BIG and tri is 0 on a hit lane, -1 elsewhere.
 
 from __future__ import annotations
 
+import types
+
 import torch
 
 from tpu_ray_torch.accel.packet import (CHUNK, ROWS_PER_CHUNK, SUPER, VMEM_BUDGET_BYTES,
                                         PacketAccel)
-from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
-                                         kernel_lib)
+from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
 from tpu_ray_torch.kernels.moller_trumbore import BIG, TriHit, _DET_EPS, _T_MIN
 
 LAUNCHES = {"closest": 0, "any_hit": 0, "resident_closest": 0, "resident_any_hit": 0}
-# the kernels' optional counters (csrc/packet_mt.cu `Counter`): chunks staged
+# the kernels' counters (csrc/packet_mt.cu `Counter`): chunks staged
 # in shared memory, ray x triangle MT tests, (ray, staged chunk) pairs whose
-# box test passed and all such pairs, supers visited, blocks
+# box test passed and all such pairs, supers visited, blocks, rays
 COUNTERS = ("chunks_staged", "mt_tests", "box_passes", "box_slots", "supers_visited",
-            "blocks")
+            "blocks", "rays")
+# the process's walk counters, by (device, kind)
+_WALK = {}
 
 # ray x triangle pairs per step of the plain versions (bounds their temporaries)
 _PAIRS_PER_STEP = 1 << 22
@@ -111,14 +116,14 @@ def intersect_packet_streamed_torch(accel: PacketAccel, o, d, *, t_max: float = 
 
 
 def intersect_packet_streamed(accel: PacketAccel, o, d, *, t_max: float = BIG,
-                              any_hit: bool = False, t_init=None,
-                              counters=None) -> TriHit:
+                              any_hit: bool = False, t_init=None) -> TriHit:
     """TPU kernel #3: closest-hit (or any-hit) of (R,3) rays against the
     packet accel, every super in slot order."""
     if o.device.type == "cpu":
         return intersect_packet_streamed_torch(accel, o, d, t_max=t_max,
                                                any_hit=any_hit, t_init=t_init)
-    _check(accel, o, d, t_init, counters, "intersect_packet_streamed")
+    _check(accel, o, d, t_init, "intersect_packet_streamed")
+    kind = "any_hit" if any_hit else "closest"
     t, tri, hit = _outputs(o)
     with torch.cuda.device(o.device):
         rc = kernel_lib().tr_intersect_packet_streamed(
@@ -127,10 +132,10 @@ def intersect_packet_streamed(accel: PacketAccel, o, d, *, t_max: float = BIG,
             accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(),
             accel.super_aabb.shape[0], accel.perm.data_ptr(), accel.perm.shape[0],
             int(any_hit), t.data_ptr(), tri.data_ptr(), hit.data_ptr(),
-            None if counters is None else counters.data_ptr(),
+            _counted(o.device, kind).data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
     check_launch("intersect_packet_streamed", rc)
-    LAUNCHES["any_hit" if any_hit else "closest"] += 1
+    LAUNCHES[kind] += 1
     return TriHit(t, tri, hit)
 
 
@@ -164,7 +169,7 @@ def intersect_packet_torch(accel: PacketAccel, o, d, *, t_max: float = BIG,
 
 def intersect_packet(accel: PacketAccel, o, d, *, t_max: float = BIG,
                      any_hit: bool = False, sort_origin=None, sort_dir=None,
-                     t_init=None, counters=None) -> TriHit:
+                     t_init=None) -> TriHit:
     """TPU kernel #4: closest-hit (or any-hit) of (R,3) rays against a
     resident accel part, its supers visited by distance from sort_origin
     (primary rays of one camera), by projection on sort_dir (shadow rays
@@ -174,8 +179,9 @@ def intersect_packet(accel: PacketAccel, o, d, *, t_max: float = BIG,
         return intersect_packet_torch(accel, o, d, t_max=t_max, any_hit=any_hit,
                                       sort_origin=sort_origin, sort_dir=sort_dir,
                                       t_init=t_init)
-    _check(accel, o, d, t_init, counters, "intersect_packet")
+    _check(accel, o, d, t_init, "intersect_packet")
     order = super_order(accel, sort_origin, sort_dir, o.device)
+    kind = "resident_any_hit" if any_hit else "resident_closest"
     t, tri, hit = _outputs(o)
     with torch.cuda.device(o.device):
         rc = kernel_lib().tr_intersect_packet_resident(
@@ -184,10 +190,10 @@ def intersect_packet(accel: PacketAccel, o, d, *, t_max: float = BIG,
             accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(), order.data_ptr(),
             accel.super_aabb.shape[0], accel.perm.data_ptr(), accel.perm.shape[0],
             int(any_hit), t.data_ptr(), tri.data_ptr(), hit.data_ptr(),
-            None if counters is None else counters.data_ptr(),
+            _counted(o.device, kind).data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
     check_launch("intersect_packet", rc)
-    LAUNCHES["resident_any_hit" if any_hit else "resident_closest"] += 1
+    LAUNCHES[kind] += 1
     return TriHit(t, tri, hit)
 
 
@@ -250,14 +256,41 @@ def intersect_packet_parts(parts, o, d, *, t_max: float = BIG, any_hit: bool = F
     return best
 
 
-def _check(accel: PacketAccel, o, d, t_init, counters, name: str) -> None:
+def _check(accel: PacketAccel, o, d, t_init, name: str) -> None:
     check_cuda_inputs(name, o, d, t_init, accel.corners, accel.chunk_aabb,
                       accel.super_aabb)
     if accel.perm.device != o.device or accel.perm.dtype != torch.int32:
         raise ValueError(f"{name}: perm must be int32 on the rays' device")
     if accel.corners.data_ptr() % 16:
         raise ValueError(f"{name}: the corners must be 16-byte aligned (cp.async)")
-    check_counters(name, counters, o.device, COUNTERS)
+
+
+def _counted(device, kind: str) -> torch.Tensor:
+    """The counters a launch adds to: the process's own for (device, kind),
+    made here at the first launch. That launch may not be a capture's: the
+    tensor and its zeroing would belong to the graph."""
+    buf = _WALK.get((device, kind))
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"cuda_mt: the first {kind} walk on {device} is being "
+                               "captured: warm the graph up first")
+        buf = _WALK[(device, kind)] = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                                                  device=device)
+    return buf
+
+
+def walk_counters() -> types.MappingProxyType:
+    """A read-only snapshot of what the walks did in this process, by
+    LAUNCHES kind ({kind: {counter: n}}, summed over devices; empty before
+    the first launch on a CUDA device: the plain versions count nothing).
+    Waits for each device's work."""
+    out = {}
+    for (device, kind), buf in _WALK.items():
+        torch.cuda.synchronize(device)
+        got = out.setdefault(kind, dict.fromkeys(COUNTERS, 0))
+        for name, n in zip(COUNTERS, buf.tolist()):
+            got[name] += n
+    return types.MappingProxyType({k: types.MappingProxyType(v) for k, v in out.items()})
 
 
 def _outputs(o):

@@ -48,7 +48,9 @@ key and the plan), `render.load`, `render.group` and `render.block` (a
 replay with its copies), `render.backward` and `render.vjp` (a vjp replay
 with its copies). Always on, by graph kind (`counters()`): replays, the
 host ns inside the replays' graph launches, captures, and the seconds of
-`prepare` (warm-up and capture).
+`prepare` (warm-up and capture). Always on too, by walk kind
+(`walk_counters()`): what the mesh walks did (cuda_mt.COUNTERS), the
+captured launches' at every replay.
 
 On the CPU nothing is captured: the same plan runs each graph's callable
 at every replay. On a CUDA device nothing falls back: a warm-up or a
@@ -116,6 +118,13 @@ def counters() -> types.MappingProxyType:
     library is built and loaded before the clock starts)."""
     return types.MappingProxyType({k: types.MappingProxyType(dict(v))
                                    for k, v in _COUNTS.items()})
+
+
+# the mesh walks' counters, read beside counters(): by kind ("closest" and
+# "any_hit" for #3, "resident_closest" and "resident_any_hit" for #4), the
+# chunks staged, MT tests, box passes and slots, supers visited, blocks and
+# rays of every launch on a CUDA device, eager or replayed
+walk_counters = cuda_mt.walk_counters
 
 
 class Graph:

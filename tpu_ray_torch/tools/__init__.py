@@ -195,7 +195,7 @@ def host_self(events) -> dict:
 
 
 STAGE_OF_MARKER = {metrics.marker_kernel(s): s for s in metrics.STAGES}
-PROGRAM_SPANS = (set(metrics.RENDER_SPANS) | set(metrics.FIT_SPANS)
+PROGRAM_SPANS = (set(metrics.RENDER_SPANS) | set(metrics.FIT_SPANS) | set(metrics.ACCEL_SPANS)
                  | {f"stage.{s}" for s in metrics.STAGES})
 MARKER = "tools.window"
 NO_MARKER = "(no marker)"

@@ -22,8 +22,8 @@ marches, the mesh any-hits, the AO taps' mesh term), `shade` (the corner
 gather, #5, the pixel mean); in the vjp graph `vjp.forward` (the rays, the
 corners and the shade again), `vjp.backward` (the autograd pass: #6, the
 corner scatter, the camera's chain) and `vjp.accumulate` (the gradients
-added into the plan's buffers). RENDER_SPANS and FIT_SPANS are the host
-spans of render/ and fit.py."""
+added into the plan's buffers). RENDER_SPANS, FIT_SPANS and ACCEL_SPANS are
+the host spans of render/, fit.py and accel/packet.py."""
 
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ MARKER_PREFIX = "trace_stage_"
 RENDER_SPANS = ("render.frame", "render.prepare", "render.load", "render.group",
                 "render.block", "render.backward", "render.vjp", "render.to_image")
 FIT_SPANS = ("fit.params", "fit.forward", "fit.backward", "fit.optimizer")
+ACCEL_SPANS = ("accel.build",)
 _STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}
 _STAGE_SPAN = {s: f"stage.{s}" for s in STAGES}
 _OFF = contextlib.nullcontext()
