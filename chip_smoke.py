@@ -181,10 +181,11 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      rtol 1e-5, another triangle only on a tie), timed with the bound and
      the walk counters; on one 65,536-ray block, #3 at its launch size and
      the reconstruct's mesh-only branch and #5 against their plain
-     versions; the 1024x1024x1 frame through render_image_jit (captured
-     block graphs) within 1e-6 of the eager one, with its launches (16 each
-     of #3 closest and any-hit, the reconstruct and #5, nothing else), time
-     and peak memory.
+     versions, and the corner gather bit-equal to the indexing (timed); the
+     1024x1024x1 frame through render_image_jit (captured block graphs)
+     within 1e-6 of the eager one, with its launches (16 each of #3 closest
+     and any-hit, the reconstruct, the corner gather and #5, nothing else),
+     time and peak memory.
  26. grid_oracle: BASELINE config 3, `bunny` at 512x512 with its uniform
      grid: #3 closest-hit on every primary ray and any-hit on every live
      shadow ray against the grid's DDA (kernels/dda.py) under the same
@@ -206,6 +207,19 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      (16 blocks, one march group): each stage's and subset's launches as
      the frame and the step launch them, every profiled window's device
      time within its wall time (0 < busy <= 1), every number finite.
+ 30. scatter: the corner gather and its backward, the vertex gradient's
+     scatter by triangle (csrc/corner_scatter.cu), against their plain
+     versions (the indexing and its autograd: torch's index backward) on
+     tools.profile_scatter's `local` and `uniform` sets and on the middle
+     block of `mixed` and of `mixed_sil` (each path's own row of the kernels
+     line; `mixed_ring` shares `mixed`'s): each gradient entry within 1e-5 of the float64 sum
+     relative to its terms' absolute sum, column 9 zero, two runs
+     bit-identical, the gather bit-equal; device ms of each inside a CUDA
+     graph (20 calls a graph), torch's index backward beside it (the
+     `library_ms` yardstick), the plain version's host ms, the bound and
+     the scatter's counters; then `mixed`'s graphed fit step of the six
+     trainables twice: one scatter and two gathers a block, and the
+     mesh.verts gradient bit-identical between the two.
 Then the kernels as one JSON line (one entry per kernel and path, each
 with its time, its plain version's time and the bound the card could not
 beat for the same work, and its `launch_*` numbers; `mixed`'s,
@@ -242,21 +256,28 @@ REPLACES = {
     "shade_bwd": "tpu_ray/kernels/pallas_shade.py:591",
     # no Pallas kernel: XLA fuses _sdf_from_res / _mesh_from_res
     "reconstruct": "tpu_ray/render/render.py:272-340",
+    # no Pallas kernel: the corner gather, and XLA's transpose of it
+    "corner_gather": "tpu_ray/render/render.py:615",
+    "corner_scatter": "tpu_ray/render/render.py:615",
 }
 SOURCES = {"march": "sdf_march.cu", "shadow_hard": "sdf_march.cu",
            "shadow_soft": "sdf_march.cu", "packet_closest": "packet_mt.cu",
            "packet_any_hit": "packet_mt.cu", "resident_closest": "packet_mt.cu",
            "resident_any_hit": "packet_mt.cu", "shade_fwd": "shade_fwd.cu",
-           "shade_bwd": "shade_bwd.cu", "reconstruct": "reconstruct.cu"}
+           "shade_bwd": "shade_bwd.cu", "reconstruct": "reconstruct.cu",
+           "corner_gather": "corner_scatter.cu", "corner_scatter": "corner_scatter.cu"}
 # the kernels each path runs, forward then backward
 PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                          "reconstruct", "shade_fwd", "shade_bwd"),
+                          "reconstruct", "corner_gather", "shade_fwd", "shade_bwd",
+                          "corner_scatter"),
                 "mandelbulb": ("march", "shadow_soft", "reconstruct", "shade_fwd", "shade_bwd"),
                 "mixed_sil": ("march", "shadow_hard", "packet_closest", "packet_any_hit",
-                              "reconstruct", "shade_fwd", "shade_bwd"),
+                              "reconstruct", "corner_gather", "shade_fwd", "shade_bwd",
+                              "corner_scatter"),
                 # `mixed` with its accel partitioned around a ring of processes
                 "mixed_ring": ("march", "shadow_hard", "resident_closest", "resident_any_hit",
-                               "reconstruct", "shade_fwd", "shade_bwd"),
+                               "reconstruct", "corner_gather", "shade_fwd", "shade_bwd",
+                               "corner_scatter"),
                 # the packet walks of the 1.05M-triangle knot: one whole-mesh
                 # accel, and 6 parts under the budget
                 "knot1m": ("packet_closest", "packet_any_hit"),
@@ -266,11 +287,15 @@ PATH_KERNELS = {"mixed": ("march", "shadow_hard", "packet_closest", "packet_any_
                                      "shade_bwd"),
                 # the 8.39M-triangle knot: one whole-mesh accel of 4,097
                 # supers, hard shadows, no SDF
-                "knot8m": ("packet_closest", "packet_any_hit", "reconstruct", "shade_fwd"),
+                "knot8m": ("packet_closest", "packet_any_hit", "reconstruct", "corner_gather",
+                           "shade_fwd"),
                 # BASELINE config 3 at 512x512, held against the uniform grid's DDA
                 "bunny": ("packet_closest", "packet_any_hit")}
+# the backward's kernels (a fit step's; not a frame's)
+BACKWARD = ("shade_bwd", "corner_scatter")
 # the kernels the ring path shares with `mixed`, measured on the same rays
-RING_SHARED = ("march", "shadow_hard", "reconstruct", "shade_fwd", "shade_bwd")
+RING_SHARED = ("march", "shadow_hard", "reconstruct", "corner_gather", "shade_fwd", "shade_bwd",
+               "corner_scatter")
 # the silhouette-gradient path: `mixed` with both silhouettes (the README's
 # fit width; VERDICT.md:180-187)
 SILHOUETTES = dict(soft_silhouette=0.05, mesh_silhouette=0.05)
@@ -356,9 +381,10 @@ def reset(*tables) -> None:
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
 
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES, cuda_reconstruct.LAUNCHES)
+    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES, cuda_reconstruct.LAUNCHES,
+          cuda_scatter.LAUNCHES)
 
 
 def _max(x) -> float:
@@ -1484,16 +1510,32 @@ def bulb_small(scene, small):
 
 
 def forward_counts():
-    """The kernels' launch counts but the shade backward's (a frame's)."""
+    """The kernels' launch counts but the backward's (a frame's)."""
     from tpu_ray_torch.tools import launch_counts
 
-    return {k: n for k, n in launch_counts().items() if k != "shade_bwd"}
+    return {k: n for k, n in launch_counts().items() if k not in BACKWARD}
+
+
+def forward_kernels(path: str) -> tuple:
+    """The kernels a frame of the path runs: its PATH_KERNELS but the backward's."""
+    return tuple(k for k in PATH_KERNELS[path] if k not in BACKWARD)
+
+
+def step_launches(frame_counts: dict) -> dict:
+    """A graphed fit step's launches from its frame's: the backward replays
+    the shade forward and the corner gather once more a block, and runs the
+    shade backward and, where the frame gathers corners, the corner scatter
+    once a block."""
+    blocks, gathers = frame_counts["shade_fwd"], frame_counts["corner_gather"]
+    return dict(frame_counts, shade_fwd=2 * blocks, shade_bwd=blocks,
+                corner_gather=2 * gathers, corner_scatter=gathers)
 
 
 def check_counts(name, cfg, counts, kernels) -> None:
     """Every kernel of the path launched; the march once per group of
     render.MARCH_GROUP blocks, the reconstruct and the shade forward (and
-    the backward, where it ran) once per block."""
+    the backward, where it ran) once per block, and so the corner gather
+    and scatter where the path lists them."""
     from tpu_ray_torch.render.render import MARCH_GROUP
 
     n_blocks = -(-cfg.num_rays // cfg.block_size)
@@ -1501,7 +1543,8 @@ def check_counts(name, cfg, counts, kernels) -> None:
     check(all(counts[k] > 0 for k in kernels), f"{name}: a kernel never launched: {counts}")
     check(counts["march"] == n_groups, f"{name}: {counts['march']} march launches for "
           f"{n_blocks} blocks in groups of {MARCH_GROUP}")
-    for k in ("reconstruct", "shade_fwd", "shade_bwd"):
+    for k in ("reconstruct", "shade_fwd", "shade_bwd") + tuple(
+            k for k in ("corner_gather", "corner_scatter") if k in kernels):
         check(counts.get(k, n_blocks) == n_blocks,
               f"{name}: {counts.get(k)} {k} launches for {n_blocks} blocks")
 
@@ -1525,7 +1568,7 @@ def full_frame(scene, cfg, smi: str, name: str, warm, tag="frame", keep=None):
     counts = forward_counts()
     check(tuple(img.shape) == (cfg.height, cfg.width, 3), f"frame shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "frame not finite")
-    check_counts(name, cfg, counts, PATH_KERNELS[name][:-1])
+    check_counts(name, cfg, counts, forward_kernels(name))
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     png = os.path.join(REPO, "build", f"chip_smoke_{name}.png")
     write_png(png, img.cpu().numpy())
@@ -1658,7 +1701,7 @@ def graph_frame(scene, cfg, smi: str, name: str, eager: dict, tag="graph_frame",
         f"launches {counts} on {smi}")
     check(bool(torch.isfinite(img).all()), "graphed frame not finite")
     check(err <= 1e-6, f"graphed frame against the eager one: max abs {err:.3e} > 1e-6")
-    check_counts(name, cfg, counts, PATH_KERNELS[name][:-1])
+    check_counts(name, cfg, counts, forward_kernels(name))
     check(counts == eager["counts"], f"graphed launches {counts} != eager {eager['counts']}")
     if keep is not None:
         keep.update(image=img)
@@ -1755,7 +1798,7 @@ def graph_step(scene, cfg, smi: str, name: str, trainables, eager: dict, frame_c
         ok &= rel <= bound
         log(tag, f"grad {path}: rel {rel:.3e} (bound {bound:.0e}) against the eager step's")
     check(ok, "graphed fit step against the eager one")
-    want = dict(frame_counts, shade_fwd=2 * n_blocks, shade_bwd=n_blocks)
+    want = step_launches(frame_counts)
     check(counts == want, f"graphed step launches {counts} != {want}")
     if keep is not None:
         keep.update(loss=loss, grads=grads)
@@ -2192,7 +2235,8 @@ def check_ring_counts(what: str, cfg, counts, backward: bool = False) -> None:
     """The ring's launches: #4's closest and any-hit once a block, none of
     #3, the march once a group, and the shade forward once a block (twice
     in a graphed step, whose backward recomputes it)."""
-    check_counts("mixed_ring", cfg, counts, PATH_KERNELS["mixed_ring"][:None if backward else -1])
+    check_counts("mixed_ring", cfg, counts,
+                 PATH_KERNELS["mixed_ring"] if backward else forward_kernels("mixed_ring"))
     n_blocks = -(-cfg.num_rays // cfg.block_size)
     check(counts["resident_closest"] == counts["resident_any_hit"] == n_blocks
           and counts["packet_closest"] == counts["packet_any_hit"] == 0,
@@ -2739,8 +2783,8 @@ def knot8m(dev, smi, results, counts):
     strided over the frame (the plain version tests all 8.4M triangles a
     ray), timed with their bound and counters; on one 65,536-ray block, #3
     at its launch size (the geometry pass's arguments), the reconstruct's
-    mesh-only branch and #5 against their plain versions; the 1024x1024x1
-    frame through render_image_jit against the eager one, with its launches
+    mesh-only branch and #5 against their plain versions, the corner gather
+    against the indexing; the 1024x1024x1 frame through render_image_jit against the eager one, with its launches
     (each of PATH_KERNELS["knot8m"] once a block), time and peak memory."""
     from tpu_ray_torch import native
     from tpu_ray_torch.accel import packet as pk
@@ -2834,7 +2878,7 @@ def knot8m(dev, smi, results, counts):
     calls = {"walks": [], "reconstruct": []}
     with recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]), \
             recorded(cuda_reconstruct, "reconstruct", calls["reconstruct"]):
-        shade_inputs(knot, kcfg, o, d, "mesh_grid")
+        res = shade_inputs(knot, kcfg, o, d, "mesh_grid")[0]
     check(len(calls["walks"]) == 2 and len(calls["reconstruct"]) == 1,
           f"knot8m: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
     for key, (a, k) in zip(("packet_closest", "packet_any_hit"), calls["walks"]):
@@ -2851,6 +2895,14 @@ def knot8m(dev, smi, results, counts):
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     log_launch("knot8m", "reconstruct", results["knot8m"]["reconstruct"]["launch"], [row])
     del calls
+    # the corner gather on the same block's triangle ids, clamped as the
+    # shade clamps them, into the knot's own table
+    mesh_rows = R.mesh_table(knot.mesh)
+    ids = res["mesh_tri"].clamp(0, mesh_rows.shape[0] - 1).to(torch.int32)
+    g = results["knot8m"]["corner_gather"] = gather_row("knot8m", mesh_rows, ids)
+    log("knot8m", f"corner_gather on {ids.numel()} rays: {g['ms']:.5f} ms in a graph, plain "
+        f"{g['plain_ms']:.3f} ms host, bound {g['bound_ms']:.5f} ms; bit-equal to the indexing")
+    del mesh_rows, res
     shade_fwd_parity(knot, kcfg, o, d, "mesh_grid", results["knot8m"])
 
     # the frame: eager (the image's reference), then through render_image_jit
@@ -3068,9 +3120,10 @@ STAGE_KERNELS = {"march": ("march",),
                  "geometry(all)": ("march", "packet_closest", "reconstruct", "shadow_hard",
                                    "packet_any_hit"),
                  "full fwd": ("march", "packet_closest", "reconstruct", "shadow_hard",
-                              "packet_any_hit", "shade_fwd"),
+                              "packet_any_hit", "corner_gather", "shade_fwd"),
                  "fwd+bwd": ("march", "packet_closest", "reconstruct", "shadow_hard",
-                             "packet_any_hit", "shade_fwd", "shade_bwd")}
+                             "packet_any_hit", "corner_gather", "shade_fwd", "shade_bwd",
+                             "corner_scatter")}
 
 
 def finite_numbers(obj, where: str) -> None:
@@ -3143,12 +3196,16 @@ def tools_phase(dev, smi):
     check(rep["fwd_launches"] == want(STAGE_KERNELS["full fwd"]),
           f"profile_bwd forward launches {rep['fwd_launches']}")
     for tag, r in rep["subsets"].items():
-        check(r["launches"] == want(STAGE_KERNELS["fwd+bwd"]) and r["grads_finite"],
+        # the corner scatter runs where the subset trains the vertices
+        kernels = tuple(k for k in STAGE_KERNELS["fwd+bwd"] if k != "corner_scatter"
+                        or "mesh.verts" in profile_bwd.SUBSETS[tag])
+        check(r["launches"] == want(kernels) and r["grads_finite"],
               f"profile_bwd {tag}: launches {r['launches']}, finite {r['grads_finite']}")
     check("verts_over_albedo" in rep, "profile_bwd: no verts-only - albedo-only increment")
     pieces = rep["pieces"]
-    check(pieces["shade fwd+bwd"]["launches"] == {"shade_fwd": 1, "shade_bwd": 1}
-          and pieces["shade fwd"]["launches"] == {"shade_fwd": 1},
+    check(pieces["shade fwd+bwd"]["launches"] == {"corner_gather": 1, "shade_fwd": 1,
+                                                  "shade_bwd": 1, "corner_scatter": 1}
+          and pieces["shade fwd"]["launches"] == {"corner_gather": 1, "shade_fwd": 1},
           f"profile_bwd pieces' launches {pieces}")
     say(f"profile_bwd: {time.perf_counter() - t0:.2f} s")
 
@@ -3169,6 +3226,129 @@ def tools_phase(dev, smi):
     check(hand <= set(rep["by_category"]),
           f"profile_trace_ops: categories {list(rep['by_category'])}")
     say(f"profile_trace_ops bwd: {time.perf_counter() - t0:.2f} s")
+
+
+def gather_row(tag: str, rows, idx) -> dict:
+    """The corner gather on the triangle ids idx into the (T, 10) rows:
+    bit-equal to the indexing; its device ms inside a CUDA graph, the plain
+    version's host ms and the bound (each ray's id read and corners
+    written, each distinct triangle's row read)."""
+    from tpu_ray_torch.kernels import cuda_scatter
+    from tpu_ray_torch.tools.profile_scatter import device_ms
+
+    check(torch.equal(cuda_scatter.corner_gather(rows, idx), rows[idx.long()][:, :9]),
+          f"gather [{tag}] against the indexing")
+    return dict(ms=device_ms(lambda: cuda_scatter.corner_gather(rows, idx), idx.device),
+                plain_ms=wall_ms(lambda: cuda_scatter.corner_gather_torch(rows, idx)),
+                max_abs_err=0.0,
+                **bound(idx.numel() * (4 + 36) + int(torch.unique(idx).numel()) * 40, 0))
+
+
+def scatter_row(tag: str, smi: str, ct, idx, n_t: int) -> dict:
+    """The corner scatter of the (R, 9) cotangent ct by the triangle ids
+    idx against float64 and its plain version (each entry within 1e-5 of
+    its terms' absolute sum), column 9 zero, two runs bit-identical; its
+    device ms inside a CUDA graph, torch's index backward's (the plain
+    version: `library_ms`) and its host ms, the bound and the counters a
+    call adds."""
+    from tpu_ray_torch.kernels import cuda_scatter
+    from tpu_ray_torch.tools.profile_scatter import device_ms
+
+    before = dict(cuda_scatter.scatter_counters())
+    got = cuda_scatter.corner_scatter(ct, idx, n_t)
+    after = dict(cuda_scatter.scatter_counters())
+    again = cuda_scatter.corner_scatter(ct, idx, n_t)
+    plain = cuda_scatter.corner_scatter_torch(ct, idx, n_t)
+    want = torch.zeros((n_t, 9), dtype=torch.float64, device=ct.device).index_add_(
+        0, idx.long(), ct.double())
+    abs_sum = torch.zeros((n_t, 9), dtype=torch.float64, device=ct.device).index_add_(
+        0, idx.long(), ct.double().abs())
+    worst = {}
+    for what, ref in (("float64", want), ("plain", plain[:, :9].double())):
+        err = (got[:, :9].double() - ref).abs()
+        worst[what] = float((err / abs_sum.clamp_min(1e-300)).max())
+        check(bool((err <= 1e-5 * abs_sum).all()),
+              f"scatter [{tag}] against {what}: worst {worst[what]:.3e} of the terms' "
+              "absolute sum (rule 1e-5)")
+    check(not got[:, 9].any(), f"scatter [{tag}]: column 9 not zero")
+    check(torch.equal(got, again), f"scatter [{tag}]: two runs differ")
+    row = dict(ms=device_ms(lambda: cuda_scatter.corner_scatter(ct, idx, n_t), ct.device),
+               library_ms=device_ms(lambda: cuda_scatter.corner_scatter_torch(ct, idx, n_t),
+                                    ct.device),
+               plain_ms=wall_ms(lambda: cuda_scatter.corner_scatter_torch(ct, idx, n_t)),
+               max_abs_err=float((got - plain).abs().max()),
+               counters={k: after[k] - before.get(k, 0) for k in after if k != "longest_rows"},
+               **bound(idx.numel() * (4 + 36) + n_t * 40, 0))
+    log("scatter", f"[{tag}] R {idx.numel()}, T {n_t}: scatter {row['ms']:.5f} ms a call in "
+        f"a graph (bound {row['bound_ms']:.5f}, {row['bound_ms'] / row['ms']:.1%}; torch's "
+        f"index backward {row['library_ms']:.5f} ms, {row['library_ms'] / row['ms']:.1f}x; "
+        f"plain {row['plain_ms']:.3f} ms host); worst {worst['float64']:.2e} of the absolute "
+        f"sum against float64, {worst['plain']:.2e} against the plain version; bit-identical "
+        f"twice; counters {row['counters']}, the process's longest segment "
+        f"{after['longest_rows']} on {smi}")
+    return row
+
+
+def scatter_phase(dev, smi, results):
+    """Phase 30: the corner gather and scatter against their plain versions
+    and torch's index backward, then `mixed`'s graphed fit step (see the
+    module docstring)."""
+    import numpy as np
+
+    from tpu_ray_torch.fit import apply_params, extract_params
+    from tpu_ray_torch.kernels import cuda_scatter
+    from tpu_ray_torch.render.render import render_image_jit
+    from tpu_ray_torch.scene.scenes import build_scene
+    from tpu_ray_torch.tools import launch_counts, profile_scatter
+
+    T, R = profile_scatter.T, profile_scatter.R_BLOCK
+    rng = np.random.default_rng(0)  # profile_scatter's sets, in its order
+    local = torch.as_tensor(rng.integers(0, 2000, R) + 30_000, device=dev)
+    uniform = torch.as_tensor(rng.integers(0, T, R), device=dev)
+    d = torch.as_tensor(rng.standard_normal((R, 9), np.float32), device=dev)
+    sets = [("local", local, T, None), ("uniform", uniform, T, None)]
+    for path, changes in (("mixed", {}), ("mixed_sil", SILHOUETTES)):
+        tri, hit_share, b, _, n_tris = profile_scatter.real_block(dev, **changes)
+        sets.append((f"{path} block {b}, hit share {hit_share:.4f}", tri, n_tris, path))
+    for tag, idx, n_t, path in sets:
+        idx = idx.to(torch.int32)
+        row = scatter_row(tag, smi, d[:idx.shape[0]].contiguous(), idx, n_t)
+        g_row = gather_row(tag, torch.randn((n_t, 10), device=dev), idx)
+        log("scatter", f"[{tag}] gather {g_row['ms']:.5f} ms a call in a graph (bound "
+            f"{g_row['bound_ms']:.5f}; plain {g_row['plain_ms']:.3f} ms host), bit-equal to "
+            "the indexing")
+        if path is not None:
+            results[path]["corner_scatter"], results[path]["corner_gather"] = row, g_row
+    scene, cfg = build_scene("mixed", device=dev)
+    blocks = -(-cfg.num_rays // cfg.block_size)
+
+    def step():
+        params = extract_params(scene, TRAINABLES)
+        torch.mean(render_image_jit(apply_params(scene, params), cfg) ** 2).backward()
+        torch.cuda.synchronize()
+        return params["mesh.verts"].grad
+
+    step()  # captures the vjp graph, unless phase 6b did
+    reset_launches()
+    before = dict(cuda_scatter.scatter_counters())
+    t0 = time.perf_counter()
+    first = step()
+    dt = time.perf_counter() - t0
+    counts, after = launch_counts(), dict(cuda_scatter.scatter_counters())
+    second = step()
+    delta = {k: after[k] - before[k] for k in after if k != "longest_rows"}
+    log("scatter", f"mixed {cfg.width}x{cfg.height}x{cfg.spp} graphed fit step: {dt:.3f} s, "
+        f"{cfg.num_rays / dt / 1e6:.3f} Mrays/s; corner_gather {counts['corner_gather']}, "
+        f"corner_scatter {counts['corner_scatter']} launches for {blocks} blocks; the "
+        f"scatter's counters over the step {delta} "
+        f"({delta['rows'] / max(delta['segments'], 1):.1f} rays a triangle); mesh.verts "
+        f"gradient bit-identical over two steps: "
+        f"{torch.equal(first, second)} (norm {float(first.norm()):.6e})")
+    check(counts["corner_scatter"] == blocks and counts["corner_gather"] == 2 * blocks,
+          f"graphed step: {counts['corner_scatter']} scatters and {counts['corner_gather']} "
+          f"gathers for {blocks} blocks")
+    check(torch.equal(first, second), "two identical graphed steps' mesh.verts gradients differ")
+    return counts
 
 
 def cli_run(argv, tag="bench_cli") -> str:
@@ -3388,7 +3568,6 @@ def main() -> int:
     sil = cfg.replace(**SILHOUETTES)
     sil_cut = sil.replace(width=960, height=540)  # phases 14, 15
     ring_cut = cfg.replace(width=960, height=540)  # phases 19, 20
-    ring_blocks = -(-ring_cut.num_rays // ring_cut.block_size)
     results.update(mixed_sil={}, mixed_ring={}, knot1m={}, knot1m_parts={},
                    mandelbulb_power={})
     parity_rays, kept, knot_counts = [], {}, {}
@@ -3443,7 +3622,7 @@ def main() -> int:
                                                 eager_ring_fit)),
         ("ring_graph_step", lambda: graphed_sharded_step(
             scene, ring_cut, smi, dev, eager_ring_fit,
-            dict(out["ring_graph_frame"], shade_fwd=2 * ring_blocks, shade_bwd=ring_blocks),
+            step_launches(out["ring_graph_frame"]),
             "ring_graph_step", scene_shards=True)),
         ("power_parity", lambda: power_parity(bulb, bcfg, results["mandelbulb_power"])),
         ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
@@ -3455,6 +3634,7 @@ def main() -> int:
         ("gradcheck", lambda: gradcheck(dev)),
         ("inverse_lighting", lambda: inverse_lighting(dev, smi)),
         ("tools", lambda: tools_phase(dev, smi)),
+        ("scatter", lambda: scatter_phase(dev, smi, results)),
     )
     # the kernels at their launch size: the frame's config, the fit step's
     launch_paths = {
@@ -3483,12 +3663,15 @@ def main() -> int:
         return 0
     # `mixed`, `mandelbulb`: the graphed frames and steps, as the bench, the CLI
     # and fit run them
-    counts = {"mixed": dict(out["graph_frame"], shade_bwd=out["graph_step"]["shade_bwd"]),
+    counts = {"mixed": dict(out["graph_frame"], shade_bwd=out["graph_step"]["shade_bwd"],
+                            corner_scatter=out["graph_step"]["corner_scatter"]),
               "mandelbulb": dict(out["bulb_graph_frame"],
                                  shade_bwd=out["bulb_graph_step"]["shade_bwd"]),
-              "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"]),
+              "mixed_sil": dict(out["sil_frame"], shade_bwd=out["sil_fit_step"]["shade_bwd"],
+                                corner_scatter=out["sil_fit_step"]["corner_scatter"]),
               "mixed_ring": dict(out["ring_graph_frame"],
-                                 shade_bwd=out["ring_graph_step"]["shade_bwd"]),
+                                 shade_bwd=out["ring_graph_step"]["shade_bwd"],
+                                 corner_scatter=out["ring_graph_step"]["corner_scatter"]),
               "mandelbulb_power": out["power_frame"],
               **knot_counts}
     for key in RING_SHARED:
@@ -3502,7 +3685,7 @@ def main() -> int:
                      "source": f"{SRC}/{SOURCES[key]}", "replaces": REPLACES[key],
                      "launches": counts[path][key], "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None}
+                     "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
             if "counters" in r:
                 entry["counters"] = r["counters"]
             if "launch" in r:  # one launch of the path's size (phase `launch`)

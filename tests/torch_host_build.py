@@ -1,9 +1,10 @@
 """The CUDA kernels' per-ray arithmetic built as host C++ with g++, for the
 port's tests (tests/test_torch_shade_*.py, test_torch_packet_resident.py,
-test_torch_mandelbulb.py, test_torch_sdf.py, test_torch_reconstruct.py):
-the shade forward, the shade backward, the primary, hard and soft marches,
-the Mandelbulb fields and their adjoint, the packet walk and the values-only
-reconstruct, called
+test_torch_mandelbulb.py, test_torch_sdf.py, test_torch_reconstruct.py,
+test_torch_corner_scatter.py): the shade forward, the shade backward, the
+primary, hard and soft marches, the Mandelbulb fields and their adjoint, the
+packet walk, the values-only reconstruct and the corner gather and scatter,
+called
 with the arguments their CUDA wrappers pass. The sources keep their arithmetic above the `__CUDACC__` guard, so
 g++ builds the same code nvcc does, without `-ffp-contract` (as nvcc's
 `--fmad=false`)."""
@@ -516,3 +517,90 @@ def _case(name, point_light, over, mixed_size):
         corners = rows[torch.clamp(res["mesh_tri"], 0, rows.shape[0] - 1).long()][:, :9]
         corners = corners.contiguous()
     return scene, cfg, method, o, d, res, corners
+
+
+SCATTER_MAIN = r"""
+#include "corner_scatter.cu"
+extern "C" long long host_corner_scatter_scratch(int n, int n_tris) {
+  return trcs::scratch_bytes(n, n_tris);
+}
+extern "C" void host_corner_gather(const float* rows, int n_tris, const int* idx, int n,
+                                   float* out) {
+  for (long long e = 0; e < 9LL * n; ++e) out[e] = trcs::gather_one(rows, n_tris, idx, e);
+}
+// tr_corner_scatter with its arguments: the zero fills, then the tile and
+// the combine kernels' blocks in turn, each block's threads emulated.
+extern "C" void host_corner_scatter(const float* ct, const int* idx, int n, int n_tris,
+                                    float* grad, void* scratch, unsigned long long* counters) {
+  const trcs::Scratch s = trcs::carve(scratch, n, n_tris);
+  memset(grad, 0, sizeof(float) * 10 * static_cast<size_t>(n_tris));
+  if (n <= 0) return;
+  memset(s.mask, 0, 8 * static_cast<size_t>(s.n_words) * n_tris);
+  trcs::TileShared* ts = new trcs::TileShared;
+  trcs::TileLane* tl = new trcs::TileLane[trcs::kTileThreads];
+  for (int b = 0; b < s.n_tiles; ++b) {
+    for (int k = 0; k < trcs::kTileThreads; ++k) tl[k].tid = k;
+    trcs::tile_block(b, ct, idx, n, n_tris, s, counters, *ts, tl);
+  }
+  trcs::CombineShared* cs = new trcs::CombineShared;
+  trcs::CombineLane* cl = new trcs::CombineLane[trcs::kCombineThreads];
+  const long long rows = static_cast<long long>(s.n_tiles) * trcs::kTile;
+  for (int b = 0; static_cast<long long>(b) * trcs::kCombineRows < rows; ++b) {
+    for (int k = 0; k < trcs::kCombineThreads; ++k) cl[k].tid = k;
+    trcs::combine_block(b, s, grad, counters, *cs, cl);
+  }
+  delete[] cl;
+  delete cs;
+  delete[] tl;
+  delete ts;
+}
+"""
+
+
+def build_scatter(tmp_dir):
+    """The corner gather's and scatter's kernels (csrc/corner_scatter.cu)
+    built into tmp_dir, or None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    (tmp_dir / "scatter_main.cpp").write_text(SCATTER_MAIN)
+    lib = tmp_dir / "libscatter_host.so"
+    csrc = cuda_shade.__file__.rsplit("/kernels/", 1)[0] + "/csrc"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-I", csrc, "-o", str(lib), str(tmp_dir / "scatter_main.cpp")], check=True,
+                   capture_output=True, timeout=180)
+    so = ctypes.CDLL(str(lib))
+    so.host_corner_scatter_scratch.argtypes = [_I, _I]
+    so.host_corner_scatter_scratch.restype = ctypes.c_longlong
+    so.host_corner_gather.argtypes = [_P, _I, _P, _I, _P]
+    so.host_corner_gather.restype = None
+    so.host_corner_scatter.argtypes = [_P, _P, _I, _I, _P, _P, _P]
+    so.host_corner_scatter.restype = None
+    return so
+
+
+def corner_gather(so, rows, idx):
+    """The host build of the gather on CPU tensors, with the arguments
+    cuda_scatter passes -> (R, 9)."""
+    rows, idx = rows.contiguous(), idx.to(torch.int32).contiguous()
+    out = torch.empty((idx.shape[0], 9))
+    so.host_corner_gather(rows.data_ptr(), rows.shape[0], idx.data_ptr(), idx.shape[0],
+                          out.data_ptr())
+    return out
+
+
+def corner_scatter(so, ct, idx, n_tris, counters=None):
+    """The host build of the scatter on CPU tensors, with the arguments
+    cuda_scatter passes -> the (n_tris, 10) gradient. counters: an int64
+    tensor of len(cuda_scatter.COUNTERS), added to."""
+    from tpu_ray_torch.kernels import cuda_scatter
+
+    ct, idx = ct.contiguous(), idx.to(torch.int32).contiguous()
+    n = idx.shape[0]
+    grad = torch.empty((n_tris, 10))
+    scratch = torch.empty(int(so.host_corner_scatter_scratch(n, n_tris)), dtype=torch.uint8)
+    if counters is None:
+        counters = torch.zeros(len(cuda_scatter.COUNTERS), dtype=torch.int64)
+    so.host_corner_scatter(ct.data_ptr(), idx.data_ptr(), n, n_tris, grad.data_ptr(),
+                           scratch.data_ptr(), counters.data_ptr())
+    return grad

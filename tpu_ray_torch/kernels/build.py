@@ -78,7 +78,15 @@ _SIGNATURES = {
     "tr_reconstruct": [_P] * 8 + [_I, _I, _P, _P] + [_I] * 8 + [_F, _F] + [_P] * 10,
     # stage (its index in utils.metrics.STAGES), stream: its empty marker
     "tr_trace_stage": [_I, _P],
+    # rows, n_tris, idx, n, out, stream
+    "tr_corner_gather": [_P, _I, _P, _I, _P, _P],
+    # n, n_tris: the bytes of tr_corner_scatter's scratch
+    "tr_corner_scatter_scratch": [_I, _I],
+    # ct, idx, n, n_tris, grad, scratch, counters, stream
+    "tr_corner_scatter": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
+# entry points that return something else than a cudaError_t
+_RESTYPES = {"tr_corner_scatter_scratch": ctypes.c_longlong}
 
 _LIB = None
 BUILD_LOG = {"seconds": 0.0, "built": False, "path": "", "ptxas": ""}
@@ -151,7 +159,7 @@ def kernel_lib() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     BUILD_LOG["path"] = str(path)
     _LIB = lib
     return lib

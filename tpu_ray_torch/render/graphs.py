@@ -50,7 +50,8 @@ with its copies). Always on, by graph kind (`counters()`): replays, the
 host ns inside the replays' graph launches, captures, and the seconds of
 `prepare` (warm-up and capture). Always on too, by walk kind
 (`walk_counters()`): what the mesh walks did (cuda_mt.COUNTERS), the
-captured launches' at every replay.
+captured launches' at every replay; and (`scatter_counters()`) what the
+vertex gradient's corner scatter did (cuda_scatter.COUNTERS).
 
 On the CPU nothing is captured: the same plan runs each graph's callable
 at every replay. On a CUDA device nothing falls back: a warm-up or a
@@ -84,13 +85,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.dist.multihost import live_group
-from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels.build import kernel_lib
 from tpu_ray_torch.render import render
 from tpu_ray_torch.utils.metrics import span, stage
 
 LAUNCH_TABLES = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
-                 cuda_reconstruct.LAUNCHES)
+                 cuda_reconstruct.LAUNCHES, cuda_scatter.LAUNCHES)
 
 
 def _snapshot() -> list:
@@ -125,6 +126,10 @@ def counters() -> types.MappingProxyType:
 # chunks staged, MT tests, box passes and slots, supers visited, blocks and
 # rays of every launch on a CUDA device, eager or replayed
 walk_counters = cuda_mt.walk_counters
+# the vertex gradient's scatter's counters, read beside them: launches, rows
+# in, rows with a nonzero cotangent, segments (distinct triangles) and the
+# longest segment's rows of every scatter on a CUDA device, eager or replayed
+scatter_counters = cuda_scatter.scatter_counters
 
 
 class Graph:

@@ -45,7 +45,7 @@ import torch
 
 from tpu_ray_torch.core.math3d import clamp01, dot, normalize
 from tpu_ray_torch.dist.scene_shard import intersect_ring_packet
-from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import moller_trumbore as mt
 from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
 from tpu_ray_torch.render import shading
@@ -607,9 +607,11 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
     gradient the same Function with the kernels' plain versions (or, for a
     chain the kernels do not take, autograd of the plain shade). The
     per-ray corners of the selected triangles are gathered here, from the
-    per-frame `mesh_table`, so the vertex gradient scatters by triangle per
-    block and by vertex once per frame. packed: the kernels' parameters
-    packed once (cuda_shade.pack)."""
+    per-frame `mesh_table` (`cuda_scatter.shade_corners`: on the card a
+    kernel, whose backward sums the block's corner cotangents by triangle),
+    so the vertex gradient scatters by triangle per block and by vertex
+    once per frame. packed: the kernels' parameters packed once
+    (cuda_shade.pack)."""
     grad = torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)
     spec = cuda_shade.kernel_spec(scene, cfg, method)
     if spec is None or not (grad or o.is_cuda):
@@ -618,8 +620,7 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
     if spec["use_mesh"]:
         if mesh_rows is None:
             mesh_rows = mesh_table(scene.mesh)
-        idx = torch.clamp(res["mesh_tri"], 0, mesh_rows.shape[0] - 1).long()
-        corners = mesh_rows[idx][:, :9].contiguous()
+        corners = cuda_scatter.shade_corners(mesh_rows, res["mesh_tri"])
     if not grad:
         return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
                                     mesh_rows=mesh_rows, packed=packed)

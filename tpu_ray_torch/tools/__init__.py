@@ -36,7 +36,10 @@ from tpu_ray_torch.utils import metrics
 HAND_KERNELS = (("march_kernel", "#1 march"), ("shadow_kernel", "#2 shadow"),
                 ("packet_kernel", "#3 packet"), ("packet_resident_kernel", "#4 packet_resident"),
                 ("shade_fwd_kernel", "#5 shade_fwd"), ("shade_bwd_kernel", "#6 shade_bwd"),
-                ("sum_partials_kernel", "#6 sum_partials"), ("reconstruct_kernel", "reconstruct"))
+                ("sum_partials_kernel", "#6 sum_partials"), ("reconstruct_kernel", "reconstruct"),
+                ("corner_gather_kernel", "corner_gather"),
+                ("corner_tile_kernel", "corner_scatter tiles"),
+                ("corner_combine_kernel", "corner_scatter combine"))
 
 
 def parser(prog: str, doc: str) -> argparse.ArgumentParser:
@@ -85,7 +88,7 @@ def timed(fn, device: torch.device, iters: int = 1, warm=None):
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count so far, by kernel."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
 
     return {"march": cuda_sdf.LAUNCHES["march"],
             "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
@@ -96,7 +99,9 @@ def launch_counts() -> dict:
             "resident_any_hit": cuda_mt.LAUNCHES["resident_any_hit"],
             "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"],
             "shade_bwd": cuda_shade.LAUNCHES["shade_bwd"],
-            "reconstruct": cuda_reconstruct.LAUNCHES["reconstruct"]}
+            "reconstruct": cuda_reconstruct.LAUNCHES["reconstruct"],
+            "corner_gather": cuda_scatter.LAUNCHES["corner_gather"],
+            "corner_scatter": cuda_scatter.LAUNCHES["corner_scatter"]}
 
 
 def launches_since(before: dict) -> dict:

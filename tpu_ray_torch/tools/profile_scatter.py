@@ -4,21 +4,30 @@
     python -m tpu_ray_torch.tools.profile_scatter [--device cpu]
 
 The `mixed` backward's vertex gradient: a block's cotangent of its (R, 9)
-gathered corners, `mesh_rows[idx][:, :9]` (render.shade_with_residuals),
-scatter-adds by triangle into the (T, 10) table's; once a frame the
-table's cotangent scatter-adds by vertex (render.mesh_table's backward).
-Each is timed as the port runs it, through torch.autograd.grad with a given
-cotangent, at the reference tool's sizes and index sets (R = 32,768 rays a
-block, T = 70,000 triangles, V = 35,000 vertices; numpy's
-default_rng(0)): a block whose rays hit 2,000 neighbouring triangles
-(`local`) or any of them (`uniform`); 8 and 64 blocks' worth in one
-scatter; the table's backward; the reference's "90 B/ray" read and
-write of one block ((R, 24) float32) for scale; and one real `mixed`
-block's triangle ids into its own table (the frame's middle block, its
-misses clamped to triangle 0 as the shade clamps them). Per
-frame: times `mixed`'s block count, -(-primary rays // block size).
+gathered corners (`cuda_scatter.shade_corners` in
+render.shade_with_residuals) sums by triangle into the (T, 10) table's;
+once a frame the table's cotangent scatter-adds by vertex
+(render.mesh_table's backward). At the reference tool's sizes and index
+sets (R = 32,768 rays a block, T = 70,000 triangles, V = 35,000 vertices;
+numpy's default_rng(0)): a block whose rays hit 2,000 neighbouring
+triangles (`local`) or any of them (`uniform`); one real `mixed` block's
+triangle ids into its own table (the frame's middle block, its misses
+clamped to triangle 0 as the shade clamps them); 8 and 64 blocks' worth in
+one scatter; the table's backward; the reference's "90 B/ray" read and
+write of one block ((R, 24) float32) for scale. Per frame: times `mixed`'s
+block count, -(-primary rays // block size).
 
-Times: host clock, synchronized, the best of 10 after 2 warm-ups.
+Each scatter is timed twice: the port's (`cuda_scatter.corner_scatter`,
+the gather's backward from the cotangent to the (T, 10) gradient: the
+kernels on the card, the plain version on the CPU), and torch's autograd
+of the indexing `rows[idx][:, :9]` (`gather_backward`: the sorted
+`index_put_` the port ran before it had the kernels, which it no longer
+calls: the yardstick, `library`).
+
+Times: host clock, synchronized, the best of 10 after 2 warm-ups (the
+port's includes its wrapper's host-side check of the ids, which waits for
+the device); on the card also the port's device time a call (`device_ms`:
+CUDA events around a CUDA graph of 20 calls, as the main path replays it).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 
 from tpu_ray_torch import tools
 from tpu_ray_torch.bench import require_device
+from tpu_ray_torch.kernels import cuda_scatter
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.utils.metrics import block_and_time
 
@@ -48,9 +58,31 @@ def frame_blocks(cfg) -> int:
 
 def gather_backward(rows: torch.Tensor, idx: torch.Tensor, ct: torch.Tensor):
     """The cotangent of the (T, 10) table `rows` from the cotangent `ct` of
-    rows[idx][:, :9], the corners as render.shade_with_residuals gathers
-    them, through autograd."""
+    rows[idx][:, :9], through torch's autograd of the indexing: the
+    yardstick beside cuda_scatter.corner_scatter."""
     return torch.autograd.grad(rows[idx][:, :9].contiguous(), rows, ct)[0]
+
+
+def device_ms(fn, device: torch.device, calls: int = 20):
+    """fn's device ms a call inside a CUDA graph of `calls` calls, as the
+    main path replays the scatter (the wrapper's host-side checks are
+    skipped under capture), after the warm-ups; None off a CUDA device."""
+    if device.type != "cuda":
+        return None
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / calls
 
 
 def table_backward(verts: torch.Tensor, tris: torch.Tensor, ct: torch.Tensor):
@@ -66,16 +98,18 @@ def _time(fn) -> float:
     return block_and_time(fn, warmup=WARMUP, iters=ITERS)[1]
 
 
-def real_block(device):
-    """`mixed`'s middle block as the frame renders it -> its triangle ids
-    (clamped as the shade clamps them), its hit share, the block's index,
-    the frame's block count and the mesh's triangle count."""
+def real_block(device, **changes):
+    """`mixed`'s middle block as the frame renders it (changes: fields of
+    its RenderConfig replaced, as the silhouette path's) -> its triangle
+    ids (clamped as the shade clamps them), its hit share, the block's
+    index, the frame's block count and the mesh's triangle count."""
     from tpu_ray_torch.kernels import cuda_shade
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.tools.profile_stages import frame_of
 
     scene, cfg = build_scene("mixed", device=device)
+    cfg = cfg.replace(**changes)
     fr = frame_of(scene, cfg)
     b = fr.n_blocks // 2
     g, s = divmod(b, R.MARCH_GROUP)
@@ -108,24 +142,31 @@ def main(device="cuda", log=print) -> dict:
     rows = torch.zeros((T, 10), device=device, requires_grad=True)
     out = {"tool": "profile_scatter", **info, "rays_a_block": R_BLOCK, "triangles": T,
            "vertices": V, "mixed_blocks": n_blocks, "scatter": {}, "batched": {}}
+
+    def timed(tag, rows_, idx, ct, blocks=1):
+        ids = idx.to(torch.int32)  # as the shade hands them over
+        s = _time(lambda: cuda_scatter.corner_scatter(ct, ids, rows_.shape[0]))
+        lib = _time(lambda: gather_backward(rows_, idx, ct))
+        dev = device_ms(lambda: cuda_scatter.corner_scatter(ct, ids, rows_.shape[0]), device)
+        got = {"ms": s * 1e3, "ms_a_block": s / blocks * 1e3, "device_ms": dev,
+               "library_ms": lib * 1e3, "seconds_a_frame": s / blocks * n_blocks}
+        log(f"scatter R->T [{tag}]  {s * 1e3:7.3f} ms (device "
+            f"{'not measured' if dev is None else f'{dev:.4f} ms'}; torch's index backward "
+            f"{lib * 1e3:7.3f} ms) = {s / blocks * 1e3:7.3f} ms/block x {n_blocks} blocks = "
+            f"{s / blocks * n_blocks:6.2f}s/frame")
+        return got
+
     for tag, idx in (("local", idx_local), ("uniform", idx_uniform)):
-        s = _time(lambda: gather_backward(rows, idx, d))
-        out["scatter"][tag] = {"ms_a_block": s * 1e3, "seconds_a_frame": s * n_blocks}
-        log(f"scatter R->T [{tag:7}]  {s * 1e3:7.3f} ms/block x {n_blocks} blocks = "
-            f"{s * n_blocks:6.2f}s/frame")
+        out["scatter"][tag] = timed(tag, rows, idx, d)
     mesh_rows = torch.zeros((n_tris, 10), device=device, requires_grad=True)
-    s = _time(lambda: gather_backward(mesh_rows, tri, d[:tri.shape[0]]))
-    out["scatter"]["mixed_block"] = {"ms_a_block": s * 1e3, "seconds_a_frame": s * n_blocks,
-                                     "block": b, "rays": tri.shape[0], "hit_share": hit_share,
-                                     "triangles": n_tris}
-    log(f"scatter R->T [mixed block {b}, hit share {hit_share:.4f}]  "
-        f"{s * 1e3:7.3f} ms/block x {n_blocks} blocks = {s * n_blocks:6.2f}s/frame")
+    out["scatter"]["mixed_block"] = dict(
+        timed(f"mixed block {b}, hit share {hit_share:.4f}", mesh_rows, tri,
+              d[:tri.shape[0]].contiguous()),
+        block=b, rays=tri.shape[0], hit_share=hit_share, triangles=n_tris)
     for k in (8, 64):
         dk = as_t(rng.standard_normal((k * R_BLOCK, 9), np.float32))
         ik = as_t(rng.integers(0, T, k * R_BLOCK), torch.long)
-        s = _time(lambda: gather_backward(rows, ik, dk))
-        out["batched"][str(k)] = {"ms": s * 1e3, "ms_a_block": s / k * 1e3}
-        log(f"scatter {k}-block batch   {s * 1e3:7.3f} ms = {s / k * 1e3:7.3f} ms/block-equiv")
+        out["batched"][str(k)] = timed(f"{k}-block batch", rows, ik, dk, blocks=k)
     verts = torch.zeros((V, 3), device=device, requires_grad=True)
     s = _time(lambda: table_backward(verts, tris, dt))
     out["table_backward_ms"] = s * 1e3
