@@ -373,18 +373,11 @@ def rel_max(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)) if b.numel() else 0.0
 
 
-def reset(*tables) -> None:
-    for table in tables:
-        for k in table:
-            table[k] = 0
-
-
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import launches
 
-    reset(cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES, cuda_reconstruct.LAUNCHES,
-          cuda_scatter.LAUNCHES)
+    launches.reset()
 
 
 def _max(x) -> float:
@@ -601,7 +594,8 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
     shadow rays the geometry pass makes from them. keep: a dict that
     receives the rays and seeds (o, d, seed, p_off, l_dir, aseed)."""
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, cuda_sdf
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf
+    from tpu_ray_torch.render import plain
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.sdf.primitives import sdf_bounding_spheres
 
@@ -646,8 +640,8 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk, "mesh_tri": ck.tri,
            "mesh_hit": ck.hit}
     with torch.no_grad():
-        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "mixed",
-                                                 mesh_rows=R.mesh_table(scene.mesh))
+        *_, p_off, live = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, "mixed",
+                                                       mesh_rows=plain.mesh_table(scene.mesh))
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
     if live is None:  # soft silhouettes: every lane's shadow may reach the image
         live = torch.ones_like(hk)
@@ -700,29 +694,30 @@ def kernel_parity(scene, cfg, results, points=PARITY_POINTS, keep=None):
     return o, d
 
 
-def selection(scene, cfg, o, d, res, aux, spec, method):
+def selection(scene, cfg, o, d, res, aux, chain, method):
     """The shade kernels' per-ray branch (csrc/shade_chain.cuh
     shade_surface): (sel_sdf, sel_mesh, p), p the selected hit point of the
     values-only reconstruct. With soft silhouettes a lane that misses runs
     the SDF chain at its closest approach."""
-    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.kernels import cuda_reconstruct
+    from tpu_ray_torch.render import plain
 
     R_ = o.shape[0]
     no = torch.zeros(R_, dtype=torch.bool, device=o.device)
-    hs = res["sdf_hit"] if spec["use_sdf"] else no
-    hm = res["mesh_hit"] if spec["use_mesh"] else no
-    if spec["mixed"]:
+    hs = res["sdf_hit"] if chain.use_sdf else no
+    hm = res["mesh_hit"] if chain.use_mesh else no
+    if chain.mixed:
         closer = aux["closer"]
-        sel_sdf, sel_mesh = closer & (hs | spec["soft_sil"]), ~closer & hm
+        sel_sdf, sel_mesh = closer & (hs | chain.soft_sil), ~closer & hm
     else:
-        sel_sdf, sel_mesh = hs | (spec["use_sdf"] and spec["soft_sil"]), hm
+        sel_sdf, sel_mesh = hs | (chain.use_sdf and chain.soft_sil), hm
     with torch.no_grad():
-        rows = R.mesh_table(scene.mesh) if spec["use_mesh"] else None
-        p = R.reconstruct_hits(scene, cfg, o, d, res, method, lite=True, mesh_rows=rows)[2]
+        rows = plain.mesh_table(scene.mesh) if chain.use_mesh else None
+        p = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=rows).hits[2]
     return sel_sdf, sel_mesh, p
 
 
-def shade_bytes(spec, rays, sel_sdf, sel_mesh, full) -> int:
+def shade_bytes(chain, rays, sel_sdf, sel_mesh, full) -> int:
     """The least bytes the shade kernels move on these rays, lane by lane as
     the per-ray branch reads them (csrc/shade_chain.cuh shade_surface): d
     and the masks that pick the branch on every lane; o where a point or an
@@ -737,9 +732,9 @@ def shade_bytes(spec, rays, sel_sdf, sel_mesh, full) -> int:
     hit_m = hm if hm is not None else torch.zeros_like(surf)
     hit_s = hs if hs is not None else torch.zeros_like(surf)
     lanes = [(d, None), (hs, None), (hm, None), (closer, None),
-             (o, surf | (hit_m & spec["mesh_sil"])),
-             (corners, hit_m & (sel_mesh | spec["mesh_sil"])),
-             (t_bar, sel_sdf & (hit_s | (not spec["soft_sil"]))),
+             (o, surf | (hit_m & chain.mesh_sil)),
+             (corners, hit_m & (sel_mesh | chain.mesh_sil)),
+             (t_bar, sel_sdf & (hit_s | (not chain.soft_sil))),
              (tmin, sel_sdf & ~hit_s), (mat, surf), (vis, surf), (ts, surf), (t_mesh, surf)]
     n = o.shape[0]
     total = nbytes(*full)
@@ -750,7 +745,7 @@ def shade_bytes(spec, rays, sel_sdf, sel_mesh, full) -> int:
     return total
 
 
-def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float:
+def shade_ops(scene, cfg, o, d, res, aux, chain, method, backward: bool) -> float:
     """The least operations of the shade kernels on these rays: on each
     SDF-selected lane one DE for its primitive and the adjoint for the
     normal (at least one DE more; the backward's IFT and Dual adjoints two
@@ -758,46 +753,48 @@ def shade_ops(scene, cfg, o, d, res, aux, spec, method, backward: bool) -> float
     again and the adjoint), each counted at the hit point's DE; ~150 for a
     mesh lane's re-solve and edge band (~300 with the backward); ~40 a lane
     for the shading itself (~60 with the backward)."""
-    sel_sdf, sel_mesh, p = selection(scene, cfg, o, d, res, aux, spec, method)
+    sel_sdf, sel_mesh, p = selection(scene, cfg, o, d, res, aux, chain, method)
     surf = sel_sdf | sel_mesh
     per = de_ops(scene.sdf, p[surf]) if scene.has_sdf else torch.zeros(int(surf.sum()))
-    taps = (5.0 if spec["ao_sdf"] else 0.0) + (
-        float(spec["n_dir"] + spec["n_pos"]) if spec["soft_diff"] else 0.0)
+    taps = (5.0 if chain.ao_sdf else 0.0) + (
+        float(chain.n_dir + chain.n_pos) if chain.soft_diff else 0.0)
     ops = float(per.sum()) * taps * (3.0 if backward else 1.0)
-    if spec["use_sdf"]:
+    if chain.use_sdf:
         ops += (4.0 if backward else 2.0) * float(de_ops(scene.sdf, p[sel_sdf]).sum())
     ops += (300.0 if backward else 150.0) * float(sel_mesh.sum())
     return ops + (60.0 if backward else 40.0) * o.shape[0]
 
 
 def shade_inputs(scene, cfg, o, d, method, packed=None):
-    """The shade kernels' inputs on rays o, d: (res, aux, corners, spec),
+    """The shade kernels' inputs on rays o, d: (res, aux, corners, chain),
     the geometry pass's residuals as the frame makes them (packed: the
     parameters as render_pixels_flat packs them; None: each wrapper packs
     its own)."""
     from tpu_ray_torch.kernels import cuda_shade
+    from tpu_ray_torch.render import plain
     from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render.chain import frame_chain
 
-    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
+    rows = plain.mesh_table(scene.mesh) if scene.has_mesh else None
     with torch.no_grad():
         res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows, packed=packed)
     corners = (rows[res["mesh_tri"].clamp(0, rows.shape[0] - 1).long()][:, :9].contiguous()
                if rows is not None else None)
     aux = cuda_shade._make_aux(scene, cfg, method, o, d, res, rows)
-    return res, aux, corners, cuda_shade.kernel_spec(scene, cfg, method)
+    return res, aux, corners, frame_chain(scene, cfg, method)
 
 
-def shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, full, backward) -> dict:
+def shade_bound(scene, cfg, o, d, res, aux, corners, chain, method, full, backward) -> dict:
     """The shade kernels' bound on these rays: shade_bytes with the small
     block read (and, backward, its cotangent written) and the tensors `full`
     read or written whole, and shade_ops."""
     from tpu_ray_torch.kernels import cuda_shade
 
     _, small, rays, _ = cuda_shade.kernel_args(scene, cfg, o, d, res, aux, corners, method)
-    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
+    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, chain, method)
     smalls = [small, small] if backward else [small]
-    return bound(shade_bytes(spec, rays, sel_sdf, sel_mesh, smalls + list(full)),
-                 shade_ops(scene, cfg, o, d, res, aux, spec, method, backward))
+    return bound(shade_bytes(chain, rays, sel_sdf, sel_mesh, smalls + list(full)),
+                 shade_ops(scene, cfg, o, d, res, aux, chain, method, backward))
 
 
 def seeded_cotangent(o):
@@ -821,7 +818,7 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
 
     tag = (f"shade_fwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
            f"soft_sil={cfg.soft_silhouette} mesh_sil={cfg.mesh_silhouette}")
-    res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
+    res, aux, corners, chain = shade_inputs(scene, cfg, o, d, method)
 
     def kernel():
         return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners, aux=aux)
@@ -834,11 +831,11 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
     err = (k1 - ref).abs().amax(1)
     keep = torch.ones_like(err, dtype=torch.bool)
     ok = bool(torch.isfinite(k1).all())
-    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, spec, method)
+    sel_sdf, sel_mesh, _ = selection(scene, cfg, o, d, res, aux, chain, method)
     log(tag, f"{o.shape[0]} rays: SDF selected {sel_sdf.float().mean().item():.4f}, mesh "
         f"selected {sel_mesh.float().mean().item():.4f}, sky "
         f"{(~(sel_sdf | sel_mesh)).float().mean().item():.4f}")
-    if scene.sdf.mb_center.shape[0] and (spec["ao_sdf"] or spec["soft_diff"]):
+    if scene.sdf.mb_center.shape[0] and (chain.ao_sdf or chain.soft_diff):
         ill = cuda_shade.ill_conditioned_colors(scene, cfg, o, d, res, corners, method)
         share = float(ill.float().mean())
         ok &= share <= ILL_SHARE_MAX
@@ -859,7 +856,7 @@ def shade_fwd_parity(scene, cfg, o, d, method, results=None, key="shade_fwd"):
     check(ok and torch.equal(k1, k2), f"{tag} parity")
     if results is not None:
         results[key] = dict(max_abs_err=_max(err), ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method,
+                            **shade_bound(scene, cfg, o, d, res, aux, corners, chain, method,
                                           [k1], False))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain {results[key]['plain_ms']:.3f} ms, "
             f"bound {results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})")
@@ -938,7 +935,7 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     generic = bool(scene.sdf.mb_center.shape[0]) and not scene.sdf.mb_pow8
     tag = (f"shade_bwd {method} shadow={cfg.shadow} ao={cfg.ao} diff_vis={cfg.diff_vis} "
            f"lights {scene.lights.direction.shape[0]}+{scene.lights.position.shape[0]}")
-    res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method)
+    res, aux, corners, chain = shade_inputs(scene, cfg, o, d, method)
     ct = seeded_cotangent(o)
     args = (scene, cfg, o, d, res)
 
@@ -954,17 +951,17 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
 
     k1, k2, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
-    hit = res["sdf_hit"] | res["mesh_hit"] if spec["mixed"] else (
-        res["sdf_hit"] if spec["use_sdf"] else res["mesh_hit"])
-    sdf_sel = res["sdf_hit"] & aux["closer"] if spec["mixed"] else (
-        res["sdf_hit"] if spec["use_sdf"] else torch.zeros_like(hit))
+    hit = res["sdf_hit"] | res["mesh_hit"] if chain.mixed else (
+        res["sdf_hit"] if chain.use_sdf else res["mesh_hit"])
+    sdf_sel = res["sdf_hit"] & aux["closer"] if chain.mixed else (
+        res["sdf_hit"] if chain.use_sdf else torch.zeros_like(hit))
     lit = res["sh_vis"][0] > 0 if "sh_vis" in res else torch.ones_like(hit)
     log(tag, f"{o.shape[0]} rays: hit {hit.float().mean().item():.4f}, SDF hit selected "
         f"{sdf_sel.float().mean().item():.4f} (lit {(sdf_sel & lit).float().mean().item():.4f}), "
         f"mesh hit selected {(hit & ~sdf_sel).float().mean().item():.4f}")
     off = torch.maximum(per_ray(k1, ref, "o")[1], per_ray(k1, ref, "d")[1]) > 1e-3
     g_k, g_p, ok = k1, ref, True
-    if scene.sdf.mb_center.shape[0] and (spec["ao_sdf"] or spec["soft_diff"]):
+    if scene.sdf.mb_center.shape[0] and (chain.ao_sdf or chain.soft_diff):
         ill = cuda_shade.ill_conditioned_rays(*args, corners, ct, method)
         share = float(ill.float().mean())
         ok &= share <= ILL_SHARE_MAX
@@ -1024,7 +1021,7 @@ def shade_bwd_parity(scene, cfg, o, d, method, results=None, key="shade_bwd"):
     if results is not None:
         # the small block's cotangent written, ct read, the rays' written
         results[key] = dict(max_abs_err=worst, ms=kernel_ms(kernel), plain_ms=wall_ms(plain),
-                            **shade_bound(scene, cfg, o, d, res, aux, corners, spec, method,
+                            **shade_bound(scene, cfg, o, d, res, aux, corners, chain, method,
                                           [ct, k1["o"], k1["d"], k1["corners"]], True))
         log(tag, f"kernel {results[key]['ms']:.3f} ms, plain "
             f"{results[key]['plain_ms']:.3f} ms, bound {results[key]['bound_ms']:.4f} ms "
@@ -1090,11 +1087,12 @@ def packed_parity(scene, cfg, o, d, method, tag):
     render_pixels_flat hands them down) against the same calls packing
     their own: every output bit-identical, one launch of the same kernel
     each."""
-    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf, cuda_shade, launches
+    from tpu_ray_torch.render import plain
     from tpu_ray_torch.render import render as R
 
     packed = cuda_shade.pack(scene, R._bound_pad(cfg))
-    rows = R.mesh_table(scene.mesh) if scene.has_mesh else None
+    rows = plain.mesh_table(scene.mesh) if scene.has_mesh else None
     soft = cfg.shadow == "soft"
     shadow = "shadow_soft" if soft else "shadow_hard"
     calls = []
@@ -1120,8 +1118,7 @@ def packed_parity(scene, cfg, o, d, method, tag):
             reset_launches()
             out = call(p)
             torch.cuda.synchronize()
-            launched = {**cuda_sdf.LAUNCHES, **cuda_shade.LAUNCHES,
-                        **cuda_reconstruct.LAUNCHES}
+            launched = launches.counts()
             out = out.values() if isinstance(out, dict) else (
                 out if isinstance(out, tuple) else (out,))
             outs.append(([v for v in out if v is not None], launched))
@@ -1138,13 +1135,13 @@ def sil_parity(scene, cfg, results):
     shade kernels (the backward per group, per ray and over two runs). The
     blocks must hold rays in both bands: misses whose soft coverage lies
     strictly between 0 and 1, and mesh hits inside the edge band."""
-    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.render import plain
 
     o, d = kernel_parity(scene, cfg, results, SIL_POINTS)
     res, aux, corners, (sel_sdf, sel_mesh) = shade_fwd_parity(scene, cfg, o, d, "mixed",
                                                               results)
     with torch.no_grad():
-        cov = R.reconstruct_hits(scene, cfg, o, d, res, "mixed", corners=corners)[5]
+        cov = plain.reconstruct_plain(scene, cfg, o, d, res, "mixed", corners=corners)[0][5]
     band = (cov > 1e-3) & (cov < 0.999)
     soft = int((band & ~(res["sdf_hit"] | res["mesh_hit"])).sum())
     edge = int((band & sel_mesh).sum())
@@ -1212,8 +1209,7 @@ def sdf_parity(scene, cfg, o, d, results, tag, exact=True):
     such difference into another step at its edge, as the power-8 field's
     one multiply-add order does not."""
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_sdf
-    from tpu_ray_torch.render import render as R
+    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf
 
     sdf = scene.sdf
     kw = dict(t0=0.0, max_steps=cfg.max_steps, eps=cfg.eps, t_far=cfg.t_far)
@@ -1237,7 +1233,7 @@ def sdf_parity(scene, cfg, o, d, results, tag, exact=True):
 
     res = {"sdf_t": tk, "sdf_hit": hk, "sdf_tmin": mk}
     with torch.no_grad():
-        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
+        *_, p_off, live = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, "sdf")
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
     far = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
     soft = soft_parity(sdf, cfg, p_off, l_dir, far, tag, timed=results is not None,
@@ -1323,7 +1319,7 @@ def bulb_parity(scene, cfg, results):
     backward with AO and the penumbra (diff_vis) on the blocks' rays, and
     with the point light's penumbra on the `pointlight` frame's rays."""
     from tpu_ray_torch.core.math3d import dot
-    from tpu_ray_torch.kernels import cuda_sdf
+    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
@@ -1340,7 +1336,7 @@ def bulb_parity(scene, cfg, results):
     pt, ph, _, pm = cuda_sdf.march(pscene.sdf, po, pd, t0=0.0, max_steps=pcfg.max_steps,
                                    eps=pcfg.eps, t_far=pcfg.t_far)
     with torch.no_grad():
-        _, pp, _, plive = R.shadow_ray_origins(pscene, pcfg, po, pd, {
+        *_, pp, plive = cuda_reconstruct.reconstruct(pscene, pcfg, po, pd, {
             "sdf_t": pt, "sdf_hit": ph, "sdf_tmin": pm}, "sdf")
     lvec = pscene.lights.position[0] - pp
     dist = torch.sqrt(torch.clamp_min(dot(lvec, lvec), 1e-12))
@@ -1360,14 +1356,7 @@ def plain_paths():
     from contextlib import ExitStack
 
     from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
-
-    def reconstruct_plain(scene, cfg, o, d, res, method, mesh_rows=None, packed=None):
-        from tpu_ray_torch.render.render import shadow_ray_origins_plain
-
-        aux = {}
-        hits, p_off, nf, live = shadow_ray_origins_plain(scene, cfg, o, d, res, method,
-                                                         mesh_rows=mesh_rows, aux_out=aux)
-        return cuda_reconstruct.Recon(hits, aux.get("closer"), nf, p_off, live)
+    from tpu_ray_torch.render.plain import shadow_ray_origins_plain
 
     def shade_fwd_plain(scene, cfg, o, d, res, method, corners=None, aux=None,
                         mesh_rows=None, packed=None):
@@ -1390,7 +1379,8 @@ def plain_paths():
                                           cuda_mt.intersect_packet_torch))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_fwd", shade_fwd_plain))
     stack.enter_context(mock.patch.object(cuda_shade, "shade_bwd", shade_bwd_plain))
-    stack.enter_context(mock.patch.object(cuda_reconstruct, "reconstruct", reconstruct_plain))
+    stack.enter_context(mock.patch.object(cuda_reconstruct, "reconstruct",
+                                          unpacked(shadow_ray_origins_plain)))
     return stack
 
 
@@ -2022,7 +2012,8 @@ def knot_parts(dev, smi, results, counts):
     version, then both 1024x1024x1 frames, with their launch counts."""
     from tpu_ray_torch.accel.packet import build_packet_parts
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct
+    from tpu_ray_torch.render import plain
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.utils.image_io import write_png
@@ -2085,9 +2076,9 @@ def knot_parts(dev, smi, results, counts):
     hit_parity("knot1m parts threaded against the whole mesh",
                walk(o, d, None, False, dict(sort_origin=o[0])), w, False)
     with torch.no_grad():
-        _, p_off, _, live = R.shadow_ray_origins(knot, kcfg, o, d, {"mesh_tri": w.tri,
-                                                                    "mesh_hit": w.hit},
-                                                 "mesh_grid", mesh_rows=R.mesh_table(knot.mesh))
+        *_, p_off, live = cuda_reconstruct.reconstruct(
+            knot, kcfg, o, d, {"mesh_tri": w.tri, "mesh_hit": w.hit}, "mesh_grid",
+            mesh_rows=plain.mesh_table(knot.mesh))
     l_dir = normalize(knot.lights.direction[0]).expand_as(p_off).contiguous()
     aseed = torch.where(live, kcfg.t_far, 0.0).to(torch.float32)
     wa = whole_walk(p_off, l_dir, aseed, True, "packet_any_hit")
@@ -2474,7 +2465,7 @@ def recon_values(r) -> tuple:
 def reconstruct_row(path, args, kw) -> dict:
     """The reconstruct kernel (cuda_reconstruct) on the call the geometry
     pass made for a block (args, kw as recorded), against its plain version
-    (render.shadow_ray_origins_plain) on the card: t, hit, p, mat, cov, the
+    (plain.shadow_ray_origins_plain) on the card: t, hit, p, mat, cov, the
     closest-select mask and the live lanes bit-equal; the normal, the
     ray-facing normal and the shadow origins under tests/recon_witness.py's
     rule (per ray, the largest component within 1e-5 on >= 99% of the rays
@@ -2487,7 +2478,8 @@ def reconstruct_row(path, args, kw) -> dict:
     and the adjoint's reverse pass counted as one DE more, ~60 operations a
     mesh re-solve."""
     from tpu_ray_torch.kernels import cuda_reconstruct as CR
-    from tpu_ray_torch.render.render import shadow_ray_origins_plain
+    from tpu_ray_torch.render.chain import frame_chain
+    from tpu_ray_torch.render.plain import shadow_ray_origins_plain
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import recon_witness
@@ -2496,10 +2488,7 @@ def reconstruct_row(path, args, kw) -> dict:
     rows = kw.get("mesh_rows")
 
     def plain():
-        aux = {}
-        hits, p_off, nf, live = shadow_ray_origins_plain(scene, cfg, o, d, res, method,
-                                                         mesh_rows=rows, aux_out=aux)
-        return CR.Recon(hits, aux.get("closer"), nf, p_off, live)
+        return shadow_ray_origins_plain(scene, cfg, o, d, res, method, mesh_rows=rows)
 
     got = CR.reconstruct(*args, **kw)
     want = plain()
@@ -2526,11 +2515,12 @@ def reconstruct_row(path, args, kw) -> dict:
     ins = [o, d] + [res.get(k) for k in ("sdf_t", "sdf_tmin", "sdf_hit", "mesh_tri", "mesh_hit")]
     n_bytes = nbytes(*ins, *(v for v in recon_values(got)[:-1] if v is not None))
     ops = 0.0
-    if method in ("sdf", "mixed") and scene.has_sdf:
+    chain = frame_chain(scene, cfg, method)
+    if chain.use_sdf:
         t_eff = (torch.where(res["sdf_hit"], res["sdf_t"], res["sdf_tmin"])
-                 if cfg.soft_silhouette > 0.0 else res["sdf_t"])
+                 if chain.soft_sil else res["sdf_t"])
         ops += 2.0 * float(de_ops(scene.sdf, o + t_eff[:, None] * d).sum())
-    if method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh:
+    if chain.use_mesh:
         n_bytes += 40 * o.shape[0]
         ops += 60.0 * o.shape[0]
     row = timed_launch(lambda: CR.reconstruct(*args, **kw), ("reconstruct_kernel",),
@@ -2545,7 +2535,7 @@ def reconstruct_call_ms(path, scene, cfg, method, packed, o, d) -> float:
     from tpu_ray_torch.kernels import cuda_reconstruct
     from tpu_ray_torch.render import render as R
 
-    rows = R.mesh_table(scene.mesh) if R._use_mesh(scene, method) else None
+    rows = R.frame_tables(scene, cfg, method)[0]
     with torch.no_grad():
         res = R.geometry_residuals(scene, cfg.replace(shadow="none", ao="none"), o, d, method,
                                    mesh_rows=rows, packed=packed)
@@ -2706,7 +2696,7 @@ def launch_sizes(paths, results):
                     recorded(cuda_sdf, shadow, calls[shadow]), \
                     recorded(cuda_mt, "intersect_packet_streamed", calls["walks"]), \
                     recorded(cuda_reconstruct, "reconstruct", calls["reconstruct"]):
-                res, aux, corners, spec = shade_inputs(scene, cfg, o, d, method, packed)
+                res, aux, corners, chain = shade_inputs(scene, cfg, o, d, method, packed)
             check(len(calls["march"]) == 1 and len(calls[shadow]) == 1
                   and len(calls["walks"]) == len(walks) and len(calls["reconstruct"]) == 1,
                   f"launch {path}: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
@@ -2744,16 +2734,16 @@ def launch_sizes(paths, results):
                                                aux=aux, packed=packed)
             rows["shade_fwd"].append(dict(rays=bs, **timed_launch(
                 fwd, ("shade_fwd_kernel",),
-                shade_bound(scene, cfg, o, d, res, aux, corners, spec, method, [fwd()], False))))
+                shade_bound(scene, cfg, o, d, res, aux, corners, chain, method, [fwd()], False))))
             if fit_cfg != cfg:
-                res, aux, corners, spec = shade_inputs(scene, fit_cfg, o, d, method, fit_packed)
+                res, aux, corners, chain = shade_inputs(scene, fit_cfg, o, d, method, fit_packed)
             ct = seeded_cotangent(o)
             bwd = (scene, fit_cfg, o, d, res, aux, corners, ct, method)
             g = cuda_shade.shade_bwd(*bwd, packed=fit_packed)
             rows["shade_bwd"].append(dict(rays=bs, **timed_launch(
                 lambda: cuda_shade.shade_bwd(*bwd, packed=fit_packed),
                 ("shade_bwd_kernel", "sum_partials_kernel"),
-                shade_bound(scene, fit_cfg, o, d, res, aux, corners, spec, method,
+                shade_bound(scene, fit_cfg, o, d, res, aux, corners, chain, method,
                             [ct, g["o"], g["d"], g["corners"]], True),
                 (lambda c: cuda_shade.shade_bwd(*bwd, counters=c, packed=fit_packed),
                  cuda_shade.SHADE_BWD_COUNTERS))))
@@ -2790,7 +2780,7 @@ def knot8m(dev, smi, results, counts):
     from tpu_ray_torch.accel import packet as pk
     from tpu_ray_torch.core.math3d import normalize
     from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct
-    from tpu_ray_torch.render import graphs
+    from tpu_ray_torch.render import graphs, plain
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
@@ -2863,9 +2853,9 @@ def knot8m(dev, smi, results, counts):
 
     w = walk(o, d, None, False, "packet_closest")
     with torch.no_grad():
-        _, p_off, _, live = R.shadow_ray_origins(knot, kcfg, o, d, {"mesh_tri": w.tri,
-                                                                    "mesh_hit": w.hit},
-                                                 "mesh_grid", mesh_rows=R.mesh_table(knot.mesh))
+        *_, p_off, live = cuda_reconstruct.reconstruct(
+            knot, kcfg, o, d, {"mesh_tri": w.tri, "mesh_hit": w.hit}, "mesh_grid",
+            mesh_rows=plain.mesh_table(knot.mesh))
     l_dir = normalize(knot.lights.direction[0]).expand_as(p_off).contiguous()
     walk(p_off, l_dir, torch.where(live, kcfg.t_far, 0.0).to(torch.float32), True,
          "packet_any_hit")
@@ -2897,7 +2887,7 @@ def knot8m(dev, smi, results, counts):
     del calls
     # the corner gather on the same block's triangle ids, clamped as the
     # shade clamps them, into the knot's own table
-    mesh_rows = R.mesh_table(knot.mesh)
+    mesh_rows = plain.mesh_table(knot.mesh)
     ids = res["mesh_tri"].clamp(0, mesh_rows.shape[0] - 1).to(torch.int32)
     g = results["knot8m"]["corner_gather"] = gather_row("knot8m", mesh_rows, ids)
     log("knot8m", f"corner_gather on {ids.numel()} rays: {g['ms']:.5f} ms in a graph, plain "
@@ -2953,8 +2943,9 @@ def grid_oracle(dev, smi, results, counts):
     launches."""
     from tpu_ray_torch.accel.grid_build import grid_stats
     from tpu_ray_torch.core.math3d import normalize
-    from tpu_ray_torch.kernels import cuda_mt, dda
+    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, dda
     from tpu_ray_torch.kernels.moller_trumbore import TriHit
+    from tpu_ray_torch.render import plain
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
     from tpu_ray_torch.scene.scenes import build_scene
@@ -2975,9 +2966,9 @@ def grid_oracle(dev, smi, results, counts):
     t_dda = time.perf_counter() - t0
     hit_parity("grid_oracle #3 closest against the DDA", k, g, False)
     with torch.no_grad():
-        _, p_off, _, live = R.shadow_ray_origins(scene, cfg, o, d, {"mesh_tri": k.tri,
-                                                                    "mesh_hit": k.hit},
-                                                 "mesh_grid", mesh_rows=R.mesh_table(scene.mesh))
+        *_, p_off, live = cuda_reconstruct.reconstruct(
+            scene, cfg, o, d, {"mesh_tri": k.tri, "mesh_hit": k.hit}, "mesh_grid",
+            mesh_rows=plain.mesh_table(scene.mesh))
     l_dir = normalize(scene.lights.direction[0]).expand_as(p_off).contiguous()
     aseed = torch.where(live, cfg.t_far, 0.0).to(torch.float32)
     ka = cuda_mt.intersect_packet_streamed(packet, p_off, l_dir, t_max=cfg.t_far, any_hit=True,
@@ -3049,7 +3040,7 @@ def gradcheck(dev):
     masked loss on `bunny` (20x20, no shadows) along V on lit interior
     triangles, finite differences against autograd in float64 on the CPU,
     then the card's float32 derivative through #3, #5 and #6 against it."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import launches
     from tpu_ray_torch.scene.scenes import build_scene
     from tpu_ray_torch.utils import gradcheck as gc
 
@@ -3077,8 +3068,7 @@ def gradcheck(dev):
         f"({time.perf_counter() - t0:.2f} s)")
     reset_launches()
     r = gc.card_vertex_check(scene, cfg, V, dev)
-    launched = {k: v for t in (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
-                               cuda_reconstruct.LAUNCHES) for k, v in t.items() if v}
+    launched = {k: v for k, v in launches.counts().items() if v}
     log("gradcheck", f"config 3 on the card: float32 {r['d32']:.9e} against float64 "
         f"{r['d64']:.9e}, rel {r['rel_err']:.3e} (at most 1e-3); launches {launched}")
     check(abs(float(g_ad)) > 1e-4 and r["ok"], "config 3 vertex check on the card")

@@ -4,7 +4,7 @@ reconstruct kernel built as host C++) and chip_smoke.py (the kernel on the
 card).
 
 The kernel (csrc/reconstruct.cu) and its plain version
-(render.shadow_ray_origins_plain) give bit-equal hit points p. Their normals
+(plain.shadow_ray_origins_plain) give bit-equal hit points p. Their normals
 n, and with them the ray-facing normal nf and the shadow origins
 p_off = p + bias * nf, come from other op orders. The witness is the plain
 normal in float64 at the same float32 hit point: the value both float32
@@ -26,6 +26,7 @@ import torch
 
 from tpu_ray_torch.core.math3d import dot
 from tpu_ray_torch.kernels.sphere_trace import surface_normal
+from tpu_ray_torch.render.chain import frame_chain
 from tpu_ray_torch.sdf.primitives import sdf_distance
 
 
@@ -34,7 +35,7 @@ def witness(scene, cfg, o, d, hits, closer, method: str) -> dict:
     hit points (hits: its (t, hit, p, n, mat, cov); closer: its mixed
     closest-select mask, else None)."""
     hit, p, n = hits[1], hits[2], hits[3].double()
-    if method in ("sdf", "mixed") and scene.has_sdf:
+    if frame_chain(scene, cfg, method).use_sdf:
         sdf64 = scene.sdf.with_float_leaves(
             [x.double() if x.is_floating_point() else x for x in scene.sdf.float_leaves()])
         with torch.no_grad():

@@ -28,7 +28,8 @@ from tpu_ray import fit as jfit
 from tpu_ray.render import render as jrender
 from tpu_ray.scene import scenes as jscenes
 from tpu_ray_torch import fit as tfit
-from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import (cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade,
+                                   launches)
 from tpu_ray_torch.render import graphs
 from tpu_ray_torch.render import render as trender
 from tpu_ray_torch.scene import scenes as tscenes
@@ -224,12 +225,6 @@ def test_plans_are_keyed_by_config_and_structure():
     assert [p.bs for p in plans] == [16, 32, 16, 16]
 
 
-def _reset():
-    for table in graphs.LAUNCH_TABLES:
-        for k in table:
-            table[k] = 0
-
-
 def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
     """A fake capture on a `cuda` device: the launches the callable counts
     while it is captured are taken back (nothing ran) and added at every
@@ -248,7 +243,7 @@ def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
     monkeypatch.setattr(graphs.Graph, "_capture", lambda self: ("graph", self.fn()))
     monkeypatch.setattr(graphs.Graph, "_warm_up", lambda self: self.fn())
     monkeypatch.setattr(graphs.Graph, "_launch", lambda self: None)
-    _reset()
+    launches.reset()
     g = graphs.Graph(fn, torch.device("cuda"), None, "block")
     for _ in range(3):
         g.replay()
@@ -257,7 +252,7 @@ def test_a_graph_adds_its_capture_s_launches_at_each_replay(monkeypatch):
     assert cuda_sdf.LAUNCHES["march"] == 1 + 3 and cuda_shade.LAUNCHES["shade_fwd"] == 2 + 6
     assert cuda_reconstruct.LAUNCHES["reconstruct"] == 1 + 3
     assert cuda_scatter.LAUNCHES["corner_scatter"] == 1 + 3
-    _reset()
+    launches.reset()
 
 
 def test_a_captured_frame_counts_the_eager_frame_s_launches(mixed, monkeypatch):
@@ -284,17 +279,17 @@ def test_a_captured_frame_counts_the_eager_frame_s_launches(mixed, monkeypatch):
         return [t for v in (x.values() if isinstance(x, dict) else x) for t in tensors(v)]
 
     def launch(self):
-        held = [dict(t) for t in graphs.LAUNCH_TABLES]
+        held = [dict(t) for t in launches.TABLES]
         for a, b in zip(tensors(self.out), tensors(self.fn())):
             a.copy_(b)
-        for table, before in zip(graphs.LAUNCH_TABLES, held):
+        for table, before in zip(launches.TABLES, held):
             table.update(before)
 
     monkeypatch.setattr(graphs.Graph, "_capture", lambda self: ("graph", self.fn()))
     monkeypatch.setattr(graphs.Graph, "_warm_up", lambda self: self.fn())
     monkeypatch.setattr(graphs.Graph, "_launch", launch)
     with torch.no_grad():
-        _reset()
+        launches.reset()
         trender.render_image(tscene, tcfg)
         want = {**cuda_sdf.LAUNCHES, **cuda_mt.LAUNCHES}
         assert want["march"] == 3 and want["closest"] == want["any_hit"] == 9
@@ -302,11 +297,11 @@ def test_a_captured_frame_counts_the_eager_frame_s_launches(mixed, monkeypatch):
         monkeypatch.setattr(graphs.Graph, "captures", True)
         counts = []
         for _ in range(2):
-            _reset()
+            launches.reset()
             img = trender.render_image_jit(tscene, tcfg)
             counts.append({**cuda_sdf.LAUNCHES, **cuda_mt.LAUNCHES})
             assert torch.equal(img, eager)
     first = {k: want[k] + (1 if k in ("march", "shadow_hard", "closest", "any_hit") else 0)
              for k in want}
     assert counts == [first, want], counts
-    _reset()
+    launches.reset()

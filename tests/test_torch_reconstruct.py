@@ -1,14 +1,15 @@
 """The values-only reconstruct kernel (csrc/reconstruct.cu) built as host
-C++ against its plain version, `render.shadow_ray_origins_plain` over
-`render.reconstruct_plain(lite=True)`, and the dispatch that keeps CPU
+C++ against its plain version, `plain.shadow_ray_origins_plain` over
+`plain.reconstruct_plain(lite=True)`, and the dispatch that keeps CPU
 tensors on the plain version.
 
 Cases: the methods sdf (`mandelbulb`), mesh_grid (`triangles`) and mixed
 (`mixed` at 32x18), the power-8 and the generic-power field (power 7.5),
 with and without soft silhouettes, under each shadow mode, whose plain
-caller differs: with shadows the geometry pass's `shadow_ray_origins`,
-without them the values-only `reconstruct_hits(lite=True)` that
-`cuda_shade._make_aux` and `render.frame_stats` call.
+caller differs: with shadows the geometry pass's shadow origins
+(`shadow_ray_origins_plain`), without them the values-only hit state
+(`reconstruct_plain(lite=True)`) that `cuda_shade._make_aux` and
+`render.frame_stats` read.
 
 Tolerances and why:
   * t, hit, p, mat, the closest-select mask and the live lanes: bit-equal.
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from tpu_ray_torch.kernels import cuda_reconstruct, cuda_shade
+from tpu_ray_torch.render import plain as tplain
 from tpu_ray_torch.render import render as trender
 from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene import scenes as tscenes
@@ -80,18 +82,14 @@ CASES = [pytest.param(name, method, generic, shadow, sil,
          for sil in (0.0, 0.05)]
 
 
-def _plain(scene, cfg, o, d, res, method) -> cuda_reconstruct.Recon:
+def _plain(scene, cfg, o, d, res, method) -> tplain.Recon:
     """The plain caller of the shadow mode: with shadows the geometry pass's
     shadow_ray_origins_plain, without them the values-only reconstruct_plain
     (no shadow origins)."""
-    aux = {}
     if cfg.shadow != "none":
-        hits, p_off, nf, live = trender.shadow_ray_origins_plain(scene, cfg, o, d, res, method,
-                                                                 aux_out=aux)
-        return cuda_reconstruct.Recon(hits, aux.get("closer"), nf, p_off, live)
-    hits = trender.reconstruct_plain(scene, cfg, o, d, res, method, lite=True, aux_out=aux)
-    assert aux["mat"] is hits[4]
-    return cuda_reconstruct.Recon(hits, aux.get("closer"), None, None, None)
+        return tplain.shadow_ray_origins_plain(scene, cfg, o, d, res, method)
+    hits, closer = tplain.reconstruct_plain(scene, cfg, o, d, res, method, lite=True)
+    return tplain.Recon(hits, closer, None, None, None)
 
 
 def _close(name, got, want, wit, hit) -> None:
@@ -145,16 +143,18 @@ def test_kernel_refuses_missing_inputs(host_recon):
 @pytest.mark.parametrize("shadow", ["hard", "none"])
 def test_cpu_tensors_take_the_plain_path(shadow):
     """On CPU tensors every values-only caller runs the plain code and no
-    kernel launches: the wrapper, shadow_ray_origins, reconstruct_hits, the
-    shade's _make_aux, the geometry pass and frame_stats."""
+    kernel launches: the wrapper, the shade's _make_aux, the geometry pass
+    and frame_stats."""
     scene, cfg, o, d, res = _frame("mandelbulb", "sdf", False, 0.0)
     cfg = cfg.replace(shadow=shadow)
     before = dict(cuda_reconstruct.LAUNCHES)
     r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, "sdf")
-    hits, p_off, nf, live = trender.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
-    for x, y in zip((*r.hits, r.p_off, r.nf, r.live), (*hits, p_off, nf, live)):
+    want = tplain.shadow_ray_origins_plain(scene, cfg, o, d, res, "sdf")
+    for x, y in zip((*r.hits, r.p_off, r.nf, r.live), (*want.hits, want.p_off, want.nf,
+                                                       want.live)):
         assert torch.equal(x, y)
-    lite = trender.reconstruct_hits(scene, cfg, o, d, res, "sdf", lite=True)
+    hits = r.hits
+    lite = tplain.reconstruct_plain(scene, cfg, o, d, res, "sdf", lite=True)[0]
     for x, y in zip(lite, hits):
         assert torch.equal(x, y)
     aux = cuda_shade._make_aux(scene, cfg, "sdf", o, d, res)

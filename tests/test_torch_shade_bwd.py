@@ -48,12 +48,14 @@ from tpu_ray.render import render as jrender
 from tpu_ray.scene import scenes as jscenes
 from tpu_ray.sdf import primitives as jprim
 from tpu_ray_torch.fit import apply_params, extract_params
-from tpu_ray_torch.kernels import cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import sphere_trace as tst
+from tpu_ray_torch.render import plain as tplain
 from tpu_ray_torch.render import render as trender
 from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.render.chain import frame_chain
 from tpu_ray_torch.scene import scenes as tscenes
-from tpu_ray_torch.scene.types import Lights, Scene
+from tpu_ray_torch.scene.types import Lights
 from tpu_ray_torch.sdf import primitives as tprim
 import torch_host_build
 from torch_jax_bridge import port_cfg, port_scene
@@ -120,7 +122,7 @@ def _put(scene, path, value):
 
 
 def _corners(tscene, tres):
-    rows = trender.mesh_table(tscene.mesh)
+    rows = tplain.mesh_table(tscene.mesh)
     return rows[torch.clamp(tres["mesh_tri"], 0, rows.shape[0] - 1).long()][:, :9]
 
 
@@ -383,7 +385,7 @@ def _shade_grads(fn, tscene, tcfg, o, d, res, ct):
                                      "lights.direction", "mesh.verts"))
     s = apply_params(tscene, params)
     oo, dd = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
-    rows = trender.mesh_table(s.mesh)
+    rows = tplain.mesh_table(s.mesh)
     torch.sum(ct * fn(s, tcfg, oo, dd, res, "mixed", mesh_rows=rows)).backward()
     return dict({p: v.grad for p, v in params.items()}, o=oo.grad, d=dd.grad)
 
@@ -393,7 +395,7 @@ def test_shade_fn_gradient_equals_plain_autograd(mixed16):
     tcfg = port_cfg(jcfg)
     before = dict(cuda_shade.LAUNCHES)
     a = _shade_grads(trender.shade_with_residuals, tscene, tcfg, ot, dt, tres, ctt)
-    b = _shade_grads(trender._shade_plain, tscene, tcfg, ot, dt, tres, ctt)
+    b = _shade_grads(tplain.shade_plain, tscene, tcfg, ot, dt, tres, ctt)
     for k in b:
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=1e-5,
                                    atol=1e-6 * float(b[k].abs().max()), err_msg=k)
@@ -460,57 +462,56 @@ def test_render_hands_the_forward_kernel_what_it_takes(monkeypatch, grad):
     else:
         with torch.no_grad():
             trender.render_image(apply_params(scene, params), cfg)
-        assert calls == []  # the CPU renders without a gradient through _shade_plain
+        assert calls == []  # the CPU renders without a gradient through shade_plain
 
 
-def test_kernel_spec_refuses_unported_chains_on_cuda(monkeypatch):
-    """The kernels take the silhouettes, the AO and the penumbra; on a CUDA
-    device they refuse float64 and a scene without lights, and on the CPU
-    such a chain runs the plain shade."""
+def test_kernel_spec_refuses_unported_chains_on_cuda():
+    """The chain (render/chain.py): the kernels take the silhouettes, the
+    AO and the penumbra; they refuse float64 and a scene without lights,
+    which raises where the kernels run (check_kernels) and on the CPU
+    sends the shade to plain autograd (render.shade_with_residuals)."""
     scene, cfg = tscenes.build_scene("mixed", device="cpu")
     cfg = cfg.replace(width=8, height=8, spp=1)
     taken = {"ao": cfg.replace(ao="sdf5"),
              "penumbra": cfg.replace(shadow="soft", diff_vis=True),
              "soft_sil": cfg.replace(soft_silhouette=0.02),
              "mesh_sil": cfg.replace(mesh_silhouette=0.01)}
-    spec = cuda_shade.kernel_spec(scene, cfg, "mixed")
-    assert spec["mixed"] and spec["n_dir"] == 1 and spec["n_pos"] == 0
-    assert not any(spec[k] for k in ("ao_sdf", "ao_mesh", "soft_diff", "soft_sil",
-                                     "mesh_sil"))
+    chain = frame_chain(scene, cfg, "mixed")
+    assert chain.mixed and chain.n_dir == 1 and chain.n_pos == 0 and chain.why is None
+    assert not any((chain.ao_sdf, chain.ao_mesh, chain.soft_diff, chain.soft_sil,
+                    chain.mesh_sil))
+    chain.check_kernels()
     dark = scene.replace(lights=Lights.make(torch.zeros(0, 3), torch.zeros(0, 3)))
     wide = scene.replace(camera=dataclasses.replace(
         scene.camera, origin=scene.camera.origin.double()))
     refused = {"without lights": (dark, cfg), "float64": (wide, cfg)}
-    for s, c in refused.values():  # on the CPU: the plain shade
-        assert cuda_shade.kernel_spec(s, c, "mixed") is None
-    monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
-    assert cuda_shade.kernel_spec(scene, cfg, "mixed") == spec
-    ao = cuda_shade.kernel_spec(scene, taken["ao"], "mixed")
-    assert ao["ao_sdf"] and ao["ao_mesh"] and not ao["soft_diff"]
-    pen = cuda_shade.kernel_spec(scene, taken["penumbra"], "mixed")
-    assert pen["soft_diff"] and not (pen["ao_sdf"] or pen["ao_mesh"])
-    assert cuda_shade.kernel_spec(scene, taken["soft_sil"], "mixed")["soft_sil"]
-    assert cuda_shade.kernel_spec(scene, taken["mesh_sil"], "mixed")["mesh_sil"]
+    ao = frame_chain(scene, taken["ao"], "mixed")
+    assert ao.ao_sdf and ao.ao_mesh and not ao.soft_diff
+    pen = frame_chain(scene, taken["penumbra"], "mixed")
+    assert pen.soft_diff and not (pen.ao_sdf or pen.ao_mesh)
+    assert frame_chain(scene, taken["soft_sil"], "mixed").soft_sil
+    assert frame_chain(scene, taken["mesh_sil"], "mixed").mesh_sil
     # a silhouette of geometry the method does not trace is not a chain
-    assert not cuda_shade.kernel_spec(scene, taken["mesh_sil"], "sdf")["mesh_sil"]
+    assert not frame_chain(scene, taken["mesh_sil"], "sdf").mesh_sil
     for what, (s, c) in refused.items():
+        refusal = frame_chain(s, c, "mixed")
+        assert refusal.traced and what in refusal.why
         with pytest.raises(NotImplementedError, match=f"shade kernels do not take.*{what}"):
-            cuda_shade.kernel_spec(s, c, "mixed")
+            refusal.check_kernels()
 
 
 @pytest.mark.parametrize("iters", [12, 20], ids=["12-iterations", "20-iterations"])
-def test_kernel_spec_takes_the_generic_bulb_on_cuda(monkeypatch, iters):
+def test_kernel_spec_takes_the_generic_bulb_on_cuda(iters):
     """A generic-power Mandelbulb (`mb_pow8=False`, as a `sdf.mb_power`
-    fit makes it) at any iteration count is a chain the kernels take on a
-    CUDA device, with the AO and the penumbra; its wrappers pass the
-    generic field's flag and the bulb's power in the packed block."""
+    fit makes it) at any iteration count is a chain the kernels take, with
+    the AO and the penumbra; its wrappers pass the generic field's flag and
+    the bulb's power in the packed block."""
     scene, cfg = tscenes.build_scene("mandelbulb", device="cpu")
     generic = scene.replace(sdf=scene.sdf.replace(mb_pow8=False, mb_iters=iters,
                                                   mb_power=torch.tensor([7.5])))
     cfg = cfg.replace(width=8, height=8, spp=1, diff_vis=True)
-    monkeypatch.setattr(Scene, "device", property(lambda self: torch.device("cuda")))
-    spec = cuda_shade.kernel_spec(generic, cfg, "sdf")
-    assert spec["use_sdf"] and spec["ao_sdf"] and spec["soft_diff"]
+    chain = frame_chain(generic, cfg, "sdf")
+    assert chain.use_sdf and chain.ao_sdf and chain.soft_diff and chain.why is None
     params, counts, _ = cuda_sdf._sdf_args(generic.sdf)
     assert counts[-2:] == (iters, 0) and cuda_sdf._sdf_args(scene.sdf)[1][-1] == 1
     assert float(params[-1]) == 7.5  # the bulb's row ends in its power
@@ -703,7 +704,8 @@ def test_shadow_soft_host_build_matches_plain_version(host_kernel, name):
     sx, sy = trender.pixel_sample_coords(cfg)
     o, d = generate_rays(scene.camera, sx.reshape(-1), sy.reshape(-1), 24, 24)
     res = trender.geometry_residuals(scene, cfg.replace(shadow="none"), o, d, "sdf")
-    _, p_off, _, live = trender.shadow_ray_origins(scene, cfg, o, d, res, "sdf")
+    r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, "sdf")
+    p_off, live = r.p_off, r.live
     if name == "pointlight":
         lvec = scene.lights.position[0] - p_off
         dist = lvec.norm(dim=1)
@@ -737,9 +739,9 @@ def test_shadow_hard_host_build_matches_plain_version(host_kernel, name):
     shadow_hard_torch on a frame's shadow rays: bit-equal, the rays that take
     no step (no surface, or culled by the bounds) included."""
     scene, cfg, method, o, d, res, _ = torch_host_build.case(name, False, dict(shadow="hard"))
-    rows = trender.mesh_table(scene.mesh) if scene.has_mesh else None
-    _, p_off, _, live = trender.shadow_ray_origins(scene, cfg, o, d, res, method,
-                                                   mesh_rows=rows)
+    rows = tplain.mesh_table(scene.mesh) if scene.has_mesh else None
+    r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=rows)
+    p_off, live = r.p_off, r.live
     p_off = p_off.contiguous()
     l_dir = torch.nn.functional.normalize(scene.lights.direction, dim=1)
     l_dir = l_dir[0].expand_as(p_off).contiguous()

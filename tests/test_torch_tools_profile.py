@@ -49,7 +49,6 @@ import tpu_ray.render.render as jR
 from tpu_ray.render.camera import generate_rays as jgenerate_rays
 from tpu_ray.scene import scenes as jscenes
 from tpu_ray_torch.bench import backward_config, bench_trainables
-from tpu_ray_torch.kernels import cuda_shade
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene import scenes as tscenes
@@ -182,10 +181,10 @@ def _jax_per_ray(name, fr):
 def _port_per_ray(fr):
     """The port tool's march+mesh outputs of every block, concatenated,
     with the march's hit."""
-    packed = cuda_shade.pack(fr.scene, R._bound_pad(fr.cfg))
-    rows = R.mesh_table(fr.scene.mesh) if R._use_mesh(fr.scene, fr.method) else None
+    rows, packed = R.frame_tables(fr.scene, fr.cfg, fr.method)
     with torch.no_grad():
-        march = R.march_group(fr.scene, fr.cfg, fr.xs, fr.ys, packed, fr.bs) if fr.sdf else None
+        march = (R.march_group(fr.scene, fr.cfg, fr.xs, fr.ys, packed, fr.bs)
+                 if fr.chain.use_sdf else None)
         outs = []
         for b, (o, d) in enumerate(_port_rays(fr)):
             m = None if march is None else tuple(v[b * fr.bs:(b + 1) * fr.bs] for v in march)

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from tpu_ray_torch.kernels import cuda_shade
+from tpu_ray_torch.render import plain as tplain
 from tpu_ray_torch.render import render as trender
+from tpu_ray_torch.render.chain import frame_chain
 from tpu_ray_torch.render.camera import generate_rays
 from tpu_ray_torch.scene import scenes as tscenes
 from tpu_ray_torch.scene.types import Lights
@@ -337,17 +339,17 @@ def build_reconstruct(tmp_dir):
 def reconstruct(so, scene, cfg, o, d, res, method, mesh_rows=None):
     """The host build of the reconstruct kernel on CPU tensors, with the
     arguments cuda_reconstruct.reconstruct passes -> its Recon."""
-    from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf
+    from tpu_ray_torch.kernels import cuda_sdf
 
-    use_sdf = method in ("sdf", "mixed") and scene.has_sdf
-    use_mesh = method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
+    chain = frame_chain(scene, cfg, method)
+    use_sdf, use_mesh = chain.use_sdf, chain.use_mesh
     sil = max(float(cfg.soft_silhouette), 0.0)
     packed = cuda_sdf.pack(scene.sdf)
     rows = None
     if use_mesh:
-        rows = (trender.mesh_table(scene.mesh) if mesh_rows is None else mesh_rows).detach()
+        rows = (tplain.mesh_table(scene.mesh) if mesh_rows is None else mesh_rows).detach()
     ins = [o.contiguous(), d.contiguous(), res["sdf_t"] if use_sdf else None,
-           res["sdf_tmin"] if use_sdf and sil > 0.0 else None,
+           res["sdf_tmin"] if chain.soft_sil else None,
            res["sdf_hit"] if use_sdf else None, res["mesh_tri"] if use_mesh else None,
            res["mesh_hit"] if use_mesh else None, rows]
     for x in ins:
@@ -356,7 +358,7 @@ def reconstruct(so, scene, cfg, o, d, res, method, mesh_rows=None):
     t, cov, hit, mat = (torch.empty(R), torch.empty(R), torch.empty(R, dtype=torch.bool),
                         torch.empty(R, dtype=torch.int32))
     p, n, nf, p_off = (torch.empty(R, 3) for _ in range(4))
-    closer = torch.empty(R, dtype=torch.bool) if use_sdf and use_mesh else None
+    closer = torch.empty(R, dtype=torch.bool) if chain.mixed else None
     rc = so.host_reconstruct(*[None if x is None else x.data_ptr() for x in ins],
                              0 if rows is None else rows.shape[0], R, packed.params.data_ptr(),
                              packed.mats.data_ptr(), *packed.counts, int(use_sdf),
@@ -365,8 +367,8 @@ def reconstruct(so, scene, cfg, o, d, res, method, mesh_rows=None):
                              cov.data_ptr(), None if closer is None else closer.data_ptr(),
                              nf.data_ptr(), p_off.data_ptr())
     assert rc == 0
-    return cuda_reconstruct.Recon((t, hit, p, n, mat, cov), closer, nf, p_off,
-                                  hit if sil <= 0.0 else None)
+    return tplain.Recon((t, hit, p, n, mat, cov), closer, nf, p_off,
+                        hit if sil <= 0.0 else None)
 
 
 def march(so, sdf, o, d, *, t0, max_steps, eps, t_far, bound_pad=0.0):
@@ -513,7 +515,7 @@ def _case(name, point_light, over, mixed_size):
     res = trender.geometry_residuals(scene, cfg, o, d, method)
     corners = None
     if scene.has_mesh:
-        rows = trender.mesh_table(scene.mesh)
+        rows = tplain.mesh_table(scene.mesh)
         corners = rows[torch.clamp(res["mesh_tri"], 0, rows.shape[0] - 1).long()][:, :9]
         corners = corners.contiguous()
     return scene, cfg, method, o, d, res, corners

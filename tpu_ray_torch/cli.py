@@ -276,7 +276,7 @@ def cmd_bench(args):
 
 
 def cmd_gradcheck(args):
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_sdf, cuda_shade
+    from tpu_ray_torch.kernels import launches
     from tpu_ray_torch.render.render import render_image
     from tpu_ray_torch.scene.types import get_param
     from tpu_ray_torch.utils.gradcheck import (CARD_RTOL, card_grad_check, check_grad,
@@ -305,11 +305,7 @@ def cmd_gradcheck(args):
         card_cfg = fd_cfg.replace(eps=cfg.eps)  # the scene's own float32 eps
         with torch.no_grad():
             card_target = render_image(scene, card_cfg) + 0.1
-        tables = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
-                  cuda_reconstruct.LAUNCHES)
-        for table in tables:
-            for k in table:
-                table[k] = 0
+        launches.reset()
         for path in args.trainable:
             r = card_grad_check(scene, card_cfg, path, card_target, device)
             print(f"[gradcheck] card {path}: {'OK' if r['ok'] else 'FAIL'} — float32 "
@@ -318,7 +314,7 @@ def cmd_gradcheck(args):
                   f"{r['rel_err']:.3e} (rtol {CARD_RTOL})")
             if not r["ok"]:
                 failures.append(f"card {path}")
-        launched = {k: v for t in tables for k, v in t.items() if v}
+        launched = {k: v for k, v in launches.counts().items() if v}
         print(f"[gradcheck] card launches: {json.dumps(launched)}")
     if failures:
         sys.exit(1)

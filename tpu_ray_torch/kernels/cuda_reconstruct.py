@@ -4,19 +4,19 @@ version.
 The JAX package has no kernel here (XLA fuses its `_sdf_from_res` and
 `_mesh_from_res`). Kernel: `csrc/reconstruct.cu`, over the shade chain's
 per-ray arithmetic (`csrc/shade_chain.cuh`, `csrc/sdf_adj.cuh`). Plain
-version: `render.shadow_ray_origins_plain` over
-`render.reconstruct_plain(lite=True)`.
+version: `plain.shadow_ray_origins_plain` over
+`plain.reconstruct_plain(lite=True)`.
 
-`reconstruct` gives, in one launch a ray block, what those two give: the
-hit state (t, hit, p, n, mat, cov), the mixed closest-select mask, the
-ray-facing normal, the shadow rays' origins and the live lanes. It alone
-decides by the device: on CPU tensors it runs the plain version
-(`render.shadow_ray_origins_plain`); on CUDA tensors it launches the kernel
-and raises on what the kernel does not take (non-float32 or non-contiguous
-input, an input that requires grad, a method without its geometry).
-`render.shadow_ray_origins` and `render.reconstruct_hits(lite=True)` call
-it on any device, so every values-only reconstruct on the card is this
-kernel. Each launch adds one to
+`reconstruct` gives, in one launch a ray block, what those two give: a
+`plain.Recon` of the hit state (t, hit, p, n, mat, cov), the mixed
+closest-select mask, the ray-facing normal, the shadow rays' origins and
+the live lanes. It alone decides by the device: on CPU tensors it runs the
+plain version; on CUDA tensors it launches the kernel and raises on what
+the kernel does not take (non-float32 or non-contiguous input, an input
+that requires grad, a chain without its geometry). The geometry pass,
+`cuda_shade._make_aux` and `render.frame_stats` call it on any device, so
+every values-only reconstruct on the card is this kernel. Each launch adds
+one to
 `LAUNCHES["reconstruct"]`. It takes `packed=` (`cuda_sdf.pack`, with the
 primitives' material ids): the SDF's parameters packed once for many
 launches, where a call without it packs them itself.
@@ -24,25 +24,14 @@ launches, where a call without it packs them itself.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
-
 import torch
 
 from tpu_ray_torch.kernels import cuda_sdf
 from tpu_ray_torch.kernels.build import check_cuda_inputs, check_launch, kernel_lib
+from tpu_ray_torch.render.chain import frame_chain
+from tpu_ray_torch.render.plain import Recon, mesh_table, shadow_ray_origins_plain
 
 LAUNCHES = {"reconstruct": 0}
-METHODS = ("sdf", "mesh_brute", "mesh_grid", "mixed")
-
-
-class Recon(NamedTuple):
-    """One ray block's values-only reconstruct."""
-    hits: tuple                      # (t, hit, p, n, mat, cov), as reconstruct_hits'
-    closer: Optional[torch.Tensor]   # the mixed closest-select mask, else None
-    nf: torch.Tensor                 # the ray-facing normal
-    p_off: torch.Tensor              # the shadow rays' origins
-    live: Optional[torch.Tensor]     # the lanes whose shadows reach the image (None
-                                     # with soft silhouettes)
 
 
 def _check_masks(*tensors) -> None:
@@ -62,33 +51,23 @@ def reconstruct(scene, cfg, o, d, res, method: str, mesh_rows=None,
     """The values-only reconstruct of one ray block from its geometry
     residuals (sdf_t, sdf_hit, sdf_tmin with soft silhouettes; mesh_tri,
     mesh_hit) -> Recon. mesh_rows: the frame's
-    (T, 10) render.mesh_table (made here when None); packed: cuda_sdf.pack's
+    (T, 10) plain.mesh_table (made here when None); packed: cuda_sdf.pack's
     (packed here when None)."""
     if o.device.type == "cpu":
-        from tpu_ray_torch.render.render import shadow_ray_origins_plain
-
-        aux = {}
-        hits, p_off, nf, live = shadow_ray_origins_plain(scene, cfg, o, d, res, method,
-                                                         mesh_rows=mesh_rows, aux_out=aux)
-        return Recon(hits, aux.get("closer"), nf, p_off, live)
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}")
-    use_sdf = method in ("sdf", "mixed") and scene.has_sdf
-    use_mesh = method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
-    if not (use_sdf or use_mesh) or (method == "mixed" and not (use_sdf and use_mesh)):
-        raise NotImplementedError(f"reconstruct: method {method!r} on a scene without "
-                                  "its geometry")
+        return shadow_ray_origins_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    chain = frame_chain(scene, cfg, method)
+    if not chain.traced:
+        raise NotImplementedError(f"reconstruct: {chain.why}")
+    use_sdf, use_mesh = chain.use_sdf, chain.use_mesh
     sil = max(float(cfg.soft_silhouette), 0.0)  # 0: hard (misses parked at o)
     if packed is None:
         packed = cuda_sdf.pack(scene.sdf)
     t_bar = res["sdf_t"] if use_sdf else None
-    tmin = res["sdf_tmin"] if use_sdf and sil > 0.0 else None
+    tmin = res["sdf_tmin"] if chain.soft_sil else None
     hs = res["sdf_hit"] if use_sdf else None
     tri = hm = rows = None
     if use_mesh:
         if mesh_rows is None:
-            from tpu_ray_torch.render.render import mesh_table
-
             mesh_rows = mesh_table(scene.mesh)
         tri, hm, rows = res["mesh_tri"], res["mesh_hit"], mesh_rows.detach()
         if rows.dim() != 2 or rows.shape[1] != 10:
@@ -104,7 +83,7 @@ def reconstruct(scene, cfg, o, d, res, method: str, mesh_rows=None,
     p, n, nf, p_off = (torch.empty((R, 3), **f32) for _ in range(4))
     hit = torch.empty(R, dtype=torch.bool, device=dev)
     mat = torch.empty(R, dtype=torch.int32, device=dev)
-    closer = torch.empty(R, dtype=torch.bool, device=dev) if use_sdf and use_mesh else None
+    closer = torch.empty(R, dtype=torch.bool, device=dev) if chain.mixed else None
     with torch.cuda.device(dev):
         rc = kernel_lib().tr_reconstruct(
             o.data_ptr(), d.data_ptr(), _ptr(t_bar), _ptr(tmin), _ptr(hs), _ptr(tri), _ptr(hm),

@@ -13,7 +13,7 @@ version: `corner_gather_torch`, the indexing, and its autograd
 (`corner_scatter_torch`).
 
 `corner_gather(mesh_rows, idx)` -> the (R, 9) corners of the (T, 10)
-`render.mesh_table` rows at the (R,) triangle ids idx, differentiable with
+`plain.mesh_table` rows at the (R,) triangle ids idx, differentiable with
 respect to mesh_rows. On CPU tensors it runs the plain version; on CUDA
 tensors it is `CornerGather`, whose forward is one launch of the gather
 kernel and whose backward is one call of the scatter (`corner_scatter`:

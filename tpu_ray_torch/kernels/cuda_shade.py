@@ -15,20 +15,23 @@ the hit material and the mixed closest-select mask, and the corners. Its
 backward is `shade_bwd`.
 
 Dispatch follows the device: `shade_fwd` and `shade_bwd` run their plain
-versions (`shade_fwd_torch`, the plain shade without gradient;
-`shade_bwd_torch`, its autograd) on CPU tensors and launch their kernel on
-CUDA tensors, raising on what the kernels do not take. Each launch adds one
-to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`; `shade_bwd` takes
-an optional `counters` tensor (int64, len(SHADE_BWD_COUNTERS), on the rays'
-device) to which a launch adds what it did, and the main path passes none.
+versions (`shade_fwd_torch`, the plain shade `plain.shade_plain` without
+gradient; `shade_bwd_torch`, its autograd) on CPU tensors and launch their
+kernel on CUDA tensors, raising on what the kernels do not take
+(`Chain.why`); `render.shade_with_residuals` picks the route. Each launch
+adds one to `LAUNCHES["shade_fwd"]` or `LAUNCHES["shade_bwd"]`;
+`shade_bwd` takes an optional `counters` tensor (int64,
+len(SHADE_BWD_COUNTERS), on the rays' device) to which a launch adds what
+it did, and the main path passes none.
 Both take `packed=` (`pack`): the scene's parameters packed once for many
 launches (a frame, a fit step), where a call without it packs them itself;
 the backward's parameter cotangents still come back per block.
-The chains the kernels take: methods sdf, mesh_* and mixed, directional and
-point lights, static shadow visibility (hard, soft or none), the
-soft-shadow penumbra with `diff_vis`, the 5-tap AO, the soft SDF silhouette
-and the mesh edge band, the power-8 and the generic-power Mandelbulb (the
-latter with its `sdf.mb_power` cotangent) at any iteration count, float32.
+The chains the kernels take (render/chain.py decides which they refuse):
+methods sdf, mesh_* and mixed, directional and point lights, static
+shadow visibility (hard, soft or none), the soft-shadow penumbra with
+`diff_vis`, the 5-tap AO, the soft SDF silhouette and the mesh edge band,
+the power-8 and the generic-power Mandelbulb (the latter with its
+`sdf.mb_power` cotangent) at any iteration count, float32.
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.kernels.build import (check_counters, check_cuda_inputs, check_launch,
                                          kernel_lib)
-from tpu_ray_torch.kernels import cuda_sdf
+from tpu_ray_torch.kernels import cuda_reconstruct, cuda_sdf
 from tpu_ray_torch.kernels.cuda_sdf import field_flag, pack_sdf
+from tpu_ray_torch.render.chain import frame_chain
+from tpu_ray_torch.render.plain import shade_plain
 from tpu_ray_torch.scene.types import apply_params, get_param
 from tpu_ray_torch.sdf.primitives import FLOAT_FIELDS
 
@@ -78,55 +83,16 @@ def wants_grad(scene, o, d, mesh_rows=None) -> bool:
     return any(t is not None and t.requires_grad for t in given)
 
 
-def kernel_spec(scene, cfg, method: str):
-    """Static shape of the shade chain (what the kernels recompute): a dict,
-    or None on the CPU when the kernels do not take the chain, which then
-    runs through the plain shade and its autograd. On a CUDA device such a
-    chain raises NotImplementedError: there is no plain fallback on the
-    card."""
-    use_sdf = method in ("sdf", "mixed") and scene.has_sdf
-    use_mesh = method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
-    lights = scene.lights
-    spec = {"use_sdf": use_sdf, "use_mesh": use_mesh,
-            "mixed": use_sdf and use_mesh, "n_dir": lights.direction.shape[0],
-            "n_pos": lights.position.shape[0],
-            # the AO's SDF term runs whenever the scene has an SDF, its mesh
-            # term when the traced method includes the mesh (render.make_ao)
-            "ao_sdf": cfg.ao == "sdf5" and scene.has_sdf,
-            "ao_mesh": cfg.ao == "sdf5" and use_mesh,
-            "soft_diff": cfg.shadow == "soft" and cfg.diff_vis and use_sdf,
-            # the soft SDF silhouette and the mesh edge band
-            "soft_sil": cfg.soft_silhouette > 0.0 and use_sdf,
-            "mesh_sil": cfg.mesh_silhouette > 0.0 and use_mesh}
-    why = None
-    if not (use_sdf or use_mesh):
-        why = f"method {method!r} on a scene without its geometry"
-    elif method == "mixed" and not spec["mixed"]:
-        why = "method 'mixed' without both an SDF and a mesh"
-    elif spec["n_dir"] + spec["n_pos"] == 0:
-        why = "a scene without lights"
-    elif scene.camera.origin.dtype != torch.float32:
-        why = f"dtype {scene.camera.origin.dtype}"
-    if why is None:
-        return spec
-    if scene.device.type == "cuda":
-        raise NotImplementedError(f"the shade kernels do not take {why}")
-    return None
-
-
 def _make_aux(scene, cfg, method: str, o, d, res, mesh_rows=None, packed=None) -> dict:
     """The hit material id and the mixed closest-select mask: the geometry
     pass's residuals when it made them (with shadows or the AO's mesh term),
     else recomputed by a values-only reconstruct (on CUDA tensors the
     reconstruct kernel, given packed)."""
     if "hit_mat" not in res:
-        from tpu_ray_torch.render.render import reconstruct_hits
-
-        aux = {}
         with torch.no_grad():
-            reconstruct_hits(scene, cfg, o.detach(), d.detach(), res, method,
-                             lite=True, mesh_rows=mesh_rows, aux_out=aux, packed=packed)
-        res = {"hit_mat": aux["mat"], "hit_closer": aux.get("closer")}
+            r = cuda_reconstruct.reconstruct(scene, cfg, o.detach(), d.detach(), res, method,
+                                             mesh_rows=mesh_rows, packed=packed)
+        res = {"hit_mat": r.hits[4], "hit_closer": r.closer}
     aux = {"mat": res["hit_mat"].to(torch.int32)}
     if res.get("hit_closer") is not None:
         aux["closer"] = res["hit_closer"]
@@ -194,31 +160,27 @@ def shade(scene, cfg, o, d, res, method: str, corners=None, mesh_rows=None, pack
 
 def shade_fwd_torch(scene, cfg, o, d, res, method: str, corners=None,
                     mesh_rows=None) -> torch.Tensor:
-    """The plain shade of one block without gradient -> (R, 3): `_shade_plain`
+    """The plain shade of one block without gradient -> (R, 3): `shade_plain`
     (which reuses the geometry pass's hit state where it left one)."""
-    from tpu_ray_torch.render.render import _shade_plain
-
     with torch.no_grad():
-        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
-                            corners=corners)
+        return shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                           corners=corners)
 
 
 def shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method: str) -> dict:
     """Cotangents of the plain shade of one block given the output
-    cotangent ct (R, 3): torch.autograd of `_shade_plain` with respect to
+    cotangent ct (R, 3): torch.autograd of `shade_plain` with respect to
     the SHADE_PATHS leaves, o, d and the corners. Returns a dict by path
     plus "o", "d" and "corners" (None without a mesh); zeros for leaves the
     chain does not use."""
-    from tpu_ray_torch.render.render import _shade_plain
-
     with torch.enable_grad():
         leaves = {p: get_param(scene, p).detach().requires_grad_(True)
                   for p in SHADE_PATHS}
         o_ = o.detach().requires_grad_(True)
         d_ = d.detach().requires_grad_(True)
         c_ = None if corners is None else corners.detach().requires_grad_(True)
-        out = _shade_plain(apply_params(scene, leaves), cfg, o_, d_, res, method,
-                           corners=c_)
+        out = shade_plain(apply_params(scene, leaves), cfg, o_, d_, res, method,
+                          corners=c_)
         inputs = [o_, d_, *([] if c_ is None else [c_]), *leaves.values()]
         grads = torch.autograd.grad(out, inputs, grad_outputs=ct,
                                     allow_unused=True)
@@ -337,54 +299,56 @@ def _ptr(t):
 
 
 def kernel_args(scene, cfg, o, d, res, aux, corners, method: str, packed=None):
-    """The arguments both shade kernels take: (spec, small, rays, statics).
+    """The arguments both shade kernels take: (chain, small, rays, statics).
+    chain: frame_chain's, which the kernels must take (else it raises);
     rays: the 12 per-ray tensors (o, d, corners, t_bar, tmin, hs, hm,
     closer, mat, vis, ts, ao_tmesh; None where the chain reads none), the
     kernels' pointer arguments; statics: the arguments after them, the ray
     count and the packed block `small` (as a tensor) first. packed: pack's,
     whose block serves as small (else it is packed here)."""
-    spec = kernel_spec(scene, cfg, method)
+    chain = frame_chain(scene, cfg, method)
+    chain.check_kernels()
     small = pack_small(scene) if packed is None else packed.small
-    rays = [o, d, corners, res["sdf_t"] if spec["use_sdf"] else None,
-            res["sdf_tmin"] if spec["soft_sil"] else None,
-            res["sdf_hit"] if spec["use_sdf"] else None,
-            res["mesh_hit"] if spec["use_mesh"] else None,
-            aux.get("closer") if spec["mixed"] else None, aux["mat"], res.get("sh_vis"),
-            res["sh_ts"] if spec["soft_diff"] else None,
-            res["ao_tmesh"] if spec["ao_mesh"] else None]
+    rays = [o, d, corners, res["sdf_t"] if chain.use_sdf else None,
+            res["sdf_tmin"] if chain.soft_sil else None,
+            res["sdf_hit"] if chain.use_sdf else None,
+            res["mesh_hit"] if chain.use_mesh else None,
+            aux.get("closer") if chain.mixed else None, aux["mat"], res.get("sh_vis"),
+            res["sh_ts"] if chain.soft_diff else None,
+            res["ao_tmesh"] if chain.ao_mesh else None]
     sdf = scene.sdf
     statics = [o.shape[0], small, sdf.sph_center.shape[0], sdf.pln_normal.shape[0],
                sdf.box_center.shape[0], sdf.mb_center.shape[0], int(sdf.mb_iters),
-               field_flag(sdf), scene.materials.albedo.shape[0], spec["n_dir"], spec["n_pos"],
-               *(int(spec[k]) for k in ("use_sdf", "use_mesh", "ao_sdf", "ao_mesh",
-                                        "soft_diff")),
-               float(cfg.soft_silhouette) if spec["soft_sil"] else 0.0,
-               float(cfg.mesh_silhouette) if spec["mesh_sil"] else 0.0,
+               field_flag(sdf), scene.materials.albedo.shape[0], chain.n_dir, chain.n_pos,
+               *(int(f) for f in (chain.use_sdf, chain.use_mesh, chain.ao_sdf, chain.ao_mesh,
+                                  chain.soft_diff)),
+               float(cfg.soft_silhouette) if chain.soft_sil else 0.0,
+               float(cfg.mesh_silhouette) if chain.mesh_sil else 0.0,
                float(cfg.ao_step), float(cfg.ao_strength), float(cfg.soft_k),
                float(cfg.shadow_bias)]
-    return spec, small, rays, statics
+    return chain, small, rays, statics
 
 
 def _checked_args(name, scene, cfg, o, d, res, aux, corners, method: str, packed=None):
     """kernel_args, checked for the CUDA kernels, with the tensors as
-    pointers: (spec, small, pointers, statics)."""
-    spec, small, rays, statics = kernel_args(scene, cfg, o, d, res, aux, corners, method,
-                                             packed)
+    pointers: (chain, small, pointers, statics)."""
+    chain, small, rays, statics = kernel_args(scene, cfg, o, d, res, aux, corners, method,
+                                              packed)
     o, d, corners, t_bar, tmin, hs, hm, closer, mat, vis, ts, t_mesh = rays
     R = o.shape[0]
-    n_lights = spec["n_dir"] + spec["n_pos"]
+    n_lights = chain.n_dir + chain.n_pos
     for key, rows in (("sh_vis", vis), ("sh_ts", ts)):
         if rows is not None and tuple(rows.shape) != (n_lights, R):
             raise ValueError(f"{name}: {key} must be ({n_lights}, {R})")
     for key, col in (("ao_tmesh", t_mesh), ("sdf_tmin", tmin)):
         if col is not None and tuple(col.shape) != (R,):
             raise ValueError(f"{name}: {key} must be ({R},)")
-    if spec["use_mesh"] and (corners is None or tuple(corners.shape) != (R, 9)):
+    if chain.use_mesh and (corners is None or tuple(corners.shape) != (R, 9)):
         raise ValueError(f"{name}: a mesh chain needs the (R, 9) corners")
     check_cuda_inputs(name, o, d, corners, t_bar, tmin, vis, ts, t_mesh, small)
     _check_masks(name, hs, hm, closer, mat)
     statics[1] = small.data_ptr()
-    return spec, small, [_ptr(t) for t in rays], statics
+    return chain, small, [_ptr(t) for t in rays], statics
 
 
 def shade_fwd(scene, cfg, o, d, res, method: str, corners=None, aux=None,
@@ -416,8 +380,8 @@ def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str,
     packed: see shade_fwd."""
     if o.device.type == "cpu":
         return shade_bwd_torch(scene, cfg, o, d, res, corners, ct, method)
-    spec, small, pointers, statics = _checked_args("shade_bwd", scene, cfg, o, d, res,
-                                                   aux, corners, method, packed)
+    chain, small, pointers, statics = _checked_args("shade_bwd", scene, cfg, o, d, res,
+                                                    aux, corners, method, packed)
     check_cuda_inputs("shade_bwd", o, ct)
     check_counters("shade_bwd", counters, o.device, SHADE_BWD_COUNTERS)
     R, dev = o.shape[0], o.device
@@ -426,7 +390,7 @@ def shade_bwd(scene, cfg, o, d, res, aux, corners, ct, method: str,
     d_o = torch.empty((R, 3), dtype=torch.float32, device=dev)
     d_d = torch.empty((R, 3), dtype=torch.float32, device=dev)
     d_c = (torch.empty((R, 9), dtype=torch.float32, device=dev)
-           if spec["use_mesh"] else None)
+           if chain.use_mesh else None)
     partials = torch.empty((n_rows, small.numel()), dtype=torch.float32, device=dev)
     d_small = torch.empty_like(small)
     with torch.cuda.device(dev):

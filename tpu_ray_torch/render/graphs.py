@@ -23,7 +23,7 @@ block's inputs, and three graphs in one memory pool:
     slice of the image cotangent, added into static gradient buffers.
 
 Every call copies the frame's tensors into the plan's buffers (`load`):
-`fit.apply_params`, `cuda_shade.pack` and `mesh_table` make new tensors
+`fit.apply_params`, `cuda_shade.pack` and `plain.mesh_table` make new tensors
 each step or frame, and a graph reads the storage it captured. A block
 replay is a few copies in (its samples, its march slice), one graph
 launch, and one copy out (its colours).
@@ -36,9 +36,9 @@ The geometry pass does not run again; the shade forward does (one more
 launch of #5 a block, inside `cuda_shade.ShadeFn`).
 
 Launch counts: the kernel wrappers count in Python, which a replay does
-not run. A Graph records each LAUNCHES table's change during its capture,
-takes it back (nothing ran), and adds it at every replay; the warm-up's
-launches ran and stay counted.
+not run. A Graph records each LAUNCHES table's change during its capture
+(kernels/launches.py lists the tables), takes it back (nothing ran), and
+adds it at every replay; the warm-up's launches ran and stay counted.
 
 Tracing (utils/metrics.py): the group, block and vjp graphs capture the
 stage markers of what they run (`march`; `rays` to `shade`;
@@ -85,21 +85,20 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tpu_ray_torch.dist.multihost import live_group
-from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
+from tpu_ray_torch.kernels import cuda_mt, cuda_scatter
 from tpu_ray_torch.kernels.build import kernel_lib
+from tpu_ray_torch.kernels.launches import TABLES
 from tpu_ray_torch.render import render
+from tpu_ray_torch.render.chain import frame_chain, resolve_method
 from tpu_ray_torch.utils.metrics import span, stage
-
-LAUNCH_TABLES = (cuda_sdf.LAUNCHES, cuda_mt.LAUNCHES, cuda_shade.LAUNCHES,
-                 cuda_reconstruct.LAUNCHES, cuda_scatter.LAUNCHES)
 
 
 def _snapshot() -> list:
-    return [dict(t) for t in LAUNCH_TABLES]
+    return [dict(t) for t in TABLES]
 
 
 def _add_counts(deltas: list, sign: int) -> None:
-    for table, delta in zip(LAUNCH_TABLES, deltas):
+    for table, delta in zip(TABLES, deltas):
         for k, n in delta.items():
             table[k] += sign * n
 
@@ -165,7 +164,7 @@ class Graph:
         before = _snapshot()
         self.graph, self.out = self._capture()
         self.deltas = [{k: n - b[k] for k, n in t.items() if n != b[k]}
-                       for t, b in zip(LAUNCH_TABLES, before)]
+                       for t, b in zip(TABLES, before)]
         _add_counts(self.deltas, -1)
         self.counts["captures"] += 1
         self.counts["prepare_s"] += time.perf_counter() - t0
@@ -465,7 +464,7 @@ def render_pixels_flat_jit(scene, cfg, flat_x, flat_y) -> torch.Tensor:
     scene's plan keys on the ring's process group itself (the default
     group for None). Its key and plan lookup are the span `render.prepare`."""
     with span("render.prepare"):
-        method = render.resolve_method(scene, cfg)
+        method = resolve_method(scene, cfg)
         scene = scene.replace(grid=None)  # the DDA oracle's, never read by a frame
         if scene.ring is not None:
             scene = scene.replace(ring=dataclasses.replace(scene.ring,
@@ -476,7 +475,7 @@ def render_pixels_flat_jit(scene, cfg, flat_x, flat_y) -> torch.Tensor:
         xs, ys, bs = render.whole_blocks(cfg, flat_x, flat_y)
         n_blocks = xs.shape[0] // bs
         group = (min(render.MARCH_GROUP, n_blocks)
-                 if render._use_sdf(scene, method) and n_blocks > 1 else 0)
+                 if frame_chain(scene, cfg, method).use_sdf and n_blocks > 1 else 0)
         key = (cfg, method, bs, group, treedef, xs.dtype, xs.device,
                tuple((tuple(x.shape), x.dtype, x.device) for x in leaves))
         plan = PLANS.get(key)

@@ -1,29 +1,29 @@
 """The render core: ray generation -> geometry pass -> reconstruct -> shade ->
 spp mean, over blocks of samples in Morton 8x8 pixel order.
 
-Counterpart of `tpu_ray/render/render.py`. The geometry pass
-(`geometry_residuals`) runs under `torch.no_grad()` and goes through the
-kernel wrappers: the primary SDF march (`cuda_sdf.march`), the mesh closest
-hit seeded with the SDF hit t, the mesh any-hit for shadow rays and the
-mesh term of the AO taps (`cuda_mt.intersect_packet_parts` over the accel's
-parts, or `dist.scene_shard.intersect_ring_packet` over the ring's
-shards when the scene is partitioned across processes), and the hard or soft
-SDF shadow march (`cuda_sdf.shadow_hard`; `cuda_sdf.shadow_soft` through
-`shading.sdf_soft_shadow_argmin`). It emits compact per-ray residuals; the
-shade rebuilds hit state from them (SDF hit t by the IFT attach, normal by
-autograd of the distance field, mesh hit by re-solving the selected
-triangle), with the soft SDF silhouette and the mesh edge band as
-coverage, and shades with the static shadow visibility or, with `diff_vis`
-soft shadows, the penumbra recomputed from one DE at the march's argmin t,
-and the 5-tap distance-field AO.
+Counterpart of `tpu_ray/render/render.py`. What a frame traces and shades
+is its chain (render/chain.py), built from the scene, the config and the
+method. The geometry pass (`geometry_residuals`) runs under
+`torch.no_grad()` and goes through the kernel wrappers: the primary SDF
+march (`cuda_sdf.march`), the mesh closest hit seeded with the SDF hit t,
+the mesh any-hit for shadow rays and the mesh term of the AO taps
+(`cuda_mt.intersect_packet_parts` over the accel's parts, or
+`dist.scene_shard.intersect_ring_packet` over the ring's shards when the
+scene is partitioned across processes), the values-only reconstruct of the
+hits and the shadow rays' origins (`cuda_reconstruct.reconstruct`), and
+the hard or soft SDF shadow march (`cuda_sdf.shadow_hard`;
+`cuda_sdf.shadow_soft` through `shading.sdf_soft_shadow_argmin`). It emits
+compact per-ray residuals, from which the shade rebuilds the hit state
+(render/plain.py) and shades with the static shadow visibility or, with
+`diff_vis` soft shadows, the penumbra recomputed from one DE at the march's
+argmin t, and the 5-tap distance-field AO.
 
-On a CUDA device the geometry pass's values-only reconstruct of a block
-(`shadow_ray_origins`, and every `reconstruct_hits(lite=True)`) is one
-launch of the reconstruct kernel (`cuda_reconstruct`), and the shade of a
-block one launch of the fused forward kernel (`cuda_shade.shade_fwd`),
-with or without a gradient; on the CPU they are the plain
-`shadow_ray_origins_plain` and `_shade_plain`. The primary march runs
-once per group of `MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
+On a CUDA device the reconstruct of a block is one launch of the
+reconstruct kernel, and the shade of a block one launch of the fused
+forward kernel (`cuda_shade.shade_fwd`), with or without a gradient; on
+the CPU they are their plain versions (`plain.shadow_ray_origins_plain`,
+`plain.shade_plain`). The primary march runs once per group of
+`MARCH_GROUP` blocks (`march_group`), and the kernels' scene parameters are
 packed once per `render_pixels_flat` call (`cuda_shade.pack`). Gradients:
 ray generation runs inside autograd, so the camera gets its gradient; the
 shade of a block is one `cuda_shade.ShadeFn`, whose backward is the fused
@@ -43,21 +43,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_ray_torch.core.math3d import clamp01, dot, normalize
+from tpu_ray_torch.core.math3d import dot, normalize
 from tpu_ray_torch.dist.scene_shard import intersect_ring_packet
 from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
 from tpu_ray_torch.kernels import moller_trumbore as mt
-from tpu_ray_torch.kernels.sphere_trace import IftAttach, surface_normal
-from tpu_ray_torch.render import shading
+from tpu_ray_torch.render import plain, shading
 from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.render.chain import Chain, check_supported, frame_chain, resolve_method
 from tpu_ray_torch.scene.transform import realize_scene
 from tpu_ray_torch.scene.types import Scene
-from tpu_ray_torch.sdf.primitives import sdf_distance, sdf_distance_and_mat
 from tpu_ray_torch.utils import prng
 from tpu_ray_torch.utils.config import RenderConfig
 from tpu_ray_torch.utils.metrics import span, stage
 
-BIG = 1e10
 # with soft silhouettes the march also takes the rays that pass within this
 # many silhouette widths of a primitive's bounding sphere: their closest
 # approach sets their coverage. A ray that stays farther away has coverage
@@ -80,23 +78,6 @@ def _bound_pad(cfg: RenderConfig) -> float:
     outside its bounding sphere (the march hits there), plus SIL_REACH
     widths with soft silhouettes."""
     return cfg.eps + SIL_REACH * max(cfg.soft_silhouette, 0.0)
-
-
-def resolve_method(scene: Scene, cfg: RenderConfig) -> str:
-    if cfg.method != "auto":
-        return cfg.method
-    if scene.has_mesh and scene.has_sdf:
-        return "mixed"
-    if scene.has_mesh:
-        return "mesh_brute" if scene.mesh.num_tris <= 4096 else "mesh_grid"
-    return "sdf"
-
-
-def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.shadow not in ("none", "hard", "soft"):
-        raise ValueError(f"unknown shadow mode {cfg.shadow!r}")
-    if cfg.ao not in ("none", "sdf5"):
-        raise ValueError(f"unknown ao mode {cfg.ao!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -173,23 +154,10 @@ def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Geometry pass (no gradient, kernel-backed) and hit reconstruction
+# Geometry pass (no gradient, kernel-backed) and the shade's route
 # ---------------------------------------------------------------------------
 
-def _use_sdf(scene: Scene, method: str) -> bool:
-    return method in ("sdf", "mixed") and scene.has_sdf
-
-
-def _use_mesh(scene: Scene, method: str) -> bool:
-    return method in ("mesh_brute", "mesh_grid", "mixed") and scene.has_mesh
-
-
-def _use_packet(scene: Scene, method: str) -> bool:
-    return method in ("mesh_grid", "mixed") and scene.packet is not None
-
-
-def _mesh_intersect(scene: Scene, cfg: RenderConfig, o, d, method: str,
-                    t_init=None):
+def _mesh_intersect(scene: Scene, cfg: RenderConfig, chain: Chain, o, d, t_init=None):
     """Mesh closest hit -> (tri, hit). t_init: per-ray best-t seed (the SDF hit
     t in mixed scenes: a mesh hit behind it loses the closest-select). The
     ring's shards (which, as the reference's, take no seed) come first, then
@@ -197,7 +165,7 @@ def _mesh_intersect(scene: Scene, cfg: RenderConfig, o, d, method: str,
     visited front to back from o[0]."""
     if scene.ring is not None:
         res = intersect_ring_packet(scene.ring, o, d, t_max=cfg.t_far, sort_origin=o[0])
-    elif _use_packet(scene, method):
+    elif chain.packet:
         res = cuda_mt.intersect_packet_parts(scene.packet, o, d, t_max=cfg.t_far,
                                              sort_origin=o[0], t_init=t_init)
     else:
@@ -205,8 +173,7 @@ def _mesh_intersect(scene: Scene, cfg: RenderConfig, o, d, method: str,
     return res.tri, res.hit
 
 
-def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str, sort,
-                  t_init=None):
+def _mesh_any_hit(scene: Scene, chain: Chain, p, d, t_max, sort, t_init=None):
     """Mesh occlusion of shadow rays. `d` may be unnormalized (point lights
     pass the segment to the light with t_max = 1). sort: ("dir", v) visits
     the supers by ascending projection on v (a directional light), or
@@ -217,173 +184,21 @@ def _mesh_any_hit(scene: Scene, cfg: RenderConfig, p, d, t_max, method: str, sor
     kw = {"sort_dir": v} if kind == "dir" else {"sort_origin": v}
     if scene.ring is not None:
         return intersect_ring_packet(scene.ring, p, d, t_max=t_max, any_hit=True, **kw).hit
-    if _use_packet(scene, method):
+    if chain.packet:
         return cuda_mt.intersect_packet_parts(scene.packet, p, d, t_max=t_max, any_hit=True,
                                               t_init=t_init, **kw).hit
     return mt.any_hit_brute(scene.mesh, p, d, t_max=t_max)
 
 
-def _mesh_closest_t(scene: Scene, o, d, t_max: float):
+def _mesh_closest_t(scene: Scene, chain: Chain, o, d, t_max: float):
     """Closest mesh hit distance along per-ray dirs within t_max (BIG on a
-    miss): the mesh term of the AO taps (make_ao), with no sort hint."""
+    miss): the mesh term of the AO taps (plain.make_ao), with no sort hint."""
     if scene.ring is not None:
         return intersect_ring_packet(scene.ring, o, d, t_max=t_max).t
-    if scene.packet is not None:
+    if chain.ao_packet:
         return cuda_mt.intersect_packet_parts(scene.packet, o, d, t_max=t_max).t
     res = mt.intersect_brute(scene.mesh, o, d, t_max=t_max)
-    return torch.where(res.hit, res.t, torch.full_like(res.t, BIG))
-
-
-def _soft_diff(scene: Scene, cfg: RenderConfig, method: str) -> bool:
-    """Whether the shade recomputes the soft-shadow penumbra with gradients."""
-    return cfg.shadow == "soft" and cfg.diff_vis and _use_sdf(scene, method)
-
-
-def _sdf_from_res(scene: Scene, cfg: RenderConfig, o, d, res, lite=False):
-    """SDF hit state from the march residuals.
-
-    lite: values only, for the geometry pass: no IFT attach, no Hessian
-    term in the normal, no soft-silhouette coverage DE. Gradient callers
-    keep lite=False."""
-    t_bar, hit = res["sdf_t"], res["sdf_hit"]
-    t = t_bar if lite else IftAttach.apply(
-        sdf_distance, scene.sdf, o, d, t_bar, hit.to(o.dtype),
-        *scene.sdf.float_leaves())
-    cov = hit.to(o.dtype)
-    t_eff = t
-    if cfg.soft_silhouette > 0.0:
-        tmin = res["sdf_tmin"]
-        if not lite:
-            # coverage from the DE at the closest-approach point
-            d_min = sdf_distance(scene.sdf, o + tmin[..., None] * d)
-            cov = torch.where(hit, torch.ones_like(d_min),
-                              torch.sigmoid(-d_min / cfg.soft_silhouette))
-        t_eff = torch.where(hit, t, tmin)
-    p = o + t_eff[..., None] * d
-    # the Hessian term only where p carries a gradient (o, d or the field)
-    n = surface_normal(sdf_distance, scene.sdf, p,
-                       create_graph=not lite and p.requires_grad)
-    _, mat = sdf_distance_and_mat(scene.sdf, p.detach())
-    return t, hit, p, n, mat, cov
-
-
-def _mesh_from_res(scene: Scene, cfg: RenderConfig, o, d, res,
-                   mesh_rows=None, lite=False, corners=None):
-    """Mesh hit state re-solved from the selected triangle. mesh_rows: the
-    packed (T, 10) table of mesh_table, one row gather per ray; corners:
-    the (R, 9) gathered corners themselves, when the caller has them."""
-    tri, hit = res["mesh_tri"], res["mesh_hit"]
-    idx = torch.clamp(tri, 0, scene.mesh.num_tris - 1).long()
-    if corners is None:
-        if mesh_rows is None:
-            mesh_rows = mesh_table(scene.mesh)
-        rows = mesh_rows[idx]
-        corners, tri_mat = rows[:, :9], rows[:, 9].to(torch.int32)
-    else:
-        tri_mat = scene.mesh.tri_mat[idx]
-    v0, v1, v2 = corners[:, 0:3], corners[:, 3:6], corners[:, 6:9]
-    t, u, v, n = mt.recompute_hit_corners(v0, v1, v2, o, d)
-    mat = torch.where(hit, tri_mat, torch.zeros_like(tri))
-    if cfg.mesh_silhouette > 0.0 and not lite:
-        margin = mt.edge_margin_corners(v0, v1, v2, u, v)
-        cov = torch.where(hit, clamp01(margin / cfg.mesh_silhouette),
-                          torch.zeros_like(margin))
-    else:
-        cov = hit.to(o.dtype)
-    t = torch.where(hit, t, torch.full_like(t, BIG))
-    p = o + t[..., None] * d
-    return t, hit, p, n, mat, cov
-
-
-def reconstruct_hits(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                     lite: bool = False, mesh_rows=None, aux_out=None,
-                     corners=None, packed=None):
-    """(t, hit, p, n, mat, cov) from the geometry residuals.
-
-    aux_out: a dict that receives the by-products the fused shade backward
-    takes as residuals: the hit material id and, for mixed, the
-    closest-select mask. lite: shadow_ray_origins' hit state (on CUDA
-    tensors the reconstruct kernel, which gathers the corners itself from
-    mesh_rows; packed: cuda_sdf.pack's)."""
-    if lite:
-        if corners is not None:
-            raise ValueError("the values-only reconstruct gathers the corners itself, "
-                             "from mesh_rows")
-        return shadow_ray_origins(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
-                                  aux_out=aux_out, packed=packed)[0]
-    return reconstruct_plain(scene, cfg, o, d, res, method, lite=lite, mesh_rows=mesh_rows,
-                             aux_out=aux_out, corners=corners)
-
-
-def reconstruct_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                      lite: bool = False, mesh_rows=None, aux_out=None, corners=None):
-    """reconstruct_hits as plain PyTorch, on any device."""
-    if method == "sdf":
-        out = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
-    elif method in ("mesh_brute", "mesh_grid"):
-        out = _mesh_from_res(scene, cfg, o, d, res, mesh_rows=mesh_rows,
-                             lite=lite, corners=corners)
-    elif method == "mixed":
-        ts, hs, ps, ns, ms, cs = _sdf_from_res(scene, cfg, o, d, res, lite=lite)
-        tm, hm, pm, nm, mm, cm = _mesh_from_res(scene, cfg, o, d, res,
-                                                mesh_rows=mesh_rows, lite=lite,
-                                                corners=corners)
-        ts_eff = torch.where(hs, ts, torch.full_like(ts, BIG))
-        tm_eff = torch.where(hm, tm, torch.full_like(tm, BIG))
-        sdf_closer = ts_eff <= tm_eff
-        t = torch.where(sdf_closer, ts, tm)
-        hit = hs | hm
-        p = torch.where(sdf_closer[..., None], ps, pm)
-        n = torch.where(sdf_closer[..., None], ns, nm)
-        mat = torch.where(sdf_closer, ms.to(mm.dtype), mm)
-        # soft SDF coverage applies only where the mesh does not hit in front
-        cov = torch.where(hm & (~sdf_closer), cm, torch.maximum(cs, cm))
-        if aux_out is not None:
-            aux_out["closer"] = sdf_closer
-        out = t, hit, p, n, mat, cov
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    if aux_out is not None:
-        aux_out["mat"] = out[4]
-    return out
-
-
-def shadow_ray_origins(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                       mesh_rows=None, aux_out=None, packed=None):
-    """Hit state and shadow-ray origins from the primary residuals ->
-    (hits, p_off, n, live): the reconstructed (t, hit, p, n, mat, cov), the
-    hit points offset along the ray-facing normal, that normal, and the lanes
-    whose shadows can reach the image (None with soft silhouettes, where
-    every lane may).
-
-    Without soft silhouettes a miss lane's shadow never reaches the image
-    and o + BIG*d is a garbage origin: such lanes are parked at the camera,
-    and the shadow queries give them a zero budget. aux_out: see
-    reconstruct_hits. cuda_reconstruct.reconstruct decides by the device: on
-    CUDA tensors one launch of the reconstruct kernel (packed: cuda_sdf.pack's),
-    on CPU tensors shadow_ray_origins_plain."""
-    r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
-                                     packed=packed)
-    if aux_out is not None:
-        if r.closer is not None:
-            aux_out["closer"] = r.closer
-        aux_out["mat"] = r.hits[4]
-    return r.hits, r.p_off, r.nf, r.live
-
-
-def shadow_ray_origins_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                             mesh_rows=None, aux_out=None):
-    """shadow_ray_origins as plain PyTorch, on any device."""
-    hits = reconstruct_plain(scene, cfg, o, d, res, method, lite=True,
-                             mesh_rows=mesh_rows, aux_out=aux_out)
-    _t, hit_any, p, n, _mat, _cov = hits
-    n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
-    p_off = p + cfg.shadow_bias * n
-    live = None
-    if cfg.soft_silhouette <= 0.0:
-        live = hit_any
-        p_off = torch.where(hit_any[..., None], p_off, o)
-    return hits, p_off, n, live
+    return torch.where(res.hit, res.t, torch.full_like(res.t, mt.BIG))
 
 
 @torch.no_grad()
@@ -432,12 +247,14 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
                                  for the backward
 
     Stages (utils.metrics.stage): `march` where the pass marches itself,
-    `walk`, `reconstruct` (shadow_ray_origins) and `shadow` (the rest).
+    `walk`, `reconstruct` (cuda_reconstruct.reconstruct) and `shadow` (the
+    rest).
     """
-    _check_supported(cfg)
+    check_supported(cfg)
+    chain = frame_chain(scene, cfg, method)
     o, d = o.detach(), d.detach()
     res = {}
-    if _use_sdf(scene, method):
+    if chain.use_sdf:
         if march is None:
             with stage("march", o.device):
                 march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
@@ -445,50 +262,46 @@ def geometry_residuals(scene: Scene, cfg: RenderConfig, o, d, method: str,
                                        packed=packed)
         t, hit, _steps, tmin = march
         res["sdf_t"], res["sdf_hit"], res["sdf_tmin"] = t, hit, tmin
-    if _use_mesh(scene, method):
+    if chain.use_mesh:
         with stage("walk", o.device):
             t_seed = None
-            if method == "mixed" and "sdf_t" in res:
+            if chain.mixed:
                 # the SDF hit bounds the mesh search
                 t_seed = torch.where(res["sdf_hit"], res["sdf_t"],
                                      torch.full_like(res["sdf_t"], cfg.t_far))
-            res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(
-                scene, cfg, o, d, method, t_init=t_seed)
-    ao_mesh = cfg.ao == "sdf5" and _use_mesh(scene, method)
-    if cfg.shadow == "none" and not ao_mesh:
+            res["mesh_tri"], res["mesh_hit"] = _mesh_intersect(scene, cfg, chain, o, d,
+                                                               t_init=t_seed)
+    if cfg.shadow == "none" and not chain.ao_mesh:
         return res
 
     with stage("reconstruct", o.device):
-        aux = {}
-        hits, p_off, n, live = shadow_ray_origins(scene, cfg, o, d, res, method,
-                                                  mesh_rows=mesh_rows, aux_out=aux,
-                                                  packed=packed)
-        res["hit_mat"] = aux["mat"]
-        if "closer" in aux:
-            res["hit_closer"] = aux["closer"]
+        r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                         packed=packed)
+        res["hit_mat"] = r.hits[4]
+        if r.closer is not None:
+            res["hit_closer"] = r.closer
         if cfg.soft_silhouette <= 0.0 and cfg.mesh_silhouette <= 0.0:
-            res["hits"] = hits
+            res["hits"] = r.hits
     with stage("shadow", o.device):
-        _shadow_residuals(scene, cfg, method, res, hits[2], p_off, n, live, ao_mesh, packed)
+        _shadow_residuals(scene, cfg, chain, res, r, packed)
     return res
 
 
-def _shadow_residuals(scene: Scene, cfg: RenderConfig, method: str, res: dict, p, p_off, n,
-                      live, ao_mesh: bool, packed) -> None:
+def _shadow_residuals(scene: Scene, cfg: RenderConfig, chain: Chain, res: dict,
+                      r: plain.Recon, packed) -> None:
     """The geometry pass's shadow part, into res: the AO taps' mesh term
-    (ao_mesh), then each light's hard or soft SDF march and mesh any-hit
-    from the shadow origins p_off (sh_vis, and sh_ts with diff_vis soft
-    shadows). p: the hit points; n: the ray-facing normal; live: as
-    shadow_ray_origins gives it."""
-    if ao_mesh:
+    (chain.ao_mesh), then each light's hard or soft SDF march and mesh
+    any-hit from the shadow origins r.p_off (sh_vis, and sh_ts with diff_vis
+    soft shadows). r: the block's reconstruct."""
+    p, p_off, n, live = r.hits[2], r.p_off, r.nf, r.live
+    if chain.ao_mesh:
         # the mesh term of the AO taps: the closest hit along the shade
         # normal within the taps' reach, measured from p
         cut = 5.0 * cfg.ao_step + cfg.shadow_bias
-        res["ao_tmesh"] = _mesh_closest_t(scene, p_off, n, cut) + cfg.shadow_bias
+        res["ao_tmesh"] = _mesh_closest_t(scene, chain, p_off, n, cut) + cfg.shadow_bias
     if cfg.shadow == "none":
         return
     soft = cfg.shadow == "soft"
-    soft_diff = _soft_diff(scene, cfg, method)
 
     def one_light(l_dir, t_far_rays, mesh_dir, mesh_tmax, mesh_sort):
         vis = torch.ones_like(p_off[:, 0])
@@ -496,7 +309,7 @@ def _shadow_residuals(scene: Scene, cfg: RenderConfig, method: str, res: dict, p
         if live is not None:
             base = cfg.t_far if t_far_rays is None else t_far_rays
             t_far_rays = torch.where(live, base, 0.0).to(p.dtype)
-        if _use_sdf(scene, method):
+        if chain.use_sdf:
             if soft:
                 v, ts_m = shading.sdf_soft_shadow_argmin(scene.sdf, p_off, l_dir, cfg,
                                                          t_far_rays, packed=packed)
@@ -505,20 +318,20 @@ def _shadow_residuals(scene: Scene, cfg: RenderConfig, method: str, res: dict, p
                     scene.sdf, p_off, l_dir, eps=cfg.eps, t_far=cfg.t_far,
                     steps=cfg.shadow_steps, bias=cfg.shadow_bias,
                     t_far_rays=t_far_rays, packed=packed)
-            if soft_diff:
+            if chain.soft_diff:
                 ts = ts_m  # the shade recomputes the penumbra from it
             else:
                 vis = vis * v
-        if _use_mesh(scene, method):
+        if chain.use_mesh:
             dead = None
-            if _use_sdf(scene, method) and not soft:
+            if chain.use_sdf and not soft:
                 dead = vis <= 0.0  # the SDF march already blocked these
             if live is not None:
                 dead = ~live if dead is None else (dead | ~live)
             seed = (None if dead is None else
                     torch.where(dead, 0.0, mesh_tmax).to(p.dtype))
-            blocked = _mesh_any_hit(scene, cfg, p_off, mesh_dir, mesh_tmax,
-                                    method, mesh_sort, t_init=seed)
+            blocked = _mesh_any_hit(scene, chain, p_off, mesh_dir, mesh_tmax, mesh_sort,
+                                    t_init=seed)
             vis = vis * (1.0 - blocked.to(p.dtype))
         return vis, ts
 
@@ -536,64 +349,8 @@ def _shadow_residuals(scene: Scene, cfg: RenderConfig, method: str, res: dict, p
         rows.append(one_light((lvec / dist[..., None]).contiguous(), dist,
                               lvec.contiguous(), 1.0, ("origin", lpos)))
     res["sh_vis"] = torch.stack([v for v, _ in rows])
-    if soft_diff:
+    if chain.soft_diff:
         res["sh_ts"] = torch.stack([t for _, t in rows])
-
-
-def make_residual_occluder(scene: Scene, cfg: RenderConfig, res, method: str):
-    """Shadow callback for shade(): the geometry pass's static visibility,
-    times, with diff_vis soft shadows, the penumbra recomputed from one DE
-    at the saved argmin t, clip(soft_k * DE / max(ts, bias), 0, 1): the
-    march's own min value, now with gradients."""
-    if cfg.shadow == "none":
-        return None
-    soft_diff = _soft_diff(scene, cfg, method)
-
-    def occluder(p, l_dir, li):
-        vis = res["sh_vis"][li]
-        if soft_diff:
-            ts = res["sh_ts"][li]
-            dd = sdf_distance(scene.sdf, p + ts[..., None] * l_dir)
-            vis = vis * clamp01(cfg.soft_k * dd / torch.clamp_min(ts, cfg.shadow_bias))
-        return vis
-
-    return occluder
-
-
-def make_ao(scene: Scene, cfg: RenderConfig, res):
-    """5-tap distance-field AO callback for shade(), or None. Its SDF term
-    runs whenever the scene has an SDF (an SDF occludes whatever the traced
-    method); its mesh term when the geometry pass left `ao_tmesh`."""
-    if cfg.ao != "sdf5":
-        return None
-    t_mesh = res.get("ao_tmesh")
-    if not scene.has_sdf and t_mesh is None:
-        return None
-    sdf = scene.sdf if scene.has_sdf else None
-    return lambda p, n: shading.sdf_ambient_occlusion(sdf_distance, sdf, p, n, cfg,
-                                                      t_mesh=t_mesh)
-
-
-def mesh_table(mesh) -> torch.Tensor:
-    """(T, 10) packed per-triangle table [v0 | v1 | v2 | mat]."""
-    v, t = mesh.verts, mesh.tris.long()
-    return torch.cat([v[t[:, 0]], v[t[:, 1]], v[t[:, 2]],
-                      mesh.tri_mat[:, None].to(v.dtype)], dim=-1)
-
-
-def _shade_plain(scene: Scene, cfg: RenderConfig, o, d, res, method: str,
-                 mesh_rows=None, corners=None) -> torch.Tensor:
-    """The shade computation itself: reconstruct + occluder + shade, plain
-    PyTorch and differentiable (counterpart of `_shade_xla`). Without a
-    gradient it reuses the geometry pass's hit state where there is one."""
-    hits = None if torch.is_grad_enabled() else res.get("hits")
-    if hits is None:
-        hits = reconstruct_hits(scene, cfg, o, d, res, method,
-                                mesh_rows=mesh_rows, corners=corners)
-    _t, hit, p, n, mat, cov = hits
-    return shading.shade(scene, cfg, p, n, d, mat, hit,
-                         make_residual_occluder(scene, cfg, res, method),
-                         make_ao(scene, cfg, res), coverage=cov)
 
 
 def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
@@ -603,23 +360,25 @@ def shade_with_residuals(scene: Scene, cfg: RenderConfig, o, d, res,
     On a CUDA device the shade is one launch of the fused forward kernel;
     when a gradient is asked for, through one `cuda_shade.ShadeFn`, whose
     backward is the fused shade-backward kernel. A chain the kernels do not
-    take raises there. On the CPU the plain `_shade_plain` runs, and with a
-    gradient the same Function with the kernels' plain versions (or, for a
-    chain the kernels do not take, autograd of the plain shade). The
-    per-ray corners of the selected triangles are gathered here, from the
-    per-frame `mesh_table` (`cuda_scatter.shade_corners`: on the card a
+    take raises there. On the CPU the plain `plain.shade_plain` runs, and
+    with a gradient the same Function with the kernels' plain versions (or,
+    for a chain the kernels do not take, autograd of the plain shade). This
+    is the one place that picks the route. The per-ray corners of the
+    selected triangles are gathered here, from the per-frame
+    `plain.mesh_table` (`cuda_scatter.shade_corners`: on the card a
     kernel, whose backward sums the block's corner cotangents by triangle),
     so the vertex gradient scatters by triangle per block and by vertex
     once per frame. packed: the kernels' parameters packed once
     (cuda_shade.pack)."""
+    chain = frame_chain(scene, cfg, method)
     grad = torch.is_grad_enabled() and cuda_shade.wants_grad(scene, o, d, mesh_rows)
-    spec = cuda_shade.kernel_spec(scene, cfg, method)
-    if spec is None or not (grad or o.is_cuda):
-        return _shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    if not o.is_cuda and (chain.why is not None or not grad):
+        return plain.shade_plain(scene, cfg, o, d, res, method, mesh_rows=mesh_rows)
+    chain.check_kernels()
     corners = None
-    if spec["use_mesh"]:
+    if chain.use_mesh:
         if mesh_rows is None:
-            mesh_rows = mesh_table(scene.mesh)
+            mesh_rows = plain.mesh_table(scene.mesh)
         corners = cuda_scatter.shade_corners(mesh_rows, res["mesh_tri"])
     if not grad:
         return cuda_shade.shade_fwd(scene, cfg, o, d, res, method, corners=corners,
@@ -669,10 +428,11 @@ def march_groups(n: int, bs: int) -> list:
 
 def frame_tables(scene: Scene, cfg: RenderConfig, method: str):
     """What every block of a frame reads besides the scene -> (mesh_rows,
-    packed): the per-frame mesh_table (differentiable; None when the mesh
-    is not traced) and the kernels' parameters packed once (cuda_shade.pack,
-    under no_grad)."""
-    mesh_rows = mesh_table(scene.mesh) if _use_mesh(scene, method) else None
+    packed): the per-frame plain.mesh_table (differentiable; None when the
+    mesh is not traced) and the kernels' parameters packed once
+    (cuda_shade.pack, under no_grad)."""
+    use_mesh = frame_chain(scene, cfg, method).use_mesh
+    mesh_rows = plain.mesh_table(scene.mesh) if use_mesh else None
     return mesh_rows, cuda_shade.pack(scene, _bound_pad(cfg))
 
 
@@ -735,7 +495,7 @@ def render_pixels_flat(scene: Scene, cfg: RenderConfig, flat_x, flat_y,
     flat_x, flat_y, bs = whole_blocks(cfg, flat_x, flat_y)
     if bs == R:
         return block_fn(flat_x, flat_y)
-    grouped = _use_sdf(scene, method)
+    grouped = frame_chain(scene, cfg, method).use_sdf
     cols = []
     for g in march_groups(flat_x.shape[0], bs):
         gx, gy = flat_x[g], flat_y[g]
@@ -802,13 +562,13 @@ def frame_stats(scene: Scene, cfg: RenderConfig, max_rays: int = 1 << 18) -> dic
         o, d = generate_rays(scene.camera, fx, fy, cfg.width, cfg.height)
     primary = cfg.replace(shadow="none", ao="none")
     march = None
-    if _use_sdf(scene, method):
+    if frame_chain(scene, cfg, method).use_sdf:
         with stage("march", dev):
             march = cuda_sdf.march(scene.sdf, o, d, t0=0.0, max_steps=cfg.max_steps,
                                    eps=cfg.eps, t_far=cfg.t_far, bound_pad=_bound_pad(cfg))
     res = geometry_residuals(scene, primary, o, d, method, march=march)
     with stage("reconstruct", dev):
-        t, hit = reconstruct_hits(scene, primary, o, d, res, method, lite=True)[:2]
+        t, hit = cuda_reconstruct.reconstruct(scene, primary, o, d, res, method).hits[:2]
     stats = {
         "method": method,
         "rays_sampled": int(fx.shape[0]),

@@ -28,6 +28,7 @@ import time
 
 import torch
 
+from tpu_ray_torch.kernels import launches
 from tpu_ray_torch.utils import metrics
 
 # the hand-written kernels by the names nvcc gives them, each with its
@@ -40,6 +41,8 @@ HAND_KERNELS = (("march_kernel", "#1 march"), ("shadow_kernel", "#2 shadow"),
                 ("corner_gather_kernel", "corner_gather"),
                 ("corner_tile_kernel", "corner_scatter tiles"),
                 ("corner_combine_kernel", "corner_scatter combine"))
+# launch_counts' names of the packet walk's launch kinds
+_PACKET = {"closest": "packet_closest", "any_hit": "packet_any_hit"}
 
 
 def parser(prog: str, doc: str) -> argparse.ArgumentParser:
@@ -87,21 +90,9 @@ def timed(fn, device: torch.device, iters: int = 1, warm=None):
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count so far, by kernel."""
-    from tpu_ray_torch.kernels import cuda_mt, cuda_reconstruct, cuda_scatter, cuda_sdf, cuda_shade
-
-    return {"march": cuda_sdf.LAUNCHES["march"],
-            "shadow_hard": cuda_sdf.LAUNCHES["shadow_hard"],
-            "shadow_soft": cuda_sdf.LAUNCHES["shadow_soft"],
-            "packet_closest": cuda_mt.LAUNCHES["closest"],
-            "packet_any_hit": cuda_mt.LAUNCHES["any_hit"],
-            "resident_closest": cuda_mt.LAUNCHES["resident_closest"],
-            "resident_any_hit": cuda_mt.LAUNCHES["resident_any_hit"],
-            "shade_fwd": cuda_shade.LAUNCHES["shade_fwd"],
-            "shade_bwd": cuda_shade.LAUNCHES["shade_bwd"],
-            "reconstruct": cuda_reconstruct.LAUNCHES["reconstruct"],
-            "corner_gather": cuda_scatter.LAUNCHES["corner_gather"],
-            "corner_scatter": cuda_scatter.LAUNCHES["corner_scatter"]}
+    """Every kernel wrapper's launch count so far, by kernel (the packet
+    walk's as packet_closest and packet_any_hit)."""
+    return {_PACKET.get(k, k): n for k, n in launches.counts().items()}
 
 
 def launches_since(before: dict) -> dict:

@@ -38,7 +38,6 @@ from tpu_ray_torch import tools
 from tpu_ray_torch.bench import (BENCH_TRAINABLES, PERSISTENT_BELOW_RAYS, backward_config,
                                  has_param, require_device)
 from tpu_ray_torch.fit import apply_params, extract_params
-from tpu_ray_torch.kernels import cuda_shade
 from tpu_ray_torch.render import graphs
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.render.camera import generate_rays
@@ -88,8 +87,7 @@ def pieces(scene, cfg, device, log=print) -> dict:
     cfg) -> ms a block and seconds a frame of each."""
     scene, o, d, n_blocks = first_block(scene, cfg)
     method = R.resolve_method(scene, cfg)
-    packed = cuda_shade.pack(scene, R._bound_pad(cfg))
-    rows = R.mesh_table(scene.mesh) if R._use_mesh(scene, method) else None
+    rows, packed = R.frame_tables(scene, cfg, method)
     res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=rows, packed=packed)
     paths = [p for p in BENCH_TRAINABLES if has_param(scene, p)]
 

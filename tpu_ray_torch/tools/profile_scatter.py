@@ -7,7 +7,7 @@ The `mixed` backward's vertex gradient: a block's cotangent of its (R, 9)
 gathered corners (`cuda_scatter.shade_corners` in
 render.shade_with_residuals) sums by triangle into the (T, 10) table's;
 once a frame the table's cotangent scatter-adds by vertex
-(render.mesh_table's backward). At the reference tool's sizes and index
+(plain.mesh_table's backward). At the reference tool's sizes and index
 sets (R = 32,768 rays a block, T = 70,000 triangles, V = 35,000 vertices;
 numpy's default_rng(0)): a block whose rays hit 2,000 neighbouring
 triangles (`local`) or any of them (`uniform`); one real `mixed` block's
@@ -41,6 +41,7 @@ import torch
 from tpu_ray_torch import tools
 from tpu_ray_torch.bench import require_device
 from tpu_ray_torch.kernels import cuda_scatter
+from tpu_ray_torch.render import plain
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.utils.metrics import block_and_time
 
@@ -87,11 +88,11 @@ def device_ms(fn, device: torch.device, calls: int = 20):
 
 def table_backward(verts: torch.Tensor, tris: torch.Tensor, ct: torch.Tensor):
     """The cotangent of the (V, 3) vertices from the cotangent `ct` of
-    render.mesh_table's (T, 10) table, through autograd."""
+    plain.mesh_table's (T, 10) table, through autograd."""
     mesh = types.SimpleNamespace(verts=verts, tris=tris,
                                  tri_mat=torch.zeros(tris.shape[0], dtype=torch.int32,
                                                      device=tris.device))
-    return torch.autograd.grad(R.mesh_table(mesh), verts, ct)[0]
+    return torch.autograd.grad(plain.mesh_table(mesh), verts, ct)[0]
 
 
 def _time(fn) -> float:

@@ -11,7 +11,7 @@ slice. The stages, each the one before plus:
 
   march           march_group, a launch per group
   march+mesh      the mesh closest hit of each block, seeded with the SDF t
-  +reconstruct    shadow_ray_origins: the values-only reconstruct of the
+  +reconstruct    cuda_reconstruct.reconstruct: the values-only reconstruct of the
                   hits and the shadow rays' origins (one launch of the
                   reconstruct kernel a block on the card)
   geometry(all)   geometry_residuals whole: the shadow marches and any-hits
@@ -46,9 +46,10 @@ from tpu_ray_torch import tools
 from tpu_ray_torch.bench import (PERSISTENT_BELOW_RAYS, backward_config, bench_trainables,
                                  require_device)
 from tpu_ray_torch.fit import apply_params, extract_params
-from tpu_ray_torch.kernels import cuda_shade
+from tpu_ray_torch.kernels import cuda_reconstruct
 from tpu_ray_torch.render import render as R
 from tpu_ray_torch.render.camera import generate_rays
+from tpu_ray_torch.render.chain import Chain, frame_chain, resolve_method
 from tpu_ray_torch.utils import metrics
 from tpu_ray_torch.utils.metrics import rays_per_frame
 
@@ -68,13 +69,10 @@ class Frame:
     scene: object
     cfg: object
     method: str
+    chain: Chain
     xs: torch.Tensor
     ys: torch.Tensor
     bs: int
-
-    @property
-    def sdf(self) -> bool:
-        return R._use_sdf(self.scene, self.method)
 
     @property
     def n_blocks(self) -> int:
@@ -102,14 +100,15 @@ def frame_of(scene, cfg) -> Frame:
     it."""
     scene, xs, ys, _perm = R.frame_samples(scene, cfg)
     xs, ys, bs = R.whole_blocks(cfg, xs, ys)
-    return Frame(scene, cfg, R.resolve_method(scene, cfg), xs, ys, bs)
+    method = resolve_method(scene, cfg)
+    return Frame(scene, cfg, method, frame_chain(scene, cfg, method), xs, ys, bs)
 
 
 def block_outputs(stage: str, fr: Frame, o, d, march, packed, mesh_rows) -> dict:
     """One block's outputs at a geometry stage (march+mesh, +reconstruct,
     geometry(all)), per ray. march: the block's slice of march_group's
     result (None without an SDF)."""
-    scene, cfg, method = fr.scene, fr.cfg, fr.method
+    scene, cfg, method, chain = fr.scene, fr.cfg, fr.method, fr.chain
     if stage == "geometry(all)":
         res = R.geometry_residuals(scene, cfg, o, d, method, mesh_rows=mesh_rows,
                                    march=march, packed=packed)
@@ -118,16 +117,16 @@ def block_outputs(stage: str, fr: Frame, o, d, march, packed, mesh_rows) -> dict
     if march is not None:
         t, hit, _steps, tmin = march
         res.update(sdf_t=t, sdf_hit=hit, sdf_tmin=tmin)
-        if method == "mixed":  # as geometry_residuals seeds the mesh walk
+        if chain.mixed:  # as geometry_residuals seeds the mesh walk
             t_seed = torch.where(hit, t, torch.full_like(t, cfg.t_far))
-    if R._use_mesh(scene, method):
-        res["mesh_tri"], res["mesh_hit"] = R._mesh_intersect(scene, cfg, o, d, method,
+    if chain.use_mesh:
+        res["mesh_tri"], res["mesh_hit"] = R._mesh_intersect(scene, cfg, chain, o, d,
                                                              t_init=t_seed)
     out = {k: res[k] for k in ("sdf_t", "sdf_tmin", "mesh_tri", "mesh_hit") if k in res}
-    ao_mesh = cfg.ao == "sdf5" and R._use_mesh(scene, method)
-    if stage == "+reconstruct" and (cfg.shadow != "none" or ao_mesh):
-        _hits, out["p_off"], out["n"], _live = R.shadow_ray_origins(
-            scene, cfg, o, d, res, method, mesh_rows=mesh_rows, aux_out={}, packed=packed)
+    if stage == "+reconstruct" and (cfg.shadow != "none" or chain.ao_mesh):
+        r = cuda_reconstruct.reconstruct(scene, cfg, o, d, res, method, mesh_rows=mesh_rows,
+                                         packed=packed)
+        out["p_off"], out["n"] = r.p_off, r.nf
     return out
 
 
@@ -142,12 +141,11 @@ def geometry_stage(stage: str, fr: Frame, groups) -> dict:
     groups `groups` -> the sums of its outputs. The parameters are packed
     and the mesh table made once, as render_pixels_flat makes them."""
     scene, cfg, bs = fr.scene, fr.cfg, fr.bs
-    packed = cuda_shade.pack(scene, R._bound_pad(cfg))
-    mesh_rows = R.mesh_table(scene.mesh) if R._use_mesh(scene, fr.method) else None
+    mesh_rows, packed = R.frame_tables(scene, cfg, fr.method)
     sums = {}
     for g in groups:
         gx, gy = fr.group(g)
-        marched = R.march_group(scene, cfg, gx, gy, packed, bs) if fr.sdf else None
+        marched = R.march_group(scene, cfg, gx, gy, packed, bs) if fr.chain.use_sdf else None
         if stage == "march":
             if marched is not None:
                 _add(sums, {"sdf_t": marched[0], "sdf_tmin": marched[3]})

@@ -7,7 +7,7 @@ see and autograd does not, so image losses are restricted to interior
 pixels by an eroded hit mask (`interior_mask`, `masked_loss`).
 
 The float64 checks run on CPU tensors: the CUDA kernels take float32 only
-(`cuda_shade.kernel_spec` raises on anything else), as the reference sends
+(render/chain.py refuses anything else on the card), as the reference sends
 float64 to XLA and never to its Pallas kernels. `card_grad_check` holds
 the kernels' float32 gradient on the card against the float64 autograd
 gradient of the plain path at the same parameters and eps.

@@ -17,8 +17,8 @@ written as a Chrome trace, and what the program records into such a trace:
 STAGES partition each of a frame plan's graphs (render/graphs.py), and
 mark the eager path the same way: `march` (the group's primary march, or
 a block's own), `rays` (the block's rays), `walk` (the mesh closest hit),
-`reconstruct` (the values-only `shadow_ray_origins`), `shadow` (hard or soft
-marches, the mesh any-hits, the AO taps' mesh term), `shade` (the corner
+`reconstruct` (the values-only `cuda_reconstruct.reconstruct`), `shadow`
+(hard or soft marches, the mesh any-hits, the AO taps' mesh term), `shade` (the corner
 gather, #5, the pixel mean); in the vjp graph `vjp.forward` (the rays, the
 corners and the shade again), `vjp.backward` (the autograd pass: #6, the
 corner scatter, the camera's chain) and `vjp.accumulate` (the gradients
