@@ -161,6 +161,11 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      lane efficiency, cycles a warp) and #6 (rays by chain class, warps
      that mix classes, cycles a warp by its costliest class, the
      reduction's cycles).
+     23b. tree_walk: `mixed`'s middle block: #3's walk of the tree over the
+     supers against #4 given slot order (the walk of every super), with the
+     geometry pass's closest-hit and any-hit arguments (recorded): t, tri
+     and hit bit-identical; chunks staged, MT tests, box passes and slots
+     equal; the steps a block of both.
  24. bench_cli: `tpu_ray_torch.bench.run_bench("mandelbulb")` at its
      defaults (1024x1024x4, warmup 1, iters 2, forward + backward, through
      render_image_jit), its JSON line, and the launches of #1, #2 soft, #5
@@ -181,7 +186,8 @@ BASELINE config 3, its packet walks held against the uniform grid's DDA. Phases,
      rtol 1e-5, another triangle only on a tie), timed with the bound and
      the walk counters; on one 65,536-ray block, #3 at its launch size and
      the reconstruct's mesh-only branch and #5 against their plain
-     versions, and the corner gather bit-equal to the indexing (timed); the
+     versions, #3 against #4 in slot order as phase 23b holds it, and the
+     corner gather bit-equal to the indexing (timed); the
      1024x1024x1 frame through render_image_jit (captured block graphs)
      within 1e-6 of the eager one, with its launches (16 each of #3 closest
      and any-hit, the reconstruct, the corner gather and #5, nothing else),
@@ -526,7 +532,8 @@ def walk_counts(tag, n_rays, launch) -> dict:
           and c["box_passes"] <= c["box_slots"], f"{tag}: walk counters {c}")
     c["pass_share"] = c["box_passes"] / max(c["box_slots"], 1)
     log(tag, f"walk counters: {c['blocks']} blocks, supers visited a block "
-        f"{c['supers_visited'] / max(c['blocks'], 1):.2f}, chunks staged a block "
+        f"{c['supers_visited'] / max(c['blocks'], 1):.2f}, tree nodes visited a block "
+        f"{c['nodes_visited'] / max(c['blocks'], 1):.2f}, chunks staged a block "
         f"{c['chunks_staged'] / max(c['blocks'], 1):.2f}, share of a staged chunk's rays "
         f"that passed its box {c['pass_share']:.4f}, MT tests a ray "
         f"{c['mt_tests'] / max(n_rays, 1):.1f} ({c['mt_tests']} in all)")
@@ -570,8 +577,9 @@ def hit_parity(tag, k, p, any_hit: bool) -> float:
     return err
 
 
-def block_rays(scene, cfg, points, tag):
-    """The primary rays (o, d) of the frame's blocks that hold the points."""
+def block_rays(scene, cfg, points, tag, blocks=None):
+    """The primary rays (o, d) of the frame's blocks that hold the points
+    (of `blocks`, in the frame's Morton block order, where given)."""
     from tpu_ray_torch.render import render as R
     from tpu_ray_torch.render.camera import generate_rays
 
@@ -580,7 +588,8 @@ def block_rays(scene, cfg, points, tag):
     perm = R._block_order_perm(cfg).to(dev)
     fx = sx.reshape(-1, cfg.spp)[perm].reshape(-1)
     fy = sy.reshape(-1, cfg.spp)[perm].reshape(-1)
-    blocks = parity_blocks(scene, cfg, perm, points)
+    if blocks is None:
+        blocks = parity_blocks(scene, cfg, perm, points)
     idx = torch.cat([torch.arange(b * cfg.block_size, (b + 1) * cfg.block_size, device=dev)
                      for b in blocks])
     log(tag, f"blocks {blocks} of {-(-fx.shape[0] // cfg.block_size)} "
@@ -2338,6 +2347,47 @@ def ring_fit_step(scene, cfg, smi, warm, dev, keep):
     return counts
 
 
+def tree_against_flat(tag, calls) -> None:
+    """#3 (its tree walk) against #4 given slot order, on the recorded
+    arguments of #3's closest-hit and any-hit calls: t, tri and hit
+    bit-identical, and the chunks staged, MT tests, box passes and box
+    slots equal; the steps a block of both (tree nodes and supers), logged."""
+    from tpu_ray_torch.kernels import cuda_mt
+
+    for (args, kw), kind in zip(calls, ("closest", "any_hit")):
+        accel, o, d = args
+        k = cuda_mt.intersect_packet_streamed(accel, o, d, **kw)
+        f = cuda_mt.intersect_packet(accel, o, d, **kw)  # no hint: slot order
+        check(torch.equal(k.t, f.t) and torch.equal(k.tri, f.tri) and torch.equal(k.hit, f.hit),
+              f"{tag} {kind}: #3's tree walk differs from #4 in slot order")
+        ct = walk_counts(f"{tag} {kind} #3 tree", o.shape[0],
+                         lambda: cuda_mt.intersect_packet_streamed(accel, o, d, **kw))
+        cf = walk_counts(f"{tag} {kind} #4 slot order", o.shape[0],
+                         lambda: cuda_mt.intersect_packet(accel, o, d, **kw))
+        same = ("chunks_staged", "mt_tests", "box_passes", "box_slots", "blocks", "rays")
+        check(all(ct[c] == cf[c] for c in same) and ct["supers_visited"] <= cf["supers_visited"],
+              f"{tag} {kind}: counters of #3's tree walk {ct} against #4 in slot order {cf}")
+        log(tag, f"{kind} on {o.shape[0]} rays ({accel.super_aabb.shape[0]} supers): #3's tree "
+            f"walk bit-identical to #4 in slot order, the same chunks, tests and box passes; "
+            f"steps a block {(ct['nodes_visited'] + ct['supers_visited']) / ct['blocks']:.2f} "
+            f"against {cf['supers_visited'] / cf['blocks']:.2f}")
+
+
+def tree_walk(scene, cfg):
+    """Phase `tree_walk`: `mixed`'s middle block of the 1080p frame, #3
+    against #4 in slot order with the geometry pass's own arguments
+    (tree_against_flat; `knot8m`'s block is held in its phase)."""
+    from tpu_ray_torch.kernels import cuda_mt
+
+    n_blocks = -(-cfg.num_rays // cfg.block_size)
+    o, d = block_rays(scene, cfg, None, "tree_walk", blocks=[n_blocks // 2])
+    calls = []
+    with recorded(cuda_mt, "intersect_packet_streamed", calls):
+        shade_inputs(scene, cfg, o, d, "mixed")
+    check(len(calls) == 2, f"tree_walk: {len(calls)} #3 calls for a block of `mixed`")
+    tree_against_flat("tree_walk mixed", calls)
+
+
 @contextlib.contextmanager
 def recorded(module, name, calls):
     """module.name patched to record each call's (args, kwargs) in calls."""
@@ -2871,6 +2921,7 @@ def knot8m(dev, smi, results, counts):
         res = shade_inputs(knot, kcfg, o, d, "mesh_grid")[0]
     check(len(calls["walks"]) == 2 and len(calls["reconstruct"]) == 1,
           f"knot8m: {[(k, len(v)) for k, v in calls.items()]} calls for a block")
+    tree_against_flat("knot8m", calls["walks"])
     for key, (a, k) in zip(("packet_closest", "packet_any_hit"), calls["walks"]):
         rows = [dict(rays=o.shape[0], **timed_launch(
             lambda: cuda_mt.intersect_packet_streamed(*a, **k), ("packet_kernel",),
@@ -3618,6 +3669,7 @@ def main() -> int:
         ("power_frame", lambda: power_frame(bulb, bcfg, smi, bsmall,
                                             bcfg.replace(width=256, height=256))),
         ("launch", lambda: launch_sizes(launch_paths, results)),
+        ("tree_walk", lambda: tree_walk(scene, cfg)),
         ("bench_cli", lambda: bench_cli(dev, smi)),
         ("knot8m", lambda: knot8m(dev, smi, results, knot_counts)),
         ("grid_oracle", lambda: grid_oracle(dev, smi, results, knot_counts)),

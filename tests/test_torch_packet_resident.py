@@ -20,8 +20,13 @@ Tolerances and why:
     a closer hit. The host build runs the kernels' block walk itself, each
     block's 128 lanes (32 rays x 4 triangle slices) emulated in turn
     between its barriers; with duplicated triangles the tie goes to the
-    first slot visited, as in the plain versions, bit for bit.
+    first slot visited, as in the plain versions, bit for bit. #3's walk of
+    the tree over the supers against the walk of every super in slot order
+    (#4 given that order): bit-identical outputs and equal chunk, test and
+    box counts, since the tree skips only supers whose step stages nothing.
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -33,7 +38,7 @@ from tpu_ray.kernels import moller_trumbore as jmt
 from tpu_ray.kernels.pallas_mt import intersect_packet as j_intersect_packet
 from tpu_ray.scene.mesh import MeshScene as JMesh
 from tpu_ray_torch.accel import packet as tpacket
-from tpu_ray_torch.accel.packet import refit_packet_accel
+from tpu_ray_torch.accel.packet import refit_packet_accel, super_tree
 from tpu_ray_torch.kernels import cuda_mt
 from tpu_ray_torch.scene.mesh import torus_knot
 import torch_host_build
@@ -260,15 +265,19 @@ def test_kernel_walk_matches_plain_version(host_walk, case):
     assert torch.equal(tri, want.tri)
 
 
-def _tied_accel():
+def _tied_accel(across_nodes=False):
     """The knot's accel with two triangles duplicated into other slots: the
     triangle of slot (super 0, chunk 2, lane 70) also at (super 2, chunk 2,
     lane 17), and that of (super 1, chunk 4, lane 90) also at lane 10 of the
-    same chunk, another slice. Returns (accel, [(first slot, copy slot)])."""
-    v, f = _knot()
+    same chunk, another slice. across_nodes: a knot of 21 supers, the first
+    triangle at (super 1, chunk 2, lane 70) and (super 17, chunk 3, lane 17),
+    under two level-1 nodes of the tree. Returns (accel, [(first slot, copy
+    slot)])."""
+    v, f = _knot(144, 144) if across_nodes else _knot()
     accel = tpacket.build_packet_accel(v, f)
     perm = accel.perm.long()
-    pairs = [(0 * 2048 + 2 * 128 + 70, 2 * 2048 + 2 * 128 + 17),
+    pairs = [((1 * 2048 + 2 * 128 + 70, 17 * 2048 + 3 * 128 + 17) if across_nodes
+              else (0 * 2048 + 2 * 128 + 70, 2 * 2048 + 2 * 128 + 17)),
              (1 * 2048 + 4 * 128 + 90, 1 * 2048 + 4 * 128 + 10)]
     tris = torch.as_tensor(np.asarray(f, np.int64)).clone()
     for a, b in pairs:
@@ -288,22 +297,28 @@ def _rays_onto(accel, slot, n, seed):
     return (p + 1e-3 * nrm).float(), (-nrm).expand(n, 3).float().contiguous()
 
 
-@pytest.mark.parametrize("case", ["slot_order", "sorted_order"])
+@pytest.mark.parametrize("case", ["slot_order", "sorted_order", "across_nodes"])
 def test_kernel_walk_keeps_the_first_of_tied_triangles(host_walk, case):
     """Exact ties, from the same triangle in two chunks of two supers and in
     two slices of one chunk: the block walk (per-slice bests reduced by
     (t, visit rank)) returns the first slot visited, equal to the plain
     versions bit for bit; #3 in slot order, #4 in a super order that visits
-    super 2 before super 0."""
-    accel, pairs = _tied_accel()
+    super 2 before super 0; #3's tree walk with the two supers under two
+    level-1 nodes (the lower slot wins), also equal to #4 in slot order."""
+    accel, pairs = _tied_accel(case == "across_nodes")
     perm = accel.perm.long()
     o, d = zip(*(_rays_onto(accel, a, 96, i) for i, (a, _) in enumerate(pairs)))
     o, d = torch.cat(o), torch.cat(d)
     # in one chunk lane 10 comes first, whatever the super order
-    if case == "slot_order":
+    if case != "sorted_order":
         order = None
         want = cuda_mt.intersect_packet_streamed_torch(accel, o, d)
         first = [perm[pairs[0][0]], perm[pairs[1][1]]]
+        if case == "across_nodes":
+            assert accel.tree.shape[0] == 2 + 1
+            flat = torch_host_build.packet_walk(host_walk, accel, o, d, 1e10, False,
+                                                _slot_order(accel))
+            assert all(torch.equal(a, b) for a, b in zip(flat, want))
     else:
         hint = {"sort_origin": 0.5 * (accel.super_aabb[2, :3] + accel.super_aabb[2, 3:6])}
         order = cuda_mt.super_order(accel, **hint)
@@ -335,3 +350,194 @@ def test_kernel_walk_counts_its_work(host_walk):
     assert c["blocks"] == 32 and c["rays"] == 1000 and 0 < c["supers_visited"] <= 32 * 3
     assert 0 < c["box_passes"] <= c["box_slots"] and c["chunks_staged"] > 0
     assert c["mt_tests"] == 128 * c["box_passes"]
+
+
+def _slot_order(accel):
+    """#4's super order that is slot order: the flat walk of every super."""
+    return torch.arange(accel.super_aabb.shape[0], dtype=torch.int32)
+
+
+# knots whose accels have 1, 3, 17 (16k + 1: a lone last super, half
+# padded), 21 and 257 (16 * 16 + 1: levels of 17, 2 and 1 nodes) supers
+TREE_KNOTS = {1: (32, 32), 3: (48, 48), 17: (132, 128), 21: (144, 144), 257: (513, 512)}
+
+
+@pytest.fixture(scope="module")
+def knot_accels():
+    """The accels of TREE_KNOTS, built at first use."""
+    built = {}
+
+    def get(supers):
+        if supers not in built:
+            built[supers] = tpacket.build_packet_accel(*_knot(*TREE_KNOTS[supers]))
+            assert built[supers].super_aabb.shape[0] == supers
+        return built[supers]
+    return get
+
+
+def _beams(n, seed, any_hit):
+    """n rays in coherent blocks of 32, as the renderer's Morton blocks are:
+    camera rays toward a jittered point near each block's own aim, or
+    shadow rays from a jittered point near each block's own origin toward
+    one light."""
+    rng = np.random.default_rng(seed)
+    blocks = -(-n // 32)
+    jitter = rng.uniform(-0.06, 0.06, (blocks, 32, 3))
+    if any_hit:
+        o = (rng.uniform(-1.2, 1.2, (blocks, 1, 3)) + jitter).reshape(-1, 3)[:n]
+        d = np.tile(np.asarray([0.6, 0.8, 0.3]) / np.linalg.norm([0.6, 0.8, 0.3]), (n, 1))
+    else:
+        o = np.tile(np.asarray([0.3, 0.4, 3.2]), (n, 1))
+        aim = rng.uniform([-0.9, -0.9, -0.4], [0.9, 0.9, 0.4], (blocks, 1, 3)) + jitter
+        d = aim.reshape(-1, 3)[:n] - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.as_tensor(o, dtype=torch.float32), torch.as_tensor(d, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("supers", sorted(TREE_KNOTS))
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_tree_walk_equals_the_walk_of_every_super(host_walk, knot_accels, supers, any_hit):
+    """#3's tree walk against the plain version and against the walk of
+    every super in slot order (#4 given the identity order), on 301 rays (a
+    ragged last block) in coherent blocks with seeds of t_max, 2.9 and 0:
+    t, tri and hit bit-identical; chunks staged, MT tests, box passes and
+    slots equal; no more supers stepped, each tree node visited at most once
+    a block, and past 16 supers fewer steps in all than the flat walk's."""
+    accel = knot_accels(supers)
+    n = 301
+    o, d = _beams(n, 40 + supers, any_hit)
+    t_max = 4.0 if any_hit else 1e10
+    i = torch.arange(n)
+    seed = torch.where(i % 3 == 0, 0.0, torch.where(i % 3 == 1, 2.9, t_max))
+    want = cuda_mt.intersect_packet_streamed_torch(accel, o, d, t_max=t_max, any_hit=any_hit,
+                                                   t_init=seed)
+    counts = {}
+    for walk, order in (("tree", None), ("flat", _slot_order(accel))):
+        c = torch.zeros(len(cuda_mt.COUNTERS), dtype=torch.int64)
+        got = torch_host_build.packet_walk(host_walk, accel, o, d, t_max, any_hit, order, seed,
+                                           c)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), walk
+        counts[walk] = dict(zip(cuda_mt.COUNTERS, c.tolist()))
+    tree, flat = counts["tree"], counts["flat"]
+    assert 0 < int(want.hit.sum()) < n and not want.hit[seed == 0].any()
+    for k in ("chunks_staged", "mt_tests", "box_passes", "box_slots", "blocks", "rays"):
+        assert tree[k] == flat[k], k
+    assert tree["chunks_staged"] > 0 and flat["nodes_visited"] == 0
+    assert tree["supers_visited"] <= flat["supers_visited"]
+    assert 0 < tree["nodes_visited"] <= tree["blocks"] * accel.tree.shape[0]
+    if supers > 16:
+        assert tree["supers_visited"] + tree["nodes_visited"] < flat["supers_visited"]
+
+
+def test_super_tree_holds_its_children_exactly():
+    """The tree of 4,097 seeded boxes (knot8m's count): levels of 257, 17, 2
+    and 1 nodes, each node's box the exact min and max of its children's
+    (a last node of fewer children included), so it holds them bit for
+    bit; 1 and 16 supers make the root alone, 17 a root over two nodes."""
+    rng = np.random.default_rng(7)
+    lo = rng.normal(size=(4097, 3)).astype(np.float32)
+    sup = torch.zeros((4097, 128))
+    sup[:, 0:3] = torch.as_tensor(lo)
+    sup[:, 3:6] = torch.as_tensor(lo + rng.uniform(0, 0.5, (4097, 3)).astype(np.float32))
+    tree = super_tree(sup)
+    assert tree.shape == (257 + 17 + 2 + 1, 8) and tree.dtype == torch.float32
+    assert torch.equal(tree[:, 6:], torch.zeros(tree.shape[0], 2))
+    kids, row = sup[:, :6], 0
+    for count in (257, 17, 2, 1):
+        level = tree[row:row + count, :6]
+        for j in range(count):
+            k = kids[16 * j:16 * j + 16]
+            assert torch.equal(level[j, :3], k[:, :3].amin(0))
+            assert torch.equal(level[j, 3:], k[:, 3:].amax(0))
+            assert bool((level[j, :3] <= k[:, :3]).all() and (level[j, 3:] >= k[:, 3:]).all())
+        kids, row = level, row + count
+    for s, rows in ((1, 1), (16, 1), (17, 3)):
+        assert super_tree(sup[:s]).shape[0] == rows
+        assert torch.equal(super_tree(sup[:s])[-1, :3], sup[:s, :3].amin(0))
+        assert torch.equal(super_tree(sup[:s])[-1, 3:6], sup[:s, 3:6].amax(0))
+
+
+def _moved(v):
+    """The knot's vertices, those with x > 0 moved 3 along +x: outside
+    every box of the build's tree."""
+    w = torch.as_tensor(v, dtype=torch.float32).clone()
+    w[w[:, 0] > 0] += torch.tensor([3.0, 0.0, 0.0])
+    return w
+
+
+@pytest.mark.parametrize("path", ["native", "numpy", "cache", "refit", "transform", "ring",
+                                  "replace", "plan"])
+def test_every_accel_carries_the_tree_of_its_supers(path, monkeypatch, tmp_path):
+    """Every path that makes or replaces super_aabb leaves the tree equal to
+    super_tree(super_aabb): the native and numpy builds, the disk cache's
+    load, the refit (fit), the poses' refit (scene/transform.py), the ring's
+    shard and its refit, and dataclasses.replace of the boxes alone; a
+    plan's structure keeps the tree as a leaf of its own."""
+    from tpu_ray_torch.dist import scene_shard
+    from tpu_ray_torch.render import graphs
+
+    v, f = _knot(144, 144)
+    tris = torch.as_tensor(np.asarray(f, np.int64))
+    if path == "numpy":
+        monkeypatch.setenv("TPU_RAY_TORCH_NATIVE", "0")
+    if path == "cache":
+        monkeypatch.setenv(tpacket.CACHE_ENV, str(tmp_path))
+        monkeypatch.setattr(tpacket, "CACHE_MIN_TRIS", 1)
+        tpacket.build_packet_parts(v, f, device="cpu")
+        hits = tpacket.build_counters()["cache_hits"]
+        (accel,) = tpacket.build_packet_parts(v, f, device="cpu")
+        assert tpacket.build_counters()["cache_hits"] == hits + 1
+    else:
+        accel = tpacket.build_packet_accel(v, f)
+    old = accel.tree
+    if path == "refit":
+        accel = refit_packet_accel(accel, _moved(v), tris)
+    elif path == "transform":
+        from tpu_ray_torch.scene import scenes as tscenes
+        from tpu_ray_torch.scene import transform as ttf
+
+        scene, _ = tscenes.build_scene("triangles", device="cpu")
+        scene = scene.with_packet()
+        old = scene.packet[0].tree
+        inst = np.full((scene.mesh.verts.shape[0],), -1, np.int32)
+        inst[:3] = 0
+        poses = ttf.MeshPoses.identity(1, inst, device="cpu").replace(
+            translate=torch.tensor([[2.0, -1.0, 0.5]]))
+        (accel,) = ttf.realize_scene(scene.replace(poses=poses)).packet
+    elif path == "ring":
+        ring = scene_shard.build_ring_packet(v, f, device="cpu")
+        assert torch.equal(ring.tree, super_tree(ring.super_aabb))
+        assert torch.equal(ring.accel().tree, ring.tree)
+        ring = scene_shard.refit_ring_packet(ring, _moved(v), tris)
+        assert torch.equal(ring.accel().tree, ring.tree)
+        accel = ring.accel()
+    elif path == "replace":
+        boxes = refit_packet_accel(accel, _moved(v), tris).super_aabb
+        accel = dataclasses.replace(accel, super_aabb=boxes)
+    elif path == "plan":
+        leaves = []
+        back = graphs.unflatten(graphs.flatten(accel, leaves), iter(leaves))
+        assert sum(x is accel.tree for x in leaves) == 1 and back.tree is accel.tree
+    assert torch.equal(accel.tree, super_tree(accel.super_aabb))
+    moved = path in ("refit", "transform", "ring", "replace")
+    assert torch.equal(accel.tree, old) != moved
+
+
+def test_walk_after_a_refit_reads_the_refit_tree(host_walk):
+    """A refit that moves half the knot: #3's walk on the refit accel, from
+    a camera over the moved half, equals the plain version bit for bit, and
+    the same boxes under the build's stale tree lose hits (what a tree left
+    behind would do)."""
+    v, f = _knot(144, 144)
+    built = tpacket.build_packet_accel(v, f)
+    accel = refit_packet_accel(built, _moved(v), torch.as_tensor(np.asarray(f, np.int64)))
+    o, d = _beams(320, 11, False)
+    o = o + torch.tensor([3.1, 0.0, 0.0])
+    want = cuda_mt.intersect_packet_streamed_torch(accel, o, d)
+    got = torch_host_build.packet_walk(host_walk, accel, o, d, 1e10, False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and int(want.hit.sum()) > 32
+    stale = tpacket.PacketAccel.carrying(
+        built.tree, **{k: getattr(accel, k) for k in ("corners", "chunk_aabb", "super_aabb",
+                                                     "perm", "num_tris")})
+    _, _, hit = torch_host_build.packet_walk(host_walk, stale, o, d, 1e10, False)
+    assert int((hit != want.hit).sum()) > 0

@@ -252,15 +252,20 @@ PACKET_MAIN = r"""
 extern "C" void host_packet_walk(
     const float* o, const float* d, const float* t_init, int n, float t_far,
     const float* corners, const float* chunk_aabb, const float* super_aabb,
-    const int* order, int n_supers, const int* perm, int perm_len, int any_hit,
-    float* t, int* tri, uint8_t* hit, unsigned long long* counters) {
+    const float* tree, const int* order, int n_supers, const int* perm, int perm_len,
+    int any_hit, float* t, int* tri, uint8_t* hit, unsigned long long* counters) {
   trmt::Shared* sh = new trmt::Shared;
   trmt::Lane* lanes = new trmt::Lane[trmt::kThreads];
   for (int b = 0; b * trmt::kRays < n; ++b) {
     for (int k = 0; k < trmt::kThreads; ++k) lanes[k].tid = k;
-    trmt::walk_block(b, o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb,
-                     order, n_supers, perm, perm_len, any_hit, t, tri, hit,
-                     counters, *sh, lanes);
+    if (order)
+      trmt::walk_block<false>(b, o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb,
+                              tree, order, n_supers, perm, perm_len, any_hit, t, tri, hit,
+                              counters, *sh, lanes);
+    else
+      trmt::walk_block<true>(b, o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb,
+                             tree, order, n_supers, perm, perm_len, any_hit, t, tri, hit,
+                             counters, *sh, lanes);
   }
   delete[] lanes;
   delete sh;
@@ -281,7 +286,7 @@ def build_packet(tmp_dir):
                     "-I", csrc, "-o", str(lib), str(tmp_dir / "packet_main.cpp")], check=True,
                    capture_output=True, timeout=180)
     so = ctypes.CDLL(str(lib))
-    so.host_packet_walk.argtypes = [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P, _I, _I,
+    so.host_packet_walk.argtypes = [_P, _P, _P, _I, _F, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                                     _P, _P, _P, _P]
     so.host_packet_walk.restype = None
     return so
@@ -394,7 +399,8 @@ def march(so, sdf, o, d, *, t0, max_steps, eps, t_far, bound_pad=0.0):
 
 def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None, counters=None):
     """The host build of the block walk on CPU tensors, with the arguments
-    the CUDA wrappers pass (order None: slot order, kernel #3) -> (t, tri,
+    the CUDA wrappers pass (order None: kernel #3, the tree walk over
+    `accel.tree`; else #4's walk of the supers in `order`) -> (t, tri,
     hit). counters: an int64 tensor of len(cuda_mt.COUNTERS), added to."""
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()  # as the wrappers require
@@ -405,7 +411,7 @@ def packet_walk(so, accel, o, d, t_max, any_hit, order=None, t_init=None, counte
                         None if t_init is None else t_init.data_ptr(), n,
                         float(min(t_max, 1e10)), accel.corners.data_ptr(),
                         accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(),
-                        None if order is None else order.data_ptr(),
+                        accel.tree.data_ptr(), None if order is None else order.data_ptr(),
                         accel.super_aabb.shape[0], accel.perm.data_ptr(),
                         accel.perm.shape[0], int(any_hit), t.data_ptr(), tri.data_ptr(),
                         hit.data_ptr(), None if counters is None else counters.data_ptr())

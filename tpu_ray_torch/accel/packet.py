@@ -11,6 +11,10 @@ one for one with the reference's:
   chunk_aabb (C, 128)    f32  row ci lanes 0..5 = lo.xyz, hi.xyz
   super_aabb (S, 128)    f32  the union of SUPER consecutive chunk boxes
   perm       (Tpad,)   int32  sorted slot -> original triangle id (-1 pad)
+  tree       (N, 8)      f32  the 16-ary tree over the supers (`super_tree`):
+                              lanes 0..5 = lo.xyz, hi.xyz of each node, level
+                              1 (the union of SUPER consecutive supers) first,
+                              up to the root; derived from super_aabb
 
 C is padded to S * SUPER with never-hit boxes and degenerate triangles.
 The structure selects hits only; they are recomputed from the mesh.
@@ -88,6 +92,27 @@ def build_counters() -> types.MappingProxyType:
     return types.MappingProxyType(dict(_BUILDS))
 
 
+def super_tree(super_aabb: torch.Tensor) -> torch.Tensor:
+    """The (N, 8) float32 boxes of the 16-ary tree over the supers that #3
+    walks (csrc/packet_mt.cu): node i of level 1 is the union of supers
+    16i .. 16i+15, node i of level L+1 that of level-L nodes 16i .. 16i+15,
+    up to a level of one node, the root. Rows: level 1, then 2, ..., the
+    root last; lanes 0..5 lo.xyz, hi.xyz, exact float32 min and max, so
+    every node's box holds its children's bit for bit. S supers give
+    ceil(S / 16) level-1 nodes (`knot8m`'s 4,097: 257 + 17 + 2 + 1 rows)."""
+    with torch.no_grad():
+        box = super_aabb[:, 0:6]
+        levels = []
+        while not levels or box.shape[0] > 1:
+            n = box.shape[0]
+            m = -(-n // SUPER)
+            # the last child repeated: its min and max leave the node's as they are
+            kids = torch.cat([box, box[-1:].expand(m * SUPER - n, 6)]).reshape(m, SUPER, 6)
+            box = torch.cat([kids[..., 0:3].amin(1), kids[..., 3:6].amax(1)], 1)
+            levels.append(box)
+        return torch.nn.functional.pad(torch.cat(levels), (0, 2)).contiguous()
+
+
 @dataclasses.dataclass
 class PacketAccel:
     corners: torch.Tensor  # (C*16, 128) float32
@@ -95,6 +120,21 @@ class PacketAccel:
     super_aabb: torch.Tensor  # (S, 128) float32
     perm: torch.Tensor  # (Tpad,) int32
     num_tris: int = 0
+    # super_tree(super_aabb), derived at every construction, dataclasses.replace
+    # included, and never passed in: no accel holds the tree of other boxes
+    tree: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.tree = super_tree(self.super_aabb)
+
+    @classmethod
+    def carrying(cls, tree: torch.Tensor, **fields) -> "PacketAccel":
+        """An accel whose tree travels with its boxes, set and not derived:
+        a ring step's shard, rotated with its tree (dist/scene_shard.py), so
+        that no tree work runs inside a block."""
+        accel = cls.__new__(cls)
+        accel.__dict__.update(fields, tree=tree)
+        return accel
 
 
 def _morton3(x: np.ndarray, bits: int = 10) -> np.ndarray:

@@ -29,8 +29,13 @@
 //     ray's best t, then the chunk boxes of its slice (c = k, k + 4, ...);
 //     the block ORs the passing chunks into a 16-bit mask in shared memory
 //     and counts the rays still undecided. The block leaves when none is
-//     (a 0-seed, an any-hit ray with a hit, a lane past n); a super that no
-//     ray reaches costs that one barrier.
+//     (a 0-seed, an any-hit ray with a hit, a lane past n). Such a step
+//     costs a barrier, and #4 takes one for every super. #3 reaches its
+//     supers through a 16-ary tree over them (accel/packet.py
+//     `super_tree`), depth first in slot order: a node's visit is the same
+//     step over its children's boxes, and a subtree that no ray reaches is
+//     never entered (`tree_walk`: knot8m's 4,097 supers are 4 levels of
+//     257, 17, 2 and 1 nodes).
 //   * Chunks of the mask, in order: each one's 9 corner rows (4.6 KB) are
 //     copied into shared memory with cp.async, double buffered: the next
 //     chunk's copy is issued before the current one is tested. A thread
@@ -52,8 +57,9 @@
 //
 // An optional counter buffer receives, per launch, the chunks staged, the MT
 // tests run, the (ray, staged chunk) pairs whose box test passed and all such
-// pairs, the supers visited, the blocks and the rays: what says whether the
-// time goes to staging, to divergence or to culling.
+// pairs, the supers visited, the blocks, the rays and the tree's nodes
+// visited: what says whether the time goes to staging, to divergence, to
+// culling or to the steps above the chunks.
 //
 // The walk is written once for the card and for a host emulation of the
 // block: TRMT_LANES runs a stretch between barriers for this thread on the
@@ -89,10 +95,12 @@ constexpr int kThreads = kRays * kSlices;
 constexpr int kSliceTris = kChunk / kSlices;
 constexpr int kStageFloats = 9 * kChunk;     // a chunk's v0, e1, e2 rows
 constexpr int kSuperRank = kSuper * kChunk;  // visit ranks a super
+constexpr int kMaxLevels = 6;                // of #3's tree: 16^6 supers, past the int ranks
 
 // the optional counter buffer's entries (cuda_mt.COUNTERS)
 enum Counter {
-  kChunksStaged, kMtTests, kBoxPasses, kBoxSlots, kSupersVisited, kBlocks, kRayCount
+  kChunksStaged, kMtTests, kBoxPasses, kBoxSlots, kSupersVisited, kBlocks, kRayCount,
+  kNodesVisited
 };
 
 struct Ray {
@@ -260,20 +268,12 @@ inline void stage_part(float* dst, const float* src, int tid) {
 inline void stage_wait(bool) {}
 #endif
 
-// The block walk of block `block` (see the note at the top): the supers in
-// `order` (slot order when null), then each ray's outputs: t and the
-// original triangle id on a closest hit; t BIG and tri 0 on an any-hit ray
-// that hit; BIG and -1 on a miss. `lanes`: this thread's lane on the card,
-// the block's kThreads lanes (tid set) in the host emulation.
-__device__ __forceinline__ void walk_block(
-    int block, const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ t_init, int n, float t_far,
-    const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
-    const float* __restrict__ super_aabb, const int* __restrict__ order,
-    int n_supers, const int* __restrict__ perm, int perm_len, int any_hit,
-    float* __restrict__ t_out, int* __restrict__ tri_out,
-    uint8_t* __restrict__ hit_out, unsigned long long* counters, Shared& sh,
-    Lane* lanes) {
+// The block's start: each lane's ray and slice, its best t from t_init
+// (0, decided, past n), the shared bests and the rotating slots cleared.
+__device__ __forceinline__ void begin_block(int block, const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const float* __restrict__ t_init, int n,
+                                            float t_far, Shared& sh, Lane* lanes) {
   TRMT_LANES(
     L.r = L.tid % kRays;
     L.k = L.tid / kRays;
@@ -296,60 +296,188 @@ __device__ __forceinline__ void walk_block(
     if (L.tid < 2) sh.tally[L.tid] = 0;
   )
   TRMT_SYNC();
-  unsigned staged = 0, visited = 0;
-  for (int kpos = 0; kpos < n_supers; ++kpos) {
-    const int s = order ? order[kpos] : kpos;
-    const int slot = kpos % 3;
+}
+
+// One mask step, a super's or a tree node's: each lane ORs bits_of(lane,
+// its ray's best t) into the rotating slot step % 3 (nothing once its ray
+// is decided), and the block counts its undecided rays -> the block's mask;
+// `done` when no ray is undecided. A slot is written after one barrier,
+// read after the next, and cleared after the step that follows, so a step
+// needs one barrier.
+template <typename Bits>
+__device__ __forceinline__ uint32_t mask_step(Shared& sh, Lane* lanes, unsigned step,
+                                              const Bits& bits_of, bool& done) {
+  const unsigned slot = step % 3;
+  TRMT_LANES(
+    const float cur = block_best(sh, L.r);
+    const uint32_t bits = cur > 0.0f ? bits_of(L, cur) : 0u;
+    if (bits) shared_or(&sh.mask[slot], bits);
+    if (cur > 0.0f && L.k == 0) shared_add(&sh.undecided[slot], 1);
+  )
+  TRMT_SYNC();
+  const uint32_t mask = sh.mask[slot];
+  done = sh.undecided[slot] == 0;
+  // the slot read before the last barrier is free again
+  TRMT_LANES(if (L.tid == 0) {
+    sh.mask[(step + 2) % 3] = 0;
+    sh.undecided[(step + 2) % 3] = 0;
+  })
+  return mask;
+}
+
+// The step of super s at visit position kpos: its box and its chunk boxes
+// against each ray's best t, then the chunks of the mask staged and tested
+// in order -> whether the block is done (no ray undecided).
+__device__ __forceinline__ bool super_step(
+    int s, int kpos, unsigned step, float t_far, const float* __restrict__ corners,
+    const float* __restrict__ chunk_aabb, const float* __restrict__ super_aabb,
+    int any_hit, unsigned& staged, Shared& sh, Lane* lanes) {
+  bool done;
+  uint32_t mask = mask_step(sh, lanes, step, [&](const Lane& L, float cur) {
+    uint32_t bits = 0;
+    if (slab(super_aabb + (size_t)s * 128, L.ray, cur)) {
+      for (int c = L.k; c < kSuper; c += kSlices)
+        if (slab(chunk_aabb + ((size_t)s * kSuper + c) * 128, L.ray, cur)) bits |= 1u << c;
+    }
+    return bits;
+  }, done);
+  if (done) return true;
+  if (mask == 0) return false;
+  int c = lowest_bit(mask);
+  const float* base = corners + (size_t)s * kSuper * kRowsPerChunk * kChunk;
+  TRMT_LANES(stage_part(sh.rows[0], base + (size_t)c * kRowsPerChunk * kChunk, L.tid);)
+  for (int b = 0;; b ^= 1) {
+    mask &= mask - 1;
+    const int nxt = mask ? lowest_bit(mask) : -1;
+    if (nxt >= 0)
+      TRMT_LANES(stage_part(sh.rows[b ^ 1], base + (size_t)nxt * kRowsPerChunk * kChunk,
+                            L.tid);)
+    TRMT_LANES(stage_wait(nxt >= 0);)
+    TRMT_SYNC();
+    ++staged;
+    const float* box = chunk_aabb + ((size_t)s * kSuper + c) * 128;
+    const int rank0 = kpos * kSuperRank + c * kChunk;
     TRMT_LANES(
       const float cur = block_best(sh, L.r);
-      uint32_t bits = 0;
-      if (cur > 0.0f && slab(super_aabb + (size_t)s * 128, L.ray, cur)) {
-        for (int c = L.k; c < kSuper; c += kSlices)
-          if (slab(chunk_aabb + ((size_t)s * kSuper + c) * 128, L.ray, cur))
-            bits |= 1u << c;
+      if (cur > 0.0f && slab(box, L.ray, cur)) {
+        if (L.k == 0) ++L.passes;
+        slice_mt(sh.rows[b], L, cur, t_far, rank0, any_hit);
       }
-      if (bits) shared_or(&sh.mask[slot], bits);
-      if (cur > 0.0f && L.k == 0) shared_add(&sh.undecided[slot], 1);
     )
-    TRMT_SYNC();
-    uint32_t mask = sh.mask[slot];
-    const int undecided = sh.undecided[slot];
-    // the slot read before the last barrier is free again
-    TRMT_LANES(if (L.tid == 0) {
-      sh.mask[(kpos + 2) % 3] = 0;
-      sh.undecided[(kpos + 2) % 3] = 0;
-    })
-    ++visited;
-    if (undecided == 0) break;
-    if (mask == 0) continue;
-    int c = lowest_bit(mask);
-    const float* base = corners + (size_t)s * kSuper * kRowsPerChunk * kChunk;
-    TRMT_LANES(stage_part(sh.rows[0], base + (size_t)c * kRowsPerChunk * kChunk, L.tid);)
-    for (int b = 0;; b ^= 1) {
-      mask &= mask - 1;
-      const int nxt = mask ? lowest_bit(mask) : -1;
-      if (nxt >= 0)
-        TRMT_LANES(stage_part(sh.rows[b ^ 1], base + (size_t)nxt * kRowsPerChunk * kChunk,
-                              L.tid);)
-      TRMT_LANES(stage_wait(nxt >= 0);)
-      TRMT_SYNC();
-      ++staged;
-      const float* box = chunk_aabb + ((size_t)s * kSuper + c) * 128;
-      const int rank0 = kpos * kSuperRank + c * kChunk;
-      TRMT_LANES(
-        const float cur = block_best(sh, L.r);
-        if (cur > 0.0f && slab(box, L.ray, cur)) {
-          if (L.k == 0) ++L.passes;
-          slice_mt(sh.rows[b], L, cur, t_far, rank0, any_hit);
-        }
-      )
-      TRMT_SYNC();  // every slice has read rows[b] and the bests
-      TRMT_LANES(sh.best[L.k][L.r] = L.bt;)
-      if (nxt < 0) break;
-      c = nxt;
-    }
-    TRMT_SYNC();
+    TRMT_SYNC();  // every slice has read rows[b] and the bests
+    TRMT_LANES(sh.best[L.k][L.r] = L.bt;)
+    if (nxt < 0) break;
+    c = nxt;
   }
+  TRMT_SYNC();
+  return false;
+}
+
+// Nodes at level L >= 0 of the tree over n >= 1 supers (accel/packet.py
+// `super_tree`; level 0 are the supers): ceil(n / 16^L).
+__host__ __device__ __forceinline__ int level_nodes(int n, int level) {
+  return ((n - 1) >> (4 * level)) + 1;
+}
+
+// #3's walk: the tree depth first, children in slot order. A node's visit
+// is a mask step over its (at most 16) children's boxes, which are supers
+// at level 1; a set bit of level L > 1 is visited next, one of level 1
+// steps its super. A subtree that no ray reaches at its visit is skipped:
+// its boxes lie inside the node's and a ray's best t only falls, so no ray
+// would pass one of its supers' boxes at that super's turn (the slab test
+// is monotone in the box under float32 rounding). The supers stepped, and
+// each ray's best t at their step, are those of the walk of every super in
+// slot order: the same hits, staging and counts, fewer steps. The walk's
+// state is block-uniform: the level, the node's index in it (its parent's
+// is index / 16) and a mask a level of the children still to take.
+__device__ __forceinline__ void tree_walk(
+    int n_supers, float t_far, const float* __restrict__ corners,
+    const float* __restrict__ chunk_aabb, const float* __restrict__ super_aabb,
+    const float* __restrict__ tree, int any_hit, unsigned& staged, unsigned& supers,
+    unsigned& nodes, Shared& sh, Lane* lanes) {
+  int top = 1;
+  while (level_nodes(n_supers, top) > 1) ++top;
+  uint32_t left[kMaxLevels + 1];
+  unsigned step = 0;
+  bool done = false;
+  // the visit of node idx of `level`: its children's boxes, the supers' or
+  // the rows of level - 1 (levels 1, 2, ... one after another in `tree`)
+  auto visit = [&](int level, int idx) {
+    const int first = idx * kSuper;
+    const int below = level_nodes(n_supers, level - 1) - first;
+    const int kids = below < kSuper ? below : kSuper;
+    int row = first;
+    for (int l = 1; l < level - 1; ++l) row += level_nodes(n_supers, l);
+    const float* boxes = level == 1 ? super_aabb + (size_t)first * 128 : tree + (size_t)row * 8;
+    const int stride = level == 1 ? 128 : 8;
+    ++nodes;
+    left[level] = mask_step(sh, lanes, step++, [&](const Lane& L, float cur) {
+      uint32_t bits = 0;
+      for (int c = L.k; c < kids; c += kSlices)
+        if (slab(boxes + (size_t)c * stride, L.ray, cur)) bits |= 1u << c;
+      return bits;
+    }, done);
+  };
+  int level = top, idx = 0;
+  visit(top, 0);
+  while (!done) {
+    if (left[level] == 0) {  // the node's subtree is done: back up
+      if (level == top) return;
+      ++level;
+      idx /= kSuper;
+      continue;
+    }
+    const int child = idx * kSuper + lowest_bit(left[level]);
+    left[level] &= left[level] - 1;
+    if (level == 1) {
+      ++supers;
+      done = super_step(child, child, step++, t_far, corners, chunk_aabb, super_aabb, any_hit,
+                        staged, sh, lanes);
+    } else {
+      idx = child;
+      visit(--level, idx);
+    }
+  }
+}
+
+// #4's walk: every super in `order`, one super step each.
+__device__ __forceinline__ void flat_walk(
+    const int* __restrict__ order, int n_supers, float t_far,
+    const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
+    const float* __restrict__ super_aabb, int any_hit, unsigned& staged, unsigned& supers,
+    Shared& sh, Lane* lanes) {
+  for (int kpos = 0; kpos < n_supers; ++kpos) {
+    ++supers;
+    if (super_step(order[kpos], kpos, kpos, t_far, corners, chunk_aabb, super_aabb, any_hit,
+                   staged, sh, lanes))
+      return;
+  }
+}
+
+// The block walk of block `block` (see the note at the top): #3's tree walk
+// (kTree, `order` unread), #4's walk of the supers in `order` (`tree`
+// unread), then each ray's outputs: t and the original triangle id on a
+// closest hit; t BIG and tri 0 on an any-hit ray that hit; BIG and -1 on a
+// miss. `lanes`: this thread's lane on the card, the block's kThreads lanes
+// (tid set) in the host emulation.
+template <bool kTree>
+__device__ __forceinline__ void walk_block(
+    int block, const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_init, int n, float t_far,
+    const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
+    const float* __restrict__ super_aabb, const float* __restrict__ tree,
+    const int* __restrict__ order, int n_supers, const int* __restrict__ perm, int perm_len,
+    int any_hit, float* __restrict__ t_out, int* __restrict__ tri_out,
+    uint8_t* __restrict__ hit_out, unsigned long long* counters, Shared& sh,
+    Lane* lanes) {
+  begin_block(block, o, d, t_init, n, t_far, sh, lanes);
+  unsigned staged = 0, supers = 0, nodes = 0;
+  if constexpr (kTree)
+    tree_walk(n_supers, t_far, corners, chunk_aabb, super_aabb, tree, any_hit, staged,
+              supers, nodes, sh, lanes);
+  else
+    flat_walk(order, n_supers, t_far, corners, chunk_aabb, super_aabb, any_hit, staged,
+              supers, sh, lanes);
   TRMT_LANES(sh.rank[L.k][L.r] = L.brank;)
   TRMT_SYNC();
   TRMT_LANES(
@@ -373,7 +501,7 @@ __device__ __forceinline__ void walk_block(
         tri_out[L.i] = hit ? 0 : -1;
       } else {
         const int kp = hit ? rank / kSuperRank : 0;
-        const int sup = order ? order[kp] : kp;
+        const int sup = kTree ? kp : order[kp];
         const int slot = sup * kSuperRank + (hit ? rank % kSuperRank : 0);
         const int clipped = slot < perm_len ? slot : perm_len - 1;
         t_out[L.i] = hit ? bt : kBig;
@@ -396,9 +524,10 @@ __device__ __forceinline__ void walk_block(
       counter_add(counters + kBoxPasses, sh.tally[1]);
       counter_add(counters + kChunksStaged, staged);
       counter_add(counters + kBoxSlots, (unsigned long long)staged * rays);
-      counter_add(counters + kSupersVisited, visited);
+      counter_add(counters + kSupersVisited, supers);
       counter_add(counters + kBlocks, 1);
       counter_add(counters + kRayCount, rays);
+      counter_add(counters + kNodesVisited, nodes);
     })
   }
 }
@@ -409,21 +538,21 @@ __device__ __forceinline__ void walk_block(
 
 namespace {
 
-// TPU kernel #3: every super in slot order.
+// TPU kernel #3: the supers in slot order, through the tree over them.
 __global__ void __launch_bounds__(trmt::kThreads) packet_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_init, int n, float t_far,
     const float* __restrict__ corners, const float* __restrict__ chunk_aabb,
-    const float* __restrict__ super_aabb, int n_supers,
+    const float* __restrict__ super_aabb, const float* __restrict__ tree, int n_supers,
     const int* __restrict__ perm, int perm_len, int any_hit,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     uint8_t* __restrict__ hit_out, unsigned long long* counters) {
   __shared__ trmt::Shared sh;
   trmt::Lane lane;
   lane.tid = threadIdx.x;
-  trmt::walk_block(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
-                   super_aabb, nullptr, n_supers, perm, perm_len, any_hit,
-                   t_out, tri_out, hit_out, counters, sh, &lane);
+  trmt::walk_block<true>(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
+                         super_aabb, tree, nullptr, n_supers, perm, perm_len, any_hit,
+                         t_out, tri_out, hit_out, counters, sh, &lane);
 }
 
 // TPU kernel #4: every super in `super_order` (the wrapper's sort).
@@ -438,9 +567,9 @@ __global__ void __launch_bounds__(trmt::kThreads) packet_resident_kernel(
   __shared__ trmt::Shared sh;
   trmt::Lane lane;
   lane.tid = threadIdx.x;
-  trmt::walk_block(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
-                   super_aabb, super_order, n_supers, perm, perm_len, any_hit,
-                   t_out, tri_out, hit_out, counters, sh, &lane);
+  trmt::walk_block<false>(blockIdx.x, o, d, t_init, n, t_far, corners, chunk_aabb,
+                          super_aabb, nullptr, super_order, n_supers, perm, perm_len, any_hit,
+                          t_out, tri_out, hit_out, counters, sh, &lane);
 }
 
 }  // namespace
@@ -449,13 +578,13 @@ __global__ void __launch_bounds__(trmt::kThreads) packet_resident_kernel(
 extern "C" int tr_intersect_packet_streamed(
     const float* o, const float* d, const float* t_init, int n, float t_far,
     const float* corners, const float* chunk_aabb, const float* super_aabb,
-    int n_supers, const int* perm, int perm_len, int any_hit, float* t,
+    const float* tree, int n_supers, const int* perm, int perm_len, int any_hit, float* t,
     int* tri, uint8_t* hit, unsigned long long* counters, void* stream) {
   if (n <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(corners) % 16) return static_cast<int>(cudaErrorInvalidValue);
   packet_kernel<<<(n + trmt::kRays - 1) / trmt::kRays, trmt::kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers, perm,
+      o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, tree, n_supers, perm,
       perm_len, any_hit, t, tri, hit, counters);
   return static_cast<int>(cudaGetLastError());
 }

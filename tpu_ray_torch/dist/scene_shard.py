@@ -26,7 +26,7 @@ import torch.distributed as dist
 
 from tpu_ray_torch.accel.packet import (CHUNK, ROWS_PER_CHUNK, SUPER, VMEM_BUDGET_BYTES,
                                         PacketAccel, _morton_order, build_packet_accel,
-                                        refit_packet_accel)
+                                        refit_packet_accel, super_tree)
 from tpu_ray_torch.dist.multihost import world
 from tpu_ray_torch.kernels import cuda_mt
 from tpu_ray_torch.kernels.moller_trumbore import BIG, TriHit, _mt_t
@@ -112,11 +112,22 @@ class RingPacket:
     n_shards: int = 1
     rank: int = 0
     group: object = None
+    # super_tree(super_aabb), derived as PacketAccel derives it; it rotates
+    # with the shard
+    tree: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.tree = super_tree(self.super_aabb)
 
     def accel(self) -> PacketAccel:
-        return PacketAccel(corners=self.corners, chunk_aabb=self.chunk_aabb,
-                           super_aabb=self.super_aabb, perm=self.perm,
-                           num_tris=self.perm.shape[0])
+        return _accel((self.corners, self.chunk_aabb, self.super_aabb, self.perm, self.tree))
+
+
+def _accel(shard) -> PacketAccel:
+    """The accel of a shard (corners, chunk_aabb, super_aabb, perm, tree)."""
+    corners, chunk_aabb, super_aabb, perm, tree = shard
+    return PacketAccel.carrying(tree, corners=corners, chunk_aabb=chunk_aabb,
+                                super_aabb=super_aabb, perm=perm, num_tris=perm.shape[0])
 
 
 def ring_shards(verts: np.ndarray, tris: np.ndarray, n_shards: int) -> list:
@@ -180,12 +191,12 @@ def intersect_ring_packet(ring: RingPacket, o, d, t_max: float = BIG,
     kernel #3 for a shard over VMEM_BUDGET_BYTES), folds its hits as
     `intersect_packet_parts` does, then rotates the shard."""
     n = ring.n_shards
-    shard = (ring.corners, ring.chunk_aabb, ring.super_aabb, ring.perm)
+    shard = (ring.corners, ring.chunk_aabb, ring.super_aabb, ring.perm, ring.tree)
     streamed = cuda_mt.accel_bytes(ring.accel()) > VMEM_BUDGET_BYTES
     t_far = min(t_max, BIG)
     best, t_run = None, None
     for step in range(n):
-        accel = PacketAccel(*shard, num_tris=shard[3].shape[0])
+        accel = _accel(shard)
         if streamed:
             res = cuda_mt.intersect_packet_streamed(accel, o, d, t_max=t_max,
                                                     any_hit=any_hit, t_init=t_run)

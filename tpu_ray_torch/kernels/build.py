@@ -52,9 +52,9 @@ _SIGNATURES = {
     # mb_pow8, eps, t_far, steps, bias, soft_k, vis, ts, counters, stream
     "tr_shadow_soft": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _F, _F, _I, _F, _F, _P, _P, _P, _P],
-    # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, n_supers,
-    # perm, perm_len, any_hit, t, tri, hit, counters, stream
-    "tr_intersect_packet_streamed": [_P, _P, _P, _I, _F, _P, _P, _P, _I,
+    # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, tree,
+    # n_supers, perm, perm_len, any_hit, t, tri, hit, counters, stream
+    "tr_intersect_packet_streamed": [_P, _P, _P, _I, _F, _P, _P, _P, _P, _I,
                                      _P, _I, _I, _P, _P, _P, _P, _P],
     # o, d, t_init, n, t_far, corners, chunk_aabb, super_aabb, super_order,
     # n_supers, perm, perm_len, any_hit, t, tri, hit, counters, stream

@@ -1,7 +1,9 @@
 """Packet-accel mesh intersection: CUDA kernels and their plain versions.
 
 Counterpart of `tpu_ray/kernels/pallas_mt.py`, with its names:
-`intersect_packet_streamed` (TPU kernel #3, every super in slot order),
+`intersect_packet_streamed` (TPU kernel #3, the supers in slot order, as a
+walk of the accel's 16-ary tree over them that skips the subtrees no ray
+of a block reaches),
 `intersect_packet` and `any_hit_packet` (TPU kernel #4, the supers visited
 in the order of `sort_origin` or `sort_dir`), and the multi-part walk
 `intersect_packet_parts`. Kernels: `csrc/packet_mt.cu`.
@@ -37,9 +39,10 @@ from tpu_ray_torch.kernels.moller_trumbore import BIG, TriHit, _DET_EPS, _T_MIN
 LAUNCHES = {"closest": 0, "any_hit": 0, "resident_closest": 0, "resident_any_hit": 0}
 # the kernels' counters (csrc/packet_mt.cu `Counter`): chunks staged
 # in shared memory, ray x triangle MT tests, (ray, staged chunk) pairs whose
-# box test passed and all such pairs, supers visited, blocks, rays
+# box test passed and all such pairs, supers visited, blocks, rays, and the
+# tree's nodes visited (#3; 0 in #4)
 COUNTERS = ("chunks_staged", "mt_tests", "box_passes", "box_slots", "supers_visited",
-            "blocks", "rays")
+            "blocks", "rays", "nodes_visited")
 # the process's walk counters, by (device, kind)
 _WALK = {}
 
@@ -118,7 +121,9 @@ def intersect_packet_streamed_torch(accel: PacketAccel, o, d, *, t_max: float = 
 def intersect_packet_streamed(accel: PacketAccel, o, d, *, t_max: float = BIG,
                               any_hit: bool = False, t_init=None) -> TriHit:
     """TPU kernel #3: closest-hit (or any-hit) of (R,3) rays against the
-    packet accel, every super in slot order."""
+    packet accel, its supers in slot order: a block walks `accel.tree`
+    depth first and steps only the supers under nodes that one of its
+    undecided rays reaches, with the result of stepping every super."""
     if o.device.type == "cpu":
         return intersect_packet_streamed_torch(accel, o, d, t_max=t_max,
                                                any_hit=any_hit, t_init=t_init)
@@ -129,7 +134,7 @@ def intersect_packet_streamed(accel: PacketAccel, o, d, *, t_max: float = BIG,
         rc = kernel_lib().tr_intersect_packet_streamed(
             o.data_ptr(), d.data_ptr(), None if t_init is None else t_init.data_ptr(),
             o.shape[0], float(min(t_max, BIG)), accel.corners.data_ptr(),
-            accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(),
+            accel.chunk_aabb.data_ptr(), accel.super_aabb.data_ptr(), accel.tree.data_ptr(),
             accel.super_aabb.shape[0], accel.perm.data_ptr(), accel.perm.shape[0],
             int(any_hit), t.data_ptr(), tri.data_ptr(), hit.data_ptr(),
             _counted(o.device, kind).data_ptr(),
@@ -258,7 +263,7 @@ def intersect_packet_parts(parts, o, d, *, t_max: float = BIG, any_hit: bool = F
 
 def _check(accel: PacketAccel, o, d, t_init, name: str) -> None:
     check_cuda_inputs(name, o, d, t_init, accel.corners, accel.chunk_aabb,
-                      accel.super_aabb)
+                      accel.super_aabb, accel.tree)
     if accel.perm.device != o.device or accel.perm.dtype != torch.int32:
         raise ValueError(f"{name}: perm must be int32 on the rays' device")
     if accel.corners.data_ptr() % 16:

@@ -122,8 +122,9 @@ def counters() -> types.MappingProxyType:
 
 # the mesh walks' counters, read beside counters(): by kind ("closest" and
 # "any_hit" for #3, "resident_closest" and "resident_any_hit" for #4), the
-# chunks staged, MT tests, box passes and slots, supers visited, blocks and
-# rays of every launch on a CUDA device, eager or replayed
+# chunks staged, MT tests, box passes and slots, supers visited, blocks,
+# rays and tree nodes visited (#3) of every launch on a CUDA device, eager or
+# replayed
 walk_counters = cuda_mt.walk_counters
 # the vertex gradient's scatter's counters, read beside them: launches, rows
 # in, rows with a nonzero cotangent, segments (distinct triangles) and the
@@ -225,14 +226,21 @@ def flatten(obj, leaves: list):
 
 
 def unflatten(node, leaves):
-    """flatten's inverse over an iterator of tensors."""
+    """flatten's inverse over an iterator of tensors. A dataclass's fields
+    that its constructor derives take their leaves too: a plan's buffers,
+    refreshed by `load`, never a derivation from them."""
     kind = node[0]
     if kind == "T":
         return next(leaves)
     if kind == "S":
         return node[1]
     if kind == "D":
-        return node[1](**{name: unflatten(n, leaves) for name, n in node[2]})
+        fields = {name: unflatten(n, leaves) for name, n in node[2]}
+        derived = {f.name for f in dataclasses.fields(node[1]) if not f.init}
+        obj = node[1](**{k: v for k, v in fields.items() if k not in derived})
+        for k in derived:  # a derived field (PacketAccel.tree) is a leaf like the others
+            object.__setattr__(obj, k, fields[k])
+        return obj
     items = [unflatten(n, leaves) for n in node[2]]
     return items if node[1] is list else node[1](items)
 
